@@ -1,0 +1,576 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/H100 port (mesm_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+run from the root of a checkout. It builds the CUDA kernels from
+mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
+torch version at the main path's shapes, drives charades C+SF_C bf16
+inference through the port's eval step and through its
+`python -m mesm_tpu_torch.evaluate` entry point, and checks that the main
+path went through the kernels. Each phase prints one JSON line; the line
+before the last is the kernel summary, the last line names the device:
+
+    {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
+
+Any failure raises and the script exits non-zero without that line; so does
+a host with no GPU. It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
+# is the larger of its bytes over the memory rate and its operations over the
+# peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+
+# kernel-vs-plain tolerances, each in units of max(1, |plain|):
+#   ln_dense bf16: 2**-6, two bf16 steps at 1.0 (the output is rounded to bf16,
+#     and a sum of 2818 products taken in another order can move it one step);
+#   ln_dense fp32: 1e-4 (2818-term f32 sums in another order);
+#   attention bf16: 3e-2 abs (bf16 logits, exp and divide; one-step flips).
+TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4, "attention_packed": 3e-2}
+# the model's bf16 predictions with the kernels against (a) kernels off in
+# bf16 and (b) the fp32 plain path, in units of max(1, max |reference|) per
+# output: the packed kernel's bf16 softmax and the fused LayerNorm -> Dense
+# round at other points than the plain path, and bf16 keeps 8 mantissa bits
+MODEL_TOL = 0.05
+
+MAIN_PATH = dict(N=10282, D=2818, F=256, B=128, L=195, E=256, H=8)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() in ms, from CUDA events around `iters` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, ops: float, dtype: str):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_device() -> dict:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {
+        "phase": "device", "name": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(), "nvidia_smi": smi,
+        "torch": torch.__version__, "cuda": torch.version.cuda,
+    }
+    emit(info)
+    return info
+
+
+def phase_build() -> dict:
+    from mesm_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    report = build.build_all()
+    out = {
+        "phase": "build", "seconds": time.perf_counter() - t0,
+        "kernels": {
+            name: {
+                "seconds": r["seconds"], "compiled": r["compiled"],
+                "ptxas": [l.strip() for l in r["log"].splitlines() if "Used" in l or "spill" in l],
+            }
+            for name, r in report.items()
+        },
+    }
+    emit(out)
+    return out
+
+
+def _rel_err(got, want) -> float:
+    import torch
+
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / torch.clamp(w.abs(), min=1.0)).max())
+
+
+def check_ln_dense(dtype_name: str, relu: bool, time_it: bool) -> dict:
+    import torch
+
+    from mesm_tpu_torch.ops import ln_dense as ld
+
+    dt = getattr(torch, dtype_name)
+    N, D, F = MAIN_PATH["N"], MAIN_PATH["D"], MAIN_PATH["F"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(N, D, generator=g, device="cuda") * 2 + 0.3).to(dt)
+    gamma = 1 + 0.1 * torch.randn(D, generator=g, device="cuda")
+    beta = 0.1 * torch.randn(D, generator=g, device="cuda")
+    w = torch.randn(F, D, generator=g, device="cuda") / D**0.5
+    b = 0.1 * torch.randn(F, generator=g, device="cuda")
+    got = ld.ln_dense(x, gamma, beta, w, b, relu)
+    want = ld.ln_dense_reference(x, gamma, beta, w, b, relu)
+    torch.cuda.synchronize()
+    err = _rel_err(got, want)
+    tol = TOL[f"ln_dense_{dtype_name}"]
+    res = {
+        "kernel": "ln_dense", "dtype": dtype_name, "relu": relu, "shape": [N, D, F],
+        "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
+    }
+    if not (err <= tol and res["finite"]):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"ln_dense {dtype_name} relu={relu}: error {err} > {tol}")
+    if time_it:
+        item = x.element_size()
+        res["ms"] = cuda_time_ms(lambda: ld.ln_dense(x, gamma, beta, w, b, relu))
+        res["plain_ms"] = cuda_time_ms(lambda: ld.ln_dense_reference(x, gamma, beta, w, b, relu))
+        res["library_ms"] = None  # no single PyTorch call computes LN -> Dense
+        moved = N * D * item + 2 * D * 4 + F * D * 4 + F * 4 + N * F * item
+        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * N * D * F, dtype_name)
+    return res
+
+
+def check_attention(time_it: bool) -> dict:
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.ops import attention_packed as ap
+
+    B, L, E, H = MAIN_PATH["B"], MAIN_PATH["L"], MAIN_PATH["E"], MAIN_PATH["H"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(B, L, E, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    lengths = torch.randint(20, L, (B,), generator=g, device="cuda")
+    mask = torch.arange(L, device="cuda")[None] <= lengths[:, None]
+    mask[:, 0] = False  # the global token is never attendable
+    mask[5] = False  # padded rows: every key masked
+    mask[77] = False
+    got = ap.attention_packed(q, k, v, H, mask)
+    want = ap.attention_packed_reference(q, k, v, H, mask)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    finite = bool(torch.isfinite(got).all())
+    uniform = float((got[5].float() - v[5].float().mean(0)).abs().max())
+    res = {
+        "kernel": "attention_packed", "dtype": "bfloat16", "shape": [B, L, E, H],
+        "max_abs_err": err, "tol": TOL["attention_packed"], "finite": finite,
+        "masked_row_vs_mean_v": uniform,
+    }
+    if not (err <= TOL["attention_packed"] and finite and uniform <= TOL["attention_packed"]):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"attention_packed: error {err}, finite {finite}, masked row {uniform}")
+    if time_it:
+        res["ms"] = cuda_time_ms(lambda: ap.attention_packed(q, k, v, H, mask))
+        res["plain_ms"] = cuda_time_ms(lambda: ap.attention_packed_reference(q, k, v, H, mask))
+        hd = E // H
+        qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
+        am = mask[:, None, None, :]
+        res["library_ms"] = cuda_time_ms(
+            lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+        )
+        moved = 4 * B * L * E * 2 + B * L
+        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, "bfloat16")
+    return res
+
+
+def phase_kernels() -> dict:
+    results = []
+    for dtype_name in ("bfloat16", "float32"):
+        for relu in (True, False):
+            # the main path runs bf16 with ReLU (input_vid_proj.block0)
+            results.append(check_ln_dense(dtype_name, relu, time_it=(relu or dtype_name == "float32")))
+    results.append(check_attention(time_it=True))
+    out = {"phase": "kernels", "ok": True, "results": results}
+    emit(out)
+    return out
+
+
+def _model_config():
+    from mesm_tpu_torch.models.mesm import MESMConfig
+
+    # charades C+SF_C (config/charades/C+SF_C.json) at full width and depth,
+    # cached 512-d text features as in the bench geometry (bench.py:740-742)
+    return MESMConfig(
+        hidden_dim=256, v_feat_dim=2818, t_feat_dim=512, nheads=8, dim_feedforward=1024,
+        num_recfw_layers=2, t2v_layers=2, enc_layers=2, dec_layers=2, num_recss_layers=4,
+        num_queries=10, max_words_l=16, max_video_l=194, num_classes=1114,
+    )
+
+
+def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512):
+    """A collated eval batch (deduplicated videos, cached text) on the card:
+    NG unique videos (~2.4 sentences each, as real charades eval batches),
+    one row per sentence, features from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    counts = 1 + rng.multinomial(B - NG, np.full(NG, 1.0 / NG))
+    group_id = np.repeat(np.arange(NG), counts)
+    g_len = rng.integers(Lv // 4, Lv + 1, NG)
+    g_len[0] = Lv
+    mask_g = np.arange(Lv)[None] < g_len[:, None]
+    w_len = rng.integers(3, Lw + 1, B)
+    words_mask = np.arange(Lw)[None] < w_len[:, None]
+    G = int(counts.max())
+    ss_idx = np.zeros((B, G), np.int64)
+    ss_mask = np.zeros((B, G), bool)
+    own = np.zeros(B, np.int64)
+    for i in range(B):
+        rows = np.flatnonzero(group_id == group_id[i])
+        ss_idx[i, : len(rows)] = rows
+        ss_idx[i, len(rows):] = i
+        ss_mask[i, : len(rows)] = True
+        own[i] = int(np.flatnonzero(rows == i)[0])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    mg, wm = t(mask_g), t(words_mask)
+    return {
+        "video_feat_g": torch.randn(NG, Lv, Dv, generator=g, device=dev) * mg[..., None],
+        "video_mask_g": mg,
+        "video_slot": t(group_id.astype(np.int64)),
+        "video_mask": mg[t(group_id)],
+        "cached_words_feat": 0.1 * torch.randn(B, Lw, Dt, generator=g, device=dev) * wm[..., None],
+        "cached_words_mask": wm,
+        "cached_sentence_feat": 0.1 * torch.randn(B, Dt, generator=g, device=dev),
+        "ss_sent_idx": t(ss_idx), "ss_sent_mask": t(ss_mask), "ss_own_pos": t(own),
+        "group_id": t(group_id),
+    }
+
+
+def _pred_err(a, b):
+    import torch
+
+    out = {}
+    for k in a:
+        x, y = a[k].float(), b[k].float()
+        out[k] = float(((x - y).abs() / torch.clamp(y.abs().max(), min=1.0)).max())
+    return out
+
+
+def reset_launches():
+    from mesm_tpu_torch.ops import attention_packed, ln_dense
+
+    ln_dense.launches = 0
+    attention_packed.launches = 0
+
+
+def read_launches():
+    from mesm_tpu_torch.ops import attention_packed, ln_dense
+
+    return {"ln_dense": ln_dense.launches, "attention_packed": attention_packed.launches}
+
+
+def phase_model(card: str, n_batches: int = 4) -> dict:
+    """The port's eval step at the bench geometry, bf16, seeded weights."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda().eval()
+
+    def encode(b):
+        return b["cached_words_feat"], b["cached_words_mask"], b["cached_sentence_feat"]
+
+    step16 = make_eval_step(model, encode, torch.bfloat16)
+    step32 = make_eval_step(model, encode, torch.float32)
+    batches = [make_eval_batch(s) for s in range(2)]
+    B = batches[0]["video_mask"].shape[0]
+
+    reset_launches()
+    outs = [step16(batches[i % 2]) for i in range(n_batches)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"ln_dense": n_batches, "attention_packed": 2 * n_batches}
+    res = {"phase": "model", "batches": n_batches, "rows_per_batch": B,
+           "launches": launches, "launches_expected": want}
+    shapes_ok = (
+        tuple(outs[0]["scores"].shape) == (B, 10)
+        and tuple(outs[0]["pred_spans"].shape) == (B, 10, 2)
+        and tuple(outs[0]["saliency_scores"].shape) == (B, 194)
+    )
+    finite = all(bool(torch.isfinite(v.float()).all()) for o in outs for v in o.values())
+    with kernels.pallas_scope("off"):
+        off = step16(batches[0])
+        ref32 = step32(batches[0])
+    res["kernels_vs_off_bf16"] = _pred_err(outs[0], off)
+    res["bf16_vs_fp32_off"] = _pred_err(outs[0], ref32)
+    res["tol"] = MODEL_TOL
+    res["shapes_ok"], res["finite"] = shapes_ok, finite
+    ok = (
+        launches == want and shapes_ok and finite
+        and max(res["kernels_vs_off_bf16"].values()) <= MODEL_TOL
+        and max(res["bf16_vs_fp32_off"].values()) <= MODEL_TOL
+    )
+
+    def rows_per_s(mode, iters=10):
+        with kernels.pallas_scope(mode):
+            for i in range(2):
+                step16(batches[i])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                step16(batches[i % 2])
+            torch.cuda.synchronize()
+            return B * iters / (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    turns = [("auto", rows_per_s("auto")), ("off", rows_per_s("off")),
+             ("off", rows_per_s("off")), ("auto", rows_per_s("auto"))]
+    res["rows_per_s_kernels_auto"] = [r for m, r in turns if m == "auto"]
+    res["rows_per_s_kernels_off"] = [r for m, r in turns if m == "off"]
+    res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["profile"] = profile_step(step16, batches)
+    res["card"] = card
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise SystemExit("model phase failed")
+    return res
+
+
+def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
+    """Device time by kernel over `iters` eval steps (kernels on "auto"),
+    from torch.profiler: the busy share is the summed kernel time over the
+    window's wall time (the profiler's own overhead is in the wall time, so
+    the share is a lower bound)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step(batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [  # device-side events only: the CPU ops' device time repeats them
+        (e.key, e.self_device_time_total, e.count)
+        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    ]
+    kernels.sort(key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    return {
+        "steps": iters, "wall_ms_per_step": wall_us / iters / 1e3,
+        "device_ms_per_step": busy_us / iters / 1e3,
+        "busy_share": busy_us / wall_us, "kernel_launches_per_step": sum(k[2] for k in kernels) / iters,
+        "top": [{"name": n[:90], "ms_per_step": t / iters / 1e3, "calls_per_step": c / iters}
+                for n, t, c in kernels[:top]],
+    }
+
+
+SENTS = [
+    "a person opens the door", "someone closes a window", "the person eats a sandwich",
+    "a man reads the book", "person turns on a light", "a woman drinks from a cup",
+    "someone sits on the sofa", "the person puts a bag on the table",
+]
+
+
+def write_charades_root(root: str, n_videos: int = 64, seed: int = 0) -> str:
+    """A synthetic charades root at full video width: CLIP image (512) and
+    SlowFast (2304) features, 2818 wide with the two TEF channels, up to 194
+    clips; GloVeSimple 300-d text. The features are stored as directories of
+    per-video .npy arrays, which the port's FeatureStore reads like its HDF5
+    files (the GPU host has no h5py). Returns the train config path."""
+    import numpy as np
+
+    from mesm_tpu_torch.data import Vocabulary
+
+    ann = os.path.join(root, "annotations")
+    os.makedirs(ann, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    vids = [f"V{i:04d}" for i in range(n_videos)]
+    durations = {v: float(rng.integers(30, 195)) for v in vids}
+    lines = []
+    for i, v in enumerate(vids):
+        for j in range(1 + (i % 3) + (i % 2)):  # 1..4 sentences, ~2.5 on average
+            d = durations[v]
+            st = float(rng.uniform(1.5, d * 0.6))
+            ed = float(rng.uniform(st + 1, d))
+            lines.append(f"{v} {st:.2f} {ed:.2f}##{SENTS[(i + j) % len(SENTS)]}\n")
+    for split in ("train", "test"):
+        with open(os.path.join(ann, f"charades_sta_{split}.txt"), "w") as f:
+            f.write("".join(lines))
+        rows = ["id,subject,scene,quality,relevance,verified,script,objects,descriptions,length\n"]
+        rows += [f"{v},s,x,7,7,Yes,script,objects,desc,{durations[v]}\n" for v in vids]
+        with open(os.path.join(ann, f"Charades_v1_{split}.csv"), "w") as f:
+            f.write("".join(rows))
+    words = sorted({w for s in SENTS for w in s.split()})
+    vocab = Vocabulary(words)
+    with open(os.path.join(ann, "GloVe_tokenized_count.txt"), "w") as f:
+        f.writelines(f"{w} {vocab.wtoi[w]} 5\n" for w in words)
+    glove = os.path.join(root, "glove_300d.txt")
+    with open(glove, "w") as f:
+        for w in words:
+            f.write(w + " " + " ".join(f"{x:.4f}" for x in rng.normal(size=300)) + "\n")
+    feat_files = []
+    for name, width in (("clip_image", 512), ("slowfast", 2304)):
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        for v in vids:
+            L = int(min(194, durations[v]))
+            np.save(os.path.join(path, f"{v}.npy"), rng.normal(size=(L, width)).astype(np.float32))
+        feat_files.append(path)
+    with open(os.path.join(HERE, "config", "charades", "C+SF_C.json")) as f:
+        cfg = json.load(f)
+    cfg.update(
+        ann_path=ann, feat_files=feat_files, tokenizer_type="GloVeSimple",
+        text_model_path=glove, t_feat_dim=300, vocab_size=len(vocab),
+        result_root=os.path.join(root, "results"), num_workers=4, exp_id="chip_smoke",
+    )
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return cfg_path
+
+
+def phase_cli() -> dict:
+    """`python -m mesm_tpu_torch.evaluate` through its inference() entry:
+    bf16 on the card, a torch-layout checkpoint from seeded weights."""
+    import torch
+
+    from mesm_tpu_torch import runner
+    from mesm_tpu_torch.config import BaseOptions
+    from mesm_tpu_torch.evaluate import inference
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_smoke_") as root:
+        t0 = time.perf_counter()
+        cfg_path = write_charades_root(root)
+        opt = BaseOptions().parse(["--config_file", cfg_path])  # writes the run's opt.json
+        torch.manual_seed(1)
+        model = runner.build_model(opt)
+        torch.save({"model": model.state_dict(), "epoch": 0},
+                   os.path.join(opt.result_dir, "model_test_best.ckpt"))
+        eval_cfg = os.path.join(root, "eval.json")
+        with open(eval_cfg, "w") as f:
+            json.dump({
+                "ann_path": opt.ann_path, "feat_files": opt.feat_files,
+                "text_model_path": opt.text_model_path, "bpe_path": "",
+                "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
+                "inference_result_dir": os.path.join(root, "inference"),
+                "row_capacity": 128, "eval_len_buckets": 1, "num_workers": 4,
+            }, f)
+        setup_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics, _ = inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16",
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        brief = metrics["brief"]
+        res = {"phase": "cli", "setup_s": setup_s, "inference_s": time.perf_counter() - t0,
+               "launches": launches, "brief": brief}
+        res["ok"] = bool(all(v > 0 for v in launches.values()) and brief)
+        emit(res)
+        if not res["ok"]:
+            raise SystemExit("cli phase failed: a kernel of the main path never ran")
+    return res
+
+
+def live_descendants() -> list:
+    """Processes started by this one (or by its children) that still run,
+    as (pid, command line), read from /proc. Zombies are left out: they end
+    with this process."""
+    parent, state = {}, {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue  # ended while we looked
+        state[pid], parent[pid] = fields[0], fields[1]
+    found, frontier = [], {str(os.getpid())}
+    while frontier:
+        frontier = {pid for pid, pp in parent.items() if pp in frontier}
+        found += [pid for pid in frontier if state[pid] != "Z"]
+    out = []
+    for pid in found:
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                out.append((int(pid), f.read().replace(b"\0", b" ").decode(errors="replace")[:120]))
+        except OSError:
+            continue
+    return out
+
+
+def phase_processes() -> dict:
+    """Fails if a phase left a process running (a loader or metric worker
+    pool, a compiler): the script must stop everything it starts."""
+    left = live_descendants()
+    res = {"phase": "processes", "left_running": left, "ok": not left}
+    emit(res)
+    if left:
+        raise SystemExit(f"processes still running: {left}")
+    return res
+
+
+def kernel_summary(kernel_results: dict, launches: dict) -> dict:
+    by_name = {}
+    for r in kernel_results["results"]:
+        if "ms" in r and (r["kernel"] != "ln_dense" or (r["dtype"] == "bfloat16" and r["relu"])):
+            by_name[r["kernel"]] = r
+    meta = {
+        "ln_dense": ("mesm_tpu_torch/kernels/csrc/ln_dense.cu", "mesm_tpu/ops/layer_pallas.py:267"),
+        "attention_packed": ("mesm_tpu_torch/kernels/csrc/attention_packed.cu",
+                             "mesm_tpu/ops/attention_pallas.py:114"),
+    }
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[name], "max_abs_err": by_name[name]["max_abs_err"],
+         "ms": by_name[name]["ms"], "plain_ms": by_name[name]["plain_ms"],
+         "bound_ms": by_name[name]["bound_ms"], "bound_by": by_name[name]["bound_by"],
+         "library_ms": by_name[name]["library_ms"]}
+        for name, (src, rep) in meta.items()
+    ]}
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "mesm_tpu_torch")):
+        raise SystemExit("chip_smoke: mesm_tpu_torch/ not found; run from a checkout of the repository")
+    sys.path.insert(0, HERE)
+    device = phase_device()
+    phase_build()
+    kernels = phase_kernels()
+    phase_model(device["nvidia_smi"])
+    cli = phase_cli()
+    phase_processes()
+    print(device["nvidia_smi"], flush=True)
+    emit(kernel_summary(kernels, cli["launches"]))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

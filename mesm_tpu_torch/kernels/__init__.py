@@ -1,0 +1,91 @@
+"""Kernel dispatch: which call sites launch a hand-written CUDA kernel.
+
+Counterpart of mesm_tpu/kernels.py:50-73. The mode is "off" (plain torch
+everywhere), "on" (the kernel wherever it takes the shapes) or "auto" (the
+default: the kernel where the JAX package's measured gates put its Pallas
+kernel). `--pallas_attention` keeps its meaning and sets this mode. The
+gates are the JAX package's thresholds, not yet re-measured on the H100.
+
+Where the JAX package asks "is this on the TPU", the port asks "is the
+tensor on CUDA". A kernel wrapper given CPU tensors runs its plain torch
+version (ops/ln_dense.py, ops/attention_packed.py), so "on" with CPU tensors
+computes the same values as "off" by the kernels' own arithmetic. Every
+decision is taken here, before the call; a wrapper never falls back after a
+failure.
+
+Sites whose JAX kernel is not ported yet run plain torch on CUDA too:
+the fp32 long-sequence "batched" attention tier (kernels.py:379), the pair-
+masked and short-key packed variants, and the short-key / short-query
+formulations (kernels.py:284-334), which attention_core computes with the
+same values.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+
+import torch
+
+_DEFAULT_MODE = "auto"  # "auto" | "on" | "off"
+_MODE_OVERRIDE: contextvars.ContextVar = contextvars.ContextVar(
+    "mesm_torch_kernel_mode", default=None
+)
+
+# bf16 "packed" attention tier: both sides long, enough samples
+PACKED_MIN_LEN = 128
+PACKED_MIN_BATCH = 8
+# the smallest sequence the packed kernel takes under "on"
+# (attention_pallas.py MIN_FUSED_LQ / MIN_FUSED_LK)
+MIN_FUSED_LEN = 64
+# fused LayerNorm -> Dense: only the wide raw-feature input projection
+LN_DENSE_MIN_D = 1024
+
+
+def _normalize_mode(enabled) -> str:
+    if enabled is None or enabled == "auto":
+        return "auto"
+    if enabled in (True, "on"):
+        return "on"
+    return "off"
+
+
+@contextlib.contextmanager
+def pallas_scope(enabled):
+    """Context-local dispatch mode: True/'on', False/'off', None/'auto'."""
+    token = _MODE_OVERRIDE.set(_normalize_mode(enabled))
+    try:
+        yield
+    finally:
+        _MODE_OVERRIDE.reset(token)
+
+
+def pallas_mode() -> str:
+    override = _MODE_OVERRIDE.get()
+    return override if override is not None else _DEFAULT_MODE
+
+
+def _on_cuda(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def use_fused_ln_dense(D: int, device) -> bool:
+    """LayerNorm -> Dense site (models/layers.py LinearBlock, eval only):
+    kernels.py:257 with "on the TPU" read as "on CUDA"."""
+    mode = pallas_mode()
+    if mode == "off":
+        return False
+    if mode == "on":
+        return True
+    return _on_cuda(device) and D >= LN_DENSE_MIN_D
+
+
+def use_packed_attention(B: int, Lq: int, Lk: int, dtype, device) -> bool:
+    """Packed attention site: the bf16 tier of kernels.py:369-378. The
+    caller has already excluded split_qk, logit_bias, pair masks and
+    dropout, which the kernel does not take."""
+    mode = pallas_mode()
+    if mode == "off" or dtype != torch.bfloat16:
+        return False
+    if mode == "on":
+        return min(Lq, Lk) >= MIN_FUSED_LEN
+    return _on_cuda(device) and min(Lq, Lk) >= PACKED_MIN_LEN and B >= PACKED_MIN_BATCH

@@ -1,0 +1,1 @@
+from .io import load_json, save_json, load_jsonl, save_jsonl, dict_to_markdown, mkdirp

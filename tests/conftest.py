@@ -49,6 +49,11 @@ def pytest_configure(config):
         "video_feat_g and rows staging), dedup/hoist, grad-accum, plus "
         "seconds-level span/config/metric sanity. Run via scripts/close_out.sh",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels); skips "
+        "on a host without one",
+    )
 
 
 @pytest.fixture
