@@ -5,11 +5,15 @@
 
 run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
-torch version at the main path's shapes, drives charades C+SF_C bf16
+torch version at the main paths' shapes, drives charades C+SF_C bf16
 inference through the port's eval step and through its
-`python -m mesm_tpu_torch.evaluate` entry point, and checks that the main
-path went through the kernels. Each phase prints one JSON line; the line
-before the last is the kernel summary, the last line names the device:
+`python -m mesm_tpu_torch.evaluate` entry point, the TACoS fp32 eval step,
+the kernel-engaged TACoS fp32 train step (attention dropout 0) with the
+kernels on and off, the charades C+SF_C fp32 train step as shipped, and
+`python -m mesm_tpu_torch.train` on a synthetic root whose checkpoint the
+evaluate entry point then scores, and checks that each path went through
+its kernels. Each phase prints one JSON line; the line before the last is
+the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -19,6 +23,7 @@ a host with no GPU. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,7 +43,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 #     and a sum of 2818 products taken in another order can move it one step);
 #   ln_dense fp32: 1e-4 (2818-term f32 sums in another order);
 #   attention bf16: 3e-2 abs (bf16 logits, exp and divide; one-step flips).
-TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4, "attention_packed": 3e-2}
+#   attention fp32: 1e-5 (f32 sums of 601 terms in another order);
+#   trainable fp32 gradients: 1e-5 (the same recomputed plain backward).
+TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4, "attention_packed": 3e-2,
+       "attention_batched": 1e-5, "attention_trainable": 1e-5}
 # the model's bf16 predictions with the kernels against (a) kernels off in
 # bf16 and (b) the fp32 plain path, in units of max(1, max |reference|) per
 # output: the packed kernel's bf16 softmax and the fused LayerNorm -> Dense
@@ -46,6 +54,18 @@ TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4, "attention_packed
 MODEL_TOL = 0.05
 
 MAIN_PATH = dict(N=10282, D=2818, F=256, B=128, L=195, E=256, H=8)
+# TACoS (bench.py:753-754, 780-795): 16 rows, 600 clips (601 with the global
+# token) of 4098-wide C3D + TEF features, 16 words of 300-d GloVe; the train
+# step stacks the negative pass, so its DETR encoder sees 32 rows
+TACOS = dict(B=16, Lv=600, Dv=4098, Lw=16, Dt=300, L=601, E=256, H=8)
+# kernels on vs off in fp32, in units of max(1, max |off|) per output
+FP32_MODEL_TOL = 1e-4
+# the train step's first loss, kernels "auto" vs "off": relative; its
+# gradients in units of max(1, max |g|) over all parameters. Per parameter
+# that scale sits below the step's own fp32 noise: a 1e-7 relative change of
+# the input features moves the input projection's gradients by ~6e-4 of
+# their own scale on an H100, so the phase reports that floor too.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 
 
 def emit(obj) -> None:
@@ -199,6 +219,122 @@ def check_attention(time_it: bool) -> dict:
     return res
 
 
+def _tacos_qkv(B: int, seed: int):
+    """q, k, v at the TACoS encoder shape and a key mask: varied lengths,
+    the global token never a key, one padded row with every key masked."""
+    import torch
+
+    L, E = TACOS["L"], TACOS["E"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, L, E, generator=g, device="cuda") for _ in range(3))
+    lengths = torch.randint(60, L + 1, (B,), generator=g, device="cuda")
+    mask = torch.arange(L, device="cuda")[None] < lengths[:, None]
+    mask[:, 0] = False
+    mask[3] = False
+    return q, k, v, mask
+
+
+def _sdpa_mask(mask):
+    """SDPA's boolean mask for the same keys, with no fully masked row (SDPA
+    gives NaN there, the kernels the uniform average)."""
+    m = mask.clone()
+    m[:, 1] = True
+    return m[:, None, None, :]
+
+
+def check_attention_batched(B: int) -> dict:
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.ops import attention_batched as ab
+
+    L, E, H = TACOS["L"], TACOS["E"], TACOS["H"]
+    hd = E // H
+    q, k, v, mask = _tacos_qkv(B, seed=1)
+    with torch.no_grad():
+        got = ab.attention_batched(q, k, v, H, mask)
+        want = ab.attention_batched_reference(q, k, v, H, mask)
+        torch.cuda.synchronize()
+        err = _rel_err(got, want)
+        res = {
+            "kernel": "attention_batched", "dtype": "float32", "shape": [B, L, E, H],
+            "max_abs_err": float((got - want).abs().max()), "max_err_rel_to_max1": err,
+            "tol": TOL["attention_batched"], "finite": bool(torch.isfinite(got).all()),
+            "masked_row_vs_mean_v": float((got[3] - v[3].mean(0)).abs().max()),
+        }
+        if not (err <= TOL["attention_batched"] and res["finite"]
+                and res["masked_row_vs_mean_v"] <= TOL["attention_batched"]):
+            emit(dict(res, phase="kernels", ok=False))
+            raise SystemExit(f"attention_batched B={B}: {res}")
+        res["ms"] = cuda_time_ms(lambda: ab.attention_batched(q, k, v, H, mask))
+        res["plain_ms"] = cuda_time_ms(lambda: ab.attention_batched_reference(q, k, v, H, mask))
+        qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
+        am = _sdpa_mask(mask)
+        res["library_ms"] = cuda_time_ms(
+            lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+        )
+    moved = 4 * B * L * E * 4 + B * L
+    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, "float32")
+    return res
+
+
+def check_attention_trainable() -> dict:
+    """The trainable Function at the stacked train shape (32 rows): forward
+    (the batched kernel) plus backward (attention_core recomputed), against
+    plain autograd through attention_core and SDPA's forward and backward."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.models.attention import attention_core
+    from mesm_tpu_torch.ops.attention_trainable import attention_trainable
+
+    B, L, E, H = 2 * TACOS["B"], TACOS["L"], TACOS["E"], TACOS["H"]
+    hd = E // H
+    q, k, v, mask = _tacos_qkv(B, seed=2)
+    cot = torch.randn(B, L, E, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(cot)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    def trainable(a, b, c):
+        return attention_trainable(a, b, c, H, mask)
+
+    def plain(a, b, c):
+        return attention_core(a, b, c, H, key_valid_mask=mask)
+
+    got, want = run(trainable), run(plain)
+    torch.cuda.synchronize()
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    res = {
+        "kernel": "attention_trainable", "dtype": "float32", "shape": [B, L, E, H],
+        "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+        "max_err_rel_to_max1": {"out": errs[0], "dq": errs[1], "dk": errs[2], "dv": errs[3]},
+        "tol": TOL["attention_trainable"],
+        "finite": all(bool(torch.isfinite(t).all()) for t in got),
+    }
+    if not (max(errs) <= TOL["attention_trainable"] and res["finite"]):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"attention_trainable: {res}")
+    am = _sdpa_mask(mask)
+
+    def sdpa(a, b, c):
+        qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (a, b, c))
+        o = Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+        return o.transpose(1, 2).reshape(B, L, E)
+
+    res["ms"] = cuda_time_ms(lambda: run(trainable), iters=10)
+    res["plain_ms"] = cuda_time_ms(lambda: run(plain), iters=10)
+    res["library_ms"] = cuda_time_ms(lambda: run(sdpa), iters=10)
+    # inputs q, k, v, mask, d_out read once; out, dq, dk, dv written once;
+    # the forward's two products and the backward's four (dV, dP, dQ, dK)
+    moved = 4 * B * L * E * 8 + B * L
+    res["bound_ms"], res["bound_by"] = bound(moved, 6 * 2.0 * B * H * L * L * hd, "float32")
+    return res
+
+
 def phase_kernels() -> dict:
     results = []
     for dtype_name in ("bfloat16", "float32"):
@@ -206,6 +342,9 @@ def phase_kernels() -> dict:
             # the main path runs bf16 with ReLU (input_vid_proj.block0)
             results.append(check_ln_dense(dtype_name, relu, time_it=(relu or dtype_name == "float32")))
     results.append(check_attention(time_it=True))
+    for B in (TACOS["B"], 2 * TACOS["B"]):  # eval, and the stacked train pass
+        results.append(check_attention_batched(B))
+    results.append(check_attention_trainable())
     out = {"phase": "kernels", "ok": True, "results": results}
     emit(out)
     return out
@@ -265,6 +404,84 @@ def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512):
     }
 
 
+def _tacos_config(dropout: float = 0.1):
+    from mesm_tpu_torch.models.mesm import MESMConfig
+
+    # TACoS C3D_GloVe (config/TACoS/C3D_GloVe.json) at full width and depth:
+    # the TwoMLP enhance encoder (share_MLP false), 4096 + 2 TEF video
+    # channels, 300-d GloVe text, 1111 + 1 MLM classes
+    return MESMConfig(
+        hidden_dim=256, v_feat_dim=TACOS["Dv"], t_feat_dim=TACOS["Dt"], nheads=8,
+        dim_feedforward=1024, num_recfw_layers=2, t2v_layers=2, enc_layers=2, dec_layers=2,
+        num_recss_layers=4, num_queries=10, max_words_l=TACOS["Lw"], max_video_l=TACOS["Lv"],
+        num_classes=1112, share_mlp=False, dropout=dropout,
+    )
+
+
+# criterion weights (config/TACoS/C3D_GloVe.json, config/charades/C+SF_C.json)
+TACOS_CRITERION = dict(span_coef=10.0, giou_coef=1.0, label_coef=6.0, saliency_coef=1.0,
+                       recfw_coef=0.1, recss_coef=0.1, cost_span=10.0, cost_giou=1.0,
+                       cost_class=6.0, rank_coef=1.0, use_triplet=True)
+CHARADES_CRITERION = dict(span_coef=10.0, giou_coef=1.0, label_coef=4.0, saliency_coef=4.0,
+                          recfw_coef=0.1, recss_coef=0.1, cost_span=10.0, cost_giou=1.0,
+                          cost_class=4.0, rank_coef=12.0)
+TRAIN_SEED = 2019
+
+
+def make_train_batch(seed: int, B: int, Lv: int, Dv: int, Lw: int, Dt: int, num_classes: int,
+                     G: int = 3) -> dict:
+    """A collated train batch on the card: ~2.4 sentences per video (the
+    groups the out-of-group negatives need), each row's video replicated as
+    the train collate does, GT spans inside the video, MLM labels and word
+    weights, the saliency triplet's clip indices, features from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n_groups = max(2, int(B / 2.4))
+    group_id = np.sort(rng.integers(0, n_groups, B))
+    group_id[0], group_id[-1] = 0, n_groups - 1
+    g_len = rng.integers(Lv // 2, Lv + 1, n_groups)
+    vid_len = g_len[group_id]
+    video_mask = np.arange(Lv)[None] < vid_len[:, None]
+    w_len = rng.integers(3, Lw + 1, B)
+    words_mask = np.arange(Lw)[None] < w_len[:, None]
+    st = rng.integers(1, np.maximum(vid_len // 2, 2))
+    ed = np.minimum(st + rng.integers(1, np.maximum(vid_len // 2, 2)), vid_len - 1)
+    clip_mask = (np.arange(Lv)[None] >= st[:, None]) & (np.arange(Lv)[None] <= ed[:, None])
+    norm_moment = np.stack([st / vid_len, (ed + 1) / vid_len], -1).astype(np.float32)
+    norm_span = np.stack([norm_moment.mean(-1), norm_moment[:, 1] - norm_moment[:, 0]], -1)
+    ss_idx, ss_mask, own = np.zeros((B, G), np.int64), np.zeros((B, G), bool), np.zeros(B, np.int64)
+    for i in range(B):
+        rows = np.flatnonzero(group_id == group_id[i])
+        if len(rows) > G:  # a window of G rows of the group holding row i
+            pos = int(np.flatnonzero(rows == i)[0])
+            start = min(max(pos - G + 1, 0), len(rows) - G)
+            rows = rows[start:start + G]
+        ss_idx[i, : len(rows)], ss_idx[i, len(rows):] = rows, i
+        ss_mask[i, : len(rows)] = True
+        own[i] = int(np.flatnonzero(rows == i)[0])
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    vm, wm = t(video_mask), t(words_mask)
+    feat_g = torch.randn(n_groups, Lv, Dv, generator=g, device=dev)
+    return {
+        "video_feat": feat_g[t(group_id)] * vm[..., None],
+        "video_mask": vm,
+        "words_feat": 0.1 * torch.randn(B, Lw, Dt, generator=g, device=dev) * wm[..., None],
+        "words_mask": wm,
+        "sentence_feat": 0.1 * torch.randn(B, Dt, generator=g, device=dev),
+        "words_weight": t(rng.integers(1, 3, (B, Lw)).astype(np.float32) * words_mask),
+        "unknown_mask": t((rng.random((B, Lw)) < 0.1) & words_mask),
+        "words_label": t(rng.integers(0, num_classes, (B, Lw)) * words_mask),
+        "clip_mask": t(clip_mask), "group_id": t(group_id), "row_mask": t(np.ones(B, bool)),
+        "norm_moment": t(norm_moment), "norm_span": t(norm_span.astype(np.float32)),
+        "pos_idx": t(np.stack([st, ed], -1)), "neg_idx": t(np.stack([st - 1, ed], -1)),
+        "ss_sent_idx": t(ss_idx), "ss_sent_mask": t(ss_mask), "ss_own_pos": t(own),
+    }
+
+
 def _pred_err(a, b):
     import torch
 
@@ -275,17 +492,20 @@ def _pred_err(a, b):
     return out
 
 
-def reset_launches():
-    from mesm_tpu_torch.ops import attention_packed, ln_dense
+def _kernel_modules():
+    from mesm_tpu_torch.ops import attention_batched, attention_packed, attention_trainable, ln_dense
 
-    ln_dense.launches = 0
-    attention_packed.launches = 0
+    return {"ln_dense": ln_dense, "attention_packed": attention_packed,
+            "attention_batched": attention_batched, "attention_trainable": attention_trainable}
+
+
+def reset_launches():
+    for mod in _kernel_modules().values():
+        mod.launches = 0
 
 
 def read_launches():
-    from mesm_tpu_torch.ops import attention_packed, ln_dense
-
-    return {"ln_dense": ln_dense.launches, "attention_packed": attention_packed.launches}
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
 def phase_model(card: str, n_batches: int = 4) -> dict:
@@ -311,7 +531,8 @@ def phase_model(card: str, n_batches: int = 4) -> dict:
     outs = [step16(batches[i % 2]) for i in range(n_batches)]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = {"ln_dense": n_batches, "attention_packed": 2 * n_batches}
+    want = {"ln_dense": n_batches, "attention_packed": 2 * n_batches,
+            "attention_batched": 0, "attention_trainable": 0}
     res = {"phase": "model", "batches": n_batches, "rows_per_batch": B,
            "launches": launches, "launches_expected": want}
     shapes_ok = (
@@ -359,8 +580,247 @@ def phase_model(card: str, n_batches: int = 4) -> dict:
     return res
 
 
+def _encode_batch(b):
+    if "cached_words_feat" in b:
+        return b["cached_words_feat"], b["cached_words_mask"], b["cached_sentence_feat"]
+    return b["words_feat"], b["words_mask"], b["sentence_feat"]
+
+
+def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
+    """The port's eval step at the TACoS geometry (bench.py:753-754), fp32:
+    the fp32 attention tier (16 rows, 601 keys) and the 4098-wide fused
+    LayerNorm -> Dense."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    torch.manual_seed(0)
+    model = MESM(_tacos_config()).cuda().eval()
+    step = make_eval_step(model, _encode_batch, torch.float32)
+    B, Lv = TACOS["B"], TACOS["Lv"]
+    batches = [make_eval_batch(s, B=B, NG=max(2, int(B / 2.4)), Lv=Lv, Dv=TACOS["Dv"],
+                               Lw=TACOS["Lw"], Dt=TACOS["Dt"]) for s in range(2)]
+    reset_launches()
+    outs = [step(batches[i % 2]) for i in range(n_batches)]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"ln_dense": n_batches, "attention_packed": 0, "attention_batched": 2 * n_batches,
+            "attention_trainable": 0}
+    with kernels.pallas_scope("off"):
+        off = step(batches[0])
+    res = {"phase": "tacos_eval", "batches": n_batches, "rows_per_batch": B, "launches": launches,
+           "launches_expected": want, "kernels_vs_off_fp32": _pred_err(outs[0], off),
+           "tol": FP32_MODEL_TOL}
+    res["shapes_ok"] = tuple(outs[0]["saliency_scores"].shape) == (B, Lv)
+    res["finite"] = all(bool(torch.isfinite(v.float()).all()) for o in outs for v in o.values())
+
+    def rows_per_s(mode, iters=6):
+        with kernels.pallas_scope(mode):
+            step(batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                step(batches[i % 2])
+            torch.cuda.synchronize()
+            return B * iters / (time.perf_counter() - t0)
+
+    turns = [(m, rows_per_s(m)) for m in ("auto", "off", "off", "auto")]
+    res["rows_per_s_kernels_auto"] = [r for m, r in turns if m == "auto"]
+    res["rows_per_s_kernels_off"] = [r for m, r in turns if m == "off"]
+    res["card"] = card
+    res["ok"] = bool(launches == want and res["shapes_ok"] and res["finite"]
+                     and max(res["kernels_vs_off_fp32"].values()) <= FP32_MODEL_TOL)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("tacos_eval phase failed")
+    return res
+
+
+def _train_ms_per_step(model, ccfg, batch, mode: str, steps: int, count: bool,
+                       profile: bool = False):
+    """ms per train step (host clock around synchronised steps, after one
+    warm-up step), the launches of the timed steps when `count`, the last
+    step's loss, and with `profile` the device time by kernel of `steps`
+    more steps (profile_step)."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.parallel.step import build_optimizer, make_train_step
+
+    optimizer = build_optimizer(model, 2e-4, 1e-4)
+    step = make_train_step(model, ccfg, _encode_batch, optimizer, 0.1, TRAIN_SEED)
+    with kernels.pallas_scope(mode):
+        step(batch, 0)
+        torch.cuda.synchronize()
+        if count:
+            reset_launches()
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            metrics = step(batch, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = read_launches() if count else None
+        prof = None
+        if profile:
+            taken = [steps]
+
+            def one(b):
+                taken[0] += 1
+                return step(b, taken[0])
+
+            prof = profile_step(one, [batch], iters=steps)
+    return ms, launches, float(metrics["loss_overall"]), prof
+
+
+def phase_train(card: str, steps: int = 4) -> dict:
+    """The train step: the kernel-engaged TACoS fp32 step (bench.py:780-795:
+    B = 16, attention dropout 0, input dropout 0.5 as shipped) with the
+    kernels "auto" and "off" from one init and the same draws, then the
+    charades C+SF_C fp32 step at B = 32 with dropout 0.1 as shipped."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.losses import CriterionConfig
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_micro_grads, step_draws
+
+    cfg = _tacos_config(dropout=0.0)
+    torch.manual_seed(0)
+    init = MESM(cfg).state_dict()
+    ccfg = CriterionConfig(**TACOS_CRITERION)
+    batch = make_train_batch(0, TACOS["B"], TACOS["Lv"], TACOS["Dv"], TACOS["Lw"], TACOS["Dt"],
+                             cfg.num_classes)
+
+    def fresh():
+        model = MESM(cfg)
+        model.load_state_dict(init)
+        return model.cuda()
+
+    # the first step's loss and gradients with the kernels and without, and
+    # without them on features moved by 1e-7 (relative): the noise floor
+    perturbed = dict(batch)
+    noise = torch.randn(batch["video_feat"].shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                        device="cuda")
+    perturbed["video_feat"] = batch["video_feat"] * (1 + 1e-7 * noise)
+    del noise
+    first = {}
+    for name, mode, b in (("auto", "auto", batch), ("off", "off", batch), ("floor", "off", perturbed)):
+        model = fresh()
+        neg_gen, mask_gen = step_draws(TRAIN_SEED, 0, "cuda")
+        with kernels.pallas_scope(mode):
+            total, _ = make_micro_grads(model, ccfg, _encode_batch)(b, neg_gen, mask_gen)
+        first[name] = (float(total.detach()), {n: p.grad for n, p in model.named_parameters()
+                                               if p.grad is not None})
+    torch.cuda.synchronize()
+    (loss_a, g_a), (loss_o, g_o), (_, g_f) = first["auto"], first["off"], first["floor"]
+    scale = max(1.0, max(float(g.abs().max()) for g in g_o.values()))
+
+    def grad_err(g):
+        return max(float((g[n] - g_o[n]).abs().max()) for n in g_o) / scale
+
+    res = {"phase": "train", "card": card, "tacos": {
+        "rows": TACOS["B"], "stacked_rows": 2 * TACOS["B"], "first_loss_auto": loss_a,
+        "first_loss_off": loss_o, "first_loss_rel_err": abs(loss_a - loss_o) / max(1.0, abs(loss_o)),
+        "grad_max_abs": scale, "grad_max_err_rel_to_max1": grad_err(g_a),
+        "grad_noise_floor_rel_to_max1": grad_err(g_f),
+        "grad_max_err_rel_to_own_max1_per_param": max(_rel_err(g_a[n], g_o[n]) for n in g_o),
+        "grad_noise_floor_rel_to_own_max1_per_param": max(_rel_err(g_f[n], g_o[n]) for n in g_o),
+        "grads_same_params": sorted(g_a) == sorted(g_o),
+        "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL,
+    }}
+    del first, g_a, g_o, g_f, perturbed
+    turns = []
+    for mode in ("auto", "off", "off", "auto"):
+        first_turn = not turns
+        ms, launches, loss, prof = _train_ms_per_step(fresh(), ccfg, batch, mode, steps,
+                                                      count=first_turn, profile=first_turn)
+        turns.append((mode, ms, loss))
+        if first_turn:
+            res["tacos"]["launches"], res["tacos"]["profile"] = launches, prof
+    t = res["tacos"]
+    t["steps_per_turn"] = steps
+    t["ms_per_step_kernels_auto"] = [ms for m, ms, _ in turns if m == "auto"]
+    t["ms_per_step_kernels_off"] = [ms for m, ms, _ in turns if m == "off"]
+    t["last_loss"] = [loss for _, _, loss in turns]
+    want = {"ln_dense": 0, "attention_packed": 0, "attention_batched": 2 * steps,
+            "attention_trainable": 2 * steps}
+    t["launches_expected"] = want
+    ok_tacos = (t["launches"] == want and t["grads_same_params"]
+                and t["first_loss_rel_err"] <= TRAIN_LOSS_TOL
+                and t["grad_max_err_rel_to_max1"] <= TRAIN_GRAD_TOL
+                and all(math.isfinite(x) for x in t["last_loss"]))
+
+    # charades C+SF_C as shipped: dropout 0.1, so no attention kernel
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda()
+    cbatch = make_train_batch(1, 32, 194, 2818, 16, 512, model.cfg.num_classes)
+    torch.cuda.reset_peak_memory_stats()
+    ms, launches, loss, prof = _train_ms_per_step(model, CriterionConfig(**CHARADES_CRITERION),
+                                                  cbatch, "auto", steps, count=True, profile=True)
+    res["charades"] = {"rows": 32, "dropout": 0.1, "ms_per_step": ms, "launches": launches,
+                       "last_loss": loss,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "profile": prof}
+    res["ok"] = bool(ok_tacos and math.isfinite(loss))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("train phase failed")
+    return res
+
+
+def phase_train_cli() -> dict:
+    """`python -m mesm_tpu_torch.train` through its train() entry on the
+    synthetic charades root at full width (fp32 on the card, one epoch and
+    its eval), then `mesm_tpu_torch.evaluate` scoring the run's best
+    checkpoint."""
+    import torch
+
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.train import train
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_train_") as root:
+        cfg_path = write_charades_root(root)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        # mIoU picks the best checkpoint: a random model's mAP can be 0
+        cfg.update(n_epoch=1, stop_score="miou", exp_id="chip_smoke_train")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        reset_launches()
+        t0 = time.perf_counter()
+        run = train(["--config_file", cfg_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_launches()
+        opt = run["opt"]
+        with open(opt.train_log_filepath) as f:
+            train_log = f.read().strip().splitlines()
+        eval_cfg = os.path.join(root, "eval.json")
+        with open(eval_cfg, "w") as f:
+            json.dump({
+                "ann_path": opt.ann_path, "feat_files": opt.feat_files,
+                "text_model_path": opt.text_model_path, "bpe_path": "",
+                "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke_trained",
+                "inference_result_dir": os.path.join(root, "inference"), "num_workers": 4,
+            }, f)
+        t0 = time.perf_counter()
+        metrics, _ = inference(["--config_file", eval_cfg, "--device", "cuda"])
+        res = {"phase": "train_cli", "train_s": train_s, "steps": run["step"],
+               "launches": launches, "train_log_last": train_log[-1] if train_log else None,
+               "best_ckpt": os.path.exists(os.path.join(opt.result_dir, "model_test_best.ckpt")),
+               "evaluate_s": time.perf_counter() - t0, "brief": metrics["brief"]}
+        res["ok"] = bool(run["step"] > 0 and res["best_ckpt"] and res["brief"]
+                         and res["brief"].get("MR-full-miou") is not None)
+        emit(res)
+        if not res["ok"]:
+            raise SystemExit("train_cli phase failed")
+    return res
+
+
 def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
-    """Device time by kernel over `iters` eval steps (kernels on "auto"),
+    """Device time by kernel over `iters` steps (eval or train),
     from torch.profiler: the busy share is the summed kernel time over the
     window's wall time (the profiler's own overhead is in the wall time, so
     the share is a lower bound)."""
@@ -376,9 +836,12 @@ def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
             step(batches[i % len(batches)])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [  # device-side events only: the CPU ops' device time repeats them
+    kernels = [  # device-side kernels only: the CPU ops' device time repeats them, and
+        # a user annotation's device range (the optimizer step's) spans its kernels
         (e.key, e.self_device_time_total, e.count)
-        for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+        and not e.key.startswith("Optimizer.")
     ]
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
@@ -492,7 +955,7 @@ def phase_cli() -> dict:
         brief = metrics["brief"]
         res = {"phase": "cli", "setup_s": setup_s, "inference_s": time.perf_counter() - t0,
                "launches": launches, "brief": brief}
-        res["ok"] = bool(all(v > 0 for v in launches.values()) and brief)
+        res["ok"] = bool(launches["ln_dense"] > 0 and launches["attention_packed"] > 0 and brief)
         emit(res)
         if not res["ok"]:
             raise SystemExit("cli phase failed: a kernel of the main path never ran")
@@ -537,14 +1000,27 @@ def phase_processes() -> dict:
 
 
 def kernel_summary(kernel_results: dict, launches: dict) -> dict:
+    """One entry per kernel, at the shapes of its main path: ln_dense bf16
+    with ReLU and attention_packed (charades inference, launches of the CLI
+    phase), attention_batched at the 32 stacked rows and attention_trainable
+    (the kernel-engaged TACoS train step, launches of its timed steps)."""
     by_name = {}
     for r in kernel_results["results"]:
-        if "ms" in r and (r["kernel"] != "ln_dense" or (r["dtype"] == "bfloat16" and r["relu"])):
-            by_name[r["kernel"]] = r
+        if "ms" not in r:
+            continue
+        if r["kernel"] == "ln_dense" and not (r["dtype"] == "bfloat16" and r["relu"]):
+            continue
+        if r["kernel"] == "attention_batched" and r["shape"][0] != 2 * TACOS["B"]:
+            continue
+        by_name[r["kernel"]] = r
     meta = {
         "ln_dense": ("mesm_tpu_torch/kernels/csrc/ln_dense.cu", "mesm_tpu/ops/layer_pallas.py:267"),
         "attention_packed": ("mesm_tpu_torch/kernels/csrc/attention_packed.cu",
                              "mesm_tpu/ops/attention_pallas.py:114"),
+        "attention_batched": ("mesm_tpu_torch/kernels/csrc/attention_batched.cu",
+                              "mesm_tpu/ops/attention_pallas.py:89"),
+        "attention_trainable": ("mesm_tpu_torch/ops/attention_trainable.py",
+                                "mesm_tpu/ops/attention_pallas.py:571"),
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -565,9 +1041,15 @@ def main() -> int:
     kernels = phase_kernels()
     phase_model(device["nvidia_smi"])
     cli = phase_cli()
+    phase_tacos_eval(device["nvidia_smi"])
+    trained = phase_train(device["nvidia_smi"])
+    phase_train_cli()
     phase_processes()
     print(device["nvidia_smi"], flush=True)
-    emit(kernel_summary(kernels, cli["launches"]))
+    launches = dict(cli["launches"])
+    for name in ("attention_batched", "attention_trainable"):
+        launches[name] = trained["tacos"]["launches"][name]
+    emit(kernel_summary(kernels, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
     return 0
 

@@ -5,8 +5,11 @@ Parity target: mesm_tpu/models/attention.py. `attention_core` is the plain
 path at every site that is not a kernel: scaled QK^T, finite -1e9 masking,
 the factored pair mask, the split (content | positional) logits of the DAB
 decoder, and a softmax in f32. `dispatch_attention_core` routes the
-long-sequence bf16 self-attention (the DETR encoder) to the packed kernel
-(ops/attention_packed.py) where mesm_tpu_torch.kernels says so.
+long-sequence self-attention (the DETR encoder) to the attention kernels
+where mesm_tpu_torch.kernels says so: the bf16 packed kernel
+(ops/attention_packed.py) or the fp32 batched kernel
+(ops/attention_batched.py), directly in eval and through the trainable
+autograd.Function (ops/attention_trainable.py) in training.
 
 The JAX package's short-key and short-query reformulations
 (attention.py:114-293) are TPU layout rewrites of the same values with no
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
-from ..ops.attention_packed import attention_packed
+from ..ops.attention_trainable import attention_trainable, fused_attention
 from .layers import Linear
 
 NEG_INF = -1e9
@@ -77,18 +80,22 @@ def attention_core(
 
 def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_factors=None,
                             split_qk=None, dropout_rate: float = 0.0, training: bool = False):
-    """The packed kernel where mesm_tpu_torch.kernels.use_packed_attention
-    says so and the call has no split_qk, pair mask or active dropout (the
-    kernel takes none of them); attention_core everywhere else
-    (mesm_tpu/models/attention.py:322-375)."""
+    """mesm_tpu/models/attention.py:322-375. Where
+    mesm_tpu_torch.kernels.attention_kernel says so and the call has no
+    split_qk, pair mask or active dropout (the kernels take none of them):
+    in eval the kernel itself, in training (dropout 0) the trainable
+    Function, whose backward is attention_core's. attention_core everywhere
+    else."""
     dropout_active = training and dropout_rate > 0.0
     if (
         split_qk is None
         and pair_factors is None
         and not dropout_active
-        and kernels.use_packed_attention(q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device)
+        and kernels.attention_kernel(q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device)
     ):
-        return attention_packed(q, k, v, num_heads, key_valid_mask)
+        if training:
+            return attention_trainable(q, k, v, num_heads, key_valid_mask)
+        return fused_attention(q, k, v, num_heads, key_valid_mask)
     return attention_core(
         q, k, v, num_heads, key_valid_mask=key_valid_mask, pair_factors=pair_factors,
         split_qk=split_qk, dropout_rate=dropout_rate, training=training,

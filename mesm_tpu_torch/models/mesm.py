@@ -1,19 +1,28 @@
-"""MESM top-level model, inference path.
+"""MESM top-level model: inference and the training forward.
 
 Parity targets: mesm_tpu/models/mesm.py and the reference model/model.py
-(MESM :16-394, SegSenRecon :437-503), for inference: no negative pass, no
-MLM masking, deterministic. Unique videos are projected once
-(`video_feat_g`, `video_slot`) and rows gathered after the wide input
-projection (mesm.py:396-404); SS-MESM reuses that projection, which is
-value-identical to the reference's second projection draw in eval
-(mesm.py:421-426). The text encoders are frozen and live outside this
-module: it consumes encoded text features.
+(MESM :16-394, SegSenRecon :437-503). The text encoders are frozen and live
+outside this module: it consumes encoded text features.
+
+Inference (eval mode, no `neg_idx_rows`): no negative pass, no MLM masking.
+Unique videos may be projected once (`video_feat_g`, `video_slot`) and rows
+gathered after the wide input projection (mesm.py:396-404); SS-MESM reuses
+that projection, which is value-identical to the reference's second
+projection draw in eval (mesm.py:421-426).
+
+Training (train mode, with `neg_idx_rows`, mesm.py:340-651): each row's
+video is projected with its own dropout draw, SS-MESM takes a second,
+independent draw (:416-430), the positive and negative (out-of-group text)
+passes run stacked as 2B rows with the scrambled pair factors computed per
+half (:469-528), `neg_saliency_scores` feeds the saliency loss, the rec_ss
+outputs are returned (:606-615), and the MLM branch (:617-651) masks words
+with a weighted Gumbel top-k draw from an explicit torch.Generator, or takes
+the mask it is given (`masked_words_loc`, which the parity tests fill from
+the JAX package's output, since the two frameworks draw different numbers).
 
 Module and parameter names are the upstream torch state-dict names, and
 every module the upstream model constructs for the config exists here, so
-`load_state_dict(strict=True)` takes an upstream checkpoint. The modules
-only training reads (output_txt_proj, masked_token, unknown_token, the TwoMLP
-halves) are loaded but not run.
+`load_state_dict(strict=True)` takes an upstream checkpoint.
 """
 from __future__ import annotations
 
@@ -23,11 +32,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..ops.masking import l2_normalize
+from ..ops.masking import l2_normalize, lengths_to_mask
 from .detr import Transformer, inverse_sigmoid
 from .layers import MLP, InputProj, LinearBlock, Linear
 from .position import TrainablePositionEmbedding, sine_position_embedding
-from .t2v import T2VEncoder, T2VStack
+from .t2v import T2VEncoder, T2VStack, scrambled_pair_factors
 
 
 @dataclass(frozen=True)
@@ -94,6 +103,27 @@ class SegSenRecon(nn.Module):
         return recon_feat, x
 
 
+def gumbel_mask_words_choice(words_mask: torch.Tensor, words_weight: torch.Tensor,
+                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Choose max(l // 3, 1) word positions per row, weighted, without
+    replacement, as a (B, L) bool mask (mesm_tpu/models/mesm.py:146-170).
+    The top-m of log(w) + Gumbel noise has the law of m successive weighted
+    draws without replacement (the reference's np.random.choice,
+    model/model.py:361-384). Rows with at most one word are left unmasked.
+    The noise comes from `generator` (the default generator when None)."""
+    lengths = words_mask.sum(1)
+    num_masked = torch.clamp(lengths // 3, min=1)
+    w = words_weight.float() * words_mask
+    eligible = w > 0
+    u = torch.rand(w.shape, generator=generator, device=w.device)
+    g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    scores = torch.where(eligible, torch.log(w.clamp(min=1e-30)) + g,
+                         torch.full_like(w, -float("inf")))
+    order = torch.argsort(-scores, dim=1, stable=True)
+    ranks = torch.argsort(order, dim=1)
+    return (ranks < num_masked[:, None]) & eligible & (lengths[:, None] > 1)
+
+
 class MESM(nn.Module):
     def __init__(self, cfg: MESMConfig):
         super().__init__()
@@ -151,69 +181,167 @@ class MESM(nn.Module):
         ss_sent_idx: Optional[torch.Tensor] = None,  # (B, G) row indices of the group
         ss_sent_mask: Optional[torch.Tensor] = None,  # (B, G)
         ss_own_pos: Optional[torch.Tensor] = None,  # (B,)
+        neg_idx_rows: Optional[torch.Tensor] = None,  # (B,) out-of-group rows: the negative pass
+        clip_mask: Optional[torch.Tensor] = None,  # (B, Lv) GT-span clips (MLM)
+        words_weight: Optional[torch.Tensor] = None,  # (B, Lw) (MLM)
+        unknown_mask: Optional[torch.Tensor] = None,  # (B, Lw) (MLM)
+        masked_words_loc: Optional[torch.Tensor] = None,  # (B, Lw) injected MLM mask
+        mask_generator: Optional[torch.Generator] = None,  # the MLM draw's generator
     ) -> Dict[str, torch.Tensor]:
         c = self.cfg
         B = video_mask.shape[0]
         dt = words_feat.dtype
+        words_mask = words_mask.bool()
+
+        def project_video():
+            if video_feat_g is not None:
+                return self.input_vid_proj(video_feat_g)[video_slot.long()]
+            return self.input_vid_proj(video_feat)
+
+        projed_video_feat = project_video()
         if video_feat_g is not None:
-            slot = video_slot.long()
-            projed_video_feat = self.input_vid_proj(video_feat_g)[slot]
-            vid_position = sine_position_embedding(video_mask_g, c.hidden_dim, dtype=dt)[slot]
+            vid_position = sine_position_embedding(video_mask_g, c.hidden_dim, dtype=dt)[video_slot.long()]
         else:
-            projed_video_feat = self.input_vid_proj(video_feat)
             vid_position = sine_position_embedding(video_mask, c.hidden_dim, dtype=dt)
         projed_words_feat = self.input_txt_proj(words_feat)
         txt_position = self._txt_pos(projed_words_feat)
 
         if c.rec_ss:
-            # single-video groups (charades family): the SS-recon video is the
-            # (deterministic, deduplicated) main projection
+            # single-video groups (charades family): in eval the SS-recon video
+            # is the main projection; in training a second, independent draw
+            batched_vid = project_video() if self.training else projed_video_feat
             group_sent = sentence_feat[ss_sent_idx.long()]  # (B, G, Dt)
             batched_sent = self.input_txt_proj(group_sent).to(dt)
-            recon_feat, _ = self.ss_reconstructor(
-                projed_video_feat, video_mask, batched_sent, ss_sent_mask, ss_own_pos
+            recon_feat, projed_recon_feat = self.ss_reconstructor(
+                batched_vid, video_mask, batched_sent, ss_sent_mask, ss_own_pos
             )
             expanded_words_feat = torch.cat([recon_feat[:, None].to(dt), projed_words_feat], dim=1)
             expanded_words_mask = torch.cat(
-                [torch.ones(B, 1, dtype=torch.bool, device=words_mask.device), words_mask.bool()],
-                dim=1,
+                [torch.ones(B, 1, dtype=torch.bool, device=words_mask.device), words_mask], dim=1
             )
         else:
             expanded_words_feat = projed_words_feat
-            expanded_words_mask = words_mask.bool()
+            expanded_words_mask = words_mask
         expanded_txt_position = self._txt_pos(expanded_words_feat)
 
-        if c.rec_fw:
-            enhanced_video_feat = self.enhance_encoder(
-                projed_words_feat, projed_video_feat, words_mask, txt_position, vid_position,
-                video_mask,
+        if neg_idx_rows is not None:
+            # the negative pass (mismatched text of other groups) stacked
+            # with the positive one as 2B rows; row-wise the same values as
+            # two calls, except the scrambled pair mask, whose factors are
+            # taken per half (it depends on each call's row count)
+            neg = neg_idx_rows.long()
+            neg_expanded_words_feat = expanded_words_feat[neg]
+            neg_expanded_words_mask = expanded_words_mask[neg]
+            neg_expanded_txt_position = expanded_txt_position[neg]
+            if c.rec_ss:  # the recon token is dropped for the enhance input
+                neg_words_feat = neg_expanded_words_feat[:, 1:]
+                neg_words_mask = neg_expanded_words_mask[:, 1:]
+                neg_txt_position = neg_expanded_txt_position[:, 1:]
+            else:
+                neg_words_feat = neg_expanded_words_feat
+                neg_words_mask = neg_expanded_words_mask
+                neg_txt_position = neg_expanded_txt_position
+
+            def stack(a, b):
+                return torch.cat([a, b], dim=0)
+
+            def half_factors(kmask_pos, kmask_neg):
+                fa = scrambled_pair_factors(video_mask, kmask_pos, c.nheads)
+                fb = scrambled_pair_factors(video_mask, kmask_neg, c.nheads)
+                return stack(fa[0], fb[0]), stack(fa[1], fb[1])
+
+            video2 = stack(projed_video_feat, projed_video_feat)
+            vid_position2 = stack(vid_position, vid_position)
+            if c.rec_fw:
+                enhanced2 = self.enhance_encoder(
+                    stack(projed_words_feat, neg_words_feat), video2,
+                    stack(words_mask, neg_words_mask), stack(txt_position, neg_txt_position),
+                    vid_position2, pair_factors=half_factors(words_mask, neg_words_mask),
+                )
+            else:
+                enhanced2 = video2
+            enhanced_video_feat = enhanced2[:B]
+            encoded_video_feat = self.t2v_encoder(
+                stack(expanded_words_feat, neg_expanded_words_feat), enhanced2,
+                stack(expanded_words_mask, neg_expanded_words_mask),
+                stack(expanded_txt_position, neg_expanded_txt_position), vid_position2,
+                pair_factors=half_factors(expanded_words_mask, neg_expanded_words_mask),
             )
+            n_rows, t_mask, t_pos = 2 * B, stack(video_mask, video_mask), vid_position2
         else:
-            enhanced_video_feat = projed_video_feat
-        encoded_video_feat = self.t2v_encoder(
-            expanded_words_feat, enhanced_video_feat, expanded_words_mask, expanded_txt_position,
-            vid_position, video_mask,
-        )
+            if c.rec_fw:
+                enhanced_video_feat = self.enhance_encoder(
+                    projed_words_feat, projed_video_feat, words_mask, txt_position, vid_position,
+                    video_mask,
+                )
+            else:
+                enhanced_video_feat = projed_video_feat
+            encoded_video_feat = self.t2v_encoder(
+                expanded_words_feat, enhanced_video_feat, expanded_words_mask,
+                expanded_txt_position, vid_position, video_mask,
+            )
+            n_rows, t_mask, t_pos = B, video_mask, vid_position
 
         edt = encoded_video_feat.dtype
-        global_token = self.global_rep_token.to(edt).expand(B, 1, c.hidden_dim)
-        global_token_pos = self.global_rep_pos.to(edt).expand(B, 1, c.hidden_dim)
-        hs, reference, memory, memory_global = self.transformer(
-            encoded_video_feat, video_mask, self.query_embed.weight, vid_position,
+        global_token = self.global_rep_token.to(edt).expand(n_rows, 1, c.hidden_dim)
+        global_token_pos = self.global_rep_pos.to(edt).expand(n_rows, 1, c.hidden_dim)
+        hs_all, reference_all, memory_all, memory_global_all = self.transformer(
+            encoded_video_feat, t_mask, self.query_embed.weight, t_pos,
             global_token, global_token_pos,
         )
+        hs, reference = hs_all[:, :B], reference_all[:, :B]
+        memory, memory_global = memory_all[:B], memory_global_all[:B]
         outputs_class = self.class_embed(hs)  # (#layers, B, nq, 2)
         outputs_coord = torch.sigmoid(self.span_embed(hs) + inverse_sigmoid(reference))
-        scale = 1.0 / torch.sqrt(torch.tensor(float(c.hidden_dim)))
-        saliency_scores = (
-            self.saliency_proj1(memory) * self.saliency_proj2(memory_global)[:, None]
-        ).sum(-1) * scale.to(memory.device)
+        scale = (1.0 / torch.sqrt(torch.tensor(float(c.hidden_dim)))).to(memory.device)
+
+        def saliency(mem, mem_global):
+            return (self.saliency_proj1(mem) * self.saliency_proj2(mem_global)[:, None]).sum(-1) * scale
+
         out: Dict[str, torch.Tensor] = {
             "pred_logits": outputs_class[-1],
             "pred_spans": outputs_coord[-1],
-            "saliency_scores": saliency_scores,
+            "saliency_scores": saliency(memory, memory_global),
         }
         if c.aux_loss:
             out["aux_pred_logits"] = outputs_class[:-1]
             out["aux_pred_spans"] = outputs_coord[:-1]
+        if neg_idx_rows is None:
+            return out
+
+        out["neg_saliency_scores"] = saliency(memory_all[B:], memory_global_all[B:])
+        if c.rec_ss:
+            out.update(
+                projed_video_feat=projed_video_feat,
+                recon_feat=recon_feat,
+                projed_recon_feat=projed_recon_feat,
+                expanded_words_feat=expanded_words_feat,
+                expanded_words_mask=expanded_words_mask,
+                enhanced_video_feat=enhanced_video_feat,
+                projed_words_feat=projed_words_feat,
+            )
+
+        if c.rec_fw and self.training:
+            # MLM: masked words are reconstructed from the row's GT clips
+            unk = self.input_txt_proj(self.unknown_token[None, None].to(dt))
+            unknowned_words_feat = torch.where(unknown_mask.bool()[..., None], unk, projed_words_feat)
+            # compact each row's GT clips to the front, in order
+            Lv = video_mask.shape[1]
+            order = torch.argsort((~clip_mask.bool()).to(torch.int32), dim=1, stable=True)
+            merged_clip_feat = torch.take_along_dim(projed_video_feat, order[..., None], dim=1)
+            merged_clip_position = torch.take_along_dim(vid_position, order[..., None], dim=1)
+            merged_clip_mask = lengths_to_mask(clip_mask.bool().sum(1), Lv)
+            masked_token = self.input_txt_proj(self.masked_token[None, None].to(dt))
+            if masked_words_loc is None:
+                masked_words_loc = gumbel_mask_words_choice(words_mask, words_weight, mask_generator)
+            masked_words_loc = masked_words_loc.bool()
+            masked_words_feat = torch.where(masked_words_loc[..., None], masked_token,
+                                            unknowned_words_feat)
+            recfw_out = self.enhance_encoder(
+                merged_clip_feat, masked_words_feat, merged_clip_mask, merged_clip_position,
+                txt_position, words_mask, is_mlm=True,
+            )
+            out["recfw_words_logit"] = self.output_txt_proj(recfw_out)
+            out["words_mask"] = words_mask
+            out["masked_words_loc"] = masked_words_loc
         return out

@@ -66,11 +66,13 @@ class T2VLayer(nn.Module):
                     nn.init.xavier_uniform_(p)
 
     def forward(self, src_txt, src_vid, txt_valid_mask, pos_txt=None, pos_vid=None,
-                vid_valid_mask=None, is_mlm: bool = False):
+                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None):
+        """`pair_factors` overrides the factors of (vid_valid_mask,
+        txt_valid_mask): the scramble depends on the row count of the call,
+        so the stacked [positive | negative] pass passes per-half factors."""
         q = src_vid if pos_vid is None else src_vid + pos_vid
         k = src_txt if pos_txt is None else src_txt + pos_txt
-        pair_factors = None
-        if vid_valid_mask is not None and txt_valid_mask is not None:
+        if pair_factors is None and vid_valid_mask is not None and txt_valid_mask is not None:
             pair_factors = scrambled_pair_factors(vid_valid_mask, txt_valid_mask, self.num_heads)
         attn = self.self_attn(q, k, src_txt, key_valid_mask=txt_valid_mask,
                               pair_factors=pair_factors)
@@ -97,10 +99,11 @@ class T2VStack(nn.Module):
         )
 
     def forward(self, src_txt, src_vid, txt_valid_mask, pos_txt=None, pos_vid=None,
-                vid_valid_mask=None, is_mlm: bool = False):
+                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None):
         x = src_vid
         for layer in self.layers:
-            x = layer(src_txt, x, txt_valid_mask, pos_txt, pos_vid, vid_valid_mask, is_mlm=is_mlm)
+            x = layer(src_txt, x, txt_valid_mask, pos_txt, pos_vid, vid_valid_mask,
+                      is_mlm=is_mlm, pair_factors=pair_factors)
         return x
 
 

@@ -17,6 +17,8 @@ from typing import Optional
 
 import torch
 
+from ..kernels import refuse_autograd
+
 NEG_INF = -1e9
 MAX_SMEM = 232448  # bytes a block may use on sm_90
 
@@ -53,8 +55,10 @@ def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional
 def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the packed kernel's
     numerics. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16, head_dim 32 or 64, Ev == E) or raise."""
+    kernel (bf16, head_dim 32 or 64, Ev == E) or raise. Raises for an input
+    that requires grad in grad mode (no graph)."""
     global launches
+    refuse_autograd("attention_packed", q, k, v)
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, key_valid_mask)
     for t in (q, k, v):

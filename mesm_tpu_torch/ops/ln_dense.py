@@ -14,6 +14,8 @@ import ctypes
 
 import torch
 
+from ..kernels import refuse_autograd
+
 LN_EPS = 1e-5
 THREADS = 256
 MAX_SMEM = 232448  # bytes a block may use on sm_90
@@ -59,8 +61,10 @@ def _geometry(dtype, D: int, F: int):
 def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EPS):
     """LayerNorm over the last axis of x, then Dense (weight (F, D), torch
     layout), optional ReLU. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. Raises for an input that requires grad in
+    grad mode (no graph)."""
     global launches
+    refuse_autograd("ln_dense", x, ln_weight, ln_bias, weight, bias)
     if x.device.type == "cpu":
         return ln_dense_reference(x, ln_weight, ln_bias, weight, bias, relu, eps)
     if x.dtype not in (torch.float32, torch.bfloat16):

@@ -1,7 +1,9 @@
-"""Builders: config -> vocab / eval loaders / model / text encoder.
+"""Builders: config -> vocab / loaders / model / text encoder / criterion /
+optimizer.
 
-Parity targets: mesm_tpu/runner.py:41-176, 266-420 and the reference
-runner.py (build_vocab :25, build_dataloader :44, build_model :255).
+Parity targets: mesm_tpu/runner.py:41-176, 266-455 and the reference
+runner.py (build_vocab :25, build_dataloader :44, build_model :255,
+build_criterion :309, build_optimizer :348).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ import torch
 from .data import Loader, Vocabulary, build_dataset
 from .data.collate import BatchSpec, make_collate
 from .data.datasets import VAL_SPLITS
-from .data.sampler import RowBudgetBatcher
+from .data.sampler import GroupAwareBatcher, RowBudgetBatcher
+from .losses import CriterionConfig
 from .models.mesm import MESM, MESMConfig
 from .models.text_encoder import (
     GloVeTextEncoder,
@@ -24,6 +27,7 @@ from .models.text_encoder import (
     glove_encode_text,
     post_process_precomputed_text,
 )
+from .parallel.step import build_optimizer as build_adamw
 
 
 def build_vocab(opt) -> Vocabulary:
@@ -103,6 +107,22 @@ def make_batch_spec(opt, dataset, for_eval: bool) -> BatchSpec:
         video_buckets=buckets,
         video_groups_cap=ded_cap,
     )
+
+
+def build_train_loader(opt, vocab=None):
+    """The train loader (the train half of mesm_tpu/runner.py:137-151):
+    shuffled row-budget batches, group-aware (no two chunks of one video in
+    a batch) when max_gather_size > 0; batches with one video group are
+    dropped, since the negatives come from other groups."""
+    ds = build_dataset(opt, "train", recfw=opt.rec_fw, vocab=vocab)
+    spec = make_batch_spec(opt, ds, for_eval=False)
+    batcher_cls = GroupAwareBatcher if opt.max_gather_size > 0 else RowBudgetBatcher
+    batcher = batcher_cls(ds, spec.row_capacity, shuffle=True, seed=opt.seed)
+    loader = Loader(
+        ds, batcher, make_collate(spec), num_workers=min(opt.num_workers, 4),
+        mode=getattr(opt, "loader_mode", "thread"),
+    )
+    return loader, spec
 
 
 def build_loaders(opt, vocab=None):
@@ -259,3 +279,39 @@ def device_from_opt(opt) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for, but no CUDA device is available")
     return torch.device(name)
+
+
+def build_criterion_config(opt) -> CriterionConfig:
+    return CriterionConfig(
+        span_coef=opt.loss_span_coef,
+        giou_coef=opt.loss_giou_coef,
+        label_coef=opt.loss_label_coef,
+        saliency_coef=opt.loss_saliency_coef,
+        recfw_coef=opt.loss_recfw_coef,
+        recss_coef=opt.loss_recss_coef,
+        cost_span=opt.set_cost_span,
+        cost_giou=opt.set_cost_giou,
+        cost_class=opt.set_cost_class,
+        eos_coef=opt.eos_coef,
+        rank_coef=opt.rank_coef,
+        use_triplet=opt.use_triplet,
+        saliency_margin=opt.saliency_margin,
+        multi_clip=opt.dataset_name == "qvhighlights",
+        iou_gamma=opt.iou_gamma,
+        recss_tau=opt.recss_tau,
+        rec_fw=opt.rec_fw,
+        rec_ss=opt.rec_ss,
+        aux_loss=opt.aux_loss,
+        dec_layers=opt.dec_layers,
+    )
+
+
+def build_optimizer(opt, model):
+    """AdamW + global-norm clip (reference runner.py:348-352 + train.py:70-72);
+    the clip is applied by the train step (parallel/step.py apply_update)."""
+    return build_adamw(model, lr=opt.lr, weight_decay=opt.weight_decay)
+
+
+def step_lr(base_lr: float, epoch: int, lr_drop: int, gamma: float) -> float:
+    """torch StepLR: lr * gamma^(epoch // lr_drop)."""
+    return base_lr * (gamma ** (epoch // lr_drop))

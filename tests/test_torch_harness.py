@@ -126,3 +126,53 @@ def jax_kernels(mode: str):
             yield
     finally:
         attention_pallas.fused_attention = orig
+
+
+# the training path at parity: attention and input dropout off, so the only
+# random draws are the injected negatives and MLM masks
+TRAIN = dict(SMALL, dropout=0.0, input_dropout=0.0)
+# TACoS-style variant: the TwoMLP enhance encoder (share_MLP false)
+TACOS = dict(TRAIN, share_mlp=False)
+
+
+def train_batch(seed: int = 0):
+    """small_batch with a padded last row (row_mask False) and MLM labels
+    inside the small vocabulary."""
+    batch = small_batch(seed)
+    batch["row_mask"] = np.arange(B) < B - 1
+    batch["words_label"] = batch["words_label"] % SMALL["num_classes"]
+    return batch
+
+
+def jax_train_forward(jcfg, params, batch, neg, mask_key: int = 2):
+    """The JAX package's training forward (is_training, not deterministic):
+    the stacked negative pass with `neg` and the MLM branch with masks drawn
+    from PRNGKey(mask_key)."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    return JaxMESM(jcfg).apply(
+        {"params": params}, jb["video_feat"], jb["video_mask"], jb["words_feat"],
+        jb["words_mask"], jb["sentence_feat"], jnp.asarray(neg),
+        is_training=True, deterministic=False,
+        rngs={"dropout": jax.random.PRNGKey(1), "mask_words": jax.random.PRNGKey(mask_key)},
+        clip_mask=jb["clip_mask"], words_weight=jb["words_weight"],
+        unknown_mask=jb["unknown_mask"], ss_sent_idx=jb["ss_sent_idx"],
+        ss_sent_mask=jb["ss_sent_mask"], ss_own_pos=jb["ss_own_pos"],
+    )
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+
+def torch_train_forward(tmodel, batch, neg, masked_words_loc):
+    """The port's training forward (train mode) with injected negatives and
+    MLM masks."""
+    t = torch_batch(batch)
+    tmodel.train()
+    return tmodel(
+        t["video_mask"], t["words_feat"], t["words_mask"], t["sentence_feat"],
+        video_feat=t["video_feat"], ss_sent_idx=t["ss_sent_idx"], ss_sent_mask=t["ss_sent_mask"],
+        ss_own_pos=t["ss_own_pos"], neg_idx_rows=torch.from_numpy(np.asarray(neg)),
+        clip_mask=t["clip_mask"], words_weight=t["words_weight"], unknown_mask=t["unknown_mask"],
+        masked_words_loc=torch.from_numpy(np.asarray(masked_words_loc)),
+    )

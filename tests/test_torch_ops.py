@@ -89,11 +89,13 @@ def test_masking_ops():
 @pytest.mark.parametrize("mode", ["off", "on"])
 def test_input_proj_and_linear_block(pair, mode):
     """InputProj (two LinearBlocks, LayerNorm on the raw input, ReLU flags);
-    under "on" both sides take the fused LayerNorm -> Dense path."""
+    under "on" both sides take the fused LayerNorm -> Dense path. The port
+    runs as its eval step does, under no_grad: the kernel wrapper refuses
+    parameters that need a gradient in grad mode."""
     jcfg, params, tmodel, _ = pair
     rng = np.random.default_rng(2)
     x = rng.normal(size=(3, 11, SMALL["v_feat_dim"])).astype(np.float32) * 3 + 1
-    with jax_kernels(mode), tkernels.pallas_scope(mode):
+    with jax_kernels(mode), tkernels.pallas_scope(mode), torch.no_grad():
         want = jlayers.InputProj(SMALL["hidden_dim"], 2, 0.5).apply(
             {"params": params["input_vid_proj"]}, jnp.asarray(x), deterministic=True
         )

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from mesm_tpu_torch.ops import attention_batched as ab
 from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import ln_dense as ld
 
@@ -112,6 +113,46 @@ def test_wrappers_run_plain_version_on_cpu_without_counting():
         rtol=0, atol=0,
     )
     assert (ld.launches, ap.launches) == before
+
+
+def test_train_without_device_cpu_raises(tmp_path):
+    """The train entry point too: no GPU and no --device cpu raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks a host without a GPU")
+    from mesm_tpu_torch.train import train
+
+    from synth_root import make_charades_root
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train(["--config_file", make_charades_root(str(tmp_path))])
+
+
+def test_new_modules_are_covered():
+    """The training slice's modules are among the sources checked above."""
+    names = {str(p.relative_to(REPO)) for p in _port_sources()}
+    for rel in ("ops/attention_batched.py", "ops/attention_trainable.py", "ops/matcher.py",
+                "losses/criterion.py", "train.py", "utils/checkpoint.py", "utils/meters.py"):
+        assert f"mesm_tpu_torch/{rel}" in names, rel
+
+
+def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
+    before = ab.launches
+    q, k, v = _attn_args()
+    mask = torch.ones(2, 9, dtype=torch.bool)
+    torch.testing.assert_close(
+        ab.attention_batched(q, k, v, 2, mask), ab.attention_batched_reference(q, k, v, 2, mask),
+        rtol=0, atol=0,
+    )
+    with pytest.raises(TypeError):
+        ab.attention_batched(*_attn_args(torch.bfloat16, "meta"), 2)  # the kernel is fp32
+    with pytest.raises(ValueError, match="head_dim"):
+        ab.attention_batched(*_attn_args(torch.float32, "meta"), 4)  # head_dim 16
+    q, k, v = _attn_args(torch.float32, "meta")
+    with pytest.raises(ValueError, match="shapes"):
+        ab.attention_batched(q, k, v[..., :32].contiguous(), 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ab.attention_batched(q, k, v, 2)
+    assert ab.launches == before
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
