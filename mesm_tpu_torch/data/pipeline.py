@@ -168,7 +168,9 @@ def stage_batch(batch, cast_bf16: bool, device) -> Dict[str, torch.Tensor]:
     """Host batch -> device tensors. float32 fields of ndim >= 3 (the video
     and cached word features) are cast to bf16 on the host first when
     `cast_bf16`; every other field keeps its dtype. CUDA copies go through
-    pinned memory and are issued non-blocking on the current stream."""
+    pinned memory and are issued non-blocking on the current stream. A
+    multi-clip (QVHighlights) batch's per-group SS video is expanded to its
+    rows on the device by `ss_group_slot` (mesm_tpu/data/pipeline.py:179-182)."""
     device = torch.device(device)
     pin = device.type == "cuda"
     jb = {}
@@ -180,6 +182,10 @@ def stage_batch(batch, cast_bf16: bool, device) -> Dict[str, torch.Tensor]:
         if pin:
             t = t.pin_memory().to(device, non_blocking=True)
         jb[k] = t
+    if "ss_video_feat_groups" in jb:
+        slot = jb.pop("ss_group_slot").long()
+        jb["ss_video_feat"] = jb.pop("ss_video_feat_groups")[slot]
+        jb["ss_video_mask"] = jb.pop("ss_video_mask_groups")[slot]
     return jb
 
 

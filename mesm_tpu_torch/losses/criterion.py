@@ -10,8 +10,10 @@ the weighted CE divides by the element count, the rank-contrastive loop over
 thresholds 1..11 averages over the whole batch, the +1e-6 inside the InfoNCE
 log-denominators, label smoothing 0.1 over the MLM classes.
 
-Only the single-target regime is ported; the multi-clip (qvhighlights)
-branches raise until the qvhighlights slice brings the Hungarian matcher.
+Both regimes are ported: single-target (one moment per row, matched by the
+cost argmin) and multi-clip (QVHighlights: up to max_windows moments per
+row, `tgt_mask` marking the real ones, matched by the Hungarian solver;
+mesm_tpu/losses/criterion.py:87-99, 172-178, 228-250, 265-277).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.masking import l2_normalize
-from ..ops.matcher import single_target_match
+from ..ops.matcher import hungarian_match, single_target_match
 from ..ops.span import generalized_temporal_iou, pairwise_generalized_temporal_iou, span_cxw_to_xx
 
 
@@ -50,13 +52,6 @@ class CriterionConfig:
     dec_layers: int = 2
 
 
-def _multi_clip_not_ported():
-    return NotImplementedError(
-        "multi-clip (qvhighlights) losses need the Hungarian matcher, which comes with the "
-        "qvhighlights slice of the port"
-    )
-
-
 def _row_mask(batch, like: torch.Tensor) -> torch.Tensor:
     rm = batch.get("row_mask")
     if rm is None:
@@ -74,10 +69,30 @@ def _span_losses_single(pred_spans, src_idx, tgt_span, tgt_moment, rm):
     return loss_span, loss_giou
 
 
-def _label_loss(pred_logits, src_idx, eos_coef, rm):
-    """2-class CE with background weight eos_coef; foreground is class 0."""
+def _span_losses_multi(pred_spans, src_idx, tgt_spans, tgt_moments, tgt_mask, rm):
+    """Several targets per sample, matched queries src_idx (B, T)."""
+    src = torch.take_along_dim(pred_spans, src_idx[..., None], dim=1)  # (B, T, 2)
+    tm = tgt_mask.bool()
+    m = tm.float() * rm[:, None]
+    n = m.sum().clamp(min=1.0)
+    loss_span = ((src - tgt_spans).abs().sum(-1) * m).sum() / (n * 2.0)
+    # padded targets are (0, 0): a benign span keeps a degenerate prediction
+    # from a 0/0 gIoU that would poison the masked sum
+    safe = torch.where(tm[..., None], tgt_moments, torch.tensor([0.0, 1.0], device=tgt_moments.device))
+    giou = pairwise_generalized_temporal_iou(span_cxw_to_xx(src), safe)
+    loss_giou = ((1.0 - giou) * m).sum() / n
+    return loss_span, loss_giou
+
+
+def _label_loss(pred_logits, src_idx, tgt_mask, eos_coef, rm):
+    """2-class CE with background weight eos_coef; foreground is class 0.
+    src_idx (B,) for one target, (B, T) with tgt_mask for several."""
     B, nq, _ = pred_logits.shape
-    fg = F.one_hot(src_idx, nq).float()
+    if src_idx.ndim == 1:
+        fg = F.one_hot(src_idx, nq).float()
+    else:
+        oh = F.one_hot(src_idx, nq).float()  # (B, T, nq)
+        fg = (oh * tgt_mask.float()[..., None]).sum(1).clamp(max=1.0)
     logp = torch.log_softmax(pred_logits, dim=-1)
     nll = -(fg * logp[..., 0] + (1.0 - fg) * logp[..., 1])
     w = fg + (1.0 - fg) * eos_coef
@@ -137,10 +152,16 @@ def _saliency_loss(outputs, batch, cfg: CriterionConfig, rm):
 def _rec_ss_loss(outputs, batch, cfg: CriterionConfig, rm):
     """Segment-sentence InfoNCE over the batch, positives = same-group pairs
     whose moments have gIoU >= gamma (reference criterion.py:223-274)."""
-    if cfg.multi_clip:
-        raise _multi_clip_not_ported()
     group_id = batch["group_id"]
-    moment = batch["norm_moment"]  # (B, 2)
+    if cfg.multi_clip:  # the span that covers every target of the row
+        tgt_mask = batch["tgt_mask"].bool()[..., None]
+        moments = batch["norm_moment"]  # (B, T, 2)
+        big = 1e9
+        mmin = torch.where(tgt_mask, moments, torch.full_like(moments, big)).amin(dim=(1, 2))
+        mmax = torch.where(tgt_mask, moments, torch.full_like(moments, -big)).amax(dim=(1, 2))
+        moment = torch.stack([mmin, mmax], dim=-1)  # (B, 2)
+    else:
+        moment = batch["norm_moment"]  # (B, 2)
     valid_pair = (rm[:, None] * rm[None, :]) > 0
     same_group = (group_id[:, None] == group_id[None, :]) & valid_pair
     giou = generalized_temporal_iou(moment, moment)
@@ -188,21 +209,29 @@ def compute_losses(
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Returns (loss_dict, total). loss_dict values are unweighted, as the
     reference logs them; total is the sum of the weighted terms."""
-    if cfg.multi_clip:
-        raise _multi_clip_not_ported()
     losses: Dict[str, torch.Tensor] = {}
     weights: Dict[str, float] = {}
     rm = _row_mask(batch, outputs["pred_logits"])
 
     def span_label_losses(pred_logits, pred_spans, suffix=""):
-        src_idx = single_target_match(
-            pred_logits, pred_spans, batch["norm_span"], batch["norm_moment"],
-            cfg.cost_span, cfg.cost_giou, cfg.cost_class,
-        )
-        l_span, l_giou = _span_losses_single(
-            pred_spans, src_idx, batch["norm_span"], batch["norm_moment"], rm
-        )
-        l_label, class_err = _label_loss(pred_logits, src_idx, cfg.eos_coef, rm)
+        if cfg.multi_clip:
+            src_idx = hungarian_match(
+                pred_logits, pred_spans, batch["norm_span"], batch["norm_moment"],
+                batch["tgt_mask"], cfg.cost_span, cfg.cost_giou, cfg.cost_class,
+            )
+            l_span, l_giou = _span_losses_multi(
+                pred_spans, src_idx, batch["norm_span"], batch["norm_moment"], batch["tgt_mask"], rm
+            )
+            l_label, class_err = _label_loss(pred_logits, src_idx, batch["tgt_mask"], cfg.eos_coef, rm)
+        else:
+            src_idx = single_target_match(
+                pred_logits, pred_spans, batch["norm_span"], batch["norm_moment"],
+                cfg.cost_span, cfg.cost_giou, cfg.cost_class,
+            )
+            l_span, l_giou = _span_losses_single(
+                pred_spans, src_idx, batch["norm_span"], batch["norm_moment"], rm
+            )
+            l_label, class_err = _label_loss(pred_logits, src_idx, None, cfg.eos_coef, rm)
         losses["loss_span" + suffix] = l_span
         losses["loss_giou" + suffix] = l_giou
         losses["loss_label" + suffix] = l_label

@@ -4,16 +4,17 @@ projection styles.
 Parity target: mesm_tpu/models/attention.py. `attention_core` is the plain
 path at every site that is not a kernel: scaled QK^T, finite -1e9 masking,
 the factored pair mask, the split (content | positional) logits of the DAB
-decoder, and a softmax in f32. `dispatch_attention_core` routes the
-long-sequence self-attention (the DETR encoder) to the attention kernels
-where mesm_tpu_torch.kernels says so: the bf16 packed kernel
-(ops/attention_packed.py) or the fp32 batched kernel
-(ops/attention_batched.py), directly in eval and through the trainable
-autograd.Function (ops/attention_trainable.py) in training.
+decoder, and a softmax in f32. `dispatch_attention_core` takes the JAX
+package's routing (mesm_tpu/models/attention.py:322-375, decided by
+mesm_tpu_torch.kernels.attention_kernel): the bf16 packed kernel, its
+pair-masked entry point (ops/attention_packed.py), the packed short-key and
+the one-matmul short-key kernels (ops/attention_shortkey.py) or the fp32
+batched kernel (ops/attention_batched.py), directly in eval and through the
+trainable autograd.Function (ops/attention_trainable.py) in training.
 
-The JAX package's short-key and short-query reformulations
-(attention.py:114-293) are TPU layout rewrites of the same values with no
-Pallas kernel on the default path; here their sites take attention_core.
+The JAX package's "segmm"/"reshape" short-key and its short-query
+reformulations (attention.py:114-293) are TPU layout rewrites of the same
+values with no Pallas kernel; here their sites take attention_core.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..ops.attention_shortkey import attention_shortkey_onematmul
 from ..ops.attention_trainable import attention_trainable, fused_attention
 from .layers import Linear
 
@@ -80,22 +82,26 @@ def attention_core(
 
 def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_factors=None,
                             split_qk=None, dropout_rate: float = 0.0, training: bool = False):
-    """mesm_tpu/models/attention.py:322-375. Where
-    mesm_tpu_torch.kernels.attention_kernel says so and the call has no
-    split_qk, pair mask or active dropout (the kernels take none of them):
-    in eval the kernel itself, in training (dropout 0) the trainable
-    Function, whose backward is attention_core's. attention_core everywhere
-    else."""
+    """mesm_tpu/models/attention.py:322-375. A call with split_qk or active
+    dropout takes attention_core (no tier takes them). Otherwise
+    mesm_tpu_torch.kernels.attention_kernel decides: a Pallas-tier kernel
+    runs as itself in eval (fused_attention) and as the trainable Function's
+    forward in training, whose backward is attention_core's; the short-key
+    tier's "kernel" variant (eval only) launches the one-matmul short-key
+    kernel; everything else is attention_core."""
     dropout_active = training and dropout_rate > 0.0
-    if (
-        split_qk is None
-        and pair_factors is None
-        and not dropout_active
-        and kernels.attention_kernel(q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device)
-    ):
+    route = None
+    if split_qk is None and not dropout_active:
+        route = kernels.attention_kernel(
+            q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device,
+            pair=pair_factors is not None, training=training,
+        )
+    if route == "shortkey_onematmul":
+        return attention_shortkey_onematmul(q, k, v, num_heads, key_valid_mask, pair_factors)
+    if route is not None:
         if training:
-            return attention_trainable(q, k, v, num_heads, key_valid_mask)
-        return fused_attention(q, k, v, num_heads, key_valid_mask)
+            return attention_trainable(q, k, v, num_heads, key_valid_mask, pair_factors)
+        return fused_attention(q, k, v, num_heads, key_valid_mask, pair_factors)
     return attention_core(
         q, k, v, num_heads, key_valid_mask=key_valid_mask, pair_factors=pair_factors,
         split_qk=split_qk, dropout_rate=dropout_rate, training=training,

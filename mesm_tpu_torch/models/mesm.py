@@ -10,6 +10,11 @@ gathered after the wide input projection (mesm.py:396-404); SS-MESM reuses
 that projection, which is value-identical to the reference's second
 projection draw in eval (mesm.py:421-426).
 
+Multi-clip (QVHighlights) rows carry their group's concatenated clips as
+`ss_video_feat` / `ss_video_mask` (data/pipeline.stage_batch expands them
+per row): SS-MESM then reconstructs the sentence from that video, projected
+on its own (mesm.py:431-436), in eval and in training.
+
 Training (train mode, with `neg_idx_rows`, mesm.py:340-651): each row's
 video is projected with its own dropout draw, SS-MESM takes a second,
 independent draw (:416-430), the positive and negative (out-of-group text)
@@ -181,6 +186,8 @@ class MESM(nn.Module):
         ss_sent_idx: Optional[torch.Tensor] = None,  # (B, G) row indices of the group
         ss_sent_mask: Optional[torch.Tensor] = None,  # (B, G)
         ss_own_pos: Optional[torch.Tensor] = None,  # (B,)
+        ss_video_feat: Optional[torch.Tensor] = None,  # (B, Lss, Dv) qvh group video
+        ss_video_mask: Optional[torch.Tensor] = None,  # (B, Lss)
         neg_idx_rows: Optional[torch.Tensor] = None,  # (B,) out-of-group rows: the negative pass
         clip_mask: Optional[torch.Tensor] = None,  # (B, Lv) GT-span clips (MLM)
         words_weight: Optional[torch.Tensor] = None,  # (B, Lw) (MLM)
@@ -207,13 +214,19 @@ class MESM(nn.Module):
         txt_position = self._txt_pos(projed_words_feat)
 
         if c.rec_ss:
-            # single-video groups (charades family): in eval the SS-recon video
-            # is the main projection; in training a second, independent draw
-            batched_vid = project_video() if self.training else projed_video_feat
+            if ss_video_feat is None:
+                # single-video groups (charades family): in eval the SS-recon
+                # video is the main projection; in training a second,
+                # independent draw
+                batched_vid = project_video() if self.training else projed_video_feat
+                batched_vid_mask = video_mask
+            else:  # qvhighlights: the group's concatenated clips
+                batched_vid = self.input_vid_proj(ss_video_feat)
+                batched_vid_mask = ss_video_mask
             group_sent = sentence_feat[ss_sent_idx.long()]  # (B, G, Dt)
             batched_sent = self.input_txt_proj(group_sent).to(dt)
             recon_feat, projed_recon_feat = self.ss_reconstructor(
-                batched_vid, video_mask, batched_sent, ss_sent_mask, ss_own_pos
+                batched_vid, batched_vid_mask, batched_sent, ss_sent_mask, ss_own_pos
             )
             expanded_words_feat = torch.cat([recon_feat[:, None].to(dt), projed_words_feat], dim=1)
             expanded_words_mask = torch.cat(

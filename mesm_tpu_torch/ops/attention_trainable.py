@@ -3,14 +3,13 @@ forward and a recomputed plain backward.
 
 Port of mesm_tpu/ops/attention_pallas.py::fused_attention_trainable
 (`_fat_fwd`, `_fat_bwd`, :571-614). The forward is what `fused_attention`
-(:617-675) runs for a dropout-free call: the bf16 packed kernel
-(ops/attention_packed.py) or the fp32 batched kernel
-(ops/attention_batched.py), and models/attention.attention_core where the
-JAX function itself takes its plain core (a side shorter than 64, pair
-factors on the fp32 variant) or where its kernel is not ported yet (on the
-bf16 variant, pair factors or a key side shorter than 64: kernels 3 and 4
-of the port's table). Only q, k, v, the key mask and the pair factors are
-kept for the backward, never the (B, H, Lq, Lk) probabilities. The backward recomputes attention_core (f32
+(:617-675) runs for a dropout-free call: the kernel that
+kernels.fused_route picks for the operands (bf16: the packed kernel, its
+pair-masked entry point or the short-key kernel; fp32: the batched kernel),
+and models/attention.attention_core where the JAX function itself takes its
+plain core (a side too short, pair factors on the fp32 variant). Only q, k,
+v, the key mask and the pair factors are kept for the backward, never the
+(B, H, Lq, Lk) probabilities. The backward recomputes attention_core (f32
 softmax, not the kernel's numerics, as `_fat_bwd` does) on detached inputs
 and differentiates it with torch.autograd.grad. The JAX package has no
 Pallas backward here (its backward is XLA's VJP of the plain core), so the
@@ -25,32 +24,29 @@ import torch
 
 from .. import kernels
 from .attention_batched import attention_batched
-from .attention_packed import attention_packed
+from .attention_packed import attention_packed, attention_packed_pair
+from .attention_shortkey import attention_shortkey
 
 # forward passes that launched a kernel since import (or since the caller
 # last set it to 0); the kernel's own wrapper counts the launch as well
 launches = 0
 
 
-def _kernel_route(q, k, pair_factors) -> Optional[str]:
-    """The kernel `fused_attention` would launch for these operands, or None
-    where it computes attention_core."""
-    if min(q.shape[1], k.shape[1]) < kernels.MIN_FUSED_LEN or pair_factors is not None:
-        return None
-    if q.dtype == torch.bfloat16:
-        return "packed"
-    if q.dtype == torch.float32:
-        return "batched"
-    return None
+def _route(q, k, pair_factors) -> Optional[str]:
+    return kernels.fused_route(q.shape[1], k.shape[1], q.dtype, pair_factors is not None)
 
 
 def fused_attention(q, k, v, num_heads: int, key_valid_mask=None,
                     pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """The dropout-free attention of attention_pallas.fused_attention: the
-    kernel of the operands' dtype, or attention_core where there is none."""
-    route = _kernel_route(q, k, pair_factors)
+    kernel kernels.fused_route picks, or attention_core where there is none."""
+    route = _route(q, k, pair_factors)
     if route == "packed":
         return attention_packed(q, k, v, num_heads, key_valid_mask)
+    if route == "packed_pair":
+        return attention_packed_pair(q, k, v, num_heads, key_valid_mask, pair_factors)
+    if route == "shortkey":
+        return attention_shortkey(q, k, v, num_heads, key_valid_mask, pair_factors)
     if route == "batched":
         return attention_batched(q, k, v, num_heads, key_valid_mask)
     from ..models.attention import attention_core
@@ -65,7 +61,7 @@ class _AttentionTrainable(torch.autograd.Function):
         global launches
         pair = None if qf is None else (qf, kf)
         out = fused_attention(q, k, v, num_heads, key_valid_mask, pair)
-        if q.device.type == "cuda" and _kernel_route(q, k, pair) is not None:
+        if q.device.type == "cuda" and _route(q, k, pair) is not None:
             launches += 1
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, v, key_valid_mask, qf, kf)

@@ -1,18 +1,21 @@
 """DETR-style set matching for moment retrieval, on the device.
 
-Parity target: mesm_tpu/ops/matcher.py:24-64 and the reference
+Parity target: mesm_tpu/ops/matcher.py and the reference
 model/matcher.py (HungarianMatcher). Cost = cost_span * L1(cxw)
 + cost_giou * (-gIoU(xx)) + cost_class * (-P(fg)), foreground is class 0.
 
-Only the single-target regime (charades, TACoS, charades-cg/cd) is ported:
-every sample has one target, so the per-sample assignment is the cost
-argmin over queries. The multi-target Hungarian solver of qvhighlights
-(mesm_tpu/ops/lsap.py, `hungarian_match`) waits for the qvhighlights slice.
+Two regimes:
+  - single-target (charades, TACoS, charades-cg/cd): every sample has one
+    target, so the per-sample assignment is the cost argmin over queries;
+  - multi-target (QVHighlights): a per-sample assignment of up to
+    max_windows targets to the queries, solved on the device by the batched
+    Hungarian solver (ops/lsap.py) instead of a .cpu() round trip.
 """
 from __future__ import annotations
 
 import torch
 
+from .lsap import solve_lsap_batch
 from .span import generalized_temporal_iou, span_cxw_to_xx
 
 
@@ -50,3 +53,27 @@ def single_target_match(
         cost_span, cost_giou, cost_class,
     )[..., 0]
     return torch.argmin(cost, dim=-1)
+
+
+@torch.no_grad()
+def hungarian_match(
+    pred_logits: torch.Tensor,
+    pred_spans: torch.Tensor,
+    tgt_spans: torch.Tensor,  # (B, T, 2) cxw, padded
+    tgt_moments: torch.Tensor,  # (B, T, 2) xx, padded
+    tgt_mask: torch.Tensor,  # (B, T) bool
+    cost_span: float = 10.0,
+    cost_giou: float = 1.0,
+    cost_class: float = 4.0,
+) -> torch.Tensor:
+    """Multi-target optimal assignment (mesm_tpu/ops/matcher.py:66-89): the
+    query matched to each target, (B, T) int64, meaningful only where
+    tgt_mask. Equals scipy's assignment on the unpadded per-sample costs."""
+    tgt_mask = tgt_mask.bool()
+    cost = _pair_cost(
+        pred_logits, pred_spans, tgt_spans, tgt_moments, cost_span, cost_giou, cost_class
+    )  # (B, nq, T)
+    # padded targets may carry degenerate spans: keep the cost finite (the
+    # solver overwrites those rows anyway)
+    cost = torch.where(tgt_mask[:, None, :], cost, torch.zeros_like(cost))
+    return solve_lsap_batch(cost.transpose(1, 2), tgt_mask)  # rows = targets

@@ -5,7 +5,10 @@ host decodes).
 Parity target: mesm_tpu/parallel/step.py: the train step of :33-187 at
 grad_accum = 1, and make_eval_step (:233-320) at coalesce=1 and
 with_loss=False (no negative pass, deterministic). PyTorch runs eagerly, so
-each step is a plain function over one staged batch.
+each step is a plain function over one staged batch. Multi-clip
+(QVHighlights) batches pass their rows' SS video (`ss_video_feat`,
+`ss_video_mask`, expanded by data/pipeline.stage_batch) to the model, as
+_model_kwargs does (:81-104).
 
 Optimizer parity: optax.chain(clip_by_global_norm(grad_clip), adamw(lr,
 b1=0.9, b2=0.999, eps=1e-8, weight_decay)) (reference runner.py:348-352,
@@ -100,6 +103,10 @@ def step_draws(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Gen
     return neg, mask
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
                      compute_dtype: torch.dtype = torch.float32):
     """micro_grads(batch, neg_generator, mask_generator, neg_idx_rows=None,
@@ -114,12 +121,13 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
         words_feat, words_mask, sentence_feat = encode_text(batch)
         if neg_idx_rows is None:
             neg_idx_rows = sample_out_of_group(neg_generator, batch["group_id"], batch.get("row_mask"))
-        video_feat = batch.get("video_feat")
         out = model(
             batch["video_mask"], words_feat.to(compute_dtype), words_mask, sentence_feat,
-            video_feat=None if video_feat is None else video_feat.to(compute_dtype),
+            video_feat=_cast(batch.get("video_feat"), compute_dtype),
             ss_sent_idx=batch.get("ss_sent_idx"), ss_sent_mask=batch.get("ss_sent_mask"),
-            ss_own_pos=batch.get("ss_own_pos"), neg_idx_rows=neg_idx_rows,
+            ss_own_pos=batch.get("ss_own_pos"),
+            ss_video_feat=_cast(batch.get("ss_video_feat"), compute_dtype),
+            ss_video_mask=batch.get("ss_video_mask"), neg_idx_rows=neg_idx_rows,
             clip_mask=batch.get("clip_mask"), words_weight=batch.get("words_weight"),
             unknown_mask=batch.get("unknown_mask"), masked_words_loc=masked_words_loc,
             mask_generator=mask_generator,
@@ -160,23 +168,21 @@ def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype):
     @torch.no_grad()
     def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.eval()
-        if "ss_video_feat_groups" in batch:
-            raise NotImplementedError("multi-clip (qvhighlights) eval is not ported yet")
         words_feat, words_mask, sentence_feat = encode_text(batch)
-        video_feat = batch.get("video_feat")
-        video_feat_g = batch.get("video_feat_g")
         out = model(
             batch["video_mask"],
             words_feat.to(compute_dtype),
             words_mask,
             sentence_feat,
-            video_feat=None if video_feat is None else video_feat.to(compute_dtype),
-            video_feat_g=None if video_feat_g is None else video_feat_g.to(compute_dtype),
+            video_feat=_cast(batch.get("video_feat"), compute_dtype),
+            video_feat_g=_cast(batch.get("video_feat_g"), compute_dtype),
             video_mask_g=batch.get("video_mask_g"),
             video_slot=batch.get("video_slot"),
             ss_sent_idx=batch.get("ss_sent_idx"),
             ss_sent_mask=batch.get("ss_sent_mask"),
             ss_own_pos=batch.get("ss_own_pos"),
+            ss_video_feat=_cast(batch.get("ss_video_feat"), compute_dtype),
+            ss_video_mask=batch.get("ss_video_mask"),
         )
         prob = torch.softmax(out["pred_logits"], dim=-1)
         sal = out["saliency_scores"]

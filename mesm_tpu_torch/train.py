@@ -14,9 +14,13 @@ finishes the step in flight, saves model_latest.ckpt with the last completed
 epoch and returns. Checkpoints are in the upstream torch layout
 (utils/checkpoint.py), so `python -m mesm_tpu_torch.evaluate` scores them.
 
-Runs on CUDA unless --device cpu; cuda without a GPU raises. Left for later
-slices: grad_accum > 1, bf16 training, multi-clip (qvhighlights) training,
-and the eval loss the JAX trainer logs beside the metrics.
+Every config family trains: the single-target ones (charades, TACoS) and
+QVHighlights, whose multi-clip batches carry each row's SS-MESM group video
+(expanded by data/pipeline.stage_batch, as mesm_tpu/train.py:102-104 does)
+and are matched by the batched Hungarian solver. Runs on CUDA unless
+--device cpu; cuda without a GPU raises. Left for later slices:
+grad_accum > 1, bf16 training, and the eval loss the JAX trainer logs
+beside the metrics.
 """
 from __future__ import annotations
 

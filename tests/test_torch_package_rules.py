@@ -14,6 +14,7 @@ import torch
 
 from mesm_tpu_torch.ops import attention_batched as ab
 from mesm_tpu_torch.ops import attention_packed as ap
+from mesm_tpu_torch.ops import attention_shortkey as sk
 from mesm_tpu_torch.ops import ln_dense as ld
 
 REPO = Path(__file__).resolve().parents[1]
@@ -131,8 +132,91 @@ def test_new_modules_are_covered():
     """The training slice's modules are among the sources checked above."""
     names = {str(p.relative_to(REPO)) for p in _port_sources()}
     for rel in ("ops/attention_batched.py", "ops/attention_trainable.py", "ops/matcher.py",
-                "losses/criterion.py", "train.py", "utils/checkpoint.py", "utils/meters.py"):
+                "losses/criterion.py", "train.py", "utils/checkpoint.py", "utils/meters.py",
+                "ops/attention_shortkey.py", "ops/lsap.py", "models/attention.py",
+                "kernels/__init__.py", "data/pipeline.py"):
         assert f"mesm_tpu_torch/{rel}" in names, rel
+    sources = {p.name for p in _cuda_sources()}
+    assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
+            "attention_shortkey.cu"} <= sources
+
+
+# the headers a kernel source may include: the CUDA toolkit's and C's own
+CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "mma.h", "math.h", "stdint.h"}
+
+
+def _cuda_sources():
+    return sorted((REPO / "mesm_tpu_torch" / "kernels" / "csrc").glob("*.cu"))
+
+
+@pytest.mark.parametrize("path", _cuda_sources(), ids=lambda p: p.name)
+def test_cuda_sources_include_only_toolkit_headers(path):
+    """A kernel source builds from the CUDA toolkit alone: it includes no
+    header of the JAX package, of PyTorch or of a package of finished
+    kernels, and names neither the JAX package nor JAX."""
+    text = path.read_text()
+    includes = [line.split("#include", 1)[1].strip().strip("<>\"")
+                for line in text.splitlines() if line.strip().startswith("#include")]
+    assert includes and set(includes) <= CUDA_HEADERS, includes
+    assert "jax" not in text.replace("mesm_tpu/", "").lower(), "names jax outside a file:line"
+
+
+def _kernel_wrapper_modules():
+    """The ops modules that load a CUDA library (the ctypes kernel wrappers)."""
+    return [p for p in sorted((REPO / "mesm_tpu_torch" / "ops").glob("*.py"))
+            if "kernels.build import load" in p.read_text()]
+
+
+@pytest.mark.parametrize("path", _kernel_wrapper_modules(), ids=lambda p: p.name)
+def test_kernel_wrappers_take_the_plain_version_only_for_cpu_tensors(path):
+    """In a kernel wrapper module, no function catches an error (no fallback
+    after a failed launch), and a wrapper calls a plain version
+    (`*_reference`) only under a test on the CPU device: on CUDA tensors it
+    launches its kernel or raises."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], "a try block"
+    bad = []
+    for fn in (n for n in tree.body if isinstance(n, ast.FunctionDef)):
+        if fn.name.endswith("_reference"):
+            continue
+
+        def visit(node, under_cpu: bool):
+            if isinstance(node, ast.If) and "'cpu'" in ast.unparse(node.test):
+                for child in node.body:
+                    visit(child, True)
+                for child in node.orelse:
+                    visit(child, under_cpu)
+                return
+            if isinstance(node, ast.Call):
+                name = ast.unparse(node.func)
+                if name.endswith("_reference") and not under_cpu:
+                    bad.append(f"{fn.name} calls {name}")
+            for child in ast.iter_child_nodes(node):
+                visit(child, under_cpu)
+
+        for stmt in fn.body:
+            visit(stmt, False)
+    assert not bad, bad
+
+
+def test_short_key_wrappers_run_plain_versions_on_cpu_without_counting():
+    before = (sk.launches, sk.onematmul_launches, ap.pair_launches)
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 70, 64, generator=g)
+    k, v = torch.randn(2, 2, 17, 64, generator=g)
+    mask = torch.ones(2, 17, dtype=torch.bool)
+    pair = (torch.rand(2, 2, 70, generator=g) < 0.5, torch.rand(2, 2, 17, generator=g) < 0.5)
+    torch.testing.assert_close(sk.attention_shortkey(q, k, v, 2, mask, pair),
+                               sk.attention_shortkey_reference(q, k, v, 2, mask, pair),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(sk.attention_shortkey_onematmul(q, k, v, 2, mask, pair),
+                               sk.attention_shortkey_onematmul_reference(q, k, v, 2, mask, pair),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(ap.attention_packed_pair(q, q, q, 2, None, (pair[0], pair[0])),
+                               ap.attention_packed_pair_reference(q, q, q, 2, None,
+                                                                  (pair[0], pair[0])),
+                               rtol=0, atol=0)
+    assert (sk.launches, sk.onematmul_launches, ap.pair_launches) == before
 
 
 def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():

@@ -349,8 +349,25 @@ def test_bf16_trainable_route_in_the_model_keeps_gradients():
 
 
 def test_multi_clip_losses_wait_for_the_qvh_slice(family):
-    _, _, _, _, batch, _, jout = family
-    cfg = dataclasses.replace(CriterionConfig(), multi_clip=True)
-    with pytest.raises(NotImplementedError, match="qvhighlights"):
-        compute_losses({k: torch.from_numpy(np.asarray(v)) for k, v in jout.items()},
-                       torch_batch(batch), cfg)
+    """The multi-clip criterion (ported with the QVHighlights slice) on the
+    family's batch with each row's one target as a one-window multi-clip
+    target: every term equals the JAX package's multi-clip terms, and the
+    Hungarian-matched span, gIoU and label terms equal the single-target
+    terms (a one-row assignment is the cost argmin)."""
+    name, _, _, _, batch, _, jout = family
+    multi = dict(batch, norm_span=batch["norm_span"][:, None], norm_moment=batch["norm_moment"][:, None],
+                 tgt_mask=np.ones((len(batch["group_id"]), 1), bool))
+    kw = dict(CRITERIA[name], multi_clip=True)
+    want, want_total = jax_compute_losses(
+        {k: jnp.asarray(v) for k, v in jout.items()}, {k: jnp.asarray(v) for k, v in multi.items()},
+        JaxCriterionConfig(**kw), is_training=True,
+    )
+    outputs = {k: torch.from_numpy(np.asarray(v)) for k, v in jout.items()}
+    got, got_total = compute_losses(outputs, torch_batch(multi), CriterionConfig(**kw))
+    assert set(got) == set(want)
+    for key in want:
+        assert _err(_np(got[key]), want[key]) <= TOL, key
+    assert _err(_np(got_total), want_total) <= TOL
+    single, _ = compute_losses(outputs, torch_batch(batch), CriterionConfig(**CRITERIA[name]))
+    for key in ("loss_span", "loss_giou", "loss_label", "loss_span_0", "loss_rec_ss"):
+        assert _err(_np(got[key]), _np(single[key])) <= TOL, key
