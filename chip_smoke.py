@@ -14,9 +14,12 @@ charades model with 64-80-word queries (the pair-masked kernel), the
 kernel-engaged TACoS fp32 train step (attention dropout 0) with the
 kernels on and off, the charades C+SF_C fp32 train step as shipped,
 `python -m mesm_tpu_torch.train` on a synthetic root whose checkpoint the
-evaluate entry point then scores, and the QVHighlights fp32 train step and
-both entry points on a synthetic QVHighlights root, and checks that each
-path went through its kernels. Each phase prints one JSON line; the line
+evaluate entry point then scores, the QVHighlights fp32 train step and
+both entry points on a synthetic QVHighlights root, the charades bf16 and
+TACoS fp32 eval steps (and the evaluate entry point) with the fused int8
+FFN switched on, and the eval steps, one train step and the evaluate entry
+point under each MESM_ATTN_VARIANT layout, and checks that each path went
+through its kernels. Each phase prints one JSON line; the line
 before the last is the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -41,7 +44,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel-vs-plain tolerances, each in units of max(1, |plain|):
 #   ln_dense bf16: 2**-6, two bf16 steps at 1.0 (the output is rounded to bf16,
@@ -53,10 +56,22 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 #   pair-masked and short-key attention bf16: 3e-2 abs (f32 softmax, but the
 #     probabilities and the output are rounded to bf16: one-step flips);
 #   the one-matmul short-key kernel in fp32: 1e-5 (f32 sums in another order).
-TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4, "attention_packed": 3e-2,
-       "attention_batched": 1e-5, "attention_trainable": 1e-5, "attention_packed_pair": 3e-2,
-       "attention_shortkey": 3e-2, "attention_shortkey_onematmul": 3e-2,
-       "attention_shortkey_onematmul_float32": 1e-5}
+#   ffn_int8: 2**-7, one bf16 step at 2.0: the integer sums are exact and the
+#     kernel rounds where the plain version rounds, so they agree bit for bit
+#     unless one rounding of h lands otherwise and moves an hq by one;
+#   the per-head, all-heads and bf16 batched kernels: 1e-5 in fp32 (f32 sums
+#     in another order), 3e-2 abs in bf16 (p and out rounded to bf16);
+#   the packed, pair and short-key kernels in fp32: 1e-5 (every rounding is
+#     to f32; sums of up to 601 terms in another order).
+TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4,
+       "attention_packed_bfloat16": 3e-2, "attention_batched_float32": 1e-5,
+       "attention_trainable": 1e-5, "attention_packed_pair_bfloat16": 3e-2,
+       "attention_shortkey_bfloat16": 3e-2, "attention_shortkey_onematmul_bfloat16": 3e-2,
+       "attention_shortkey_onematmul_float32": 1e-5, "ffn_int8": 2.0**-7,
+       "attention_per_head_float32": 1e-5, "attention_per_head_bfloat16": 3e-2,
+       "attention_all_heads_float32": 1e-5, "attention_all_heads_bfloat16": 3e-2,
+       "attention_batched_bfloat16": 3e-2, "attention_packed_float32": 1e-5,
+       "attention_packed_pair_float32": 1e-5, "attention_shortkey_float32": 1e-5}
 # the model's bf16 predictions with the kernels against (a) kernels off in
 # bf16 and (b) the fp32 plain path, in units of max(1, max |reference|) per
 # output: the packed kernel's bf16 softmax and the fused LayerNorm -> Dense
@@ -99,6 +114,20 @@ QVH_LAUNCHES = {
     "on": {"ln_dense": 10, "attention_packed": 2, "attention_shortkey": 4},
 }
 LONG_QUERY_LAUNCHES = {"on": {"ln_dense": 8, "attention_packed": 2, "attention_packed_pair": 4}}
+# kernel launches per eval batch with kernels.set_int8_ffn(True) in "auto":
+# the 6 FFNs of >= 4096 rows (2 enhance, 2 T2V and 2 DETR encoder layers)
+# take ffn_int8, the decoder's (B x 10 rows) and SS-recon's stay plain
+INT8_LAUNCHES = {"charades": dict(CHARADES_LAUNCHES["auto"], ffn_int8=6),
+                 "tacos": {"ln_dense": 1, "attention_batched": 2, "ffn_int8": 6}}
+# the kernel the DETR encoder's 2 self-attentions launch per eval batch in
+# "auto" under each MESM_ATTN_VARIANT, in bf16 (charades) and in fp32 (TACoS)
+VARIANT_KERNEL = {"per_head": "attention_per_head", "all_heads": "attention_all_heads",
+                  "batched": "attention_batched", "packed": "attention_packed"}
+# "on" with MESM_ATTN_VARIANT=packed sends fp32 to the packed family: TACoS's
+# 4 T2V / enhance sites (600 queries x 16 keys) to the short-key kernel, and
+# with 64-80-word queries the charades sites to the pair kernel
+PACKED_FP32_ON_LAUNCHES = {"tacos": {"ln_dense": 8, "attention_packed": 2, "attention_shortkey": 4},
+                           "long_query": LONG_QUERY_LAUNCHES["on"]}
 # TACoS (bench.py:753-754, 780-795): 16 rows, 600 clips (601 with the global
 # token) of 4098-wide C3D + TEF features, 16 words of 300-d GloVe; the train
 # step stacks the negative pass, so its DETR encoder sees 32 rows
@@ -208,7 +237,7 @@ def _rel_err(got, want) -> float:
 
 
 def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PATH["N"],
-                   D: int = MAIN_PATH["D"]) -> dict:
+                   D: int = MAIN_PATH["D"], summary=None) -> dict:
     import torch
 
     from mesm_tpu_torch.ops import ln_dense as ld
@@ -228,6 +257,7 @@ def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PAT
     tol = TOL[f"ln_dense_{dtype_name}"]
     res = {
         "kernel": "ln_dense", "dtype": dtype_name, "relu": relu, "shape": [N, D, F],
+        "summary_name": summary,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
     }
@@ -244,61 +274,79 @@ def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PAT
     return res
 
 
-def check_attention(time_it: bool) -> dict:
-    import torch
-    import torch.nn.functional as Fn
-
-    from mesm_tpu_torch.ops import attention_packed as ap
-
-    B, L, E, H = MAIN_PATH["B"], MAIN_PATH["L"], MAIN_PATH["E"], MAIN_PATH["H"]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn(B, L, E, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-    lengths = torch.randint(20, L, (B,), generator=g, device="cuda")
-    mask = torch.arange(L, device="cuda")[None] <= lengths[:, None]
-    mask[:, 0] = False  # the global token is never attendable
-    mask[5] = False  # padded rows: every key masked
-    mask[77] = False
-    got = ap.attention_packed(q, k, v, H, mask)
-    want = ap.attention_packed_reference(q, k, v, H, mask)
-    torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    finite = bool(torch.isfinite(got).all())
-    uniform = float((got[5].float() - v[5].float().mean(0)).abs().max())
-    res = {
-        "kernel": "attention_packed", "dtype": "bfloat16", "shape": [B, L, E, H],
-        "max_abs_err": err, "tol": TOL["attention_packed"], "finite": finite,
-        "masked_row_vs_mean_v": uniform,
-    }
-    if not (err <= TOL["attention_packed"] and finite and uniform <= TOL["attention_packed"]):
-        emit(dict(res, phase="kernels", ok=False))
-        raise SystemExit(f"attention_packed: error {err}, finite {finite}, masked row {uniform}")
-    if time_it:
-        res["ms"] = cuda_time_ms(lambda: ap.attention_packed(q, k, v, H, mask))
-        res["plain_ms"] = cuda_time_ms(lambda: ap.attention_packed_reference(q, k, v, H, mask))
-        hd = E // H
-        qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
-        am = mask[:, None, None, :]
-        res["library_ms"] = cuda_time_ms(
-            lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
-        )
-        moved = 4 * B * L * E * 2 + B * L
-        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, "bfloat16")
-    return res
-
-
-def _tacos_qkv(B: int, seed: int):
-    """q, k, v at the TACoS encoder shape and a key mask: varied lengths,
-    the global token never a key, one padded row with every key masked."""
+def _encoder_qkv(B: int, L: int, dtype_name: str, seed: int):
+    """q, k, v at a DETR encoder shape (L with the global token) in a dtype,
+    and a key mask: varied lengths, the global token never a key, sample 3
+    with every key masked."""
     import torch
 
-    L, E = TACOS["L"], TACOS["E"]
+    E = MAIN_PATH["E"]
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(B, L, E, generator=g, device="cuda") for _ in range(3))
-    lengths = torch.randint(60, L + 1, (B,), generator=g, device="cuda")
+    dt = getattr(torch, dtype_name)
+    q, k, v = (torch.randn(B, L, E, generator=g, device="cuda").to(dt) for _ in range(3))
+    lengths = torch.randint(L // 10, L + 1, (B,), generator=g, device="cuda")
     mask = torch.arange(L, device="cuda")[None] < lengths[:, None]
     mask[:, 0] = False
     mask[3] = False
     return q, k, v, mask
+
+
+def _encoder_kernels():
+    """(wrapper, plain version, device kernel name) of each (B, L, E)
+    self-attention kernel an encoder site reaches under MESM_ATTN_VARIANT."""
+    from mesm_tpu_torch.ops import attention_batched as ab
+    from mesm_tpu_torch.ops import attention_heads as ah
+    from mesm_tpu_torch.ops import attention_packed as ap
+
+    return {
+        "attention_per_head": (ah.attention_per_head, ab.attention_batched_reference,
+                               "attention_heads_kernel"),
+        "attention_all_heads": (ah.attention_all_heads, ab.attention_batched_reference,
+                                "attention_heads_kernel"),
+        "attention_batched": (ab.attention_batched, ab.attention_batched_reference,
+                              "attention_batched_kernel"),
+        "attention_packed": (ap.attention_packed, ap.attention_packed_reference,
+                             "attention_packed_kernel"),
+    }
+
+
+def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=None) -> dict:
+    """An encoder self-attention kernel of a MESM_ATTN_VARIANT layout (or a
+    new dtype instance) against its plain version, then its time (CUDA
+    events, and the kernel alone from the profiler), its plain version's and
+    SDPA's. `summary` names its entry in the kernel summary (None: none)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    fn, ref, key = _encoder_kernels()[name]
+    E, H = MAIN_PATH["E"], MAIN_PATH["H"]
+    hd = E // H
+    q, k, v, mask = _encoder_qkv(B, L, dtype_name, seed=7)
+    got = fn(q, k, v, H, mask)
+    want = ref(q, k, v, H, mask)
+    torch.cuda.synchronize()
+    tol = TOL[f"{name}_{dtype_name}"]
+    err = _rel_err(got, want)
+    res = {
+        "kernel": name, "dtype": dtype_name, "shape": [B, L, E, H], "summary_name": summary,
+        "max_abs_err": float((got.float() - want.float()).abs().max()), "max_err_rel_to_max1": err,
+        "tol": tol, "finite": bool(torch.isfinite(got).all()),
+        "masked_row_vs_mean_v": float((got[3].float() - v[3].float().mean(0)).abs().max()),
+    }
+    if not (err <= tol and res["finite"] and res["masked_row_vs_mean_v"] <= tol):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"{name} {dtype_name} B={B}: {res}")
+    res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask))
+    res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask), key)
+    res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask))
+    qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
+    am = _sdpa_mask(mask)
+    res["library_ms"] = cuda_time_ms(
+        lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+    )
+    moved = 4 * B * L * E * q.element_size() + B * L
+    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, dtype_name)
+    return res
 
 
 def _sdpa_mask(mask):
@@ -307,42 +355,6 @@ def _sdpa_mask(mask):
     m = mask.clone()
     m[:, 1] = True
     return m[:, None, None, :]
-
-
-def check_attention_batched(B: int) -> dict:
-    import torch
-    import torch.nn.functional as Fn
-
-    from mesm_tpu_torch.ops import attention_batched as ab
-
-    L, E, H = TACOS["L"], TACOS["E"], TACOS["H"]
-    hd = E // H
-    q, k, v, mask = _tacos_qkv(B, seed=1)
-    with torch.no_grad():
-        got = ab.attention_batched(q, k, v, H, mask)
-        want = ab.attention_batched_reference(q, k, v, H, mask)
-        torch.cuda.synchronize()
-        err = _rel_err(got, want)
-        res = {
-            "kernel": "attention_batched", "dtype": "float32", "shape": [B, L, E, H],
-            "max_abs_err": float((got - want).abs().max()), "max_err_rel_to_max1": err,
-            "tol": TOL["attention_batched"], "finite": bool(torch.isfinite(got).all()),
-            "masked_row_vs_mean_v": float((got[3] - v[3].mean(0)).abs().max()),
-        }
-        if not (err <= TOL["attention_batched"] and res["finite"]
-                and res["masked_row_vs_mean_v"] <= TOL["attention_batched"]):
-            emit(dict(res, phase="kernels", ok=False))
-            raise SystemExit(f"attention_batched B={B}: {res}")
-        res["ms"] = cuda_time_ms(lambda: ab.attention_batched(q, k, v, H, mask))
-        res["plain_ms"] = cuda_time_ms(lambda: ab.attention_batched_reference(q, k, v, H, mask))
-        qh, kh, vh = (t.view(B, L, H, hd).transpose(1, 2) for t in (q, k, v))
-        am = _sdpa_mask(mask)
-        res["library_ms"] = cuda_time_ms(
-            lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
-        )
-    moved = 4 * B * L * E * 4 + B * L
-    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, "float32")
-    return res
 
 
 def check_attention_trainable() -> dict:
@@ -357,7 +369,7 @@ def check_attention_trainable() -> dict:
 
     B, L, E, H = 2 * TACOS["B"], TACOS["L"], TACOS["E"], TACOS["H"]
     hd = E // H
-    q, k, v, mask = _tacos_qkv(B, seed=2)
+    q, k, v, mask = _encoder_qkv(B, L, "float32", seed=2)
     cot = torch.randn(B, L, E, generator=torch.Generator(device="cuda").manual_seed(3), device="cuda")
 
     def run(fn):
@@ -377,6 +389,7 @@ def check_attention_trainable() -> dict:
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
     res = {
         "kernel": "attention_trainable", "dtype": "float32", "shape": [B, L, E, H],
+        "summary_name": "attention_trainable",
         "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
         "max_err_rel_to_max1": {"out": errs[0], "dq": errs[1], "dk": errs[2], "dv": errs[3]},
         "tol": TOL["attention_trainable"],
@@ -461,7 +474,8 @@ def _pair_kernels():
 
 
 def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: bool,
-                         dtype_name: str = "bfloat16", time_it: bool = True, seed: int = 4) -> dict:
+                         dtype_name: str = "bfloat16", time_it: bool = True, seed: int = 4,
+                         summary=None) -> dict:
     """A pair-masked or short-key attention kernel against its plain version
     at a model site, then its time, its plain version's, and SDPA's on the
     same function (an additive -1e9 mask built from the key mask and the
@@ -477,14 +491,14 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     got = fn(q, k, v, H, mask, pf)
     want = ref(q, k, v, H, mask, pf)
     torch.cuda.synchronize()
-    tol = TOL[name if dtype_name == "bfloat16" else f"{name}_{dtype_name}"]
+    tol = TOL[f"{name}_{dtype_name}"]
     err = _rel_err(got, want)
     dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
     res = {
         "kernel": name, "site": site, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
         "pair": pair, "max_abs_err": float((got.float() - want.float()).abs().max()),
         "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
-        "masked_rows": dead_rows, "masked_rows_vs_mean_v": dead_err,
+        "masked_rows": dead_rows, "masked_rows_vs_mean_v": dead_err, "summary_name": summary,
     }
     if not (err <= tol and res["finite"] and dead_rows > 0 and dead_err <= tol):
         emit(dict(res, phase="kernels", ok=False))
@@ -508,26 +522,119 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     return res
 
 
+def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 256,
+                   N1: int = 1024) -> dict:
+    """The fused int8 FFN at an FFN site (N rows of width K, hidden N1)
+    against its plain version, its distance to the exact fp32 FFN, then its
+    time, its plain version's, and as context the FFN it replaces in the
+    site's dtype (F.linear -> prelu -> F.linear, cuBLAS) and torch._int_mm
+    for each of its two products."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.ops import ffn_int8 as fi
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(N, K, generator=g, device="cuda").to(dt)
+    w1 = torch.randn(N1, K, generator=g, device="cuda") / K**0.5
+    b1 = 0.1 * torch.randn(N1, generator=g, device="cuda")
+    alpha = torch.full((1,), 0.25, device="cuda")
+    w2 = torch.randn(K, N1, generator=g, device="cuda") / N1**0.5
+    b2 = 0.1 * torch.randn(K, generator=g, device="cuda")
+    args = (x, w1, b1, alpha, w2, b2)
+    got = fi.ffn_int8(*args)
+    want = fi.ffn_int8_reference(*args)
+    exact = Fn.linear(Fn.prelu(Fn.linear(x.float(), w1, b1), alpha), w2, b2)
+    torch.cuda.synchronize()
+    err = _rel_err(got, want)
+    res = {
+        "kernel": "ffn_int8", "site": site, "dtype": dtype_name, "shape": [N, K, N1, K],
+        "summary_name": summary, "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "max_err_rel_to_max1": err, "bit_equal_share": float((got == want).float().mean()),
+        "tol": TOL["ffn_int8"], "finite": bool(torch.isfinite(got).all()),
+        "vs_exact_fp32_mean_rel": float((got.float() - exact).abs().mean() / exact.abs().mean()),
+    }
+    if not (err <= TOL["ffn_int8"] and res["finite"]):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"ffn_int8 at {site}: {res}")
+    res["ms"] = cuda_time_ms(lambda: fi.ffn_int8(*args))
+    res["kernel_ms"] = device_kernel_ms(lambda: fi.ffn_int8(*args), "ffn_int8_kernel")
+    res["plain_ms"] = cuda_time_ms(lambda: fi.ffn_int8_reference(*args))
+    w1d, b1d, ad, w2d, b2d = (t.to(dt) for t in (w1, b1, alpha, w2, b2))
+    res["library_ms"] = cuda_time_ms(lambda: Fn.linear(Fn.prelu(Fn.linear(x, w1d, b1d), ad), w2d, b2d))
+    w1q, _ = fi.quantize_weight(w1)
+    w2q, _ = fi.quantize_weight(w2)
+    xq = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
+    hq = torch.randint(-127, 128, (N, N1), generator=g, device="cuda", dtype=torch.int8)
+    try:  # context only: a library call that may not take these shapes on every build
+        res["int_mm_ms"] = [cuda_time_ms(lambda: torch._int_mm(xq, w1q.t())),
+                            cuda_time_ms(lambda: torch._int_mm(hq, w2q.t()))]
+    except RuntimeError as e:
+        res["int_mm_ms"] = None
+        res["int_mm_error"] = str(e)[:200]
+    # x and out read and written once; the int8 weights and their bf16
+    # scales and biases; 2 int8 products of 2 * N * K * N1 operations
+    moved = 2 * N * K * x.element_size() + 2 * K * N1 + 4 * (N1 + K)
+    res["bound_ms"], res["bound_by"] = bound(moved, 4.0 * N * K * N1, "int8")
+    return res
+
+
 def phase_kernels() -> dict:
+    """Every kernel against its plain version at its main paths' shapes,
+    timed; each check names the kernel summary's entry it stands for."""
     results = []
     for dtype_name in ("bfloat16", "float32"):
         for relu in (True, False):
             # the main path runs bf16 with ReLU (input_vid_proj.block0)
-            results.append(check_ln_dense(dtype_name, relu, time_it=(relu or dtype_name == "float32")))
+            main = dtype_name == "bfloat16" and relu
+            results.append(check_ln_dense(dtype_name, relu, time_it=(relu or dtype_name == "float32"),
+                                          summary="ln_dense" if main else None))
     # the TACoS eval input projection: fp32, 6 videos x 600 clips of 4098
     results.append(check_ln_dense("float32", True, time_it=True, N=6 * TACOS["Lv"], D=TACOS["Dv"]))
-    results.append(check_attention(time_it=True))
-    for B in (TACOS["B"], 2 * TACOS["B"]):  # eval, and the stacked train pass
-        results.append(check_attention_batched(B))
+    # the DETR encoder's self-attention: charades bf16 (128 x 195), TACoS
+    # fp32 eval (16 x 601) and stacked train (32 x 601); the bf16 batched
+    # and fp32 packed instances, and the per-head and all-heads layouts, are
+    # what MESM_ATTN_VARIANT sends there; the summary takes per_head fp32 at
+    # the train step's shape, all_heads at the eval step's
+    B16, L16, B32, L32 = MAIN_PATH["B"], MAIN_PATH["L"], TACOS["B"], TACOS["L"]
+    results.append(check_encoder_attention("attention_packed", "bfloat16", B16, L16, "attention_packed"))
+    for B in (B32, 2 * B32):  # eval, and the stacked train pass
+        results.append(check_encoder_attention("attention_batched", "float32", B, L32,
+                                               "attention_batched" if B == 2 * B32 else None))
     results.append(check_attention_trainable())
+    for name in ("attention_per_head", "attention_all_heads"):
+        results.append(check_encoder_attention(name, "bfloat16", B16, L16, name))
+        for B in (B32, 2 * B32):
+            main = (B == 2 * B32) == (name == "attention_per_head")
+            results.append(check_encoder_attention(name, "float32", B, L32,
+                                                   f"{name}_float32" if main else None))
+    results.append(check_encoder_attention("attention_batched", "bfloat16", B16, L16,
+                                           "attention_batched_bfloat16"))
+    results.append(check_encoder_attention("attention_packed", "float32", B32, L32,
+                                           "attention_packed_float32"))
+    # the short-key kernels at their sites; the summary takes the QVH site
+    # with the pair mask
     for name in ("attention_shortkey", "attention_shortkey_onematmul"):
         for site, B, Lq, Lk, pair in SHORT_KEY_SITES:
-            results.append(check_pair_attention(name, site, B, Lq, Lk, pair))
+            results.append(check_pair_attention(name, site, B, Lq, Lk, pair,
+                                                summary=name if site == "qvh" and pair else None))
     # the one-matmul kernel in fp32 ("auto" with SHORTKEY_VARIANT "kernel" on
     # an fp32 model, e.g. TACoS: 16 x 600 video queries x 17 text keys)
     results.append(check_pair_attention("attention_shortkey_onematmul", "tacos_fp32", TACOS["B"],
                                         TACOS["Lv"], 17, True, "float32", time_it=False))
-    results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE))
+    results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE,
+                                        summary="attention_packed_pair"))
+    # the fp32 instances of the pair and short-key kernels (MESM_ATTN_VARIANT
+    # packed, "on"): charades with long queries, and TACoS
+    results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE, dtype_name="float32",
+                                        summary="attention_packed_pair_float32"))
+    results.append(check_pair_attention("attention_shortkey", "tacos", TACOS["B"], TACOS["Lv"], 17,
+                                        True, "float32", summary="attention_shortkey_float32"))
+    # the fused int8 FFN at the charades (bf16, 128 x 195 rows) and TACoS
+    # (fp32, 16 x 600) FFN sites
+    results.append(check_ffn_int8("charades", "bfloat16", B16 * L16, "ffn_int8"))
+    results.append(check_ffn_int8("tacos", "float32", B32 * TACOS["Lv"], "ffn_int8_float32"))
     out = {"phase": "kernels", "ok": True, "results": results}
     emit(out)
     return out
@@ -677,15 +784,18 @@ def _pred_err(a, b):
 
 def _launch_counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from mesm_tpu_torch.ops import (attention_batched, attention_packed, attention_shortkey,
-                                    attention_trainable, ln_dense)
+    from mesm_tpu_torch.ops import (attention_batched, attention_heads, attention_packed,
+                                    attention_shortkey, attention_trainable, ffn_int8, ln_dense)
 
     return {"ln_dense": (ln_dense, "launches"), "attention_packed": (attention_packed, "launches"),
             "attention_batched": (attention_batched, "launches"),
             "attention_trainable": (attention_trainable, "launches"),
             "attention_packed_pair": (attention_packed, "pair_launches"),
             "attention_shortkey": (attention_shortkey, "launches"),
-            "attention_shortkey_onematmul": (attention_shortkey, "onematmul_launches")}
+            "attention_shortkey_onematmul": (attention_shortkey, "onematmul_launches"),
+            "attention_per_head": (attention_heads, "per_head_launches"),
+            "attention_all_heads": (attention_heads, "all_heads_launches"),
+            "ffn_int8": (ffn_int8, "launches")}
 
 
 def reset_launches():
@@ -719,11 +829,55 @@ def dispatch_mode(mode: str):
         kernels.SHORTKEY_VARIANT = variant
 
 
-def drive_modes(step, batches, per_batch: dict, n_batches: int, refs: dict):
+@contextlib.contextmanager
+def attn_variant(variant: str):
+    """MESM_ATTN_VARIANT set for the run, as a user sets it."""
+    from mesm_tpu_torch import kernels
+
+    old = os.environ.get(kernels.ATTN_VARIANT_ENV)
+    os.environ[kernels.ATTN_VARIANT_ENV] = variant
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(kernels.ATTN_VARIANT_ENV)
+        else:
+            os.environ[kernels.ATTN_VARIANT_ENV] = old
+
+
+@contextlib.contextmanager
+def int8_ffn(enabled: bool = True):
+    """kernels.set_int8_ffn for the run, restored after."""
+    from mesm_tpu_torch import kernels
+
+    old = kernels.INT8_FFN
+    kernels.set_int8_ffn(enabled)
+    try:
+        yield
+    finally:
+        kernels.set_int8_ffn(old)
+
+
+@contextlib.contextmanager
+def ffn_plain_route():
+    """The int8 FFN sites sent to ffn_int8_reference (the plain version, on
+    the card): the reference the model with the kernel is held against."""
+    from mesm_tpu_torch.models import layers
+    from mesm_tpu_torch.ops.ffn_int8 import ffn_int8_reference
+
+    orig = layers.ffn_int8
+    layers.ffn_int8 = ffn_int8_reference
+    try:
+        yield
+    finally:
+        layers.ffn_int8 = orig
+
+
+def drive_modes(step, batches, per_batch: dict, n_batches: int, refs: dict, tol: float = MODEL_TOL):
     """n_batches eval steps in each dispatch mode of `per_batch`, the launch
     counts set to 0 just before and read just after each mode's run; the
-    first batch's predictions against each reference (MODEL_TOL). Returns
-    ({mode: report}, all ok)."""
+    first batch's predictions against each reference (within `tol`).
+    Returns ({mode: report}, all ok)."""
     import torch
 
     report, ok = {}, True
@@ -739,7 +893,7 @@ def drive_modes(step, batches, per_batch: dict, n_batches: int, refs: dict):
         for name, ref in refs.items():
             r[f"vs_{name}"] = _pred_err(outs[0], ref)
         r["ok"] = bool(launches == want and r["finite"] and all(
-            max(r[f"vs_{name}"].values()) <= MODEL_TOL for name in refs))
+            max(r[f"vs_{name}"].values()) <= tol for name in refs))
         report[mode] = r
         ok = ok and r["ok"]
     return report, ok
@@ -848,8 +1002,7 @@ def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
     model = MESM(_tacos_config()).cuda().eval()
     step = make_eval_step(model, _encode_batch, torch.float32)
     B, Lv = TACOS["B"], TACOS["Lv"]
-    batches = [make_eval_batch(s, B=B, NG=max(2, int(B / 2.4)), Lv=Lv, Dv=TACOS["Dv"],
-                               Lw=TACOS["Lw"], Dt=TACOS["Dt"]) for s in range(2)]
+    batches = _tacos_eval_batches()
     reset_launches()
     outs = [step(batches[i % 2]) for i in range(n_batches)]
     torch.cuda.synchronize()
@@ -1093,6 +1246,26 @@ def _train_ms_per_step(model, ccfg, batch, mode: str, steps: int, count: bool,
     return ms, launches, float(metrics["loss_overall"]), prof
 
 
+def _first_grads(model, ccfg, batch, mode: str):
+    """The train step's first loss and gradients (TRAIN_SEED's draws) under
+    a dispatch mode: (loss, {parameter name: gradient})."""
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.parallel.step import make_micro_grads, step_draws
+
+    neg_gen, mask_gen = step_draws(TRAIN_SEED, 0, "cuda")
+    with kernels.pallas_scope(mode):
+        total, _ = make_micro_grads(model, ccfg, _encode_batch)(batch, neg_gen, mask_gen)
+    return float(total.detach()), {n: p.grad for n, p in model.named_parameters()
+                                   if p.grad is not None}
+
+
+def _grad_err(g, ref) -> float:
+    """The largest gradient difference in units of max(1, max |ref|) over
+    all parameters."""
+    scale = max(1.0, max(float(x.abs().max()) for x in ref.values()))
+    return max(float((g[n] - ref[n]).abs().max()) for n in ref) / scale
+
+
 def phase_train(card: str, steps: int = 4) -> dict:
     """The train step: the kernel-engaged TACoS fp32 step (bench.py:780-795:
     B = 16, attention dropout 0, input dropout 0.5 as shipped) with the
@@ -1100,10 +1273,8 @@ def phase_train(card: str, steps: int = 4) -> dict:
     charades C+SF_C fp32 step at B = 32 with dropout 0.1 as shipped."""
     import torch
 
-    from mesm_tpu_torch import kernels
     from mesm_tpu_torch.losses import CriterionConfig
     from mesm_tpu_torch.models.mesm import MESM
-    from mesm_tpu_torch.parallel.step import make_micro_grads, step_draws
 
     cfg = _tacos_config(dropout=0.0)
     torch.manual_seed(0)
@@ -1124,26 +1295,17 @@ def phase_train(card: str, steps: int = 4) -> dict:
                         device="cuda")
     perturbed["video_feat"] = batch["video_feat"] * (1 + 1e-7 * noise)
     del noise
-    first = {}
-    for name, mode, b in (("auto", "auto", batch), ("off", "off", batch), ("floor", "off", perturbed)):
-        model = fresh()
-        neg_gen, mask_gen = step_draws(TRAIN_SEED, 0, "cuda")
-        with kernels.pallas_scope(mode):
-            total, _ = make_micro_grads(model, ccfg, _encode_batch)(b, neg_gen, mask_gen)
-        first[name] = (float(total.detach()), {n: p.grad for n, p in model.named_parameters()
-                                               if p.grad is not None})
+    first = {name: _first_grads(fresh(), ccfg, b, mode)
+             for name, mode, b in (("auto", "auto", batch), ("off", "off", batch),
+                                   ("floor", "off", perturbed))}
     torch.cuda.synchronize()
     (loss_a, g_a), (loss_o, g_o), (_, g_f) = first["auto"], first["off"], first["floor"]
-    scale = max(1.0, max(float(g.abs().max()) for g in g_o.values()))
-
-    def grad_err(g):
-        return max(float((g[n] - g_o[n]).abs().max()) for n in g_o) / scale
-
     res = {"phase": "train", "card": card, "tacos": {
         "rows": TACOS["B"], "stacked_rows": 2 * TACOS["B"], "first_loss_auto": loss_a,
         "first_loss_off": loss_o, "first_loss_rel_err": abs(loss_a - loss_o) / max(1.0, abs(loss_o)),
-        "grad_max_abs": scale, "grad_max_err_rel_to_max1": grad_err(g_a),
-        "grad_noise_floor_rel_to_max1": grad_err(g_f),
+        "grad_max_abs": max(float(g.abs().max()) for g in g_o.values()),
+        "grad_max_err_rel_to_max1": _grad_err(g_a, g_o),
+        "grad_noise_floor_rel_to_max1": _grad_err(g_f, g_o),
         "grad_max_err_rel_to_own_max1_per_param": max(_rel_err(g_a[n], g_o[n]) for n in g_o),
         "grad_noise_floor_rel_to_own_max1_per_param": max(_rel_err(g_f[n], g_o[n]) for n in g_o),
         "grads_same_params": sorted(g_a) == sorted(g_o),
@@ -1469,32 +1631,43 @@ def write_qvh_root(root: str, n_videos: int = 48, seed: int = 0) -> str:
     return cfg_path
 
 
+def write_cli_eval(root: str) -> str:
+    """The synthetic charades root, a torch-layout checkpoint from seeded
+    weights and an eval config that scores it in one length bucket of 128
+    rows. Returns the eval config's path."""
+    import torch
+
+    from mesm_tpu_torch import runner
+    from mesm_tpu_torch.config import BaseOptions
+
+    cfg_path = write_charades_root(root)
+    opt = BaseOptions().parse(["--config_file", cfg_path])  # writes the run's opt.json
+    torch.manual_seed(1)
+    model = runner.build_model(opt)
+    torch.save({"model": model.state_dict(), "epoch": 0},
+               os.path.join(opt.result_dir, "model_test_best.ckpt"))
+    eval_cfg = os.path.join(root, "eval.json")
+    with open(eval_cfg, "w") as f:
+        json.dump({
+            "ann_path": opt.ann_path, "feat_files": opt.feat_files,
+            "text_model_path": opt.text_model_path, "bpe_path": "",
+            "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
+            "inference_result_dir": os.path.join(root, "inference"),
+            "row_capacity": 128, "eval_len_buckets": 1, "num_workers": 4,
+        }, f)
+    return eval_cfg
+
+
 def phase_cli() -> dict:
     """`python -m mesm_tpu_torch.evaluate` through its inference() entry:
     bf16 on the card, a torch-layout checkpoint from seeded weights."""
     import torch
 
-    from mesm_tpu_torch import runner
-    from mesm_tpu_torch.config import BaseOptions
     from mesm_tpu_torch.evaluate import inference
 
     with tempfile.TemporaryDirectory(prefix="mesm_chip_smoke_") as root:
         t0 = time.perf_counter()
-        cfg_path = write_charades_root(root)
-        opt = BaseOptions().parse(["--config_file", cfg_path])  # writes the run's opt.json
-        torch.manual_seed(1)
-        model = runner.build_model(opt)
-        torch.save({"model": model.state_dict(), "epoch": 0},
-                   os.path.join(opt.result_dir, "model_test_best.ckpt"))
-        eval_cfg = os.path.join(root, "eval.json")
-        with open(eval_cfg, "w") as f:
-            json.dump({
-                "ann_path": opt.ann_path, "feat_files": opt.feat_files,
-                "text_model_path": opt.text_model_path, "bpe_path": "",
-                "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
-                "inference_result_dir": os.path.join(root, "inference"),
-                "row_capacity": 128, "eval_len_buckets": 1, "num_workers": 4,
-            }, f)
+        eval_cfg = write_cli_eval(root)
         setup_s = time.perf_counter() - t0
         reset_launches()
         t0 = time.perf_counter()
@@ -1509,6 +1682,206 @@ def phase_cli() -> dict:
         emit(res)
         if not res["ok"]:
             raise SystemExit("cli phase failed: a kernel of the main path never ran")
+    return res
+
+
+def _tacos_eval_batches():
+    """Two TACoS eval batches (16 rows, ~6 videos of up to 600 clips)."""
+    B = TACOS["B"]
+    return [make_eval_batch(s, B=B, NG=max(2, int(B / 2.4)), Lv=TACOS["Lv"], Dv=TACOS["Dv"],
+                            Lw=TACOS["Lw"], Dt=TACOS["Dt"]) for s in range(2)]
+
+
+def phase_int8_eval(card: str, n_batches: int = 2) -> dict:
+    """The charades bf16 and TACoS fp32 eval steps with
+    kernels.set_int8_ffn(True) in "auto": the launches per batch
+    (INT8_LAUNCHES), the predictions against the same model with the FFN
+    sites sent to ffn_int8_reference on the card (MODEL_TOL), and, not
+    gated, the distance to int8 off and rows/s with int8 on and off. Then
+    the evaluate entry point in-process with the switch set."""
+    import torch
+
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    res = {"phase": "int8_eval", "card": card, "batches": n_batches, "tol": MODEL_TOL}
+    ok = True
+    for site, cfg, dt, batches in (
+            ("charades", _model_config(), torch.bfloat16, [make_eval_batch(s) for s in range(2)]),
+            ("tacos", _tacos_config(), torch.float32, _tacos_eval_batches())):
+        torch.manual_seed(0)
+        step = make_eval_step(MESM(cfg).cuda().eval(), _encode_batch, dt)
+        with int8_ffn(True):
+            reset_launches()
+            outs = [step(batches[i % 2]) for i in range(n_batches)]
+            torch.cuda.synchronize()
+            launches = read_launches()
+            with ffn_plain_route():
+                plain = step(batches[0])
+        off = step(batches[0])
+        want = expected_launches(INT8_LAUNCHES[site], n_batches)
+        r = {"launches": launches, "launches_expected": want,
+             "finite": all(bool(torch.isfinite(v.float()).all()) for o in outs for v in o.values()),
+             "vs_plain_route": _pred_err(outs[0], plain), "vs_int8_off": _pred_err(outs[0], off)}
+        B = batches[0]["video_mask"].shape[0]
+
+        def rate(enabled: bool, iters: int = 6) -> float:
+            with int8_ffn(enabled):
+                step(batches[0])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(iters):
+                    step(batches[i % 2])
+                torch.cuda.synchronize()
+                return B * iters / (time.perf_counter() - t0)
+
+        turns = [(on, rate(on)) for on in (True, False, False, True)]
+        r["rows_per_s_int8_on"] = [x for on, x in turns if on]
+        r["rows_per_s_int8_off"] = [x for on, x in turns if not on]
+        r["ok"] = bool(launches == want and r["finite"] and max(r["vs_plain_route"].values()) <= MODEL_TOL)
+        res[site] = r
+        ok = ok and r["ok"]
+        del step
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_int8_") as root:
+        eval_cfg = write_cli_eval(root)
+        reset_launches()
+        t0 = time.perf_counter()
+        with int8_ffn(True):
+            metrics, _ = inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16",
+                                    "--device", "cuda"])
+        torch.cuda.synchronize()
+        res["cli"] = {"inference_s": time.perf_counter() - t0, "launches": read_launches(),
+                      "brief": metrics["brief"]}
+    ok = ok and res["cli"]["launches"]["ffn_int8"] > 0 and bool(res["cli"]["brief"])
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise SystemExit("int8_eval phase failed")
+    return res
+
+
+# `python -m mesm_tpu_torch.evaluate` run as the interpreter runs it, then
+# the launch counters of that process on the last line
+CLI_WITH_COUNTS = """
+import json, runpy, sys
+sys.argv = ["mesm_tpu_torch.evaluate"] + sys.argv[1:]
+runpy.run_module("mesm_tpu_torch.evaluate", run_name="__main__", alter_sys=True)
+from mesm_tpu_torch.ops import attention_batched, attention_heads, attention_packed
+print(json.dumps({"attention_per_head": attention_heads.per_head_launches,
+                  "attention_all_heads": attention_heads.all_heads_launches,
+                  "attention_batched": attention_batched.launches,
+                  "attention_packed": attention_packed.launches}))
+"""
+
+
+def phase_attn_variants(card: str, n_batches: int = 2) -> dict:
+    """Each MESM_ATTN_VARIANT layout through the eval step: charades bf16
+    and TACoS fp32 in "auto", whose DETR encoders launch the variant's
+    kernel twice a batch (VARIANT_KERNEL), held against kernels "off"
+    (MODEL_TOL in bf16, FP32_MODEL_TOL in fp32). Under "packed" also fp32
+    in "on" (PACKED_FP32_ON_LAUNCHES): TACoS, and the charades model with
+    64-80-word queries. Then one kernel-engaged TACoS fp32 train step under
+    "per_head" against "off" (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL), and
+    `python -m mesm_tpu_torch.evaluate` with MESM_ATTN_VARIANT=all_heads in
+    the environment of its process, as a user reaches it."""
+    import dataclasses
+
+    import torch
+
+    from mesm_tpu_torch.losses import CriterionConfig
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    def eval_step(cfg, dt):
+        torch.manual_seed(0)
+        return make_eval_step(MESM(cfg).cuda().eval(), _encode_batch, dt)
+
+    sites = {
+        "charades": (eval_step(_model_config(), torch.bfloat16),
+                     [make_eval_batch(s) for s in range(2)], MODEL_TOL),
+        "tacos": (eval_step(_tacos_config(), torch.float32), _tacos_eval_batches(), FP32_MODEL_TOL),
+        "long_query": (eval_step(dataclasses.replace(_model_config(), max_words_l=80), torch.float32),
+                       [make_eval_batch(s, Lw=80, min_words=64) for s in range(2)], FP32_MODEL_TOL),
+    }
+    with dispatch_mode("off"):
+        offs = {name: step(batches[0]) for name, (step, batches, _) in sites.items()}
+    res = {"phase": "attn_variants", "card": card, "batches": n_batches, "tol": MODEL_TOL,
+           "fp32_tol": FP32_MODEL_TOL}
+    ok = True
+    for variant, kernel in VARIANT_KERNEL.items():
+        with attn_variant(variant):
+            for name in ("charades", "tacos"):
+                step, batches, tol = sites[name]
+                rep, good = drive_modes(step, batches, {"auto": {"ln_dense": 1, kernel: 2}}, n_batches,
+                                        {"off": offs[name]}, tol)
+                res[f"{variant}_{name}"] = rep["auto"]
+                ok = ok and good
+    with attn_variant("packed"):
+        for name, want in PACKED_FP32_ON_LAUNCHES.items():
+            step, batches, tol = sites[name]
+            rep, good = drive_modes(step, batches, {"on": want}, n_batches, {"off": offs[name]}, tol)
+            res[f"packed_on_{name}_fp32"] = rep["on"]
+            ok = ok and good
+    del sites, offs
+
+    # one kernel-engaged TACoS fp32 train step under per_head, against off
+    cfg = _tacos_config(dropout=0.0)
+    torch.manual_seed(0)
+    init = MESM(cfg).state_dict()
+    ccfg = CriterionConfig(**TACOS_CRITERION)
+    batch = make_train_batch(0, TACOS["B"], TACOS["Lv"], TACOS["Dv"], TACOS["Lw"], TACOS["Dt"],
+                             cfg.num_classes)
+
+    def fresh():
+        model = MESM(cfg)
+        model.load_state_dict(init)
+        return model.cuda()
+
+    with attn_variant("per_head"):
+        reset_launches()
+        loss_v, g_v = _first_grads(fresh(), ccfg, batch, "auto")
+        torch.cuda.synchronize()
+        launches = read_launches()
+    loss_o, g_o = _first_grads(fresh(), ccfg, batch, "off")
+    want = expected_launches({"attention_per_head": 2, "attention_trainable": 2}, 1)
+    t = {"launches": launches, "launches_expected": want, "first_loss_per_head": loss_v,
+         "first_loss_off": loss_o, "first_loss_rel_err": abs(loss_v - loss_o) / max(1.0, abs(loss_o)),
+         "grad_max_err_rel_to_max1": _grad_err(g_v, g_o), "grads_same_params": sorted(g_v) == sorted(g_o),
+         "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    t["ok"] = bool(launches == want and t["grads_same_params"]
+                   and t["first_loss_rel_err"] <= TRAIN_LOSS_TOL
+                   and t["grad_max_err_rel_to_max1"] <= TRAIN_GRAD_TOL)
+    res["per_head_train_tacos_fp32"] = t
+    ok = ok and t["ok"]
+    del g_v, g_o, batch, init
+
+    # the evaluate entry point in its own process, the variable in its environment
+    from mesm_tpu_torch import kernels
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_variant_") as root:
+        eval_cfg = write_cli_eval(root)
+        env = dict(os.environ, **{kernels.ATTN_VARIANT_ENV: "all_heads"})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", CLI_WITH_COUNTS, "--config_file", eval_cfg,
+             "--compute_dtype", "bfloat16", "--device", "cuda"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=600,
+        )
+        cli = {"variant": "all_heads", "returncode": proc.returncode,
+               "seconds": time.perf_counter() - t0}
+        if proc.returncode == 0:
+            cli["launches"] = json.loads(proc.stdout.strip().splitlines()[-1])
+        else:
+            cli["stderr_tail"] = proc.stderr[-2000:]
+    cli["ok"] = bool(proc.returncode == 0 and cli["launches"]["attention_all_heads"] > 0
+                     and cli["launches"]["attention_packed"] == 0)
+    res["cli_all_heads"] = cli
+    ok = ok and cli["ok"]
+    res["ok"] = bool(ok)
+    emit(res)
+    if not ok:
+        raise SystemExit("attn_variants phase failed")
     return res
 
 
@@ -1550,26 +1923,10 @@ def phase_processes() -> dict:
 
 
 def kernel_summary(kernel_results: dict, launches: dict) -> dict:
-    """One entry per kernel, at the shapes of its main path: ln_dense bf16
-    with ReLU and attention_packed (charades inference, launches of the CLI
-    phase), attention_batched at the 32 stacked rows and attention_trainable
-    (the kernel-engaged TACoS train step, launches of its timed steps), the
-    short-key kernels at the QVHighlights site with the pair mask (launches
-    of the qvh_eval phase: "on" for the packed short-key kernel,
-    "auto+kernel" for the one-matmul kernel) and the pair kernel at the
-    long-query site (launches of the long_query phase)."""
-    by_name = {}
-    for r in kernel_results["results"]:
-        if "ms" not in r:
-            continue
-        if r["kernel"] == "ln_dense" and not (r["dtype"] == "bfloat16" and r["relu"]):
-            continue
-        if r["kernel"] == "attention_batched" and r["shape"][0] != 2 * TACOS["B"]:
-            continue
-        if r["kernel"] in ("attention_shortkey", "attention_shortkey_onematmul") and not (
-                r["site"] == "qvh" and r["pair"]):
-            continue
-        by_name[r["kernel"]] = r
+    """One entry per kernel and dtype instance, from the check that names it
+    (`summary_name`: the shapes of its main path) and the launches of the
+    phase that drives that path (main)."""
+    by_name = {r["summary_name"]: r for r in kernel_results["results"] if r.get("summary_name")}
     src = "mesm_tpu_torch/kernels/csrc/"
     tpu = "mesm_tpu/ops/attention_pallas.py:"
     meta = {
@@ -1580,6 +1937,16 @@ def kernel_summary(kernel_results: dict, launches: dict) -> dict:
         "attention_packed_pair": (src + "attention_packed.cu", tpu + "170"),
         "attention_shortkey": (src + "attention_shortkey.cu", tpu + "213"),
         "attention_shortkey_onematmul": (src + "attention_shortkey.cu", tpu + "262"),
+        "ffn_int8": (src + "ffn_int8.cu", "mesm_tpu/ops/ffn_pallas.py:44"),
+        "ffn_int8_float32": (src + "ffn_int8.cu", "mesm_tpu/ops/ffn_pallas.py:44"),
+        "attention_per_head": (src + "attention_heads.cu", tpu + "44"),
+        "attention_per_head_float32": (src + "attention_heads.cu", tpu + "44"),
+        "attention_all_heads": (src + "attention_heads.cu", tpu + "66"),
+        "attention_all_heads_float32": (src + "attention_heads.cu", tpu + "66"),
+        "attention_batched_bfloat16": (src + "attention_batched.cu", tpu + "89"),
+        "attention_packed_float32": (src + "attention_packed.cu", tpu + "114"),
+        "attention_packed_pair_float32": (src + "attention_packed.cu", tpu + "170"),
+        "attention_shortkey_float32": (src + "attention_shortkey.cu", tpu + "213"),
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": path, "replaces": rep,
@@ -1607,6 +1974,8 @@ def main() -> int:
     trained = phase_train(card)
     phase_train_cli()
     phase_qvh_train(card)
+    int8 = phase_int8_eval(card)
+    variants = phase_attn_variants(card)
     phase_processes()
     print(card, flush=True)
     launches = dict(cli["launches"])
@@ -1617,6 +1986,21 @@ def main() -> int:
         qvh["modes"]["auto+kernel"]["launches"]["attention_shortkey_onematmul"])
     launches["attention_packed_pair"] = (
         long_query["modes"]["on"]["launches"]["attention_packed_pair"])
+    launches["ffn_int8"] = int8["charades"]["launches"]["ffn_int8"]
+    launches["ffn_int8_float32"] = int8["tacos"]["launches"]["ffn_int8"]
+    for variant, name in (("per_head", "attention_per_head"), ("all_heads", "attention_all_heads")):
+        launches[name] = variants[f"{variant}_charades"]["launches"][name]
+    launches["attention_per_head_float32"] = (
+        variants["per_head_train_tacos_fp32"]["launches"]["attention_per_head"])
+    launches["attention_all_heads_float32"] = (
+        variants["all_heads_tacos"]["launches"]["attention_all_heads"])
+    launches["attention_batched_bfloat16"] = (
+        variants["batched_charades"]["launches"]["attention_batched"])
+    launches["attention_packed_float32"] = variants["packed_tacos"]["launches"]["attention_packed"]
+    launches["attention_packed_pair_float32"] = (
+        variants["packed_on_long_query_fp32"]["launches"]["attention_packed_pair"])
+    launches["attention_shortkey_float32"] = (
+        variants["packed_on_tacos_fp32"]["launches"]["attention_shortkey"])
     emit(kernel_summary(kernels, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
     return 0

@@ -25,12 +25,19 @@ kernels.py:284-306, eval only), whose "kernel" variant launches the
 one-matmul short-key kernel and whose default "segmm" variant is a TPU
 layout rewrite of attention_core's values, which the port runs as
 attention_core. The short-query reformulation (kernels.py:309-334) has no
-kernel either; its sites take attention_core.
+kernel either; its sites take attention_core. Within the Pallas tier,
+MESM_ATTN_VARIANT picks the kernel layout as it does in the JAX package
+(`attention_variant`).
+
+The fused int8 FFN (ops/ffn_int8.py) is off unless `set_int8_ffn(True)`;
+then every eval PReLU FFN of at least INT8_FFN_MIN_ROWS rows on CUDA
+launches it (`use_int8_ffn`, models/layers.ffn).
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 from typing import Optional
 
 import torch
@@ -65,6 +72,14 @@ SHORTKEY_MIN_B = 8
 # port runs as attention_core; "kernel" launches the one-matmul short-key
 # kernel (ops/attention_shortkey.attention_shortkey_onematmul)
 SHORTKEY_VARIANT = "segmm"
+# the fused int8 FFN (kernels.py:109-123, 162-174): off by default, eval
+# only, PReLU FFNs of at least INT8_FFN_MIN_ROWS rows (layers.py:304: the
+# decoder's and SS-recon's small FFNs stay plain)
+INT8_FFN = False
+INT8_FFN_MIN_ROWS = 4096
+# the (B, H, L, hd) attention layouts the JAX package reaches only through
+# this environment variable (attention_pallas.py:635-637), read per call
+ATTN_VARIANT_ENV = "MESM_ATTN_VARIANT"
 
 
 def _normalize_mode(enabled) -> str:
@@ -122,27 +137,50 @@ def use_pallas_attention(B: int, Lq: int, Lk: int, dtype, device) -> bool:
     return min(Lq, Lk) >= AUTO_MIN_LEN and B >= AUTO_MIN_BATCH
 
 
+def attention_variant(dtype) -> str:
+    """The kernel layout attention_pallas.fused_attention (:635-637) takes:
+    MESM_ATTN_VARIANT when set and not empty, read at every call, else
+    "packed" for bf16 and "batched" for other dtypes."""
+    return os.environ.get(ATTN_VARIANT_ENV) or ("packed" if dtype == torch.bfloat16 else "batched")
+
+
 def fused_route(Lq: int, Lk: int, dtype, pair: bool) -> Optional[str]:
     """The kernel attention_pallas.fused_attention (:635-674) launches for a
-    dropout-free call, or None where it computes attention_core:
+    dropout-free bf16 or fp32 call, or None where it computes attention_core:
 
-    - bf16, the packed family (Lq >= 64, Lk >= 8): "shortkey" for keys
-      shorter than 64 (_mha_kernel_packed_shortkey / _shortkey_nopair),
-      else "packed_pair" with pair factors (_mha_kernel_packed_pair) and
-      "packed" without (_mha_kernel_packed);
-    - fp32, "batched" with both sides >= 64 and no pair factors.
+    - the "packed" variant (the bf16 default), Lq >= 64 and Lk >= 8:
+      "shortkey" for keys shorter than 64 (_mha_kernel_packed_shortkey /
+      _shortkey_nopair), else "packed_pair" with pair factors
+      (_mha_kernel_packed_pair) and "packed" without (_mha_kernel_packed);
+    - every other variant needs both sides >= 64 and no pair factors:
+      "batched" (the fp32 default, _mha_kernel_batched), "all_heads"
+      (_mha_kernel_allheads), and "per_head" (_mha_kernel) for "per_head"
+      and any value the JAX package does not name.
     """
-    if dtype == torch.bfloat16:
+    if dtype not in (torch.bfloat16, torch.float32):
+        return None
+    variant = attention_variant(dtype)
+    if variant == "packed":
         if Lq < MIN_FUSED_LEN or Lk < PACKED_MIN_LK:
             return None
         if Lk < MIN_FUSED_LEN:
             return "shortkey"
         return "packed_pair" if pair else "packed"
-    if dtype == torch.float32:
-        if min(Lq, Lk) < MIN_FUSED_LEN or pair:
-            return None
-        return "batched"
-    return None
+    if min(Lq, Lk) < MIN_FUSED_LEN or pair:
+        return None
+    return variant if variant in ("batched", "all_heads") else "per_head"
+
+
+def set_int8_ffn(enabled: bool) -> None:
+    """Turn the fused int8 FFN on or off for the process (kernels.py:162)."""
+    global INT8_FFN
+    INT8_FFN = bool(enabled)
+
+
+def use_int8_ffn(device) -> bool:
+    """kernels.py:167-174 with "on the TPU" read as "on CUDA": false under
+    "off", and false on the CPU even under "on"."""
+    return pallas_mode() != "off" and INT8_FFN and _on_cuda(device)
 
 
 def use_shortkey_packed(B: int, Lq: int, Lk: int, device, training: bool = False) -> bool:
@@ -164,8 +202,9 @@ def attention_kernel(B: int, Lq: int, Lk: int, dtype, device, pair: bool = False
     a call with no split_qk and no active dropout (the caller has excluded
     both: neither tier takes them). In the order of
     mesm_tpu/models/attention.py:322-375: the Pallas tier's kernel
-    (`fused_route`: "packed", "packed_pair", "shortkey", "batched"; in
-    training it runs as the trainable Function's forward), then, in eval,
+    (`fused_route`: "packed", "packed_pair", "shortkey", "batched",
+    "all_heads", "per_head"; in training it runs as the trainable
+    Function's forward), then, in eval,
     the short-key tier: "shortkey_onematmul" when SHORTKEY_VARIANT is
     "kernel", else attention_core."""
     if use_pallas_attention(B, Lq, Lk, dtype, device):

@@ -8,9 +8,11 @@ decoder, and a softmax in f32. `dispatch_attention_core` takes the JAX
 package's routing (mesm_tpu/models/attention.py:322-375, decided by
 mesm_tpu_torch.kernels.attention_kernel): the bf16 packed kernel, its
 pair-masked entry point (ops/attention_packed.py), the packed short-key and
-the one-matmul short-key kernels (ops/attention_shortkey.py) or the fp32
-batched kernel (ops/attention_batched.py), directly in eval and through the
-trainable autograd.Function (ops/attention_trainable.py) in training.
+the one-matmul short-key kernels (ops/attention_shortkey.py), the fp32
+batched kernel (ops/attention_batched.py) or, under MESM_ATTN_VARIANT, the
+per-head and all-heads kernels (ops/attention_heads.py), directly in eval
+and through the trainable autograd.Function (ops/attention_trainable.py) in
+training.
 
 The JAX package's "segmm"/"reshape" short-key and its short-query
 reformulations (attention.py:114-293) are TPU layout rewrites of the same

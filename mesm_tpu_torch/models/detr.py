@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from .attention import CoreAttention, ProjAttention
-from .layers import MLP, LayerNorm, Linear, make_activation
+from .layers import MLP, LayerNorm, Linear, ffn, make_activation
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -54,7 +54,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, src, valid_mask, pos):
         q = k = src + pos
         src = self.norm1(src + self.dropout(self.self_attn(q, k, src, key_valid_mask=valid_mask)))
-        y = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        y = ffn(src, self.linear1, self.activation, self.linear2, self.dropout, self.training)
         return self.norm2(src + self.dropout(y))
 
 
@@ -112,7 +112,7 @@ class TransformerDecoderLayer(nn.Module):
         ca = self.cross_attn(q_content, k_content, v, key_valid_mask=memory_valid_mask,
                              split_qk=(qse, k_pos))
         tgt = self.norm2(tgt + self.dropout(ca))
-        y = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        y = ffn(tgt, self.linear1, self.activation, self.linear2, self.dropout, self.training)
         return self.norm3(tgt + self.dropout(y))
 
 

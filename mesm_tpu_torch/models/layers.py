@@ -1,5 +1,5 @@
 """Shared building blocks: dtype-following Linear and LayerNorm, LinearBlock,
-InputProj, MLP.
+InputProj, MLP, and the transformer layers' feed-forward (`ffn`).
 
 Parity targets: mesm_tpu/models/layers.py and the reference model/model.py
 (LinearLayer :412, MLP :397). Module and parameter names are the upstream
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..ops.ffn_int8 import ffn_int8
 from ..ops.ln_dense import ln_dense
 
 
@@ -57,6 +58,21 @@ def make_activation(name: str) -> nn.Module:
     if name == "selu":
         return nn.SELU()
     raise ValueError(f"unsupported activation {name}")
+
+
+def ffn(x: torch.Tensor, linear1: nn.Linear, activation: nn.Module, linear2: nn.Linear,
+        dropout: nn.Module, training: bool) -> torch.Tensor:
+    """linear1 -> activation -> dropout -> linear2, the feed-forward of every
+    transformer layer (mesm_tpu/models/layers.py FFN, :266-331). In eval, a
+    PReLU FFN over at least kernels.INT8_FFN_MIN_ROWS rows runs as the fused
+    int8 kernel (ops/ffn_int8.py) where kernels.use_int8_ffn says so; the
+    layers keep their upstream parameter names either way."""
+    if (not training and isinstance(activation, PReLU)
+            and x.numel() // x.shape[-1] >= kernels.INT8_FFN_MIN_ROWS
+            and kernels.use_int8_ffn(x.device)):
+        return ffn_int8(x, linear1.weight, linear1.bias, activation.weight, linear2.weight,
+                        linear2.bias)
+    return linear2(dropout(activation(linear1(x))))
 
 
 class LinearBlock(nn.Module):

@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from .attention import ProjAttention
-from .layers import LayerNorm, Linear, make_activation
+from .layers import LayerNorm, Linear, ffn, make_activation
 
 
 def scrambled_pair_factors(vid_valid_mask: torch.Tensor, txt_valid_mask: torch.Tensor,
@@ -81,7 +81,7 @@ class T2VLayer(nn.Module):
             norm1, linear1, linear2, norm2 = self.norm1_1, self.linear1_1, self.linear2_1, self.norm2_1
         else:
             norm1, linear1, linear2, norm2 = self.norm1, self.linear1, self.linear2, self.norm2
-        y = linear2(self.dropout(self.activation(linear1(norm1(x)))))
+        y = ffn(norm1(x), linear1, self.activation, linear2, self.dropout, self.training)
         return norm2(x + self.dropout(y))
 
 

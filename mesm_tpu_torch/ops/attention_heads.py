@@ -1,0 +1,82 @@
+"""Multi-head attention in the per-head and all-heads layouts, which the
+attention dispatch takes under MESM_ATTN_VARIANT=per_head / all_heads.
+
+`attention_per_head` and `attention_all_heads` launch the two instances of
+the CUDA kernel kernels/csrc/attention_heads.cu (the ports of
+mesm_tpu/ops/attention_pallas.py::_mha_kernel and _mha_kernel_allheads) on
+CUDA tensors. The two TPU kernels compute one function, that of the batched
+kernel, so their plain version is ops/attention_batched
+.attention_batched_reference, which both run on CPU tensors: q * scale in
+the input dtype, f32 logits, a finite -1e9 on masked keys, an f32 softmax,
+the probabilities rounded to v's dtype, P.V with f32 sums.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import refuse_autograd
+from .attention_batched import attention_batched_reference
+from .attention_packed import MAX_SMEM, check_operands, mask_u8
+
+# kernel launches since import (or since the caller last set them to 0)
+per_head_launches = 0
+all_heads_launches = 0
+
+
+def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, all_heads: bool):
+    """Checks the operands and launches kernels/csrc/attention_heads.cu;
+    returns out."""
+    B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
+                                      (torch.bfloat16, torch.float32))
+    from ..kernels.build import load
+
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    lib = load("attention_heads")
+    smem_bytes = lib.attention_heads_smem_bytes
+    smem_bytes.restype = ctypes.c_longlong
+    smem_bytes.argtypes = [ctypes.c_int] * 3
+    need = smem_bytes(is_bf16, hd, Lk)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
+    mask = mask_u8(key_valid_mask, B, Lk, q.device)
+    out = torch.empty(B, Lq, E, dtype=q.dtype, device=q.device)
+    scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
+    fn = lib.attention_heads_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+             B, num_heads, Lq, Lk, E, is_bf16, int(all_heads), scale,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return out
+
+
+def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
+    """The per-head kernel (a block per sample, head and query tile). CPU
+    tensors take the plain version; CUDA tensors launch the kernel (bf16 or
+    float32, head_dim 32 or 64, Ev == E) or raise. Raises for an input that
+    requires grad in grad mode (no graph)."""
+    global per_head_launches
+    refuse_autograd("attention_per_head", q, k, v)
+    if q.device.type == "cpu":
+        return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
+    out = _launch("attention_per_head", q, k, v, num_heads, key_valid_mask, False)
+    per_head_launches += 1
+    return out
+
+
+def attention_all_heads(q, k, v, num_heads: int, key_valid_mask=None):
+    """The all-heads kernel (a block per sample and query tile, over every
+    head). CPU tensors take the plain version; CUDA tensors launch the
+    kernel (bf16 or float32, head_dim 32 or 64, Ev == E) or raise. Raises for
+    an input that requires grad in grad mode (no graph)."""
+    global all_heads_launches
+    refuse_autograd("attention_all_heads", q, k, v)
+    if q.device.type == "cpu":
+        return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
+    out = _launch("attention_all_heads", q, k, v, num_heads, key_valid_mask, True)
+    all_heads_launches += 1
+    return out

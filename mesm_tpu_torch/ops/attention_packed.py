@@ -10,6 +10,10 @@ to the input dtype, the max-subtracted exp and the divide run in that dtype,
 and only the denominator is summed in f32 (attention_core upcasts the whole
 softmax to f32). In fp32 every rounding is to f32 and the two agree.
 
+Both kernels take bf16 (the default packed variant) and float32 (what
+MESM_ATTN_VARIANT=packed sends an fp32 model to); in float32 every rounding
+point is f32.
+
 `attention_packed_pair` launches the same source's pair-masked entry point
 (the port of `_mha_kernel_packed_pair`, attention_pallas.py:170-210) and
 `attention_packed_pair_reference` is its plain version. It is not the
@@ -65,8 +69,8 @@ def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional
 def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the packed kernel's
     numerics. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16, head_dim 32 or 64, Ev == E) or raise. Raises for an input
-    that requires grad in grad mode (no graph)."""
+    kernel (bf16 or float32, head_dim 32 or 64, Ev == E) or raise. Raises for
+    an input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("attention_packed", q, k, v)
     if q.device.type == "cpu":
@@ -160,14 +164,16 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     """Checks the operands and launches kernels/csrc/attention_packed.cu: its
     pair-masked entry point when pair_factors is given, else the packed
     one. Returns out."""
-    B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask)
+    B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
+                                      (torch.bfloat16, torch.float32))
     from ..kernels.build import load
 
+    is_bf16 = int(q.dtype == torch.bfloat16)
     lib = load("attention_packed")
     smem_bytes = lib.attention_packed_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
-    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    need = smem_bytes(hd, Lk)
+    smem_bytes.argtypes = [ctypes.c_int] * 3
+    need = smem_bytes(is_bf16, hd, Lk)
     if need > MAX_SMEM:
         raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
@@ -175,17 +181,17 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     if pair_factors is None:
         fn = lib.attention_packed_launch
         operands = (q, k, v, mask, out)
-        scale = float(torch.tensor(hd**-0.5, dtype=torch.bfloat16))  # q * scale is a bf16 product
+        scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
     else:
         fn = lib.attention_packed_pair_launch
         operands = (q, k, v, mask, *factors_u8(pair_factors, B, num_heads, Lq, Lk, q.device), out)
         scale = hd**-0.5  # an f32 product
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(operands) + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * len(operands) + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
-    err = fn(*(t.data_ptr() for t in operands), B, num_heads, Lq, Lk, E, E, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(*(t.data_ptr() for t in operands), B, num_heads, Lq, Lk, E, E, is_bf16,
+             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     return out
@@ -193,9 +199,10 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
 
 def attention_packed_pair(q, k, v, num_heads: int, key_valid_mask, pair_factors):
     """Multi-head attention over (B, L, E) operands under the factored pair
-    mask, with the pair kernel's numerics (f32 softmax, bf16 probabilities).
-    CPU tensors take the plain version; CUDA tensors launch the kernel (bf16,
-    head_dim 32 or 64, Ev == E) or raise. Raises for an input that requires
+    mask, with the pair kernel's numerics (f32 softmax, probabilities rounded
+    to the operand dtype). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (bf16 or float32, head_dim 32 or 64, Ev == E) or
+    raise. Raises for an input that requires
     grad in grad mode (no graph)."""
     global pair_launches
     refuse_autograd("attention_packed_pair", q, k, v)

@@ -4,10 +4,12 @@ forward and a recomputed plain backward.
 Port of mesm_tpu/ops/attention_pallas.py::fused_attention_trainable
 (`_fat_fwd`, `_fat_bwd`, :571-614). The forward is what `fused_attention`
 (:617-675) runs for a dropout-free call: the kernel that
-kernels.fused_route picks for the operands (bf16: the packed kernel, its
-pair-masked entry point or the short-key kernel; fp32: the batched kernel),
-and models/attention.attention_core where the JAX function itself takes its
-plain core (a side too short, pair factors on the fp32 variant). Only q, k,
+kernels.fused_route picks for the operands and MESM_ATTN_VARIANT (by
+default, bf16: the packed kernel, its pair-masked entry point or the
+short-key kernel; fp32: the batched kernel; under the variant also the
+per-head and all-heads kernels, and either family in either dtype), and
+models/attention.attention_core where the JAX function itself takes its
+plain core (a side too short, pair factors outside the packed variant). Only q, k,
 v, the key mask and the pair factors are kept for the backward, never the
 (B, H, Lq, Lk) probabilities. The backward recomputes attention_core (f32
 softmax, not the kernel's numerics, as `_fat_bwd` does) on detached inputs
@@ -24,6 +26,7 @@ import torch
 
 from .. import kernels
 from .attention_batched import attention_batched
+from .attention_heads import attention_all_heads, attention_per_head
 from .attention_packed import attention_packed, attention_packed_pair
 from .attention_shortkey import attention_shortkey
 
@@ -49,6 +52,10 @@ def fused_attention(q, k, v, num_heads: int, key_valid_mask=None,
         return attention_shortkey(q, k, v, num_heads, key_valid_mask, pair_factors)
     if route == "batched":
         return attention_batched(q, k, v, num_heads, key_valid_mask)
+    if route == "all_heads":
+        return attention_all_heads(q, k, v, num_heads, key_valid_mask)
+    if route == "per_head":
+        return attention_per_head(q, k, v, num_heads, key_valid_mask)
     from ..models.attention import attention_core
 
     return attention_core(q, k, v, num_heads, key_valid_mask=key_valid_mask,

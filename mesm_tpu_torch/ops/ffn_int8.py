@@ -1,0 +1,151 @@
+"""The fused int8 FFN: linear2(prelu(linear1(x))) with int8 x int8 -> int32
+products and the wide hidden activation kept on chip.
+
+`ffn_int8` launches the CUDA kernel kernels/csrc/ffn_int8.cu (the port of
+mesm_tpu/ops/ffn_pallas.py::ffn_int8 / _ffn_int8_kernel) on CUDA tensors
+and runs `ffn_int8_reference`, its plain torch version (ffn_pallas.py:145-173),
+on CPU tensors. Both take the kernel's stages:
+
+- weights: per output channel, s = max(amax |w|, 1e-8) / 127 in f32 and
+  wq = round(w / s) (half to even), as int8; the quantization is torch ops
+  here, as the JAX package does it in XLA outside the pallas_call
+  (ffn_pallas.py:107-112);
+- activations: per row, xs = max(amax |x|, 1e-8) * (1/127) in f32 and
+  xq = round(bf16(x) * bf16(1 / xs));
+- h = bf16 chain ((bf16(acc1) * bf16(s1)) * bf16(xs)) + bf16(b1), each op
+  rounded to bf16, then PReLU in bf16;
+- per row, ah = amax |h| (f32), hq = round(h * bf16(127 / max(ah, 1e-8)));
+- out = ((bf16(acc2) * bf16(s2)) * bf16(hs)) + bf16(b2) in bf16, with
+  hs = max(ah, 1e-8) * (1/127), returned in x's dtype.
+
+Every round to int8 saturates to [-128, 127], as XLA's float -> int8
+conversion does. The integer products are exact: their sums stay below 2**24
+for K and N1 up to 1040, so the plain version takes them as f32 matrix products (there
+is no integer matmul on CUDA) and int -> f32 -> bf16 rounds once.
+
+Weights come in torch Linear layout, (out, in); the kernel reads wq rows,
+whose k run is contiguous, as the B operand of its int8 mma.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels import refuse_autograd
+
+MAX_SMEM = 232448  # bytes a block may use on sm_90
+# an int8 product's sums, <= 127 * 127 * depth, stay below 2**24 (so int ->
+# f32 -> bf16 rounds once) for depths up to 1040: K = 256 and N1 = 1024 at
+# the model's widths
+MAX_DEPTH = 1040
+
+# kernel launches since import (or since the caller last set it to 0)
+launches = 0
+
+
+def _div(a, b) -> torch.Tensor:
+    """a / b as an elementwise f32 division, a Python number taken as a full
+    tensor: with a scalar operand torch may multiply by a reciprocal
+    instead, which rounds otherwise than XLA's division."""
+    a = a if isinstance(a, torch.Tensor) else torch.full_like(b, a)
+    b = b if isinstance(b, torch.Tensor) else torch.full_like(a, b)
+    return a / b
+
+
+def quantize_weight(w: torch.Tensor):
+    """(out, in) float weight -> (int8 (out, in), f32 scales (out,)):
+    per-output-channel symmetric scales amax / 127 (ffn_pallas.py:107-112)."""
+    wf = w.float()
+    s = _div(torch.clamp(wf.abs().amax(dim=1), min=1e-8), 127.0)
+    return torch.round(wf / s[:, None]).to(torch.int8), s
+
+
+def _to_i8(v: torch.Tensor) -> torch.Tensor:
+    """round half to even, saturated to int8, as an f32 tensor of integers."""
+    return torch.clamp(torch.round(v.float()), -128.0, 127.0)
+
+
+def _row_scale(a: torch.Tensor) -> torch.Tensor:
+    """max(a, 1e-8) * (1/127) in f32: the per-row dequantization scale."""
+    return torch.clamp(a, min=1e-8) * (1.0 / 127.0)
+
+
+def ffn_int8_reference(x, w1, b1, alpha, w2, b2):
+    """Plain torch version. x (..., K) bf16 or fp32; w1 (N1, K), b1 (N1,),
+    alpha (1,) the PReLU slope, w2 (K2, N1), b2 (K2,) float -> (..., K2) in
+    x's dtype."""
+    bf = torch.bfloat16
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1])
+    w1q, s1 = quantize_weight(w1)
+    w2q, s2 = quantize_weight(w2)
+    ax = x2.float().abs().amax(dim=-1, keepdim=True)
+    xs = _row_scale(ax)
+    xq = _to_i8(x2.to(bf) * _div(1.0, xs).to(bf))
+    acc1 = torch.matmul(xq, w1q.float().t())  # exact integer sums
+    h = acc1.to(bf) * s1.to(bf) * xs.to(bf) + b1.to(bf)
+    a = alpha.to(bf).reshape(())
+    h = torch.clamp(h, min=0) + a * torch.clamp(h, max=0)
+    ah = h.float().abs().amax(dim=-1, keepdim=True)
+    hr = _div(127.0, torch.clamp(ah, min=1e-8)).to(bf)
+    hq = _to_i8(h * hr)
+    acc2 = torch.matmul(hq, w2q.float().t())
+    out = acc2.to(bf) * s2.to(bf) * _row_scale(ah).to(bf) + b2.to(bf)
+    return out.to(x.dtype).reshape(*shape[:-1], w2.shape[0])
+
+
+def ffn_int8(x, w1, b1, alpha, w2, b2):
+    """linear2(prelu(linear1(x))) with the int8 kernel's numerics. CPU
+    tensors take the plain version; CUDA tensors launch the kernel (x bf16
+    or fp32; K, N1 and K2 multiples of 32, K and N1 at most MAX_DEPTH) or
+    raise. Raises for an input that requires grad in grad mode (no
+    graph)."""
+    global launches
+    refuse_autograd("ffn_int8", x, w1, b1, alpha, w2, b2)
+    if x.device.type == "cpu":
+        return ffn_int8_reference(x, w1, b1, alpha, w2, b2)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"ffn_int8: the kernel takes bfloat16 or float32 x, got {x.dtype}")
+    K = x.shape[-1]
+    N1, K2 = w1.shape[0], w2.shape[0]
+    if w1.shape != (N1, K) or b1.shape != (N1,) or w2.shape != (K2, N1) or b2.shape != (K2,) \
+            or alpha.numel() != 1:
+        raise ValueError(
+            f"ffn_int8: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
+            f"alpha {tuple(alpha.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}"
+        )
+    if K % 32 or N1 % 32 or K2 % 32 or max(K, N1) > MAX_DEPTH:
+        raise ValueError(f"ffn_int8: the kernel takes K, N1, K2 multiples of 32 and K, N1 <= "
+                         f"{MAX_DEPTH}, got {K}, {N1}, {K2}")
+    if not x.is_contiguous():
+        raise ValueError("ffn_int8: x must be contiguous")
+    if any(t.device != x.device for t in (w1, b1, alpha, w2, b2)):
+        raise ValueError("ffn_int8: every operand must lie on x's device")
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn_int8: unsupported device {x.device}")
+    from ..kernels.build import load
+
+    lib = load("ffn_int8")
+    smem_bytes = lib.ffn_int8_smem_bytes
+    smem_bytes.restype = ctypes.c_longlong
+    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    need = smem_bytes(K, N1)
+    if need > MAX_SMEM:
+        raise ValueError(f"ffn_int8: K {K}, N1 {N1} need {need} bytes of shared memory")
+    bf = torch.bfloat16
+    w1q, s1 = quantize_weight(w1)
+    w2q, s2 = quantize_weight(w2)
+    N = x.numel() // K
+    out = torch.empty(*x.shape[:-1], K2, dtype=x.dtype, device=x.device)
+    operands = (x, w1q, s1.to(bf), b1.to(bf).contiguous(), alpha.to(bf).reshape(1).contiguous(),
+                w2q, s2.to(bf), b2.to(bf).contiguous(), out)
+    fn = lib.ffn_int8_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * len(operands) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    err = fn(*(t.data_ptr() for t in operands), N, K, N1, K2, int(x.dtype == bf),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ffn_int8 kernel launch failed: cudaError {err}")
+    launches += 1
+    return out

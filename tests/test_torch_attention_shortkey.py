@@ -345,8 +345,8 @@ def test_short_key_wrappers_refuse_what_the_kernel_does_not_take():
             fn(q, k, k, 2)
     kl = torch.zeros(2, 72, 64, dtype=torch.bfloat16, **meta)
     pair = (torch.zeros(2, 2, 64, dtype=torch.bool, **meta), torch.zeros(2, 2, 72, dtype=torch.bool, **meta))
-    with pytest.raises(TypeError):
-        ap.attention_packed_pair(q.float(), kl.float(), kl.float(), 2, None, pair)
+    with pytest.raises(TypeError):  # bf16 or fp32
+        ap.attention_packed_pair(q.half(), kl.half(), kl.half(), 2, None, pair)
     with pytest.raises(ValueError, match="unsupported device"):
         ap.attention_packed_pair(q, kl, kl, 2, None, pair)
     assert (sk.launches, sk.onematmul_launches, ap.pair_launches) == before

@@ -15,6 +15,7 @@ import torch
 from mesm_tpu_torch.ops import attention_batched as ab
 from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_shortkey as sk
+from mesm_tpu_torch.ops import ffn_int8 as fi
 from mesm_tpu_torch.ops import ln_dense as ld
 
 REPO = Path(__file__).resolve().parents[1]
@@ -134,11 +135,14 @@ def test_new_modules_are_covered():
     for rel in ("ops/attention_batched.py", "ops/attention_trainable.py", "ops/matcher.py",
                 "losses/criterion.py", "train.py", "utils/checkpoint.py", "utils/meters.py",
                 "ops/attention_shortkey.py", "ops/lsap.py", "models/attention.py",
-                "kernels/__init__.py", "data/pipeline.py"):
+                "kernels/__init__.py", "data/pipeline.py", "ops/attention_heads.py",
+                "ops/ffn_int8.py", "models/layers.py"):
         assert f"mesm_tpu_torch/{rel}" in names, rel
     sources = {p.name for p in _cuda_sources()}
     assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
-            "attention_shortkey.cu"} <= sources
+            "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu"} <= sources
+    wrappers = {p.name for p in _kernel_wrapper_modules()}
+    assert {"attention_heads.py", "ffn_int8.py"} <= wrappers
 
 
 # the headers a kernel source may include: the CUDA toolkit's and C's own
@@ -228,7 +232,7 @@ def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
         rtol=0, atol=0,
     )
     with pytest.raises(TypeError):
-        ab.attention_batched(*_attn_args(torch.bfloat16, "meta"), 2)  # the kernel is fp32
+        ab.attention_batched(*_attn_args(torch.float16, "meta"), 2)  # the kernel is fp32 or bf16
     with pytest.raises(ValueError, match="head_dim"):
         ab.attention_batched(*_attn_args(torch.float32, "meta"), 4)  # head_dim 16
     q, k, v = _attn_args(torch.float32, "meta")
@@ -237,6 +241,24 @@ def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
     with pytest.raises(ValueError, match="unsupported device"):
         ab.attention_batched(q, k, v, 2)
     assert ab.launches == before
+
+
+def test_ffn_int8_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
+    g = torch.Generator().manual_seed(3)
+    args = [torch.randn(*shape, generator=g) for shape in ((5, 32), (64, 32), (64,), (1,), (32, 64), (32,))]
+    before = fi.launches
+    torch.testing.assert_close(fi.ffn_int8(*args), fi.ffn_int8_reference(*args), rtol=0, atol=0)
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(TypeError):
+        fi.ffn_int8(meta[0].half(), *meta[1:])
+    with pytest.raises(ValueError, match="multiples of 32"):
+        fi.ffn_int8(meta[0][:, :16].contiguous(), meta[1][:, :16].contiguous(), *meta[2:4],
+                    meta[4][:16].contiguous(), meta[5][:16].contiguous())
+    with pytest.raises(ValueError, match="shapes"):
+        fi.ffn_int8(meta[0], meta[1][:, :31], *meta[2:])
+    with pytest.raises(ValueError, match="unsupported device"):
+        fi.ffn_int8(*meta)
+    assert fi.launches == before
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
@@ -254,7 +276,7 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         ld.ln_dense(x.t().contiguous().t(), gamma, beta, w, b, relu=False)
     with pytest.raises(TypeError):
-        ap.attention_packed(*_attn_args(torch.float32, "meta"), 2)
+        ap.attention_packed(*_attn_args(torch.float16, "meta"), 2)  # the kernel is bf16 or fp32
     with pytest.raises(ValueError, match="head_dim"):
         ap.attention_packed(*_attn_args(torch.bfloat16, "meta"), 4)  # head_dim 16
     q, k, v = _attn_args(torch.bfloat16, "meta")
