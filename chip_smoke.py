@@ -17,9 +17,11 @@ kernels on and off, the charades C+SF_C fp32 train step as shipped,
 evaluate entry point then scores, the QVHighlights fp32 train step and
 both entry points on a synthetic QVHighlights root, the charades bf16 and
 TACoS fp32 eval steps (and the evaluate entry point) with the fused int8
-FFN switched on, and the eval steps, one train step and the evaluate entry
-point under each MESM_ATTN_VARIANT layout, and checks that each path went
-through its kernels. Each phase prints one JSON line; the line
+FFN switched on, the eval steps, one train step and the evaluate entry
+point under each MESM_ATTN_VARIANT layout, and the fused stream-layer
+kernel through the port of the layer-kernel bench entry point and on the
+real charades model's layers (with the layout anchor on its encoder
+memory), and checks that each path went through its kernels. Each phase prints one JSON line; the line
 before the last is the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -62,7 +64,11 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #   the per-head, all-heads and bf16 batched kernels: 1e-5 in fp32 (f32 sums
 #     in another order), 3e-2 abs in bf16 (p and out rounded to bf16);
 #   the packed, pair and short-key kernels in fp32: 1e-5 (every rounding is
-#     to f32; sums of up to 601 terms in another order).
+#     to f32; sums of up to 601 terms in another order);
+#   the fused stream layer: fp32 1e-4 (1024-term sums in another order,
+#     through two LayerNorms); bf16 0.05 (one flipped bf16 step in the FFN
+#     hidden propagates through LN2);
+#   layout_anchor: 0, a copy (bit-equal).
 TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4,
        "attention_packed_bfloat16": 3e-2, "attention_batched_float32": 1e-5,
        "attention_trainable": 1e-5, "attention_packed_pair_bfloat16": 3e-2,
@@ -71,11 +77,15 @@ TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4,
        "attention_per_head_float32": 1e-5, "attention_per_head_bfloat16": 3e-2,
        "attention_all_heads_float32": 1e-5, "attention_all_heads_bfloat16": 3e-2,
        "attention_batched_bfloat16": 3e-2, "attention_packed_float32": 1e-5,
-       "attention_packed_pair_float32": 1e-5, "attention_shortkey_float32": 1e-5}
+       "attention_packed_pair_float32": 1e-5, "attention_shortkey_float32": 1e-5,
+       "stream_layer_float32": 1e-4, "stream_layer_bfloat16": 0.05, "layout_anchor": 0.0}
 # the model's bf16 predictions with the kernels against (a) kernels off in
 # bf16 and (b) the fp32 plain path, in units of max(1, max |reference|) per
 # output: the packed kernel's bf16 softmax and the fused LayerNorm -> Dense
-# round at other points than the plain path, and bf16 keeps 8 mantissa bits
+# round at other points than the plain path, and bf16 keeps 8 mantissa bits.
+# Also the fused stream layer against the model's own bf16 layers, in units
+# of max(1, |reference|) per element: the modules' bf16 logits, softmax and
+# two-pass LayerNorm round at other points than the kernel
 MODEL_TOL = 0.05
 
 MAIN_PATH = dict(N=10282, D=2818, F=256, B=128, L=195, E=256, H=8)
@@ -132,6 +142,11 @@ PACKED_FP32_ON_LAUNCHES = {"tacos": {"ln_dense": 8, "attention_packed": 2, "atte
 # token) of 4098-wide C3D + TEF features, 16 words of 300-d GloVe; the train
 # step stacks the negative pass, so its DETR encoder sees 32 rows
 TACOS = dict(B=16, Lv=600, Dv=4098, Lw=16, Dt=300, L=601, E=256, H=8)
+# the fused stream layer's path (mesm_tpu_torch/scripts/bench_layer_kernel.py
+# at the charades widths): 128 samples, the encoder at 195 rows (the global
+# token included), T2V at 194 video rows against 17 text keys; N chained
+# layers per timed chain, `iters` timed chains after one warm-up chain
+STREAM = dict(B=128, L=195, Lv=194, N=32, iters=5)
 # kernels on vs off in fp32, in units of max(1, max |off|) per output
 FP32_MODEL_TOL = 1e-4
 # the train step's first loss, kernels "auto" vs "off": relative; its
@@ -580,6 +595,87 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
     return res
 
 
+def check_stream_layer(flavor: str, dtype_name: str, summary: str) -> dict:
+    """The fused stream layer on the bench entry point's inputs at the
+    charades widths (STREAM), sample 1 with every key masked, against its
+    plain version; then its time (CUDA events, and the kernel alone), the
+    plain version's, and as the library column the port's module layer in
+    eval on the same inputs (no single PyTorch call computes the layer)."""
+    import torch
+
+    from mesm_tpu_torch.ops import stream_layer as sl
+    from mesm_tpu_torch.scripts.bench_layer_kernel import D, F, H, make_case
+
+    dt = getattr(torch, dtype_name)
+    B, Lq = STREAM["B"], STREAM["L"] if flavor == "encoder" else STREAM["Lv"]
+    with torch.no_grad():
+        case = make_case(flavor, B, Lq, dt, "cuda")
+        x, args = case["x"], list(case["args"])
+        args[3] = args[3].clone()
+        args[3][1] = False
+        Lk = args[3].shape[1]
+        got = sl.fused_stream_layer(x, *args)
+        want = sl.stream_layer_reference(x, *args)
+        torch.cuda.synchronize()
+        err, tol = _rel_err(got, want), TOL[f"stream_layer_{dtype_name}"]
+        res = {
+            "kernel": "stream_layer", "flavor": flavor, "dtype": dtype_name,
+            "shape": [B, Lq, Lk, D, H, F], "pair": args[4] is not None, "summary_name": summary,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
+        }
+        if not (err <= tol and res["finite"]):
+            emit(dict(res, phase="kernels", ok=False))
+            raise SystemExit(f"stream_layer {flavor} {dtype_name}: {res}")
+        res["ms"] = cuda_time_ms(lambda: sl.fused_stream_layer(x, *args))
+        res["kernel_ms"] = device_kernel_ms(lambda: sl.fused_stream_layer(x, *args),
+                                            "stream_layer_kernel")
+        res["plain_ms"] = cuda_time_ms(lambda: sl.stream_layer_reference(x, *args))
+        res["library_ms"] = cuda_time_ms(lambda: case["module"](x))
+    # x, pos and out (and the text's keys and values) once, the masks, the
+    # f32 weights; the operations of layer_pallas.py:236-237
+    item = x.element_size()
+    moved = (3 * B * Lq * D + (0 if flavor == "encoder" else 2 * B * Lk * D)) * item + B * Lk \
+        + (B * H * (Lq + Lk) if args[4] is not None else 0) + 4 * (4 * D * D + 2 * D * F + 8 * D + F + 1)
+    ops = 2.0 * B * (Lq * D * D * 2 + Lk * D * D * 2 + Lq * Lk * D * 2 + Lq * D * F * 2)
+    res["bound_ms"], res["bound_by"] = bound(moved, ops, dtype_name)
+    return res
+
+
+def check_layout_anchor(strided: bool, summary=None) -> dict:
+    """layout_anchor at the stream's shape (128 x 194 x 256 bf16), on a
+    row-major input and on a (B, D, L) tensor viewed as (B, L, D): a fresh
+    row-major tensor bit-equal to its plain version (a contiguous clone);
+    then its time, the plain version's and, on the strided view,
+    x.contiguous()'s."""
+    import torch
+
+    from mesm_tpu_torch.ops import anchor
+
+    B, L, D = MAIN_PATH["B"], MAIN_PATH["L"] - 1, MAIN_PATH["E"]
+    g = torch.Generator(device="cuda").manual_seed(8)
+    base = torch.randn(B, D, L, generator=g, device="cuda").to(torch.bfloat16)
+    x = base.transpose(1, 2) if strided else base.transpose(1, 2).contiguous()
+    got = anchor.layout_anchor(x)
+    want = anchor.layout_anchor_reference(x)
+    torch.cuda.synchronize()
+    res = {
+        "kernel": "layout_anchor", "dtype": "bfloat16", "shape": [B, L, D], "strided": strided,
+        "summary_name": summary, "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "bit_equal": bool(torch.equal(got.view(torch.int16), want.view(torch.int16))),
+        "row_major": got.is_contiguous(), "tol": TOL["layout_anchor"],
+    }
+    if not (res["bit_equal"] and res["row_major"] and got.data_ptr() != x.data_ptr()):
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"layout_anchor strided={strided}: {res}")
+    res["ms"] = cuda_time_ms(lambda: anchor.layout_anchor(x))
+    res["kernel_ms"] = device_kernel_ms(lambda: anchor.layout_anchor(x), "anchor_kernel")
+    res["plain_ms"] = cuda_time_ms(lambda: anchor.layout_anchor_reference(x))
+    res["library_ms"] = cuda_time_ms(lambda: x.contiguous()) if strided else None
+    res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * x.element_size(), 0.0, "bfloat16")
+    return res
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version at its main paths' shapes,
     timed; each check names the kernel summary's entry it stands for."""
@@ -635,6 +731,13 @@ def phase_kernels() -> dict:
     # (fp32, 16 x 600) FFN sites
     results.append(check_ffn_int8("charades", "bfloat16", B16 * L16, "ffn_int8"))
     results.append(check_ffn_int8("tacos", "float32", B32 * TACOS["Lv"], "ffn_int8_float32"))
+    # the fused stream layer on the bench entry point's inputs, both flavours
+    # and dtypes; the layout anchor on a row-major and a transposed stream
+    for flavor in ("encoder", "t2v"):
+        for dtype_name, suffix in (("bfloat16", ""), ("float32", "_float32")):
+            results.append(check_stream_layer(flavor, dtype_name, f"stream_layer_{flavor}{suffix}"))
+    results.append(check_layout_anchor(False))
+    results.append(check_layout_anchor(True, "layout_anchor"))
     out = {"phase": "kernels", "ok": True, "results": results}
     emit(out)
     return out
@@ -784,8 +887,9 @@ def _pred_err(a, b):
 
 def _launch_counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from mesm_tpu_torch.ops import (attention_batched, attention_heads, attention_packed,
-                                    attention_shortkey, attention_trainable, ffn_int8, ln_dense)
+    from mesm_tpu_torch.ops import (anchor, attention_batched, attention_heads, attention_packed,
+                                    attention_shortkey, attention_trainable, ffn_int8, ln_dense,
+                                    stream_layer)
 
     return {"ln_dense": (ln_dense, "launches"), "attention_packed": (attention_packed, "launches"),
             "attention_batched": (attention_batched, "launches"),
@@ -795,7 +899,8 @@ def _launch_counters():
             "attention_shortkey_onematmul": (attention_shortkey, "onematmul_launches"),
             "attention_per_head": (attention_heads, "per_head_launches"),
             "attention_all_heads": (attention_heads, "all_heads_launches"),
-            "ffn_int8": (ffn_int8, "launches")}
+            "ffn_int8": (ffn_int8, "launches"), "stream_layer": (stream_layer, "launches"),
+            "layout_anchor": (anchor, "launches")}
 
 
 def reset_launches():
@@ -1678,7 +1783,8 @@ def phase_cli() -> dict:
         brief = metrics["brief"]
         res = {"phase": "cli", "setup_s": setup_s, "inference_s": time.perf_counter() - t0,
                "launches": launches, "brief": brief}
-        res["ok"] = bool(launches["ln_dense"] > 0 and launches["attention_packed"] > 0 and brief)
+        res["ok"] = bool(launches["ln_dense"] > 0 and launches["attention_packed"] > 0 and brief
+                         and launches["stream_layer"] == 0 and launches["layout_anchor"] == 0)
         emit(res)
         if not res["ok"]:
             raise SystemExit("cli phase failed: a kernel of the main path never ran")
@@ -1885,6 +1991,115 @@ def phase_attn_variants(card: str, n_batches: int = 2) -> dict:
     return res
 
 
+def phase_stream_layer(card: str) -> dict:
+    """The fused stream layer's path. First the bench entry point's run
+    (`python -m mesm_tpu_torch.scripts.bench_layer_kernel`, STREAM) for both
+    flavours in bf16 and fp32, the launch counts set to 0 just before each
+    run and read just after: the kernel N times per chain, and the module
+    chain what "auto" gives it (the packed attention in the bf16 encoder);
+    after one application the module and the kernel agree within MODEL_TOL
+    in bf16, FP32_MODEL_TOL in fp32. Then the charades C+SF_C model (phase
+    `model`) in one bf16 eval batch in "auto", which launches
+    CHARADES_LAUNCHES["auto"] and neither new kernel: forward hooks capture
+    the inputs and outputs of the DETR encoder's first layer and the first
+    T2V layer, and fused_stream_layer on each layer's own weights
+    (stream_layer_params) and inputs holds the layer's output within
+    MODEL_TOL; layout_anchor copies the encoder memory without its global
+    token (the strided 128 x 194 x 256 bf16 view the decoder reads) into a
+    row-major tensor, bit for bit."""
+    import torch
+
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.models.t2v import scrambled_pair_factors
+    from mesm_tpu_torch.ops import anchor
+    from mesm_tpu_torch.ops.stream_layer import (fused_stream_layer, stream_layer_params,
+                                                 stream_layer_reference)
+    from mesm_tpu_torch.parallel.step import make_eval_step
+    from mesm_tpu_torch.scripts import bench_layer_kernel as bench
+
+    res = {"phase": "stream_layer", "card": card, "tol": MODEL_TOL, "fp32_tol": FP32_MODEL_TOL}
+    ok = True
+    N, iters = STREAM["N"], STREAM["iters"]
+    applications = N * (iters + 1) + 1  # the warm-up and timed chains, one more to compare
+    for flavor in ("encoder", "t2v"):
+        for dtype_name in ("bfloat16", "float32"):
+            L = STREAM["L"] if flavor == "encoder" else STREAM["Lv"]
+            reset_launches()
+            r = bench.run(flavor, STREAM["B"], L, N, getattr(torch, dtype_name), "cuda", iters)
+            torch.cuda.synchronize()
+            r["launches"] = read_launches()
+            expect = {"stream_layer": applications}
+            if flavor == "encoder" and dtype_name == "bfloat16":
+                expect["attention_packed"] = applications
+            r["launches_expected"] = expected_launches(expect, 1)
+            tol = MODEL_TOL if dtype_name == "bfloat16" else FP32_MODEL_TOL
+            r["ok"] = bool(r["launches"] == r["launches_expected"] and r["finite"]
+                           and r["kernel_launches_per_chain"] == N and r["max_err_rel_to_max1"] <= tol)
+            res[f"bench_{flavor}_{dtype_name}"] = r
+            ok = ok and r["ok"]
+
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda().eval()
+    step16 = make_eval_step(model, _encode_batch, torch.bfloat16)
+    enc_layer = model.transformer.encoder.layers[0]
+    t2v_layer = model.t2v_encoder.t2v_encoder.layers[0]
+    seen = {}
+
+    def capture(name):
+        def hook(module, args, kwargs, output):
+            seen[name] = (args, kwargs, output)
+        return hook
+
+    handles = [m.register_forward_hook(capture(name), with_kwargs=True)
+               for name, m in (("encoder", enc_layer), ("t2v", t2v_layer),
+                               ("memory", model.transformer.encoder))]
+    reset_launches()
+    step16(make_eval_batch(0))
+    torch.cuda.synchronize()
+    m = {"launches": read_launches(), "launches_expected": expected_launches(CHARADES_LAUNCHES["auto"], 1)}
+    for h in handles:
+        h.remove()
+    H = model.cfg.nheads
+    with torch.no_grad():
+        (src, enc_mask, pos), _, enc_out = seen["encoder"]
+        (txt, vid, tmask, pos_t, pos_v, vid_mask), kw, t2v_out = seen["t2v"]
+        pair = kw.get("pair_factors") or scrambled_pair_factors(vid_mask, tmask, H)
+        k_in = txt if pos_t is None else txt + pos_t
+        enc_args = (pos, None, None, enc_mask, None, stream_layer_params(enc_layer), H, True)
+        t2v_args = (pos_v, k_in, txt, tmask, pair, stream_layer_params(t2v_layer), H, False)
+        local = seen["memory"][2][:, 1:]
+        reset_launches()
+        got_enc = fused_stream_layer(src, *enc_args)
+        got_t2v = fused_stream_layer(vid, *t2v_args)
+        anchored = anchor.layout_anchor(local)
+        torch.cuda.synchronize()
+        m["layer_launches"] = read_launches()
+        want_local = anchor.layout_anchor_reference(local)
+        for name, got, want, x, args in (("encoder", got_enc, enc_out, src, enc_args),
+                                         ("t2v", got_t2v, t2v_out, vid, t2v_args)):
+            m[name] = {"shape": list(x.shape), "dtype": str(x.dtype),
+                       "max_err_rel_to_max1": _rel_err(got, want),
+                       "plain_vs_layer": _rel_err(stream_layer_reference(x, *args), want),
+                       "finite": bool(torch.isfinite(got).all())}
+    m["layer_launches_expected"] = expected_launches({"stream_layer": 2, "layout_anchor": 1}, 1)
+    m["anchor"] = {"shape": list(local.shape), "input_row_major": local.is_contiguous(),
+                   "row_major": anchored.is_contiguous(),
+                   "bit_equal": bool(torch.equal(anchored.view(torch.int16),
+                                                 want_local.view(torch.int16)))}
+    m["ok"] = bool(m["launches"] == m["launches_expected"]
+                   and m["layer_launches"] == m["layer_launches_expected"]
+                   and all(m[n]["finite"] and m[n]["max_err_rel_to_max1"] <= MODEL_TOL
+                           for n in ("encoder", "t2v"))
+                   and m["anchor"]["bit_equal"] and m["anchor"]["row_major"]
+                   and not m["anchor"]["input_row_major"])
+    res["model_layers"] = m
+    res["ok"] = bool(ok and m["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("stream_layer phase failed")
+    return res
+
+
 def live_descendants() -> list:
     """Processes started by this one (or by its children) that still run,
     as (pid, command line), read from /proc. Zombies are left out: they end
@@ -1947,6 +2162,11 @@ def kernel_summary(kernel_results: dict, launches: dict) -> dict:
         "attention_packed_float32": (src + "attention_packed.cu", tpu + "114"),
         "attention_packed_pair_float32": (src + "attention_packed.cu", tpu + "170"),
         "attention_shortkey_float32": (src + "attention_shortkey.cu", tpu + "213"),
+        "stream_layer_encoder": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
+        "stream_layer_t2v": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
+        "stream_layer_encoder_float32": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
+        "stream_layer_t2v_float32": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
+        "layout_anchor": (src + "anchor.cu", "mesm_tpu/ops/anchor.py:27"),
     }
     return {"kernels": [
         {"name": name, "route": "cuda", "source": path, "replaces": rep,
@@ -1976,6 +2196,7 @@ def main() -> int:
     phase_qvh_train(card)
     int8 = phase_int8_eval(card)
     variants = phase_attn_variants(card)
+    stream = phase_stream_layer(card)
     phase_processes()
     print(card, flush=True)
     launches = dict(cli["launches"])
@@ -2001,6 +2222,11 @@ def main() -> int:
         variants["packed_on_long_query_fp32"]["launches"]["attention_packed_pair"])
     launches["attention_shortkey_float32"] = (
         variants["packed_on_tacos_fp32"]["launches"]["attention_shortkey"])
+    for flavor in ("encoder", "t2v"):
+        for dtype_name, suffix in (("bfloat16", ""), ("float32", "_float32")):
+            launches[f"stream_layer_{flavor}{suffix}"] = (
+                stream[f"bench_{flavor}_{dtype_name}"]["launches"]["stream_layer"])
+    launches["layout_anchor"] = stream["model_layers"]["layer_launches"]["layout_anchor"]
     emit(kernel_summary(kernels, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
     return 0

@@ -233,14 +233,29 @@ def state_dict_from_jax_params(params_np: Dict, cfg: MESMConfig) -> Dict[str, to
     """The JAX package's MESM parameter tree (nested dicts of arrays) -> the
     port's state dict (float32 tensors). Scan-layout trees are unstacked
     first. Every entry of the mapping must be present."""
-    params = unstack_scanned(_copy_tree(params_np), cfg)
+    return _convert(unstack_scanned(_copy_tree(params_np), cfg), build_mapping(cfg))
+
+
+def _convert(params: Dict, mapping: List[MapEntry]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
-    for tkey, fpath, transpose in build_mapping(cfg):
+    for tkey, fpath, transpose in mapping:
         if tkey in out:  # TwoMLP layers share one PReLU slope
             continue
         arr = np.asarray(_get_path(params, fpath), dtype=np.float32)
         out[tkey] = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
     return out
+
+
+def layer_state_dict_from_jax_params(params_np: Dict, flavour: str) -> Dict[str, torch.Tensor]:
+    """One layer's parameter tree of the JAX package -> the state dict of the
+    port's layer: a TransformerEncoderLayer ("encoder", attention
+    `self_attn`) or a single-FFN T2VLayer ("t2v", attention `cross_attn`),
+    with the names and layouts of the whole-model mapping above."""
+    attn = {"encoder": "self_attn", "t2v": "cross_attn"}[flavour]
+    mapping = (_proj_attention("L.self_attn", (attn,)) + _norm("L.norm1", ("norm1",))
+               + _norm("L.norm2", ("norm2",)) + _ffn("L", ("ffn",)))
+    out = _convert(_copy_tree(params_np), mapping)
+    return {key[len("L."):]: value for key, value in out.items()}
 
 
 def model_state_from_checkpoint(state_dict: Dict, cfg: MESMConfig) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,9 @@ from mesm_tpu_torch.ops import attention_batched as ab
 from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_shortkey as sk
 from mesm_tpu_torch.ops import ffn_int8 as fi
+from mesm_tpu_torch.ops import anchor as an
 from mesm_tpu_torch.ops import ln_dense as ld
+from mesm_tpu_torch.ops import stream_layer as sl
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mesm_tpu")
@@ -136,13 +138,15 @@ def test_new_modules_are_covered():
                 "losses/criterion.py", "train.py", "utils/checkpoint.py", "utils/meters.py",
                 "ops/attention_shortkey.py", "ops/lsap.py", "models/attention.py",
                 "kernels/__init__.py", "data/pipeline.py", "ops/attention_heads.py",
-                "ops/ffn_int8.py", "models/layers.py"):
+                "ops/ffn_int8.py", "models/layers.py", "ops/stream_layer.py", "ops/anchor.py",
+                "scripts/bench_layer_kernel.py", "convert.py"):
         assert f"mesm_tpu_torch/{rel}" in names, rel
     sources = {p.name for p in _cuda_sources()}
     assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
-            "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu"} <= sources
+            "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu", "stream_layer.cu",
+            "anchor.cu"} <= sources
     wrappers = {p.name for p in _kernel_wrapper_modules()}
-    assert {"attention_heads.py", "ffn_int8.py"} <= wrappers
+    assert {"attention_heads.py", "ffn_int8.py", "stream_layer.py", "anchor.py"} <= wrappers
 
 
 # the headers a kernel source may include: the CUDA toolkit's and C's own
@@ -285,3 +289,62 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         ap.attention_packed(q, k, v, 2)  # everything fits, but meta is not CUDA
     assert (ld.launches, ap.launches) == before
+
+
+def _layer_args(dtype=torch.float32, device="cpu", B=2, Lq=7, Lk=5, D=64, F=96, self_attn=False):
+    """x, pos, k_in, v_in, mask, params of a small stream layer (4 heads)."""
+    g = torch.Generator().manual_seed(4)
+    rn = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x, pos = rn(B, Lq, D).to(device=device, dtype=dtype), rn(B, Lq, D).to(device=device, dtype=dtype)
+    k_in = v_in = None
+    if not self_attn:
+        k_in, v_in = (rn(B, Lk, D).to(device=device, dtype=dtype) for _ in range(2))
+    shapes = {"w1": (F, D), "b1": (F,), "w2": (D, F), "alpha": (1,)}
+    params = {n: rn(*shapes.get(n, (D, D) if n in ("wq", "wk", "wv", "wo") else (D,))).to(device)
+              for n in sl.WEIGHT_NAMES}
+    mask = torch.ones(B, Lq if self_attn else Lk, dtype=torch.bool, device=device)
+    return x, pos, k_in, v_in, mask, params
+
+
+def test_stream_layer_and_anchor_wrappers_run_plain_version_on_cpu_and_refuse_the_rest():
+    """On the CPU the fused layer is its plain version and the anchor x
+    itself, neither counted; inputs that need grad, dtypes, widths and
+    devices the kernels do not take raise before any launch (meta tensors
+    stand in for device tensors)."""
+    before = (sl.launches, an.launches)
+    for self_attn in (True, False):
+        x, pos, k_in, v_in, mask, params = _layer_args(self_attn=self_attn)
+        torch.testing.assert_close(
+            sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, self_attn),
+            sl.stream_layer_reference(x, pos, k_in, v_in, mask, None, params, 4, self_attn),
+            rtol=0, atol=0,
+        )
+    assert an.layout_anchor(x) is x
+    x, pos, k_in, v_in, mask, params = _layer_args()
+    grad_params = dict(params, w1=params["w1"].clone().requires_grad_(True))
+    # grad mode on here: another test module turns it off for its process
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="requires grad"):
+        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, grad_params, 4, False)
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="requires grad"):
+        an.layout_anchor(torch.empty(2, 3, 4, device="meta", requires_grad=True))
+    with pytest.raises(TypeError):
+        sl.fused_stream_layer(*_layer_args(torch.float16, "meta")[:4], None, None,
+                              _layer_args(torch.float16, "meta")[5], 4, False)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", D=48, F=96)
+        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", F=80)
+        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
+    x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta")
+    with pytest.raises(ValueError, match="shapes"):
+        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, dict(params, w2=params["w1"]), 4,
+                              False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sl.fused_stream_layer(x, pos, k_in.transpose(0, 1).contiguous().transpose(0, 1), v_in,
+                              mask, None, params, 4, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        an.layout_anchor(torch.empty(2, 3, 4, device="meta"))
+    assert (sl.launches, an.launches) == before
