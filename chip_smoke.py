@@ -5,7 +5,8 @@
 
 run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
-torch version at the main paths' shapes, drives charades C+SF_C bf16
+torch version at the main paths' shapes (the per-head and all-heads
+kernels also at the edges of their tiles), drives charades C+SF_C bf16
 inference through the port's eval step and through its
 `python -m mesm_tpu_torch.evaluate` entry point (the eval step also in the
 "on" mode and with the one-matmul short-key kernel), the TACoS fp32 eval
@@ -225,6 +226,37 @@ def phase_device() -> dict:
     return info
 
 
+def ptxas_by_function(log: str) -> dict:
+    """Registers and spill bytes of each compiled kernel instance, from
+    nvcc's -Xptxas -v log, by demangled name (mangled where c++filt is
+    missing)."""
+    import re
+    import shutil
+
+    found, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            found[current] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            found[current].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            found[current]["registers"] = int(m.group(1))
+    if found and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(found), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+        short = []
+        for name in names:
+            m = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+            short.append(m.group(1) if m else name)
+        found = dict(zip(short, found.values()))
+    return found
+
+
 def phase_build() -> dict:
     from mesm_tpu_torch.kernels import build
 
@@ -233,10 +265,8 @@ def phase_build() -> dict:
     out = {
         "phase": "build", "seconds": time.perf_counter() - t0,
         "kernels": {
-            name: {
-                "seconds": r["seconds"], "compiled": r["compiled"],
-                "ptxas": [l.strip() for l in r["log"].splitlines() if "Used" in l or "spill" in l],
-            }
+            name: {"seconds": r["seconds"], "compiled": r["compiled"],
+                   "ptxas": ptxas_by_function(r["log"])}
             for name, r in report.items()
         },
     }
@@ -361,6 +391,60 @@ def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=
     )
     moved = 4 * B * L * E * q.element_size() + B * L
     res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, dtype_name)
+    return res
+
+
+# the shapes at the edges of the per-head / all-heads kernels' tiles, (B,
+# Lq, Lk, E) with H = 8: query counts that are not a multiple of the 16-row
+# mma tile (1, 70), key counts that are not a multiple of 16 (17, 81) and
+# above the 256 keys whose bf16 logits stay in registers (601), head_dim 64
+# (E = 512) and a single sample
+HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 195, 195, 512),
+                     (1, 70, 601, 512), (2, 1, 601, 256))
+
+
+def check_heads_edges() -> dict:
+    """attention_per_head and attention_all_heads in bf16 and fp32 at
+    HEADS_EDGE_SHAPES against attention_batched_reference, within TOL; where
+    B > 1, sample 1 has every key masked and must give the mean of v over
+    all Lk keys. Untimed."""
+    import torch
+
+    from mesm_tpu_torch.ops import attention_batched as ab
+    from mesm_tpu_torch.ops import attention_heads as ah
+
+    H, cases, ok = MAIN_PATH["H"], [], True
+    for name, fn in (("attention_per_head", ah.attention_per_head),
+                     ("attention_all_heads", ah.attention_all_heads)):
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            tol = TOL[f"{name}_{dtype_name}"]
+            for B, Lq, Lk, E in HEADS_EDGE_SHAPES:
+                g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E)
+                q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dt)
+                k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dt) for _ in range(2))
+                lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+                mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+                if B > 1:
+                    mask[1] = False
+                got = fn(q, k, v, H, mask)
+                want = ab.attention_batched_reference(q, k, v, H, mask)
+                torch.cuda.synchronize()
+                case = {"kernel": name, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
+                        "max_abs_err": float((got.float() - want.float()).abs().max()),
+                        "max_err_rel_to_max1": _rel_err(got, want),
+                        "finite": bool(torch.isfinite(got).all()), "tol": tol}
+                if B > 1:
+                    case["masked_row_vs_mean_v"] = float(
+                        (got[1].float() - v[1].float().mean(0)).abs().max())
+                case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                                  and case.get("masked_row_vs_mean_v", 0.0) <= tol)
+                ok = ok and case["ok"]
+                cases.append(case)
+    res = {"phase": "attention_heads_edges", "ok": ok, "cases": cases}
+    emit(res)
+    if not ok:
+        raise SystemExit("attention_heads edge shapes: a check failed")
     return res
 
 
@@ -705,6 +789,7 @@ def phase_kernels() -> dict:
             main = (B == 2 * B32) == (name == "attention_per_head")
             results.append(check_encoder_attention(name, "float32", B, L32,
                                                    f"{name}_float32" if main else None))
+    check_heads_edges()
     results.append(check_encoder_attention("attention_batched", "bfloat16", B16, L16,
                                            "attention_batched_bfloat16"))
     results.append(check_encoder_attention("attention_packed", "float32", B32, L32,

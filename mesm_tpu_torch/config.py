@@ -11,7 +11,9 @@ Additions over the reference (all optional, defaulted to sane values):
   --row_capacity   static rows per batch (0 = auto from batch_size x mean
                    sentences-per-entry)
   --compute_dtype  float32 | bfloat16
-  --n_devices      data-parallel device count (0 = one)
+  --n_devices      the device count the row capacity is rounded to (0 =
+                   one: the port runs on one card); N scores as an N-device
+                   JAX run does, since the row count enters the values
   --pallas_attention  on | off | auto: the hand-written kernel dispatch
                    (mesm_tpu_torch/kernels)
   --device         cuda | cpu: where the model runs. cuda is the default and
@@ -152,7 +154,10 @@ class BaseOptions:
                             "(activation memory bounded by one microbatch); "
                             "batch rows must divide by k. 1 = off")
         p.add_argument("--n_devices", type=int, default=0,
-                       help="data-parallel devices; 0 = one")
+                       help="round the row capacity up to a multiple of N "
+                            "devices; 0 = one (the port's single card). Pass "
+                            "the device count of a JAX run to score as it does "
+                            "(its default rounds to every visible device)")
         p.add_argument("--pallas_attention", type=str, default="auto",
                        choices=["auto", "on", "off"])
         p.add_argument("--rng_impl", type=str, default="rbg",

@@ -1,10 +1,11 @@
 """Build the CUDA kernels of `csrc/` with nvcc and load them with ctypes.
 
 Each source `csrc/<name>.cu` has a plain C interface and becomes one shared
-library `_build/lib<name>-<hash>.so`, where the hash covers the source and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-reused. Libraries are built at first use (never at import: the CPU tests
-import every module on a host with no nvcc) and cached per process.
+library `_build/lib<name>-<hash>.so`, where the hash covers the source, the
+shared device-code headers `csrc/*.cuh` and the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Libraries are
+built at first use (never at import: the CPU tests import every module on a
+host with no nvcc) and cached per process.
 `build_all` starts one nvcc per source at once, for scripts that want every
 kernel ready before they start timing.
 """
@@ -45,9 +46,13 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """The library of source `name`. Its hash covers the source, every
+    shared header `csrc/*.cuh` (a source may include any of them) and the
+    compiler flags."""
+    digest = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -1,233 +1,183 @@
 // Multi-head attention for Hopper (sm_90a) in the two layouts the attention
-// dispatch reaches only through MESM_ATTN_VARIANT, float32 or bf16.
+// dispatch reaches only through MESM_ATTN_VARIANT, bf16 or float32.
 //
 // Replaces two kernels of mesm_tpu/ops/attention_pallas.py (branches of
 // _fused_attention_impl, :534-567):
-//   - ALL_HEADS = false: _mha_kernel (:44), "per_head", one grid step per
-//     (sample, head) over (B, H, L, hd) operands;
-//   - ALL_HEADS = true: _mha_kernel_allheads (:66), "all_heads", one grid
-//     step per sample that loops over the heads.
+//   - _mha_kernel (:44), "per_head", one grid step per (sample, head) over
+//     (B, H, L, hd) operands;
+//   - _mha_kernel_allheads (:66), "all_heads", one grid step per sample that
+//     loops over the heads.
 // Both sit where the bf16 packed or the fp32 batched kernel sits by default:
 // the DETR encoder's self-attention (charades bf16: 128 x 195 x 195;
-// TACoS fp32: 16 x 601 x 601; E = 256, H = 8, head_dim 32).
+// TACoS fp32: 16 x 601 x 601 in eval, 32 x 601 x 601 in the train step;
+// E = 256, H = 8, head_dim 32).
 //
 // What it computes, per (sample b, head h), as attention_batched_reference:
 //   qs = round(q_h * round(scale))              (a product in the input dtype)
 //   logits = qs . k_h^T                         (f32 sums)
 //   masked keys -> -1e9, a finite value
-//   p = round(softmax(logits))                  (exact two-pass f32 softmax)
+//   p = round(softmax(logits))                  (f32 softmax)
 //   out_h = round(p . v_h)                      (f32 sums)
 // round() is to the input dtype: nothing in fp32, bf16 in bf16. A row whose
 // keys are all masked gets the uniform average of v, never NaN.
 //
-// What bounds it on the H100: the operations in fp32 (TACoS: 5.9 GFLOP of
-// FMA work, 88 us at 67 TFLOP/s, against 39 MB of q, k, v and out), the
-// bytes in bf16 (charades: 51 MB, 15 us; 5 GFLOP are 5 us at the bf16
-// tensor-core rate).
+// What bounds it on the H100: the bytes in bf16 (charades: 51 MB of q, k, v
+// and out, 15 us at 3.35 TB/s; its 5 GFLOP are 5 us at the bf16
+// tensor-core rate), the operations in fp32 (TACoS 16 rows: 5.9 GFLOP of
+// FMA work, 88 us at 67 TFLOP/s, against 39 MB).
 //
-// Design: operands stay (B, L, E), the head split is the column slice
-// [h*hd, (h+1)*hd) read and written in place, so none of the TPU wrapper's
-// (B, H, L, hd) transposes is made around the call. A block of 8 warps takes
-// a tile of ROWS query rows of one sample and, per head, stages K_h and V_h
-// (Lk x hd, the K rows padded to an odd word stride) and the key mask in
-// shared memory. per_head: one block per (sample, head, query tile), as the
-// TPU grid's (b, h) steps; all_heads: one block per (sample, query tile),
-// which walks the H heads in turn, restaging K_h and V_h for each. One warp
-// owns one query row at a time: the scaled row sits in a per-warp buffer,
-// the lanes split the keys for the logits, and the whole Lk-long logits row
-// stays in a per-warp shared buffer for an exact two-pass softmax (max, then
-// the sum of exp), as the TPU body's softmax: no online rescaling.
-// For P.V each lane owns hd / 32 output columns. A CUDA-core kernel;
-// tensor-core tiles are later work.
+// Design. Operands stay (B, L, E): the head split is the column slice
+// [h*hd, (h+1)*hd), read and written in place, so none of the TPU wrapper's
+// (B, H, L, hd) transposes is made around the call.
+//   - bf16 runs on the tensor cores (attention_mma.cuh): a block of 4 warps
+//     takes 64 query rows of one (b, h) and stages that head's whole K_h and
+//     V_h once, with 16-byte cp.async copies into XOR-swizzled tiles; each
+//     warp owns 16 query rows and runs both products on
+//     mma.sync.m16n8k16 bf16 tiles, with an exact two-pass softmax whose
+//     logits stay in registers up to 256 keys (recomputed per pass beyond);
+//     p is rounded to bf16 after the division, at the TPU's point, and fed
+//     to P . V straight from the accumulators. The division is one Newton
+//     step on the row's reciprocal, correctly rounded: the `/` operator
+//     takes its slow path, a subroutine call, for the zero probabilities of
+//     masked keys. 4 warps a block: 2 warps stage K_h and V_h twice as
+//     often, 8 warps fit one block an SM at 165 registers (PERF.md).
+//     mma.sync rather than wgmma:
+//     the bound is bytes (15 us against 5 us of tensor work), and the
+//     products are a small share of the time beside the staging and the
+//     exact softmax's exp and division.
+//   - float32 runs the register-tile body the batched kernel runs
+//     (attention_regtile.cuh: 256 threads per (b, h) and 64 query rows,
+//     64 x 64 tiles of f32 FMAs over key tiles of 64, float4 loads). No TF32:
+//     the fp32 path keeps f32 products. Its softmax is online (a running
+//     max and sum), which rounds a few f32 ulps away from the plain
+//     version's two-pass softmax, inside the 1e-5 the checks hold it to.
+// Grid: one block per (sample, head, 64-row query tile), numbered (sample,
+// tile, head) so the blocks of every head of a query tile run together:
+// at charades bf16 4,096 blocks, at TACoS fp32 1,280 / 2,560 blocks, many
+// waves on 132 SMs. The TPU's all-heads step (one per sample, fewer grid
+// steps) would give 160 blocks at TACoS 16 rows, 1.2 waves. So both layouts
+// launch the same kernels on the same grid; the wrappers count their
+// launches apart.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "attention_mma.cuh"
+#include "attention_regtile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 64;  // query rows per block
-constexpr float NEG_INF = -1e9f;
+typedef __nv_bfloat16 bf16;
 
+// query rows per block
 template <typename T>
-struct IO;
-template <>
-struct IO<bf16> {
-  static __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16(x); }
-  static __device__ __forceinline__ float rnd(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static constexpr int KPAD = 2;  // K_h row stride HD + 2: an odd number of 32-bit words
-};
-template <>
-struct IO<float> {
-  static __device__ __forceinline__ float ld(const float* p) { return *p; }
-  static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float rnd(float x) { return x; }
-  static constexpr int KPAD = 1;
-};
-
-template <typename T, int HD>
-struct Smem {
-  static constexpr int KS = HD + IO<T>::KPAD;  // K_h row stride in elements
-  static size_t bytes(int Lk) {
-    size_t b = ((size_t)Lk * KS + (size_t)Lk * HD) * sizeof(T);  // K_h, V_h
-    b = (b + 15) & ~(size_t)15;
-    b += (size_t)WARPS * Lk * 4 + (size_t)WARPS * HD * 4;  // per-warp logits row, q row
-    b += (size_t)Lk;                                        // key mask
-    return b;
-  }
-};
-
-template <typename T, int HD, bool ALL_HEADS>
-__global__ void __launch_bounds__(THREADS)
-attention_heads_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       const uint8_t* __restrict__ mask, T* __restrict__ out, int H, int Lq,
-                       int Lk, int E, float scale) {
-  constexpr int KS = Smem<T, HD>::KS;
-  constexpr int PER_LANE = HD / 32;  // output columns per lane in P.V
-  const int b = ALL_HEADS ? blockIdx.x : blockIdx.x / H;
-  const int h0 = ALL_HEADS ? 0 : blockIdx.x - b * H;
-  const int h1 = ALL_HEADS ? H : h0 + 1;
-  const int q0 = blockIdx.y * ROWS, q1 = min(q0 + ROWS, Lq);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)Lk * KS;
-  const size_t off = (((size_t)Lk * KS + (size_t)Lk * HD) * sizeof(T) + 15) & ~(size_t)15;
-  float* prow = reinterpret_cast<float*>(smem + off) + (size_t)warp * Lk;
-  float* qrow = reinterpret_cast<float*>(smem + off) + (size_t)WARPS * Lk + warp * HD;
-  uint8_t* ms = smem + off + ((size_t)WARPS * Lk + WARPS * HD) * 4;
-
-  for (int j = threadIdx.x; j < Lk; j += THREADS) ms[j] = mask[(size_t)b * Lk + j];
-  for (int h = h0; h < h1; ++h) {
-    __syncthreads();  // the previous head's K_h and V_h are read
-    const T* kb = k + (size_t)b * Lk * E + h * HD;
-    const T* vb = v + (size_t)b * Lk * E + h * HD;
-    for (int idx = threadIdx.x; idx < Lk * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx - (idx / HD) * HD;
-      ks[(size_t)j * KS + d] = kb[(size_t)j * E + d];
-      vs[(size_t)j * HD + d] = vb[(size_t)j * E + d];
-    }
-    __syncthreads();
-
-    for (int qi = q0 + warp; qi < q1; qi += WARPS) {
-      const T* qsrc = q + ((size_t)b * Lq + qi) * E + h * HD;
-      for (int d = lane; d < HD; d += 32) qrow[d] = IO<T>::rnd(IO<T>::ld(qsrc + d) * scale);
-      __syncwarp();
-      float qr[HD];
-#pragma unroll
-      for (int d = 0; d < HD; ++d) qr[d] = qrow[d];
-
-      // f32 logits, lanes split the keys
-      float mx = -INFINITY;
-      for (int j = lane; j < Lk; j += 32) {
-        const T* kr = ks + (size_t)j * KS;
-        float acc = 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(qr[d], IO<T>::ld(kr + d), acc);
-        if (!ms[j]) acc = NEG_INF;
-        prow[j] = acc;
-        mx = fmaxf(mx, acc);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-
-      // exact two-pass softmax over the stored row, p rounded to the dtype
-      float sum = 0.f;
-      for (int j = lane; j < Lk; j += 32) {
-        const float e = expf(prow[j] - mx);
-        prow[j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int j = lane; j < Lk; j += 32) prow[j] = IO<T>::rnd(prow[j] / sum);
-      __syncwarp();
-
-      // P.V: each lane owns PER_LANE output columns
-      float acc[PER_LANE];
-#pragma unroll
-      for (int t = 0; t < PER_LANE; ++t) acc[t] = 0.f;
-      for (int j = 0; j < Lk; ++j) {
-        const float p = prow[j];
-#pragma unroll
-        for (int t = 0; t < PER_LANE; ++t)
-          acc[t] = fmaf(p, IO<T>::ld(vs + (size_t)j * HD + lane + 32 * t), acc[t]);
-      }
-      T* dst = out + ((size_t)b * Lq + qi) * E + h * HD;
-#pragma unroll
-      for (int t = 0; t < PER_LANE; ++t) IO<T>::st(dst + lane + 32 * t, acc[t]);
-      __syncwarp();  // prow and qrow are rewritten by the next row
-    }
-  }
+constexpr int rows() {
+  return sizeof(T) == 2 ? mma_attn::ROWS : regtile::BM;
 }
 
-template <typename T, int HD, bool ALL_HEADS>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
-           int Lq, int Lk, int E, float scale, cudaStream_t stream) {
-  const size_t smem = Smem<T, HD>::bytes(Lk);
-  auto kernel = attention_heads_kernel<T, HD, ALL_HEADS>;
+// (b, h, first query row) of this block: blocks numbered (b, tile, h)
+template <int ROWS>
+__device__ __forceinline__ void block_coords(int H, int Lq, int& b, int& h, int& q0) {
+  const int tiles = (Lq + ROWS - 1) / ROWS;
+  const int x = blockIdx.x;
+  h = x % H;
+  q0 = (x / H) % tiles * ROWS;
+  b = x / (H * tiles);
+}
+
+template <int HD, bool RESIDENT>
+__global__ void __launch_bounds__(mma_attn::THREADS)
+attention_heads_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                            bf16* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
+  mma_attn::block_attend<HD, RESIDENT>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+}
+
+// at least 4 blocks an SM: 64 registers, as the batched kernel gets (79
+// and 3 blocks without the bound: ~8 % slower at TACoS on the H100 above)
+template <int HD>
+__global__ void __launch_bounds__(regtile::THREADS, 4)
+attention_heads_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                           float* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  block_coords<regtile::BM>(H, Lq, b, h, q0);
+  regtile::attend<float, HD>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+}
+
+template <typename T, int HD>
+size_t smem_bytes(int Lk) {
+  if constexpr (sizeof(T) == 2)
+    return mma_attn::Smem<HD>::bytes(Lk);
+  else
+    return regtile::Smem<HD>::bytes;
+}
+
+template <typename T, typename Kernel>
+int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k, const void* v,
+           const void* mask, void* out, int B, int H, int Lq, int Lk, int E, float scale,
+           cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(ALL_HEADS ? B : B * H, (Lq + ROWS - 1) / ROWS);
-  kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                          static_cast<const T*>(v),
-                                          static_cast<const uint8_t*>(mask), static_cast<T*>(out),
-                                          H, Lq, Lk, E, scale);
+  const long long blocks = (long long)B * H * ((Lq + rows<T>() - 1) / rows<T>());
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, Lq, Lk, E, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool ALL_HEADS>
-int dispatch_hd(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
-                int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  const int hd = E / H;
-  if (hd == 32) return launch<T, 32, ALL_HEADS>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  if (hd == 64) return launch<T, 64, ALL_HEADS>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  return (int)cudaErrorInvalidValue;
+template <int HD>
+int dispatch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+                  int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
+  const size_t smem = smem_bytes<bf16, HD>(Lk);
+  if (Lk <= mma_attn::RESIDENT_KEYS)
+    return launch<bf16>(attention_heads_kernel_bf16<HD, true>, mma_attn::THREADS, smem, q, k, v,
+                        mask, out, B, H, Lq, Lk, E, scale, s);
+  return launch<bf16>(attention_heads_kernel_bf16<HD, false>, mma_attn::THREADS, smem, q, k, v,
+                      mask, out, B, H, Lq, Lk, E, scale, s);
 }
 
-template <typename T>
-long long smem_bytes(int hd, int Lk) {
-  if (hd == 32) return (long long)Smem<T, 32>::bytes(Lk);
-  if (hd == 64) return (long long)Smem<T, 64>::bytes(Lk);
-  return 0;
+template <int HD>
+int dispatch_f32(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+                 int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
+  return launch<float>(attention_heads_kernel_f32<HD>, regtile::THREADS, smem_bytes<float, HD>(Lk),
+                       q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
 }
 
 }  // namespace
 
 // Shared memory a block needs for bf16 (is_bf16 = 1) or float32 operands,
 // head_dim `hd` and `Lk` keys (0 when hd is not one the kernel takes), so
-// the wrapper can refuse before launching.
+// the wrapper can refuse before launching. bf16 stages every key of the
+// head (up to 1,760 keys at hd 32, 864 at hd 64); float32 streams the keys
+// in tiles and takes any Lk.
 extern "C" long long attention_heads_smem_bytes(int is_bf16, int hd, int Lk) {
-  return is_bf16 ? smem_bytes<bf16>(hd, Lk) : smem_bytes<float>(hd, Lk);
+  if (hd == 32) return (long long)(is_bf16 ? smem_bytes<bf16, 32>(Lk) : smem_bytes<float, 32>(Lk));
+  if (hd == 64) return (long long)(is_bf16 ? smem_bytes<bf16, 64>(Lk) : smem_bytes<float, 64>(Lk));
+  return 0;
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
-// out: (B, Lq, E), all bf16 (is_bf16 = 1) or all float32, contiguous; mask:
-// (B, Lk) uint8, 1 = attendable. Head h reads and writes columns
-// [h*hd, (h+1)*hd) with hd = E / H, 32 or 64. all_heads: 0 = one block per
-// (sample, head, query tile), 1 = one block per (sample, query tile) over
-// every head. scale is the softmax scale rounded to the operand dtype.
-// Returns the cudaError_t of the launch (0 = success).
+// out: (B, Lq, E), all bf16 (is_bf16 = 1) or all float32, contiguous and
+// 16-byte aligned; mask: (B, Lk) uint8, 1 = attendable. Head h reads and
+// writes columns [h*hd, (h+1)*hd) with hd = E / H, 32 or 64. scale is the
+// softmax scale rounded to the operand dtype. Returns the cudaError_t of
+// the launch (0 = success).
 extern "C" int attention_heads_launch(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, int B, int H, int Lq, int Lk,
-                                      int E, int is_bf16, int all_heads, float scale,
-                                      void* stream) {
+                                      int E, int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H != 0) return (int)cudaErrorInvalidValue;
+  const int hd = E / H;
   if (is_bf16) {
-    if (all_heads) return dispatch_hd<bf16, true>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-    return dispatch_hd<bf16, false>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+    if (hd == 32) return dispatch_bf16<32>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+    if (hd == 64) return dispatch_bf16<64>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  } else {
+    if (hd == 32) return dispatch_f32<32>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+    if (hd == 64) return dispatch_f32<64>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
   }
-  if (all_heads) return dispatch_hd<float, true>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  return dispatch_hd<float, false>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,330 @@
+// Device code for bf16 multi-head attention on Hopper's tensor cores: a
+// warp-level body on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
+// that computes 16 query rows of one head at the TPU kernels' rounding
+// points, and the block-level staging around it. Shared by the attention
+// kernels over (B, L, E) operands (attention_heads.cu).
+//
+// What a warp computes, for rows i of head h of sample b (as
+// attention_batched_reference, with bf() the rounding to bf16):
+//   qs = bf(q_h * scale)          (scale already bf16: a product in bf16)
+//   logits = qs . k_h^T           (f32 sums in the mma accumulators)
+//   masked keys -> -1e9, a finite value; keys past Lk -> probability 0
+//   m = max_j logits; l = sum_j exp(logits - m); p = bf(exp(logits - m) / l)
+//   out_h = bf(p . v_h)           (f32 sums)
+// an exact two-pass softmax over exactly Lk keys, so a row whose keys are
+// all masked averages v over all Lk keys.
+//
+// Fragments (PTX ISA, m16n8k16 with bf16 inputs; lane = 4 g + t): A holds
+// rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16 x 16 tile;
+// B holds k = 2t, 2t + 1 and 2t + 8, 2t + 9 of column g; the f32 C holds
+// rows g and g + 8, columns 2t, 2t + 1. So the C tiles of the logits of 16
+// keys are, packed to bf16 pairs, the A fragment of P for those 16 keys
+// (the C -> A register identity): P . V needs no trip through shared
+// memory. Q's A fragments come from ldmatrix, K's B fragments from
+// ldmatrix (K rows are k-contiguous columns of K^T) and V's from
+// ldmatrix.trans.
+//
+// Shared memory: the block's Q tile, K_h and V_h (all keys, zero rows past
+// Lk up to a multiple of 16) and one flag byte per key (1 valid, 0 masked,
+// 2 past Lk), staged once per block with 16-byte cp.async copies. Rows are
+// hd bf16 (64 or 128 bytes) with their 16-byte chunks XOR-swizzled by row,
+// so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups
+// without padding: up to 1,760 keys at hd 32 and 864 at hd 64 fit in a
+// block's 227 KB.
+//
+// The row's logits: up to RESIDENT_KEYS keys they stay in registers (32 n8
+// tiles, 128 f32 a thread) and are computed once; beyond, the warp walks
+// the keys in chunks of CHUNK_KEYS and recomputes each chunk's logits in
+// each of the three passes (max, sum, P . V), which at hd 32-64 costs a few
+// tensor-core instructions a chunk.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace mma_attn {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int ROWS = 16 * WARPS;  // query rows per block
+constexpr int RESIDENT_KEYS = 256;
+constexpr int CHUNK_KEYS = 64;
+constexpr float NEG_INF = -1e9f;
+
+__host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+
+// Dynamic shared memory of a block: Q tile, K_h, V_h, key flags.
+template <int HD>
+struct Smem {
+  static size_t bytes(int Lk) {
+    const size_t kp = (size_t)pad16(Lk);
+    return ((size_t)ROWS + 2 * kp) * HD * sizeof(bf16) + kp;
+  }
+};
+
+// Element offset of 16-byte chunk `c` of row `r` in a swizzled tile of
+// rows of HD bf16: chunk c ^ ((r / rows_per_128_bytes) % chunks_per_row).
+template <int HD>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int CH = HD / 8;
+  constexpr int RPL = 8 / CH;
+  return r * HD + ((c ^ ((r / RPL) % CH)) << 3);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// bf(x * scale) for both halves of a bf16 pair
+__device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  return pack_bf16(f.x * scale, f.y * scale);
+}
+
+// Stage `rows` rows of HD bf16 (row stride `ld` elements in device memory)
+// into a swizzled tile of `rows_pad` rows, zeros past `rows`.
+template <int HD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ src, int rows,
+                                           int rows_pad, int ld) {
+  constexpr int CH = HD / 8;
+  for (int i = threadIdx.x; i < rows_pad * CH; i += THREADS) {
+    const int r = i / CH, c = i % CH;
+    bf16* d = dst + swz<HD>(r, c);
+    if (r < rows)
+      cp_async16(d, src + (size_t)r * ld + c * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The masked logits of the warp's 16 rows against NT n8 tiles of keys from
+// key0 (tiles at or past kpad: -inf, not computed).
+template <int HD, int NT>
+__device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[HD / 16][4],
+                                       const bf16* Ks, const uint8_t* flags, int key0, int kpad,
+                                       int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n0 = key0 + 8 * nt;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+    if (n0 >= kpad) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = -INFINITY;
+      continue;
+    }
+#pragma unroll
+    for (int hx = 0; hx < HD / 32; ++hx) {
+      uint32_t kb[4];  // d chunks 4hx .. 4hx + 3 of keys n0 .. n0 + 7
+      ldmatrix_x4(kb, Ks + swz<HD>(n0 + (lane & 7), (lane >> 3) + 4 * hx));
+      mma_bf16(s[nt], qa[2 * hx], kb[0], kb[1]);
+      mma_bf16(s[nt], qa[2 * hx + 1], kb[2], kb[3]);
+    }
+    const uint8_t f0 = flags[n0 + 2 * t], f1 = flags[n0 + 2 * t + 1];
+    s[nt][0] = f0 == 2 ? -INFINITY : (f0 ? s[nt][0] : NEG_INF);
+    s[nt][2] = f0 == 2 ? -INFINITY : (f0 ? s[nt][2] : NEG_INF);
+    s[nt][1] = f1 == 2 ? -INFINITY : (f1 ? s[nt][1] : NEG_INF);
+    s[nt][3] = f1 == 2 ? -INFINITY : (f1 ? s[nt][3] : NEG_INF);
+  }
+}
+
+// e / l, correctly rounded, for 0 <= e <= l and l >= 1, given r =
+// __frcp_rn(l): one Newton step on the product (Markstein). The division
+// operator would take its slow path for the zeros of masked keys.
+__device__ __forceinline__ float div_rn(float e, float l, float r) {
+  const float q = e * r;
+  return fmaf(fmaf(-q, l, e), r, q);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One warp: the output of 16 query rows (Qw: the warp's rows of the
+// swizzled Q tile, unscaled) over kpad staged keys (Ks, Vs, flags), in
+// o[HD / 8][4] (C layout, f32 sums of bf16 products, not rounded).
+// RESIDENT: kpad <= RESIDENT_KEYS, the logits computed once and kept.
+template <int HD, bool RESIDENT>
+__device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Qw, const bf16* Ks,
+                                            const bf16* Vs, const uint8_t* flags, int kpad,
+                                            float scale, int lane) {
+  constexpr int NT = (RESIDENT ? RESIDENT_KEYS : CHUNK_KEYS) / 8;
+  constexpr int KS = HD / 16;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldmatrix_x4(qa[ks], Qw + swz<HD>(lane & 15, 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[ks][i] = scale_bf16x2(qa[ks][i], scale);
+  }
+  const int nchunk = RESIDENT ? 1 : (kpad + 8 * NT - 1) / (8 * NT);
+
+  float s[NT][4];
+  if (RESIDENT) logits<HD, NT>(s, qa, Ks, flags, 0, kpad, lane);
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g, g + 8
+  for (int c = 0; c < nchunk; ++c) {
+    if (!RESIDENT) logits<HD, NT>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+      m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+    }
+  }
+  m0 = quad_max(m0);  // finite: Lk >= 1 and a masked key is -1e9
+  m1 = quad_max(m1);
+
+  float l0 = 0.f, l1 = 0.f;
+  for (int c = 0; c < nchunk; ++c) {
+    if (!RESIDENT) logits<HD, NT>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (c * 8 * NT + 8 * nt >= kpad) break;  // no key: P . V stops there too
+      const float e0 = expf(s[nt][0] - m0), e1 = expf(s[nt][1] - m0);
+      const float e2 = expf(s[nt][2] - m1), e3 = expf(s[nt][3] - m1);
+      l0 += e0 + e1;
+      l1 += e2 + e3;
+      if (RESIDENT) {
+        s[nt][0] = e0;
+        s[nt][1] = e1;
+        s[nt][2] = e2;
+        s[nt][3] = e3;
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
+
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+  for (int c = 0; c < nchunk; ++c) {
+    const int key0 = c * 8 * NT;
+    if (!RESIDENT) {
+      logits<HD, NT>(s, qa, Ks, flags, key0, kpad, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        s[nt][0] = expf(s[nt][0] - m0);
+        s[nt][1] = expf(s[nt][1] - m0);
+        s[nt][2] = expf(s[nt][2] - m1);
+        s[nt][3] = expf(s[nt][3] - m1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT / 2; ++j) {
+      const int k0 = key0 + 16 * j;
+      if (k0 >= kpad) break;
+      // p = bf(e / l): the C tiles of keys k0 .. k0 + 15 as an A fragment
+      const uint32_t pa[4] = {
+          pack_bf16(div_rn(s[2 * j][0], l0, r0), div_rn(s[2 * j][1], l0, r0)),
+          pack_bf16(div_rn(s[2 * j][2], l1, r1), div_rn(s[2 * j][3], l1, r1)),
+          pack_bf16(div_rn(s[2 * j + 1][0], l0, r0), div_rn(s[2 * j + 1][1], l0, r0)),
+          pack_bf16(div_rn(s[2 * j + 1][2], l1, r1), div_rn(s[2 * j + 1][3], l1, r1))};
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vb[4];  // keys k0 .. k0 + 15 of d chunks 2dp, 2dp + 1
+        ldmatrix_x4_trans(vb, Vs + swz<HD>(k0 + (lane & 7) + (lane & 8), 2 * dp + (lane >> 4)));
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+}
+
+// The whole block: output rows [q0, q0 + ROWS) of head h of sample b.
+// q: (B, Lq, E), k, v: (B, Lk, E), out: (B, Lq, E) bf16, 16-byte aligned;
+// mask (B, Lk) uint8. Smem<HD>::bytes(Lk) of dynamic shared memory at smem.
+template <int HD, bool RESIDENT>
+__device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                             const bf16* __restrict__ v,
+                                             const uint8_t* __restrict__ mask,
+                                             bf16* __restrict__ out, int Lq, int Lk, int E,
+                                             float scale, int b, int h, int q0,
+                                             unsigned char* smem) {
+  constexpr int CH = HD / 8;
+  const int kpad = pad16(Lk);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + ROWS * HD;
+  bf16* Vs = Ks + (size_t)kpad * HD;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(Vs + (size_t)kpad * HD);
+
+  stage_rows<HD>(Qs, q + ((size_t)b * Lq + q0) * E + h * HD, min(ROWS, Lq - q0), ROWS, E);
+  stage_rows<HD>(Ks, k + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
+  stage_rows<HD>(Vs, v + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
+  for (int j = threadIdx.x; j < kpad; j += THREADS)
+    flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) : 2;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q0 + 16 * warp;
+  if (r0 >= Lq) return;
+  bf16* Qw = Qs + 16 * warp * HD;  // 16 rows: the swizzle pattern repeats every 8
+  float o[HD / 8][4];
+  warp_attend<HD, RESIDENT>(o, Qw, Ks, Vs, flags, kpad, scale, lane);
+
+  // out = bf(o), through the warp's (read) Q rows, then 16-byte stores
+  __syncwarp();
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    *reinterpret_cast<uint32_t*>(Qw + swz<HD>(g, dt) + 2 * t) = pack_bf16(o[dt][0], o[dt][1]);
+    *reinterpret_cast<uint32_t*>(Qw + swz<HD>(g + 8, dt) + 2 * t) = pack_bf16(o[dt][2], o[dt][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i % CH;
+    if (r0 + r < Lq)
+      *reinterpret_cast<uint4*>(out + ((size_t)b * Lq + r0 + r) * E + h * HD + 8 * c) =
+          *reinterpret_cast<const uint4*>(Qw + swz<HD>(r, c));
+  }
+}
+
+}  // namespace mma_attn

@@ -1,11 +1,14 @@
 """Multi-head attention in the per-head and all-heads layouts, which the
 attention dispatch takes under MESM_ATTN_VARIANT=per_head / all_heads.
 
-`attention_per_head` and `attention_all_heads` launch the two instances of
-the CUDA kernel kernels/csrc/attention_heads.cu (the ports of
+`attention_per_head` and `attention_all_heads` launch the CUDA kernels of
+kernels/csrc/attention_heads.cu (the ports of
 mesm_tpu/ops/attention_pallas.py::_mha_kernel and _mha_kernel_allheads) on
-CUDA tensors. The two TPU kernels compute one function, that of the batched
-kernel, so their plain version is ops/attention_batched
+CUDA tensors: bf16 on tensor-core mma tiles, float32 on the batched
+kernel's register tiles, one block per (sample, head, 64 query rows). On
+the GPU one grid serves both layouts, so both launch the same kernels and
+count their launches apart. The two TPU kernels compute one function, that
+of the batched kernel, so their plain version is ops/attention_batched
 .attention_batched_reference, which both run on CPU tensors: q * scale in
 the input dtype, f32 logits, a finite -1e9 on masked keys, an f32 softmax,
 the probabilities rounded to v's dtype, P.V with f32 sums.
@@ -25,11 +28,13 @@ per_head_launches = 0
 all_heads_launches = 0
 
 
-def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, all_heads: bool):
+def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     """Checks the operands and launches kernels/csrc/attention_heads.cu;
     returns out."""
     B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
                                       (torch.bfloat16, torch.float32))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary")
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -45,9 +50,9 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, all_heads: bool)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
     fn = lib.attention_heads_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-             B, num_heads, Lq, Lk, E, is_bf16, int(all_heads), scale,
+             B, num_heads, Lq, Lk, E, is_bf16, scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
@@ -55,28 +60,28 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, all_heads: bool)
 
 
 def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
-    """The per-head kernel (a block per sample, head and query tile). CPU
-    tensors take the plain version; CUDA tensors launch the kernel (bf16 or
-    float32, head_dim 32 or 64, Ev == E) or raise. Raises for an input that
-    requires grad in grad mode (no graph)."""
+    """The per-head layout (MESM_ATTN_VARIANT=per_head). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16 or float32,
+    head_dim 32 or 64, Ev == E) or raise. Raises for an input that requires
+    grad in grad mode (no graph)."""
     global per_head_launches
     refuse_autograd("attention_per_head", q, k, v)
     if q.device.type == "cpu":
         return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
-    out = _launch("attention_per_head", q, k, v, num_heads, key_valid_mask, False)
+    out = _launch("attention_per_head", q, k, v, num_heads, key_valid_mask)
     per_head_launches += 1
     return out
 
 
 def attention_all_heads(q, k, v, num_heads: int, key_valid_mask=None):
-    """The all-heads kernel (a block per sample and query tile, over every
-    head). CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16 or float32, head_dim 32 or 64, Ev == E) or raise. Raises for
-    an input that requires grad in grad mode (no graph)."""
+    """The all-heads layout (MESM_ATTN_VARIANT=all_heads). CPU tensors take
+    the plain version; CUDA tensors launch the kernel (bf16 or float32,
+    head_dim 32 or 64, Ev == E) or raise. Raises for an input that requires
+    grad in grad mode (no graph)."""
     global all_heads_launches
     refuse_autograd("attention_all_heads", q, k, v)
     if q.device.type == "cpu":
         return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
-    out = _launch("attention_all_heads", q, k, v, num_heads, key_valid_mask, True)
+    out = _launch("attention_all_heads", q, k, v, num_heads, key_valid_mask)
     all_heads_launches += 1
     return out

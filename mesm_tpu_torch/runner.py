@@ -63,7 +63,10 @@ def make_batch_spec(opt, dataset, for_eval: bool) -> BatchSpec:
     """The fixed batch geometry of mesm_tpu/runner.py:82-134. The row
     capacity B matters for values, not only for speed: the scrambled T2V
     pair mask reads row (b*H + h) % B. It is rounded up to a multiple of
-    --n_devices (0 = one device, the port's single card)."""
+    --n_devices (0 = one device, the port's single card). The JAX package's
+    default rounds to every visible device, so `--n_devices N` scores a
+    checkpoint as an N-device JAX run does
+    (tests/test_torch_n_devices.py)."""
     group_cap = opt.group_capacity or min(
         dataset.max_group_size(),
         opt.max_gather_size if opt.max_gather_size > 0 else dataset.max_group_size(),

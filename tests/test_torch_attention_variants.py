@@ -37,6 +37,7 @@ from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_shortkey as sk
 from mesm_tpu_torch.ops import attention_trainable as at
 
+from chip_smoke import HEADS_EDGE_SHAPES
 from test_torch_attention_shortkey import JAX_DT, TOL, TORCH_DT, _case, _err
 
 ENV = kernels.ATTN_VARIANT_ENV
@@ -296,14 +297,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_case(B, Lq, Lk, dtype, pair: bool, seed=0):
+def _card_case(B, Lq, Lk, dtype, pair: bool, seed=0, E=256):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    E, H = 256, 8
+    H = 8
     q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dtype) for _ in range(2))
     lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
     mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
-    mask[1] = False
+    if B > 1:
+        mask[1] = False
     pf = None
     if pair:
         pf = (torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4,
@@ -318,12 +320,16 @@ CARD_CASES = [  # (kernel, dtype, B, Lq, Lk, pair): the charades and TACoS encod
     ("batched", torch.bfloat16, 128, 195, 195, False), ("packed", torch.float32, 16, 601, 601, False),
     ("packed_pair", torch.float32, 16, 600, 81, True), ("shortkey", torch.float32, 16, 600, 17, True),
 ]
+# the edges of the per-head / all-heads tiles (chip_smoke.HEADS_EDGE_SHAPES)
+CARD_CASES += [(kernel, dtype, B, Lq, Lk, False, E) for kernel in ("per_head", "all_heads")
+               for dtype in (torch.bfloat16, torch.float32) for B, Lq, Lk, E in HEADS_EDGE_SHAPES]
+CARD_CASES = [case if len(case) == 7 else case + (256,) for case in CARD_CASES]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel,dtype,B,Lq,Lk,pair", CARD_CASES)
-def test_variant_kernels_match_plain(cuda, kernel, dtype, B, Lq, Lk, pair):
-    q, k, v, mask, pf, H = _card_case(B, Lq, Lk, dtype, pair)
+@pytest.mark.parametrize("kernel,dtype,B,Lq,Lk,pair,E", CARD_CASES)
+def test_variant_kernels_match_plain(cuda, kernel, dtype, B, Lq, Lk, pair, E):
+    q, k, v, mask, pf, H = _card_case(B, Lq, Lk, dtype, pair, E=E)
     fns = {"per_head": (ah.attention_per_head, ab.attention_batched_reference),
            "all_heads": (ah.attention_all_heads, ab.attention_batched_reference),
            "batched": (ab.attention_batched, ab.attention_batched_reference),
@@ -339,4 +345,5 @@ def test_variant_kernels_match_plain(cuda, kernel, dtype, B, Lq, Lk, pair):
     assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1)) <= tol
     # sample 1: every key masked, every head uniform over all Lk keys
-    assert float((got[1].float() - v[1].float().mean(0)).abs().max()) <= tol
+    if B > 1:
+        assert float((got[1].float() - v[1].float().mean(0)).abs().max()) <= tol

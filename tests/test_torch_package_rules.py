@@ -144,7 +144,7 @@ def test_new_modules_are_covered():
     sources = {p.name for p in _cuda_sources()}
     assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
             "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu", "stream_layer.cu",
-            "anchor.cu"} <= sources
+            "anchor.cu", "attention_mma.cuh", "attention_regtile.cuh"} <= sources
     wrappers = {p.name for p in _kernel_wrapper_modules()}
     assert {"attention_heads.py", "ffn_int8.py", "stream_layer.py", "anchor.py"} <= wrappers
 
@@ -153,20 +153,46 @@ def test_new_modules_are_covered():
 CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "mma.h", "math.h", "stdint.h"}
 
 
+CSRC = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
+
+
 def _cuda_sources():
-    return sorted((REPO / "mesm_tpu_torch" / "kernels" / "csrc").glob("*.cu"))
+    """The kernel sources and the shared device-code headers they include."""
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 @pytest.mark.parametrize("path", _cuda_sources(), ids=lambda p: p.name)
 def test_cuda_sources_include_only_toolkit_headers(path):
-    """A kernel source builds from the CUDA toolkit alone: it includes no
-    header of the JAX package, of PyTorch or of a package of finished
-    kernels, and names neither the JAX package nor JAX."""
+    """A kernel source or header builds from the CUDA toolkit alone: it
+    includes the toolkit's headers and, by name, the port's own
+    `csrc/*.cuh`, no header of the JAX package, of PyTorch or of a package
+    of finished kernels, and names neither the JAX package nor JAX."""
     text = path.read_text()
     includes = [line.split("#include", 1)[1].strip().strip("<>\"")
                 for line in text.splitlines() if line.strip().startswith("#include")]
-    assert includes and set(includes) <= CUDA_HEADERS, includes
+    own = {p.name for p in CSRC.glob("*.cuh")} - {path.name}
+    assert includes and set(includes) <= CUDA_HEADERS | own, includes
     assert "jax" not in text.replace("mesm_tpu/", "").lower(), "names jax outside a file:line"
+
+
+def test_library_path_follows_the_shared_headers(tmp_path):
+    """An edited csrc/*.cuh gives every source a new library path, so a
+    source that includes it is rebuilt rather than served stale; an
+    unchanged tree keeps its path."""
+    import shutil
+
+    from mesm_tpu_torch.kernels.build import library_path
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    name = "attention_heads"
+    assert '#include "attention_mma.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = library_path(name, csrc)
+    assert before == library_path(name)
+    header = csrc / "attention_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert library_path(name, csrc) != before
+    assert library_path(name, csrc).name.startswith(f"lib{name}-")
 
 
 def _kernel_wrapper_modules():
