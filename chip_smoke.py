@@ -5,8 +5,8 @@
 
 run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
-torch version at the main paths' shapes (the per-head and all-heads
-kernels also at the edges of their tiles), drives charades C+SF_C bf16
+torch version at the main paths' shapes (the encoder attention kernels
+also at the edges of their tiles), drives charades C+SF_C bf16
 inference through the port's eval step and through its
 `python -m mesm_tpu_torch.evaluate` entry point (the eval step also in the
 "on" mode and with the one-matmul short-key kernel), the TACoS fp32 eval
@@ -336,22 +336,33 @@ def _encoder_qkv(B: int, L: int, dtype_name: str, seed: int):
     return q, k, v, mask
 
 
+# the device kernel each (B, L, E) encoder attention wrapper launches, by
+# dtype (a name no other kernel's name contains); bf16 batched past the mma
+# staging (BATCHED_REGTILE_SHAPES) launches the float32 instance's body
+ENCODER_KERNEL_NAMES = {
+    "attention_per_head": {"bfloat16": "attention_heads_kernel_bf16",
+                           "float32": "attention_heads_kernel_f32"},
+    "attention_all_heads": {"bfloat16": "attention_heads_kernel_bf16",
+                            "float32": "attention_heads_kernel_f32"},
+    "attention_batched": {"bfloat16": "attention_batched_mma_kernel",
+                          "float32": "attention_batched_kernel"},
+    "attention_packed": {"bfloat16": "attention_packed_mma_kernel",
+                         "float32": "attention_packed_regtile_kernel"},
+}
+
+
 def _encoder_kernels():
-    """(wrapper, plain version, device kernel name) of each (B, L, E)
-    self-attention kernel an encoder site reaches under MESM_ATTN_VARIANT."""
+    """(wrapper, plain version) of each (B, L, E) self-attention kernel an
+    encoder site reaches under MESM_ATTN_VARIANT."""
     from mesm_tpu_torch.ops import attention_batched as ab
     from mesm_tpu_torch.ops import attention_heads as ah
     from mesm_tpu_torch.ops import attention_packed as ap
 
     return {
-        "attention_per_head": (ah.attention_per_head, ab.attention_batched_reference,
-                               "attention_heads_kernel"),
-        "attention_all_heads": (ah.attention_all_heads, ab.attention_batched_reference,
-                                "attention_heads_kernel"),
-        "attention_batched": (ab.attention_batched, ab.attention_batched_reference,
-                              "attention_batched_kernel"),
-        "attention_packed": (ap.attention_packed, ap.attention_packed_reference,
-                             "attention_packed_kernel"),
+        "attention_per_head": (ah.attention_per_head, ab.attention_batched_reference),
+        "attention_all_heads": (ah.attention_all_heads, ab.attention_batched_reference),
+        "attention_batched": (ab.attention_batched, ab.attention_batched_reference),
+        "attention_packed": (ap.attention_packed, ap.attention_packed_reference),
     }
 
 
@@ -363,7 +374,8 @@ def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=
     import torch
     import torch.nn.functional as Fn
 
-    fn, ref, key = _encoder_kernels()[name]
+    fn, ref = _encoder_kernels()[name]
+    key = ENCODER_KERNEL_NAMES[name][dtype_name]
     E, H = MAIN_PATH["E"], MAIN_PATH["H"]
     hd = E // H
     q, k, v, mask = _encoder_qkv(B, L, dtype_name, seed=7)
@@ -394,57 +406,86 @@ def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=
     return res
 
 
-# the shapes at the edges of the per-head / all-heads kernels' tiles, (B,
-# Lq, Lk, E) with H = 8: query counts that are not a multiple of the 16-row
-# mma tile (1, 70), key counts that are not a multiple of 16 (17, 81) and
-# above the 256 keys whose bf16 logits stay in registers (601), head_dim 64
-# (E = 512) and a single sample
+# the shapes at the edges of the (B, L, E) encoder kernels' tiles, (B, Lq,
+# Lk, E) with H = 8: query counts that are not a multiple of the 16-row mma
+# tile (1, 70), key counts that are not a multiple of 16 (17, 81) and above
+# the 256 keys whose bf16 logits stay in registers (601), head_dim 64 (E =
+# 512) and a single sample
 HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 195, 195, 512),
                      (1, 70, 601, 512), (2, 1, 601, 256))
+# bf16 shapes whose K_h and V_h do not fit a block's shared memory on the
+# mma tiles (more than 1,760 keys at head_dim 32, 864 at 64): the batched
+# kernel takes them on its register tiles
+BATCHED_REGTILE_SHAPES = ((2, 70, 1800, 256), (2, 70, 900, 512))
 
 
-def check_heads_edges() -> dict:
-    """attention_per_head and attention_all_heads in bf16 and fp32 at
-    HEADS_EDGE_SHAPES against attention_batched_reference, within TOL; where
-    B > 1, sample 1 has every key masked and must give the mean of v over
-    all Lk keys. Untimed."""
+def launched_kernels(fn):
+    """fn() under torch.profiler: its result and the names of the device
+    kernels it launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+
+
+def _edge_cases():
+    """(kernel, dtype, (B, Lq, Lk, E), expected device kernel name): every
+    encoder kernel in both dtypes at HEADS_EDGE_SHAPES, bf16 batched also at
+    BATCHED_REGTILE_SHAPES."""
+    cases = [(name, dtype_name, shape, ENCODER_KERNEL_NAMES[name][dtype_name])
+             for name in ENCODER_KERNEL_NAMES for dtype_name in ("bfloat16", "float32")
+             for shape in HEADS_EDGE_SHAPES]
+    regtile = ENCODER_KERNEL_NAMES["attention_batched"]["float32"]
+    return cases + [("attention_batched", "bfloat16", shape, regtile)
+                    for shape in BATCHED_REGTILE_SHAPES]
+
+
+def check_encoder_edges() -> dict:
+    """Every (B, L, E) encoder attention kernel at the edges of its tiles
+    (_edge_cases) against its own plain version, within TOL; where B > 1,
+    sample 1 has every key masked and must give the mean of v over all Lk
+    keys. Each call must launch the device kernel its case names (for bf16
+    batched: the mma body or, past its staging, the register tiles), seen
+    by the profiler. Untimed."""
     import torch
 
-    from mesm_tpu_torch.ops import attention_batched as ab
-    from mesm_tpu_torch.ops import attention_heads as ah
-
     H, cases, ok = MAIN_PATH["H"], [], True
-    for name, fn in (("attention_per_head", ah.attention_per_head),
-                     ("attention_all_heads", ah.attention_all_heads)):
-        for dtype_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dtype_name)
-            tol = TOL[f"{name}_{dtype_name}"]
-            for B, Lq, Lk, E in HEADS_EDGE_SHAPES:
-                g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E)
-                q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dt)
-                k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dt) for _ in range(2))
-                lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
-                mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
-                if B > 1:
-                    mask[1] = False
-                got = fn(q, k, v, H, mask)
-                want = ab.attention_batched_reference(q, k, v, H, mask)
-                torch.cuda.synchronize()
-                case = {"kernel": name, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
-                        "max_abs_err": float((got.float() - want.float()).abs().max()),
-                        "max_err_rel_to_max1": _rel_err(got, want),
-                        "finite": bool(torch.isfinite(got).all()), "tol": tol}
-                if B > 1:
-                    case["masked_row_vs_mean_v"] = float(
-                        (got[1].float() - v[1].float().mean(0)).abs().max())
-                case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
-                                  and case.get("masked_row_vs_mean_v", 0.0) <= tol)
-                ok = ok and case["ok"]
-                cases.append(case)
-    res = {"phase": "attention_heads_edges", "ok": ok, "cases": cases}
+    kernels = _encoder_kernels()
+    for name, dtype_name, (B, Lq, Lk, E), kernel_name in _edge_cases():
+        fn, ref = kernels[name]
+        dt = getattr(torch, dtype_name)
+        tol = TOL[f"{name}_{dtype_name}"]
+        g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E)
+        q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dt) for _ in range(2))
+        lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+        mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+        if B > 1:
+            mask[1] = False
+        got, names = launched_kernels(lambda: fn(q, k, v, H, mask))
+        want = ref(q, k, v, H, mask)
+        torch.cuda.synchronize()
+        case = {"kernel": name, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
+                "device_kernel": kernel_name, "launched": names,
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "max_err_rel_to_max1": _rel_err(got, want),
+                "finite": bool(torch.isfinite(got).all()), "tol": tol}
+        if B > 1:
+            case["masked_row_vs_mean_v"] = float(
+                (got[1].float() - v[1].float().mean(0)).abs().max())
+        case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                          and case.get("masked_row_vs_mean_v", 0.0) <= tol
+                          and any(kernel_name in n for n in names))
+        ok = ok and case["ok"]
+        cases.append(case)
+    res = {"phase": "attention_edges", "ok": ok, "cases": cases}
     emit(res)
     if not ok:
-        raise SystemExit("attention_heads edge shapes: a check failed")
+        raise SystemExit("attention edge shapes: a check failed")
     return res
 
 
@@ -606,7 +647,8 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
         res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask, pf))
         res["kernel_ms"] = device_kernel_ms(
             lambda: fn(q, k, v, H, mask, pf),
-            "attention_packed_kernel" if name == "attention_packed_pair" else "attention_shortkey_kernel",
+            "attention_packed_pair_kernel" if name == "attention_packed_pair"
+            else "attention_shortkey_kernel",
         )
         res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask, pf))
         am = torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
@@ -789,7 +831,7 @@ def phase_kernels() -> dict:
             main = (B == 2 * B32) == (name == "attention_per_head")
             results.append(check_encoder_attention(name, "float32", B, L32,
                                                    f"{name}_float32" if main else None))
-    check_heads_edges()
+    check_encoder_edges()
     results.append(check_encoder_attention("attention_batched", "bfloat16", B16, L16,
                                            "attention_batched_bfloat16"))
     results.append(check_encoder_attention("attention_packed", "float32", B32, L32,

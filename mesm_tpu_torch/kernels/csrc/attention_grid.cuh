@@ -1,0 +1,46 @@
+// The grid of the attention kernels over (B, L, E) operands that take one
+// block per (sample b, head h, tile of ROWS query rows): blocks numbered
+// (b, tile, h), so the blocks of every head of a query tile run together,
+// and the launch that sets a block's dynamic shared memory and checks the
+// grid's size. Shared by attention_heads.cu, attention_batched.cu and
+// attention_packed.cu.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace attn_grid {
+
+// shared memory a block may take on sm_90 (opt-in above 48 KB)
+constexpr size_t MAX_SMEM = 232448;
+
+// (b, h, first query row) of this block
+template <int ROWS>
+__device__ __forceinline__ void block_coords(int H, int Lq, int& b, int& h, int& q0) {
+  const int tiles = (Lq + ROWS - 1) / ROWS;
+  const int x = blockIdx.x;
+  h = x % H;
+  q0 = (x / H) % tiles * ROWS;
+  b = x / (H * tiles);
+}
+
+// Launches `kernel` (q, k, v, mask, out, H, Lq, Lk, E, scale) of element
+// type T on B * H * ceil(Lq / ROWS) blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory; returns the cudaError_t of the launch.
+template <typename T, int ROWS, typename Kernel>
+int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k, const void* v,
+           const void* mask, void* out, int B, int H, int Lq, int Lk, int E, float scale,
+           cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * H * ((Lq + ROWS - 1) / ROWS);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, Lq, Lk, E, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace attn_grid

@@ -59,28 +59,13 @@
 // launch the same kernels on the same grid; the wrappers count their
 // launches apart.
 
+#include "attention_grid.cuh"
 #include "attention_mma.cuh"
 #include "attention_regtile.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-// query rows per block
-template <typename T>
-constexpr int rows() {
-  return sizeof(T) == 2 ? mma_attn::ROWS : regtile::BM;
-}
-
-// (b, h, first query row) of this block: blocks numbered (b, tile, h)
-template <int ROWS>
-__device__ __forceinline__ void block_coords(int H, int Lq, int& b, int& h, int& q0) {
-  const int tiles = (Lq + ROWS - 1) / ROWS;
-  const int x = blockIdx.x;
-  h = x % H;
-  q0 = (x / H) % tiles * ROWS;
-  b = x / (H * tiles);
-}
 
 template <int HD, bool RESIDENT>
 __global__ void __launch_bounds__(mma_attn::THREADS)
@@ -89,7 +74,7 @@ attention_heads_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
                             bf16* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
-  block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
+  attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
   mma_attn::block_attend<HD, RESIDENT>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
 }
 
@@ -102,7 +87,7 @@ attention_heads_kernel_f32(const float* __restrict__ q, const float* __restrict_
                            float* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
-  block_coords<regtile::BM>(H, Lq, b, h, q0);
+  attn_grid::block_coords<regtile::BM>(H, Lq, b, h, q0);
   regtile::attend<float, HD>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
 }
 
@@ -114,37 +99,22 @@ size_t smem_bytes(int Lk) {
     return regtile::Smem<HD>::bytes;
 }
 
-template <typename T, typename Kernel>
-int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k, const void* v,
-           const void* mask, void* out, int B, int H, int Lq, int Lk, int E, float scale,
-           cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)B * H * ((Lq + rows<T>() - 1) / rows<T>());
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, Lq, Lk, E, scale);
-  return (int)cudaGetLastError();
-}
-
 template <int HD>
 int dispatch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
                   int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  const size_t smem = smem_bytes<bf16, HD>(Lk);
-  if (Lk <= mma_attn::RESIDENT_KEYS)
-    return launch<bf16>(attention_heads_kernel_bf16<HD, true>, mma_attn::THREADS, smem, q, k, v,
-                        mask, out, B, H, Lq, Lk, E, scale, s);
-  return launch<bf16>(attention_heads_kernel_bf16<HD, false>, mma_attn::THREADS, smem, q, k, v,
-                      mask, out, B, H, Lq, Lk, E, scale, s);
+  const auto kernel = Lk <= mma_attn::RESIDENT_KEYS ? attention_heads_kernel_bf16<HD, true>
+                                                    : attention_heads_kernel_bf16<HD, false>;
+  return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS,
+                                                 smem_bytes<bf16, HD>(Lk), q, k, v, mask, out, B,
+                                                 H, Lq, Lk, E, scale, s);
 }
 
 template <int HD>
 int dispatch_f32(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
                  int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  return launch<float>(attention_heads_kernel_f32<HD>, regtile::THREADS, smem_bytes<float, HD>(Lk),
-                       q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  return attn_grid::launch<float, regtile::BM>(attention_heads_kernel_f32<HD>, regtile::THREADS,
+                                               smem_bytes<float, HD>(Lk), q, k, v, mask, out, B, H,
+                                               Lq, Lk, E, scale, s);
 }
 
 }  // namespace

@@ -1,8 +1,9 @@
 // Device code for bf16 multi-head attention on Hopper's tensor cores: a
 // warp-level body on mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // that computes 16 query rows of one head at the TPU kernels' rounding
-// points, and the block-level staging around it. Shared by the attention
-// kernels over (B, L, E) operands (attention_heads.cu).
+// points, and the block-level staging around it. Shared by the bf16
+// attention kernels over (B, L, E) operands (attention_heads.cu,
+// attention_batched.cu, attention_packed.cu).
 //
 // What a warp computes, for rows i of head h of sample b (as
 // attention_batched_reference, with bf() the rounding to bf16):
@@ -13,6 +14,15 @@
 //   out_h = bf(p . v_h)           (f32 sums)
 // an exact two-pass softmax over exactly Lk keys, so a row whose keys are
 // all masked averages v over all Lk keys.
+//
+// PACKED = true computes the packed kernel's chain instead (as
+// attention_packed_reference; it rounds at more points):
+//   qs = bf(q_h * scale)
+//   s = bf(qs . k_h^T)            (f32 sums, then rounded)
+//   masked keys -> bf(-1e9); keys past Lk -> probability 0
+//   m = max_j s; e = bf(exp(bf(s - m))); l = bf(sum_j e), the sum in f32
+//   p = bf(e / l); out_h = bf(p . v_h)
+// The instruction stream of PACKED = false does not depend on it.
 //
 // Fragments (PTX ISA, m16n8k16 with bf16 inputs; lane = 4 g + t): A holds
 // rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16 x 16 tile;
@@ -66,6 +76,16 @@ struct Smem {
     return ((size_t)ROWS + 2 * kp) * HD * sizeof(bf16) + kp;
   }
 };
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// exp(s - m); the packed chain rounds the difference and the exp to bf16
+template <bool PACKED>
+__device__ __forceinline__ float exp_shifted(float s, float m) {
+  return PACKED ? round_bf16(expf(round_bf16(s - m))) : expf(s - m);
+}
 
 // Element offset of 16-byte chunk `c` of row `r` in a swizzled tile of
 // rows of HD bf16: chunk c ^ ((r / rows_per_128_bytes) % chunks_per_row).
@@ -137,8 +157,9 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 }
 
 // The masked logits of the warp's 16 rows against NT n8 tiles of keys from
-// key0 (tiles at or past kpad: -inf, not computed).
-template <int HD, int NT>
+// key0 (tiles at or past kpad: -inf, not computed), rounded to bf16 in the
+// packed chain.
+template <int HD, int NT, bool PACKED>
 __device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[HD / 16][4],
                                        const bf16* Ks, const uint8_t* flags, int key0, int kpad,
                                        int lane) {
@@ -165,6 +186,10 @@ __device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[H
     s[nt][2] = f0 == 2 ? -INFINITY : (f0 ? s[nt][2] : NEG_INF);
     s[nt][1] = f1 == 2 ? -INFINITY : (f1 ? s[nt][1] : NEG_INF);
     s[nt][3] = f1 == 2 ? -INFINITY : (f1 ? s[nt][3] : NEG_INF);
+    if (PACKED) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
+    }
   }
 }
 
@@ -190,7 +215,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 // swizzled Q tile, unscaled) over kpad staged keys (Ks, Vs, flags), in
 // o[HD / 8][4] (C layout, f32 sums of bf16 products, not rounded).
 // RESIDENT: kpad <= RESIDENT_KEYS, the logits computed once and kept.
-template <int HD, bool RESIDENT>
+// PACKED: the packed kernel's rounding chain.
+template <int HD, bool RESIDENT, bool PACKED>
 __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Qw, const bf16* Ks,
                                             const bf16* Vs, const uint8_t* flags, int kpad,
                                             float scale, int lane) {
@@ -206,10 +232,10 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
   const int nchunk = RESIDENT ? 1 : (kpad + 8 * NT - 1) / (8 * NT);
 
   float s[NT][4];
-  if (RESIDENT) logits<HD, NT>(s, qa, Ks, flags, 0, kpad, lane);
+  if (RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, 0, kpad, lane);
   float m0 = -INFINITY, m1 = -INFINITY;  // rows g, g + 8
   for (int c = 0; c < nchunk; ++c) {
-    if (!RESIDENT) logits<HD, NT>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+    if (!RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
@@ -221,12 +247,12 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 
   float l0 = 0.f, l1 = 0.f;
   for (int c = 0; c < nchunk; ++c) {
-    if (!RESIDENT) logits<HD, NT>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+    if (!RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (c * 8 * NT + 8 * nt >= kpad) break;  // no key: P . V stops there too
-      const float e0 = expf(s[nt][0] - m0), e1 = expf(s[nt][1] - m0);
-      const float e2 = expf(s[nt][2] - m1), e3 = expf(s[nt][3] - m1);
+      const float e0 = exp_shifted<PACKED>(s[nt][0], m0), e1 = exp_shifted<PACKED>(s[nt][1], m0);
+      const float e2 = exp_shifted<PACKED>(s[nt][2], m1), e3 = exp_shifted<PACKED>(s[nt][3], m1);
       l0 += e0 + e1;
       l1 += e2 + e3;
       if (RESIDENT) {
@@ -239,6 +265,10 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
+  if (PACKED) {
+    l0 = round_bf16(l0);
+    l1 = round_bf16(l1);
+  }
   const float r0 = __frcp_rn(l0), r1 = __frcp_rn(l1);
 
 #pragma unroll
@@ -248,20 +278,21 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
   for (int c = 0; c < nchunk; ++c) {
     const int key0 = c * 8 * NT;
     if (!RESIDENT) {
-      logits<HD, NT>(s, qa, Ks, flags, key0, kpad, lane);
+      logits<HD, NT, PACKED>(s, qa, Ks, flags, key0, kpad, lane);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        s[nt][0] = expf(s[nt][0] - m0);
-        s[nt][1] = expf(s[nt][1] - m0);
-        s[nt][2] = expf(s[nt][2] - m1);
-        s[nt][3] = expf(s[nt][3] - m1);
+        s[nt][0] = exp_shifted<PACKED>(s[nt][0], m0);
+        s[nt][1] = exp_shifted<PACKED>(s[nt][1], m0);
+        s[nt][2] = exp_shifted<PACKED>(s[nt][2], m1);
+        s[nt][3] = exp_shifted<PACKED>(s[nt][3], m1);
       }
     }
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
       const int k0 = key0 + 16 * j;
       if (k0 >= kpad) break;
-      // p = bf(e / l): the C tiles of keys k0 .. k0 + 15 as an A fragment
+      // p = bf(e / l), 0 <= e <= 1 <= l in both chains: the C tiles of keys
+      // k0 .. k0 + 15 as an A fragment
       const uint32_t pa[4] = {
           pack_bf16(div_rn(s[2 * j][0], l0, r0), div_rn(s[2 * j][1], l0, r0)),
           pack_bf16(div_rn(s[2 * j][2], l1, r1), div_rn(s[2 * j][3], l1, r1)),
@@ -281,7 +312,7 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 // The whole block: output rows [q0, q0 + ROWS) of head h of sample b.
 // q: (B, Lq, E), k, v: (B, Lk, E), out: (B, Lq, E) bf16, 16-byte aligned;
 // mask (B, Lk) uint8. Smem<HD>::bytes(Lk) of dynamic shared memory at smem.
-template <int HD, bool RESIDENT>
+template <int HD, bool RESIDENT, bool PACKED = false>
 __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,
                                              const uint8_t* __restrict__ mask,
@@ -308,7 +339,7 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
   if (r0 >= Lq) return;
   bf16* Qw = Qs + 16 * warp * HD;  // 16 rows: the swizzle pattern repeats every 8
   float o[HD / 8][4];
-  warp_attend<HD, RESIDENT>(o, Qw, Ks, Vs, flags, kpad, scale, lane);
+  warp_attend<HD, RESIDENT, PACKED>(o, Qw, Ks, Vs, flags, kpad, scale, lane);
 
   // out = bf(o), through the warp's (read) Q rows, then 16-byte stores
   __syncwarp();

@@ -3,62 +3,129 @@
 //
 // Replaces two kernels of mesm_tpu/ops/attention_pallas.py (the "packed"
 // branch of _fused_attention_impl):
-//   - _mha_kernel_packed together with _softmax_lastdim (PAIR = false): the
-//     DETR encoder's self-attention (charades: B = 128, L = 195 with the
-//     global token, E = 256, H = 8, head_dim 32; launched once per encoder
-//     layer);
-//   - _mha_kernel_packed_pair (PAIR = true): the T2V / enhance
+//   - _mha_kernel_packed together with _softmax_lastdim (the packed entry
+//     point): the DETR encoder's self-attention (charades: B = 128, L = 195
+//     with the global token, E = 256, H = 8, head_dim 32; launched once per
+//     encoder layer);
+//   - _mha_kernel_packed_pair (the pair entry point): the T2V / enhance
 //     cross-attention under the scrambled pair mask when the text has 64
 //     keys or more (charades with long queries: 128 x 194 x 81).
 // The float32 instances are what MESM_ATTN_VARIANT=packed sends fp32 models
-// to (the TACoS encoder: 16 x 601 x 601); there every rounding below is to
-// f32, i.e. none.
+// to (the TACoS encoder: 16 x 601 x 601).
 //
-// What it computes, per (sample b, head h), at the TPU kernels' rounding
-// points. PAIR = false (all intermediate roundings are to the operand
-// dtype, written bf16 here):
-//   qs = q_h * bf16(scale)                      (bf16 product)
-//   logits = bf16(qs . k_h^T)                   (f32 accumulation)
-//   masked keys -> bf16(-1e9), a finite value
-//   m = max(logits); e = bf16(exp(bf16(logits - m)))
-//   s = sum(e) in f32; p = bf16(e / bf16(s))
-//   out_h = bf16(p . v_h)                       (f32 accumulation)
-// PAIR = true (an f32 softmax, only p rounded):
+// What each computes, per (sample b, head h), at the TPU kernels' rounding
+// points, with bf() the rounding to the operand dtype (none in float32). The
+// packed entry point (attention_packed_reference):
+//   qs = bf(q_h * bf(scale))
+//   logits = bf(qs . k_h^T)                     (f32 accumulation)
+//   masked keys -> bf(-1e9), a finite value
+//   m = max(logits); e = bf(exp(bf(logits - m)))
+//   s = sum(e) in f32; p = bf(e / bf(s))
+//   out_h = bf(p . v_h)                         (f32 accumulation)
+// The pair entry point (attention_packed_pair_reference; an f32 softmax,
+// only p rounded):
 //   qs = f32(q_h) * scale                       (f32 product)
 //   logits = qs . k_h^T                         (f32)
 //   pair (q, k) with qf[b, h, q] and kf[b, h, k] -> -1e9; masked keys -> -1e9
-//   p = bf16(exp(logits - max) / sum(exp(logits - max)))   (f32 softmax)
-//   out_h = bf16(p . v_h)                       (f32 accumulation)
+//   p = bf(exp(logits - max) / sum(exp(logits - max)))   (f32 softmax)
+//   out_h = bf(p . v_h)                         (f32 accumulation)
 // A row whose keys are all masked gets the uniform average of v over all Lk
-// keys (padded keys included), never NaN. Operands stay (B, L, E): the head
-// split is the column slice [h*hd, (h+1)*hd), read and written in place,
-// with no transposes around the call. The pair factors are the model's
-// (B, H, Lq) and (B, H, Lk) masks as uint8; the TPU kernel's head-major float
-// copies were a Mosaic restriction.
+// keys, never NaN. Operands stay (B, L, E): the head split is the column
+// slice [h*hd, (h+1)*hd), read and written in place, with no transposes
+// around the call. The pair factors are the model's (B, H, Lq) and
+// (B, H, Lk) masks as uint8; the TPU kernel's head-major float copies were a
+// Mosaic restriction.
 //
-// What bounds it on the H100: the bytes. q, k, v and out are 51 MB at the
-// charades encoder shape (~15 us at 3.35 TB/s); the 5 GFLOP of the two
-// products are ~5 us of tensor-core work. The (L, L) logits never leave the
-// SM.
+// What bounds it on the H100: in bf16 the bytes. q, k, v and out are 51 MB
+// at the charades encoder shape (~15 us at 3.35 TB/s); the 5 GFLOP of the
+// two products are ~5 us of tensor-core work. In float32 the operations
+// (TACoS 16 x 601: 5.9 GFLOP of FMA work, 88 us at 67 TFLOP/s). The (L, L)
+// logits never leave the SM.
 //
-// Design: one block of 8 warps per (b, h). K_h and V_h (L x 32 bf16, 12.5 KB
-// each at L = 195; 77 KB each in fp32 at L = 601), the key mask and, with
-// PAIR, the key factor row are staged once in shared memory, so k and v are
-// read from device memory once per head and q and out exactly once. One warp
-// owns one query row at a time: its lanes split the keys for the logits (the
-// K_h rows are padded to an odd word stride, so the 32 lanes hit 32 banks),
-// the softmax is two warp reductions, and for P.V each lane owns one output
-// column. The row's logits sit in a per-warp shared buffer. This is a
-// CUDA-core kernel; tensor-core (mma/wgmma) tiles are later work.
+// Design of the packed entry point. In float32 every rounding above is to
+// f32, so it computes attention_batched_reference's function; in bf16 it
+// computes the same products with more roundings. So it runs the bodies of
+// the per-head and all-heads kernels on their grid (attention_grid.cuh: one
+// block per (sample, 64-row query tile, head)):
+//   - bf16 on the tensor cores (attention_mma.cuh with PACKED = true: 4
+//     warps, K_h and V_h staged whole with cp.async into swizzled tiles,
+//     mma.sync m16n8k16 for both products, an exact two-pass softmax that
+//     rounds at the points above; the logits stay in registers up to 256
+//     keys, e is kept in them between passes; beyond, every pass recomputes
+//     the same bf16 values). Up to 1,760 keys at hd 32, 864 at hd 64;
+//   - float32 on the register tiles (attention_regtile.cuh, an online f32
+//     softmax a few ulps from the plain version's two-pass one), any Lk.
+//
+// Design of the pair entry point: a CUDA-core kernel, one block of 8 warps
+// per (b, h). K_h and V_h (L x 32 bf16), the key mask and the key factor row
+// are staged once in shared memory, so k and v are read from device memory
+// once per head and q and out exactly once. One warp owns one query row at a
+// time: its lanes split the keys for the logits (the K_h rows are padded to
+// an odd word stride, so the 32 lanes hit 32 banks), the softmax is two warp
+// reductions, and for P.V each lane owns one output column. The row's
+// logits sit in a per-warp shared buffer.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_grid.cuh"
+#include "attention_mma.cuh"
+#include "attention_regtile.cuh"
+
+namespace {
 
 typedef __nv_bfloat16 bf16;
 
-namespace {
+// ---------------------------------------------------------------------------
+// the packed entry point
+// ---------------------------------------------------------------------------
+
+template <int HD, bool RESIDENT>
+__global__ void __launch_bounds__(mma_attn::THREADS)
+attention_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                            bf16* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
+  mma_attn::block_attend<HD, RESIDENT, true>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0,
+                                             smem);
+}
+
+// at least 4 blocks an SM (64 registers), as the per-head and all-heads
+// kernels' float32 instance
+template <int HD>
+__global__ void __launch_bounds__(regtile::THREADS, 4)
+attention_packed_regtile_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                                float* __restrict__ out, int H, int Lq, int Lk, int E,
+                                float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  attn_grid::block_coords<regtile::BM>(H, Lq, b, h, q0);
+  regtile::attend<float, HD>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+}
+
+template <int HD>
+size_t tiles_smem_bytes(int is_bf16, int Lk) {
+  return is_bf16 ? mma_attn::Smem<HD>::bytes(Lk) : regtile::Smem<HD>::bytes;
+}
+
+template <int HD>
+int launch_tiles(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
+                 int H, int Lq, int Lk, int E, int is_bf16, float scale, cudaStream_t s) {
+  const size_t smem = tiles_smem_bytes<HD>(is_bf16, Lk);
+  if (is_bf16) {
+    const auto kernel = Lk <= mma_attn::RESIDENT_KEYS ? attention_packed_mma_kernel<HD, true>
+                                                      : attention_packed_mma_kernel<HD, false>;
+    return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS, smem, q, k, v, mask,
+                                                   out, B, H, Lq, Lk, E, scale, s);
+  }
+  return attn_grid::launch<float, regtile::BM>(attention_packed_regtile_kernel<HD>,
+                                               regtile::THREADS, smem, q, k, v, mask, out, B, H,
+                                               Lq, Lk, E, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// the pair entry point
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -89,7 +156,7 @@ struct IO<float> {
 };
 
 template <typename T, int HD>
-struct Smem {
+struct PairSmem {
   static constexpr int KS = HD + IO<T>::KPAD;  // K_h row stride in elements
   static size_t bytes(int Lk) {
     size_t b = ((size_t)Lk * KS + (size_t)Lk * HD) * sizeof(T);  // K_h, V_h
@@ -100,14 +167,14 @@ struct Smem {
   }
 };
 
-template <typename T, int HD, bool PAIR>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf,
-                        T* __restrict__ out, int H, int Lq, int Lk, int E, int Ev,
-                        float scale) {
-  constexpr int KS = Smem<T, HD>::KS;
+attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v, const uint8_t* __restrict__ mask,
+                             const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf,
+                             T* __restrict__ out, int H, int Lq, int Lk, int E, int Ev,
+                             float scale) {
+  constexpr int KS = PairSmem<T, HD>::KS;
   constexpr int HALF = HD / 2;
   constexpr int PER_LANE = HD / 32;  // output columns per lane in P.V
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
@@ -143,20 +210,16 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   for (int j = threadIdx.x; j < Lk; j += THREADS) {
     ms[j] = mask[(size_t)b * Lk + j];
-    if (PAIR) kfs[j] = kf[((size_t)b * H + h) * Lk + j];
+    kfs[j] = kf[((size_t)b * H + h) * Lk + j];
   }
   __syncthreads();
 
   float* prow = ps + (size_t)warp * Lk;
   float* qrow = qsm + warp * HD;
-  const float neg = PAIR ? NEG_INF : IO<T>::rnd(NEG_INF);
   for (int qi = warp; qi < Lq; qi += WARPS) {
     const T* qsrc = q + ((size_t)b * Lq + qi) * E + h * HD;
-    for (int d = lane; d < HD; d += 32) {
-      const float x = IO<T>::ld(qsrc + d) * scale;
-      qrow[d] = PAIR ? x : IO<T>::rnd(x);
-    }
-    const bool qflag = PAIR && qf[((size_t)b * H + h) * Lq + qi] != 0;
+    for (int d = lane; d < HD; d += 32) qrow[d] = IO<T>::ld(qsrc + d) * scale;
+    const bool qflag = qf[((size_t)b * H + h) * Lq + qi] != 0;
     __syncwarp();
     float qr[HD];
 #pragma unroll
@@ -173,26 +236,25 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc = fmaf(qr[2 * d2], kk.x, acc);
         acc = fmaf(qr[2 * d2 + 1], kk.y, acc);
       }
-      float l = PAIR ? acc : IO<T>::rnd(acc);
-      if (PAIR && qflag && kfs[j]) l = neg;
-      if (!ms[j]) l = neg;
+      float l = acc;
+      if (qflag && kfs[j]) l = NEG_INF;
+      if (!ms[j]) l = NEG_INF;
       prow[j] = l;
       mx = fmaxf(mx, l);
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
 
-    // exp (bf16 without PAIR, f32 with it), denominator summed in f32
+    // f32 exp and denominator
     float sum = 0.f;
     for (int j = lane; j < Lk; j += 32) {
-      const float e = PAIR ? expf(prow[j] - mx) : IO<T>::rnd(expf(IO<T>::rnd(prow[j] - mx)));
+      const float e = expf(prow[j] - mx);
       prow[j] = e;
       sum += e;
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float sb = PAIR ? sum : IO<T>::rnd(sum);
-    for (int j = lane; j < Lk; j += 32) prow[j] = IO<T>::rnd(prow[j] / sb);
+    for (int j = lane; j < Lk; j += 32) prow[j] = IO<T>::rnd(prow[j] / sum);
     __syncwarp();
 
     // P.V: each lane owns PER_LANE output columns
@@ -212,59 +274,60 @@ attention_packed_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool PAIR>
-int launch(const void* q, const void* k, const void* v, const void* mask, const void* qf,
-           const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev, float scale,
-           cudaStream_t stream) {
-  const size_t smem = Smem<T, HD>::bytes(Lk);
-  cudaError_t err = cudaFuncSetAttribute(attention_packed_kernel<T, HD, PAIR>,
+template <typename T, int HD>
+int launch_pair(const void* q, const void* k, const void* v, const void* mask, const void* qf,
+                const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev,
+                float scale, cudaStream_t stream) {
+  const size_t smem = PairSmem<T, HD>::bytes(Lk);
+  cudaError_t err = cudaFuncSetAttribute(attention_packed_pair_kernel<T, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_packed_kernel<T, HD, PAIR><<<B * H, THREADS, smem, stream>>>(
+  attention_packed_pair_kernel<T, HD><<<B * H, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(qf),
       static_cast<const uint8_t*>(kf), static_cast<T*>(out), H, Lq, Lk, E, Ev, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PAIR>
-int dispatch_hd(const void* q, const void* k, const void* v, const void* mask, const void* qf,
-                const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev,
-                float scale, cudaStream_t s) {
+template <typename T>
+int dispatch_pair(const void* q, const void* k, const void* v, const void* mask, const void* qf,
+                  const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev,
+                  float scale, cudaStream_t s) {
   const int hd = E / H;
   if (hd == 32)
-    return launch<T, 32, PAIR>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
+    return launch_pair<T, 32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
   if (hd == 64)
-    return launch<T, 64, PAIR>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
+    return launch_pair<T, 64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool PAIR>
-int dispatch(const void* q, const void* k, const void* v, const void* mask, const void* qf,
-             const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev, int is_bf16,
-             float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H != 0 || Ev != E)
-    return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch_hd<bf16, PAIR>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
-  return dispatch_hd<float, PAIR>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
+template <typename T>
+long long pair_smem_bytes(int hd, int Lk) {
+  if (hd == 32) return (long long)PairSmem<T, 32>::bytes(Lk);
+  if (hd == 64) return (long long)PairSmem<T, 64>::bytes(Lk);
+  return 0;
 }
 
-template <typename T>
-long long smem_bytes(int hd, int Lk) {
-  if (hd == 32) return (long long)Smem<T, 32>::bytes(Lk);
-  if (hd == 64) return (long long)Smem<T, 64>::bytes(Lk);
-  return 0;
+bool valid(int B, int H, int Lq, int Lk, int E, int Ev) {
+  return B > 0 && H > 0 && Lq > 0 && Lk > 0 && E % H == 0 && Ev == E;
 }
 
 }  // namespace
 
-// Shared memory the kernel needs for bf16 (is_bf16 = 1) or float32
-// operands, head_dim `hd` and `Lk` keys (0 when hd is not one the kernel
-// takes), so the wrapper can refuse before launching.
+// Shared memory a block of the packed entry point needs for bf16 (is_bf16 =
+// 1) or float32 operands, head_dim `hd` and `Lk` keys (0 when hd is not one
+// the kernel takes), so the wrapper can refuse before launching: bf16
+// stages every key of the head (up to 1,760 keys at hd 32, 864 at hd 64);
+// float32 streams the keys in tiles and takes any Lk.
+extern "C" long long attention_packed_nopair_smem_bytes(int is_bf16, int hd, int Lk) {
+  if (hd == 32) return (long long)tiles_smem_bytes<32>(is_bf16, Lk);
+  if (hd == 64) return (long long)tiles_smem_bytes<64>(is_bf16, Lk);
+  return 0;
+}
+
+// The same for a block of the pair entry point.
 extern "C" long long attention_packed_smem_bytes(int is_bf16, int hd, int Lk) {
-  return is_bf16 ? smem_bytes<bf16>(hd, Lk) : smem_bytes<float>(hd, Lk);
+  return is_bf16 ? pair_smem_bytes<bf16>(hd, Lk) : pair_smem_bytes<float>(hd, Lk);
 }
 
 // Plain C entry points, bound with ctypes. q: (B, Lq, E), k: (B, Lk, E),
@@ -273,13 +336,17 @@ extern "C" long long attention_packed_smem_bytes(int is_bf16, int hd, int Lk) {
 // columns [h*hd, (h+1)*hd) with hd = E / H = Ev / H, 32 or 64. Each returns
 // the cudaError_t of the launch (0 = success).
 //
-// attention_packed_launch: scale is the softmax scale already rounded to the
-// operand dtype.
+// attention_packed_launch: q, k, v and out 16-byte aligned; scale is the
+// softmax scale already rounded to the operand dtype.
 extern "C" int attention_packed_launch(const void* q, const void* k, const void* v,
                                        const void* mask, void* out, int B, int H, int Lq, int Lk,
                                        int E, int Ev, int is_bf16, float scale, void* stream) {
-  return dispatch<false>(q, k, v, mask, nullptr, nullptr, out, B, H, Lq, Lk, E, Ev, is_bf16,
-                         scale, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(B, H, Lq, Lk, E, Ev)) return (int)cudaErrorInvalidValue;
+  const int hd = E / H;
+  if (hd == 32) return launch_tiles<32>(q, k, v, mask, out, B, H, Lq, Lk, E, is_bf16, scale, s);
+  if (hd == 64) return launch_tiles<64>(q, k, v, mask, out, B, H, Lq, Lk, E, is_bf16, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // attention_packed_pair_launch: qf (B, H, Lq) and kf (B, H, Lk) uint8 pair
@@ -289,5 +356,9 @@ extern "C" int attention_packed_pair_launch(const void* q, const void* k, const 
                                             const void* mask, const void* qf, const void* kf,
                                             void* out, int B, int H, int Lq, int Lk, int E, int Ev,
                                             int is_bf16, float scale, void* stream) {
-  return dispatch<true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, is_bf16, scale, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(B, H, Lq, Lk, E, Ev)) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch_pair<bf16>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
+  return dispatch_pair<float>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
 }

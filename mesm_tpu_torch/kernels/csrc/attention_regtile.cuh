@@ -1,6 +1,7 @@
-// Device code shared by attention_batched.cu and attention_heads.cu: the
-// register-tile body of multi-head attention over (B, L, E) operands, for
-// one (sample b, head h) and a tile of BM query rows, on the CUDA cores.
+// Device code shared by attention_batched.cu, attention_heads.cu and
+// attention_packed.cu: the register-tile body of multi-head attention over
+// (B, L, E) operands, for one (sample b, head h) and a tile of BM query
+// rows, on the CUDA cores.
 //
 // What it computes, per (sample b, head h), as attention_batched_reference:
 //   qs = round(q_h * round(scale))              (a product in the input dtype)

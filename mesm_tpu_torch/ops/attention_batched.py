@@ -11,6 +11,9 @@ f32, the probabilities rounded to v's dtype, and P.V with f32 sums. In fp32
 that is models/attention.attention_core's arithmetic too. A fully masked row
 averages v uniformly. The same function is that of the per-head and
 all-heads kernels (ops/attention_heads.py), whose plain version this is too.
+The kernel runs float32 on register tiles, and bf16 on tensor-core mma
+tiles where a head's K_h and V_h fit a block's shared memory (up to 1,760
+keys at head_dim 32, 864 at 64), on the register tiles beyond.
 """
 from __future__ import annotations
 
@@ -58,16 +61,15 @@ def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Te
     if q.device.type == "cpu":
         return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
     B, Lq, Lk, E, hd = check_operands("attention_batched", q, k, v, num_heads, key_valid_mask,
-                                      (torch.float32, torch.bfloat16))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("attention_batched: q, k, v must start on a 16-byte boundary")
+                                      (torch.float32, torch.bfloat16), aligned=True)
     from ..kernels.build import load
 
+    is_bf16 = int(q.dtype == torch.bfloat16)
     lib = load("attention_batched")
     smem_bytes = lib.attention_batched_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
-    smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    need = smem_bytes(hd, Lk)
+    smem_bytes.argtypes = [ctypes.c_int] * 3
+    need = smem_bytes(is_bf16, hd, Lk)
     if need > MAX_SMEM:
         raise ValueError(f"attention_batched: {Lk} keys need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
@@ -78,7 +80,7 @@ def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Te
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, num_heads, Lq, Lk, E, int(q.dtype == torch.bfloat16), scale,
+        B, num_heads, Lq, Lk, E, is_bf16, scale,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:

@@ -32,9 +32,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     """Checks the operands and launches kernels/csrc/attention_heads.cu;
     returns out."""
     B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                      (torch.bfloat16, torch.float32))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary")
+                                      (torch.bfloat16, torch.float32), aligned=True)
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)

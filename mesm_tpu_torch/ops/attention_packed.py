@@ -11,8 +11,10 @@ and only the denominator is summed in f32 (attention_core upcasts the whole
 softmax to f32). In fp32 every rounding is to f32 and the two agree.
 
 Both kernels take bf16 (the default packed variant) and float32 (what
-MESM_ATTN_VARIANT=packed sends an fp32 model to); in float32 every rounding
-point is f32.
+MESM_ATTN_VARIANT=packed sends an fp32 model to). The packed kernel runs
+bf16 on tensor-core mma tiles at the rounding points above and float32 on
+the register tiles of the batched kernel: in float32 every rounding point
+is f32, so the function is attention_batched_reference's.
 
 `attention_packed_pair` launches the same source's pair-masked entry point
 (the port of `_mha_kernel_packed_pair`, attention_pallas.py:170-210) and
@@ -106,11 +108,12 @@ def attention_packed_pair_reference(q, k, v, num_heads: int, key_valid_mask=None
 
 
 def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
-                   dtypes=(torch.bfloat16,), head_dims=(32, 64)):
+                   dtypes=(torch.bfloat16,), head_dims=(32, 64), aligned: bool = False):
     """The checks every (B, L, E) attention wrapper makes before it
     launches: one dtype of `dtypes`, contiguous, on one CUDA device, Ev == E,
-    a head_dim of `head_dims`, a (B, Lk) mask. Returns (B, Lq, Lk, E,
-    head_dim)."""
+    a head_dim of `head_dims`, a (B, Lk) mask, and with `aligned` q, k, v on
+    16-byte boundaries (for cp.async and 16-byte loads). Returns (B, Lq, Lk,
+    E, head_dim)."""
     for t in (q, k, v):
         if t.dtype not in dtypes or t.dtype != q.dtype:
             names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
@@ -133,6 +136,8 @@ def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
         raise ValueError(f"{name}: mask {tuple(key_valid_mask.shape)} != {(B, Lk)}")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
+    if aligned and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary")
     return B, Lq, Lk, E, hd
 
 
@@ -163,14 +168,15 @@ def factors_u8(pair_factors, B: int, H: int, Lq: int, Lk: int, device):
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     """Checks the operands and launches kernels/csrc/attention_packed.cu: its
     pair-masked entry point when pair_factors is given, else the packed
-    one. Returns out."""
+    one (on 16-byte aligned operands). Returns out."""
+    pair = pair_factors is not None
     B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                      (torch.bfloat16, torch.float32))
+                                      (torch.bfloat16, torch.float32), aligned=not pair)
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = load("attention_packed")
-    smem_bytes = lib.attention_packed_smem_bytes
+    smem_bytes = lib.attention_packed_smem_bytes if pair else lib.attention_packed_nopair_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
     need = smem_bytes(is_bf16, hd, Lk)
@@ -178,7 +184,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
         raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=v.dtype, device=q.device)
-    if pair_factors is None:
+    if not pair:
         fn = lib.attention_packed_launch
         operands = (q, k, v, mask, out)
         scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype

@@ -37,7 +37,7 @@ from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_shortkey as sk
 from mesm_tpu_torch.ops import attention_trainable as at
 
-from chip_smoke import HEADS_EDGE_SHAPES
+from chip_smoke import BATCHED_REGTILE_SHAPES, HEADS_EDGE_SHAPES
 from test_torch_attention_shortkey import JAX_DT, TOL, TORCH_DT, _case, _err
 
 ENV = kernels.ATTN_VARIANT_ENV
@@ -320,9 +320,13 @@ CARD_CASES = [  # (kernel, dtype, B, Lq, Lk, pair): the charades and TACoS encod
     ("batched", torch.bfloat16, 128, 195, 195, False), ("packed", torch.float32, 16, 601, 601, False),
     ("packed_pair", torch.float32, 16, 600, 81, True), ("shortkey", torch.float32, 16, 600, 17, True),
 ]
-# the edges of the per-head / all-heads tiles (chip_smoke.HEADS_EDGE_SHAPES)
-CARD_CASES += [(kernel, dtype, B, Lq, Lk, False, E) for kernel in ("per_head", "all_heads")
+# the edges of the encoder kernels' tiles (chip_smoke.HEADS_EDGE_SHAPES), and
+# the bf16 batched shapes past the mma staging, which take its register tiles
+CARD_CASES += [(kernel, dtype, B, Lq, Lk, False, E)
+               for kernel in ("per_head", "all_heads", "batched", "packed")
                for dtype in (torch.bfloat16, torch.float32) for B, Lq, Lk, E in HEADS_EDGE_SHAPES]
+CARD_CASES += [("batched", torch.bfloat16, B, Lq, Lk, False, E)
+               for B, Lq, Lk, E in BATCHED_REGTILE_SHAPES]
 CARD_CASES = [case if len(case) == 7 else case + (256,) for case in CARD_CASES]
 
 
@@ -347,3 +351,19 @@ def test_variant_kernels_match_plain(cuda, kernel, dtype, B, Lq, Lk, pair, E):
     # sample 1: every key masked, every head uniform over all Lk keys
     if B > 1:
         assert float((got[1].float() - v[1].float().mean(0)).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fn", [ah.attention_per_head, ah.attention_all_heads, ab.attention_batched,
+                                ap.attention_packed], ids=lambda f: f.__name__)
+def test_tile_kernels_refuse_operands_off_a_16_byte_boundary(cuda, fn):
+    """The kernels on the mma and register tiles load q, k and v 16 bytes
+    at a time (cp.async, float4): a contiguous tensor that starts off a
+    16-byte boundary raises before any launch."""
+    B, L, E = 2, 70, 256
+    q = torch.randn(B * L * E + 1, device=cuda).to(torch.bfloat16)[1:].view(B, L, E)
+    k = torch.randn(B, L, E, device=cuda).to(torch.bfloat16)
+    before = (ah.per_head_launches, ah.all_heads_launches, ab.launches, ap.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(q, k, k, 8)
+    assert (ah.per_head_launches, ah.all_heads_launches, ab.launches, ap.launches) == before

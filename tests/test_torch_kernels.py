@@ -129,3 +129,33 @@ def test_attention_packed_kernel_matches_plain(cuda):
     assert ap.launches == before + 1
     assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("B,lq,lk,E,H", [(3, 40, 72, 64, 2), (3, 72, 40, 128, 2)])
+def test_packed_plain_version_is_batched_in_fp32(B, lq, lk, E, H):
+    """In float32 every rounding point of the packed chain is to f32, so
+    `attention_packed_reference` computes `attention_batched_reference`'s
+    function (the ground for running fp32 packed on the batched kernel's
+    register tiles), and both match the Pallas packed kernel in interpret
+    mode: head_dim 32 and 64, Lq != Lk, sample 1 with every key masked."""
+    from mesm_tpu_torch.ops.attention_batched import attention_batched_reference
+
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(B, lq, E)).astype(np.float32)
+    k = rng.normal(size=(B, lk, E)).astype(np.float32)
+    v = rng.normal(size=(B, lk, E)).astype(np.float32)
+    mask = rng.random((B, lk)) < 0.8
+    mask[:, 0] = False  # the global token is never a key
+    mask[1] = False  # a padded row: every key masked
+    with jax.default_matmul_precision("highest"):
+        want = _fused_attention_impl(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                     jnp.asarray(mask, jnp.float32), H, True, "packed")
+    want = np.asarray(want)
+    tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+    packed = ap.attention_packed_reference(tq, tk, tv, H, tm).numpy()
+    batched = attention_batched_reference(tq, tk, tv, H, tm).numpy()
+    scale = max(1.0, float(np.abs(batched).max()))
+    assert float(np.abs(packed - batched).max()) / scale <= 1e-6
+    np.testing.assert_allclose(packed[1], np.broadcast_to(v[1].mean(0), packed[1].shape), atol=1e-5)
+    for got in (packed, batched):
+        np.testing.assert_allclose(got, want, atol=TOL["float32"], rtol=0)

@@ -175,17 +175,18 @@ def test_cuda_sources_include_only_toolkit_headers(path):
     assert "jax" not in text.replace("mesm_tpu/", "").lower(), "names jax outside a file:line"
 
 
-def test_library_path_follows_the_shared_headers(tmp_path):
+@pytest.mark.parametrize("name", ["attention_heads", "attention_batched", "attention_packed"])
+def test_library_path_follows_the_shared_headers(tmp_path, name):
     """An edited csrc/*.cuh gives every source a new library path, so a
     source that includes it is rebuilt rather than served stale; an
-    unchanged tree keeps its path."""
+    unchanged tree keeps its path. Each of the sources on the shared mma
+    tiles includes their header."""
     import shutil
 
     from mesm_tpu_torch.kernels.build import library_path
 
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
-    name = "attention_heads"
     assert '#include "attention_mma.cuh"' in (csrc / f"{name}.cu").read_text()
     before = library_path(name, csrc)
     assert before == library_path(name)
