@@ -12,10 +12,11 @@ inference through the port's eval step and through its
 "on" mode and with the one-matmul short-key kernel), the TACoS fp32 eval
 step, QVHighlights C+SF_C bf16 inference in every dispatch mode, the
 charades model with 64-80-word queries (the pair-masked kernel), the
-kernel-engaged TACoS fp32 train step (attention dropout 0) with the
-kernels on and off, the charades C+SF_C fp32 train step as shipped,
-`python -m mesm_tpu_torch.train` on a synthetic root whose checkpoint the
-evaluate entry point then scores, the QVHighlights fp32 train step and
+kernel-engaged TACoS fp32 train step (attention dropout 0: the trainable
+attention's forward and backward kernels) with the kernels on and off,
+the charades C+SF_C fp32 train step as shipped, `python -m
+mesm_tpu_torch.train` on a synthetic root whose checkpoint the evaluate
+entry point then scores, the QVHighlights fp32 train step and
 both entry points on a synthetic QVHighlights root, the charades bf16 and
 TACoS fp32 eval steps (and the evaluate entry point) with the fused int8
 FFN switched on, the eval steps, one train step and the evaluate entry
@@ -55,7 +56,9 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #   ln_dense fp32: 1e-4 (2818-term f32 sums in another order);
 #   attention bf16: 3e-2 abs (bf16 logits, exp and divide; one-step flips).
 #   attention fp32: 1e-5 (f32 sums of 601 terms in another order);
-#   trainable fp32 gradients: 1e-5 (the same recomputed plain backward).
+#   trainable fp32 gradients: 1e-5 (the backward kernel's f32 sums in
+#     another order than attention_core's autograd);
+#   the fp32 backward kernel against its plain version: 1e-5 (the same).
 #   pair-masked and short-key attention bf16: 3e-2 abs (f32 softmax, but the
 #     probabilities and the output are rounded to bf16: one-step flips);
 #   the one-matmul short-key kernel in fp32: 1e-5 (f32 sums in another order).
@@ -72,7 +75,8 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 #   layout_anchor: 0, a copy (bit-equal).
 TOL = {"ln_dense_bfloat16": 2.0**-6, "ln_dense_float32": 1e-4,
        "attention_packed_bfloat16": 3e-2, "attention_batched_float32": 1e-5,
-       "attention_trainable": 1e-5, "attention_packed_pair_bfloat16": 3e-2,
+       "attention_trainable": 1e-5, "attention_backward": 1e-5,
+       "attention_packed_pair_bfloat16": 3e-2,
        "attention_shortkey_bfloat16": 3e-2, "attention_shortkey_onematmul_bfloat16": 3e-2,
        "attention_shortkey_onematmul_float32": 1e-5, "ffn_int8": 2.0**-7,
        "attention_per_head_float32": 1e-5, "attention_per_head_bfloat16": 3e-2,
@@ -419,17 +423,25 @@ HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 1
 BATCHED_REGTILE_SHAPES = ((2, 70, 1800, 256), (2, 70, 900, 512))
 
 
-def launched_kernels(fn):
-    """fn() under torch.profiler: its result and the names of the device
-    kernels it launched."""
+def launched_kernels(fn, want=(), tries: int = 3):
+    """fn() under torch.profiler: its first result, the names of the device
+    kernels its calls launched, and how many calls ran. The tracer now and
+    then delivers none of a window's kernels, so fn runs again under a new
+    profiler (up to `tries` calls) until a kernel whose name holds each of
+    `want` has been seen."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, sorted({e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA})
+    names, outs = set(), []
+    while len(outs) < tries:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs.append(fn())
+            torch.cuda.synchronize()
+        names |= {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        if all(any(w in n for n in names) for w in want):
+            break
+    return outs[0], sorted(names), len(outs)
 
 
 def _edge_cases():
@@ -466,7 +478,7 @@ def check_encoder_edges() -> dict:
         mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
         if B > 1:
             mask[1] = False
-        got, names = launched_kernels(lambda: fn(q, k, v, H, mask))
+        got, names, _ = launched_kernels(lambda: fn(q, k, v, H, mask), (kernel_name,))
         want = ref(q, k, v, H, mask)
         torch.cuda.synchronize()
         case = {"kernel": name, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
@@ -482,11 +494,138 @@ def check_encoder_edges() -> dict:
                           and any(kernel_name in n for n in names))
         ok = ok and case["ok"]
         cases.append(case)
+    for case in _pair_edge_cases() + _backward_edge_cases():
+        ok = ok and case["ok"]
+        cases.append(case)
     res = {"phase": "attention_edges", "ok": ok, "cases": cases}
     emit(res)
     if not ok:
         raise SystemExit("attention edge shapes: a check failed")
     return res
+
+
+def _pair_edge_cases() -> list:
+    """The bf16 pair kernel at HEADS_EDGE_SHAPES against its plain version
+    (3e-2), on the mma body (by its device kernel name and its route's
+    count): random pair factors, sample 0 with every key of head 0 flagged
+    and every other query of that head flagged (rows whose every key is
+    dropped), sample 1 (where B > 1) with every key masked; each dropped row
+    must give the mean of v over all Lk keys. Then operands off a 16-byte
+    boundary, which take the CUDA-core kernel: the other side of the route."""
+    import torch
+
+    from mesm_tpu_torch.ops import attention_packed as ap
+
+    H, tol, out = MAIN_PATH["H"], TOL["attention_packed_pair_bfloat16"], []
+    shapes = [(shape, True) for shape in HEADS_EDGE_SHAPES] + [((2, 70, 81, 256), False)]
+    for (B, Lq, Lk, E), aligned in shapes:
+        g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E + 1)
+        q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
+        if not aligned:  # q starts 2 bytes past a 16-byte boundary
+            buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
+            q = buf[1:1 + q.numel()].view_as(q).copy_(q)
+        k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16() for _ in range(2))
+        lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+        mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+        if B > 1:
+            mask[1] = False
+        qf = torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4
+        kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
+        kf[0, 0] = True
+        qf[0, 0, ::2] = True
+        pf = (qf, kf)
+        kernel_name = "attention_packed_pair_mma_kernel" if aligned else "attention_packed_pair_kernel"
+        before = ap.pair_mma_launches
+        got, names, runs = launched_kernels(lambda: ap.attention_packed_pair(q, k, v, H, mask, pf),
+                                            (kernel_name,))
+        on_mma = (ap.pair_mma_launches - before) / runs  # launches on the mma body a call
+        want = ap.attention_packed_pair_reference(q, k, v, H, mask, pf)
+        torch.cuda.synchronize()
+        dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+        case = {"kernel": "attention_packed_pair", "dtype": "bfloat16", "shape": [B, Lq, Lk, E, H],
+                "aligned": aligned, "device_kernel": kernel_name, "launched": names,
+                "mma_route_launches": on_mma,
+                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                "max_err_rel_to_max1": _rel_err(got, want), "finite": bool(torch.isfinite(got).all()),
+                "masked_rows": dead_rows, "masked_rows_vs_mean_v": dead_err, "tol": tol}
+        case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol and dead_rows > 0
+                          and dead_err <= tol and on_mma == int(aligned)
+                          and any(kernel_name in n for n in names))
+        out.append(case)
+    return out
+
+
+# Lq != Lk with the roles of HEADS_EDGE_SHAPES' (2, 70, 81) swapped
+BACKWARD_EDGE_SHAPES = HEADS_EDGE_SHAPES + ((2, 81, 70, 256),)
+# the device kernels of one attention_backward call
+BACKWARD_KERNELS = ("attention_backward_stats_kernel", "attention_backward_dkdv_kernel",
+                    "attention_backward_dq_kernel")
+
+
+def _backward_edge_cases() -> list:
+    """The fp32 backward kernels at BACKWARD_EDGE_SHAPES against their plain
+    version and against autograd through attention_core on the same tensors
+    (1e-5), by their device kernel names, with sample 1 (where B > 1) fully
+    masked: its dq and dk must be 0 and its dv at every key the sum of dO
+    over the queries over Lk (P = 1 / Lk). Where the shape is on a kernel
+    route, also the trainable Function's output and gradients against
+    attention_core's."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.models.attention import attention_core
+    from mesm_tpu_torch.ops import attention_backward as abw
+    from mesm_tpu_torch.ops.attention_trainable import attention_trainable
+
+    H, tol, out = MAIN_PATH["H"], TOL["attention_backward"], []
+    for B, Lq, Lk, E in BACKWARD_EDGE_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E + 2)
+        q, cot = (torch.randn(B, Lq, E, generator=g, device="cuda") for _ in range(2))
+        k, v = (torch.randn(B, Lk, E, generator=g, device="cuda") for _ in range(2))
+        lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+        mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+        if B > 1:
+            mask[1] = False
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out = attention_core(*leaves, H, key_valid_mask=mask)
+        ref_out.backward(cot)
+        auto = [t.grad for t in leaves]
+        got, names, _ = launched_kernels(
+            lambda: abw.attention_backward(q, k, v, ref_out.detach(), cot, H, mask), BACKWARD_KERNELS)
+        want = abw.attention_backward_reference(q, k, v, cot, H, mask)
+        torch.cuda.synchronize()
+        case = {"kernel": "attention_backward", "dtype": "float32", "shape": [B, Lq, Lk, E, H],
+                "device_kernel": "attention_backward_{stats,dkdv,dq}_kernel",
+                "launched": names,
+                "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+                "max_err_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, want)),
+                "vs_autograd_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, auto)),
+                "finite": all(bool(torch.isfinite(a).all()) for a in got), "tol": tol}
+        if B > 1:
+            case["masked_sample_dq_dk_max"] = max(float(got[0][1].abs().max()),
+                                                  float(got[1][1].abs().max()))
+            case["masked_sample_dv_vs_mean_g"] = float(
+                (got[2][1] - cot[1].sum(0) / Lk).abs().max())
+        ok = (case["finite"] and case["max_err_rel_to_max1"] <= tol
+              and case["vs_autograd_rel_to_max1"] <= tol
+              and case.get("masked_sample_dq_dk_max", 0.0) == 0.0
+              and case.get("masked_sample_dv_vs_mean_g", 0.0) <= tol
+              and all(any(n in x for x in names) for n in BACKWARD_KERNELS))
+        if kernels.fused_route(Lq, Lk, torch.float32, False) is not None:
+            fn_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            before = abw.backward_launches
+            fn_out = attention_trainable(*fn_leaves, H, mask)
+            fn_out.backward(cot)
+            torch.cuda.synchronize()
+            case["function_backward_launches"] = abw.backward_launches - before
+            case["function_vs_autograd_rel_to_max1"] = max(
+                _rel_err(a, b) for a, b in zip([fn_out.detach()] + [t.grad for t in fn_leaves],
+                                               [ref_out.detach()] + auto))
+            ok = (ok and case["function_backward_launches"] == 1
+                  and case["function_vs_autograd_rel_to_max1"] <= tol)
+        case["ok"] = bool(ok)
+        out.append(case)
+    return out
 
 
 def _sdpa_mask(mask):
@@ -497,14 +636,19 @@ def _sdpa_mask(mask):
     return m[:, None, None, :]
 
 
-def check_attention_trainable() -> dict:
+def check_attention_trainable() -> list:
     """The trainable Function at the stacked train shape (32 rows): forward
-    (the batched kernel) plus backward (attention_core recomputed), against
-    plain autograd through attention_core and SDPA's forward and backward."""
+    (the batched kernel) plus backward (the backward kernel), against plain
+    autograd through attention_core and SDPA's forward and backward. Then
+    the backward kernel alone on the same card tensors: against its plain
+    version (and two calls bit for bit), timed beside its plain version,
+    the plain autograd backward of attention_core and SDPA's backward, each
+    on a graph built once. Returns both results."""
     import torch
     import torch.nn.functional as Fn
 
     from mesm_tpu_torch.models.attention import attention_core
+    from mesm_tpu_torch.ops import attention_backward as abw
     from mesm_tpu_torch.ops.attention_trainable import attention_trainable
 
     B, L, E, H = 2 * TACOS["B"], TACOS["L"], TACOS["E"], TACOS["H"]
@@ -546,13 +690,58 @@ def check_attention_trainable() -> dict:
         return o.transpose(1, 2).reshape(B, L, E)
 
     res["ms"] = cuda_time_ms(lambda: run(trainable), iters=10)
+    # the forward and backward kernels alone (every kernel named attention_*)
+    res["kernel_ms"] = device_kernel_ms(lambda: run(trainable), "attention_", iters=10)
     res["plain_ms"] = cuda_time_ms(lambda: run(plain), iters=10)
     res["library_ms"] = cuda_time_ms(lambda: run(sdpa), iters=10)
     # inputs q, k, v, mask, d_out read once; out, dq, dk, dv written once;
-    # the forward's two products and the backward's four (dV, dP, dQ, dK)
+    # six products: the function of (q, k, v, d_out) needs S and P.V
+    # forward, dP, dV, dQ and dK backward; S once would do (the kernels
+    # compute it three times: forward, and in each backward kernel)
     moved = 4 * B * L * E * 8 + B * L
     res["bound_ms"], res["bound_by"] = bound(moved, 6 * 2.0 * B * H * L * L * hd, "float32")
-    return res
+
+    out = got[0]  # the forward's output, as the Function saves it
+    bwd = abw.attention_backward(q, k, v, out, cot, H, mask)
+    again = abw.attention_backward(q, k, v, out, cot, H, mask)
+    ref = abw.attention_backward_reference(q, k, v, cot, H, mask)
+    torch.cuda.synchronize()
+    errs = [_rel_err(a, b) for a, b in zip(bwd, ref)]
+    b = {
+        "kernel": "attention_backward", "dtype": "float32", "shape": [B, L, E, H],
+        "summary_name": "attention_backward",
+        "max_abs_err": max(float((a - r).abs().max()) for a, r in zip(bwd, ref)),
+        "max_err_rel_to_max1": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+        "tol": TOL["attention_backward"],
+        "finite": all(bool(torch.isfinite(t).all()) for t in bwd),
+        "deterministic": all(torch.equal(a, c) for a, c in zip(bwd, again)),
+    }
+    if not (max(errs) <= TOL["attention_backward"] and b["finite"] and b["deterministic"]):
+        emit(dict(b, phase="kernels", ok=False))
+        raise SystemExit(f"attention_backward: {b}")
+    del bwd, again, ref
+
+    def call():
+        return abw.attention_backward(q, k, v, out, cot, H, mask)
+
+    b["ms"] = cuda_time_ms(call, iters=10)
+    b["kernel_ms"] = device_kernel_ms(call, "attention_backward_", iters=10)
+    b["plain_ms"] = cuda_time_ms(lambda: abw.attention_backward_reference(q, k, v, cot, H, mask),
+                                 iters=10)
+
+    def backward_of(fn):
+        """The backward alone: autograd.grad over a graph of fn built once."""
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*leaves)
+        return lambda: torch.autograd.grad(o, leaves, cot, retain_graph=True)
+
+    b["autograd_backward_ms"] = cuda_time_ms(backward_of(plain), iters=10)
+    b["library_ms"] = cuda_time_ms(backward_of(sdpa), iters=10)
+    # q, k, v, O, d_out and the mask read once; dq, dk, dv written once; five
+    # products: S (only q, k, v, O and d_out are given), dP, dV, dQ and dK
+    moved = 8 * B * L * E * 4 + B * L
+    b["bound_ms"], b["bound_by"] = bound(moved, 5 * 2.0 * B * H * L * L * hd, "float32")
+    return [res, b]
 
 
 def _pair_attention_case(B: int, Lq: int, Lk: int, pair: bool, dtype_name: str, seed: int):
@@ -613,6 +802,12 @@ def _pair_kernels():
     }
 
 
+# the device kernel the pair wrapper launches at the long-query site, by
+# dtype: bf16 on the mma body, float32 on the CUDA cores
+PAIR_KERNEL_NAMES = {("attention_packed_pair", "bfloat16"): "attention_packed_pair_mma_kernel",
+                     ("attention_packed_pair", "float32"): "attention_packed_pair_kernel"}
+
+
 def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: bool,
                          dtype_name: str = "bfloat16", time_it: bool = True, seed: int = 4,
                          summary=None) -> dict:
@@ -645,11 +840,8 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
         raise SystemExit(f"{name} at {site}: {res}")
     if time_it:
         res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask, pf))
-        res["kernel_ms"] = device_kernel_ms(
-            lambda: fn(q, k, v, H, mask, pf),
-            "attention_packed_pair_kernel" if name == "attention_packed_pair"
-            else "attention_shortkey_kernel",
-        )
+        res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask, pf), PAIR_KERNEL_NAMES.get(
+            (name, dtype_name), "attention_shortkey_kernel"))
         res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask, pf))
         am = torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
             _dead_pairs(mask, pf, H, Lq), -1e9)
@@ -824,7 +1016,7 @@ def phase_kernels() -> dict:
     for B in (B32, 2 * B32):  # eval, and the stacked train pass
         results.append(check_encoder_attention("attention_batched", "float32", B, L32,
                                                "attention_batched" if B == 2 * B32 else None))
-    results.append(check_attention_trainable())
+    results.extend(check_attention_trainable())
     for name in ("attention_per_head", "attention_all_heads"):
         results.append(check_encoder_attention(name, "bfloat16", B16, L16, name))
         for B in (B32, 2 * B32):
@@ -1014,13 +1206,14 @@ def _pred_err(a, b):
 
 def _launch_counters():
     """Each kernel's launch counter: (module, attribute)."""
-    from mesm_tpu_torch.ops import (anchor, attention_batched, attention_heads, attention_packed,
-                                    attention_shortkey, attention_trainable, ffn_int8, ln_dense,
-                                    stream_layer)
+    from mesm_tpu_torch.ops import (anchor, attention_backward, attention_batched, attention_heads,
+                                    attention_packed, attention_shortkey, attention_trainable,
+                                    ffn_int8, ln_dense, stream_layer)
 
     return {"ln_dense": (ln_dense, "launches"), "attention_packed": (attention_packed, "launches"),
             "attention_batched": (attention_batched, "launches"),
             "attention_trainable": (attention_trainable, "launches"),
+            "attention_backward": (attention_backward, "backward_launches"),
             "attention_packed_pair": (attention_packed, "pair_launches"),
             "attention_shortkey": (attention_shortkey, "launches"),
             "attention_shortkey_onematmul": (attention_shortkey, "onematmul_launches"),
@@ -1412,13 +1605,14 @@ def phase_qvh_eval(card: str, n_batches: int = 2) -> dict:
 def phase_long_query(card: str, n_batches: int = 2) -> dict:
     """The charades model with max_words_l 80 and queries of 64-80 words in
     bf16 under "on": the T2V / enhance sites see 80 and 81 keys with the
-    pair mask, so they launch the pair-masked packed kernel; predictions
-    against "off" and fp32 "off"."""
+    pair mask, so they launch the pair-masked packed kernel, on its mma
+    body; predictions against "off" and fp32 "off"."""
     import dataclasses
 
     import torch
 
     from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.ops import attention_packed
     from mesm_tpu_torch.parallel.step import make_eval_step
 
     torch.manual_seed(0)
@@ -1430,8 +1624,12 @@ def phase_long_query(card: str, n_batches: int = 2) -> dict:
         off = step16(batches[0])
         ref32 = step32(batches[0])
     res = {"phase": "long_query", "batches": n_batches, "words": [64, 80], "tol": MODEL_TOL}
+    mma_before = attention_packed.pair_mma_launches
     res["modes"], ok = drive_modes(step16, batches, LONG_QUERY_LAUNCHES, n_batches,
                                    {"off_bf16": off, "fp32_off": ref32})
+    # every bf16 pair launch of the run on the mma body
+    res["pair_mma_launches"] = attention_packed.pair_mma_launches - mma_before
+    ok = ok and res["pair_mma_launches"] == res["modes"]["on"]["launches"]["attention_packed_pair"]
     res["rows_per_s_on"] = rows_per_s(step16, batches, "on", 6)
     res["rows_per_s_off"] = rows_per_s(step16, batches, "off", 6)
     res["card"] = card
@@ -1557,7 +1755,8 @@ def phase_train(card: str, steps: int = 4) -> dict:
     t["ms_per_step_kernels_auto"] = [ms for m, ms, _ in turns if m == "auto"]
     t["ms_per_step_kernels_off"] = [ms for m, ms, _ in turns if m == "off"]
     t["last_loss"] = [loss for _, _, loss in turns]
-    want = expected_launches({"attention_batched": 2, "attention_trainable": 2}, steps)
+    want = expected_launches({"attention_batched": 2, "attention_trainable": 2,
+                              "attention_backward": 2}, steps)
     t["launches_expected"] = want
     ok_tacos = (t["launches"] == want and t["grads_same_params"]
                 and t["first_loss_rel_err"] <= TRAIN_LOSS_TOL
@@ -2077,7 +2276,8 @@ def phase_attn_variants(card: str, n_batches: int = 2) -> dict:
         torch.cuda.synchronize()
         launches = read_launches()
     loss_o, g_o = _first_grads(fresh(), ccfg, batch, "off")
-    want = expected_launches({"attention_per_head": 2, "attention_trainable": 2}, 1)
+    want = expected_launches({"attention_per_head": 2, "attention_trainable": 2,
+                              "attention_backward": 2}, 1)
     t = {"launches": launches, "launches_expected": want, "first_loss_per_head": loss_v,
          "first_loss_off": loss_o, "first_loss_rel_err": abs(loss_v - loss_o) / max(1.0, abs(loss_o)),
          "grad_max_err_rel_to_max1": _grad_err(g_v, g_o), "grads_same_params": sorted(g_v) == sorted(g_o),
@@ -2276,6 +2476,7 @@ def kernel_summary(kernel_results: dict, launches: dict) -> dict:
         "attention_packed": (src + "attention_packed.cu", tpu + "114"),
         "attention_batched": (src + "attention_batched.cu", tpu + "89"),
         "attention_trainable": ("mesm_tpu_torch/ops/attention_trainable.py", tpu + "571"),
+        "attention_backward": (src + "attention_backward.cu", tpu + "599"),
         "attention_packed_pair": (src + "attention_packed.cu", tpu + "170"),
         "attention_shortkey": (src + "attention_shortkey.cu", tpu + "213"),
         "attention_shortkey_onematmul": (src + "attention_shortkey.cu", tpu + "262"),
@@ -2327,7 +2528,7 @@ def main() -> int:
     phase_processes()
     print(card, flush=True)
     launches = dict(cli["launches"])
-    for name in ("attention_batched", "attention_trainable"):
+    for name in ("attention_batched", "attention_trainable", "attention_backward"):
         launches[name] = trained["tacos"]["launches"][name]
     launches["attention_shortkey"] = qvh["modes"]["on"]["launches"]["attention_shortkey"]
     launches["attention_shortkey_onematmul"] = (

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("ln_dense", "attention_packed", "attention_batched", "attention_shortkey",
-           "attention_heads", "ffn_int8", "stream_layer", "anchor")
+           "attention_heads", "ffn_int8", "stream_layer", "anchor", "attention_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

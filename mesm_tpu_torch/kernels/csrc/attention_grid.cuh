@@ -25,13 +25,15 @@ __device__ __forceinline__ void block_coords(int H, int Lq, int& b, int& h, int&
   b = x / (H * tiles);
 }
 
-// Launches `kernel` (q, k, v, mask, out, H, Lq, Lk, E, scale) of element
-// type T on B * H * ceil(Lq / ROWS) blocks of `threads` threads with `smem`
-// bytes of dynamic shared memory; returns the cudaError_t of the launch.
-template <typename T, int ROWS, typename Kernel>
+// Launches `kernel` (q, k, v, mask, out, H, Lq, Lk, E, scale, extra...) of
+// element type T on B * H * ceil(Lq / ROWS) blocks of `threads` threads with
+// `smem` bytes of dynamic shared memory; returns the cudaError_t of the
+// launch. `extra` (none but for the pair kernel's factor pointers) is passed
+// on after scale.
+template <typename T, int ROWS, typename Kernel, typename... Extra>
 int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k, const void* v,
            const void* mask, void* out, int B, int H, int Lq, int Lk, int E, float scale,
-           cudaStream_t stream) {
+           cudaStream_t stream, Extra... extra) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -39,7 +41,8 @@ int launch(Kernel kernel, int threads, size_t smem, const void* q, const void* k
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   kernel<<<(unsigned)blocks, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, Lq, Lk, E, scale);
+      static_cast<const uint8_t*>(mask), static_cast<T*>(out), H, Lq, Lk, E, scale,
+      extra...);
   return (int)cudaGetLastError();
 }
 

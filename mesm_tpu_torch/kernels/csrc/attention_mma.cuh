@@ -3,7 +3,8 @@
 // that computes 16 query rows of one head at the TPU kernels' rounding
 // points, and the block-level staging around it. Shared by the bf16
 // attention kernels over (B, L, E) operands (attention_heads.cu,
-// attention_batched.cu, attention_packed.cu).
+// attention_batched.cu, attention_packed.cu: its packed and pair entry
+// points).
 //
 // What a warp computes, for rows i of head h of sample b (as
 // attention_batched_reference, with bf() the rounding to bf16):
@@ -15,14 +16,29 @@
 // an exact two-pass softmax over exactly Lk keys, so a row whose keys are
 // all masked averages v over all Lk keys.
 //
-// PACKED = true computes the packed kernel's chain instead (as
-// attention_packed_reference; it rounds at more points):
+// That is Chain::BATCHED. Two more chains are compile-time variants:
+//
+// Chain::PACKED, the packed kernel's (as attention_packed_reference; it
+// rounds at more points):
 //   qs = bf(q_h * scale)
 //   s = bf(qs . k_h^T)            (f32 sums, then rounded)
 //   masked keys -> bf(-1e9); keys past Lk -> probability 0
 //   m = max_j s; e = bf(exp(bf(s - m))); l = bf(sum_j e), the sum in f32
 //   p = bf(e / l); out_h = bf(p . v_h)
-// The instruction stream of PACKED = false does not depend on it.
+//
+// Chain::PAIR, the pair-masked kernel's (as attention_packed_pair_reference:
+// q scaled in f32, an f32 softmax, only p rounded):
+//   logits = (q_h . k_h^T) * scale  (exact products of the unscaled bf16
+//                                    operands summed in f32, times the f32
+//                                    scale: the plain version's f32(q) *
+//                                    scale products in another order)
+//   masked keys, and pairs whose row and key pair flags are both set, ->
+//   -1e9; keys past Lk -> probability 0
+//   m, l and p = bf(exp(logits - m) / l) as the batched chain; out_h = bf(p . v_h)
+// Rounding q * scale to bf16 first, as the batched chain does, would move
+// every logit by up to 2^-9 of itself.
+// The instruction streams of BATCHED and PACKED do not depend on PAIR, nor
+// on each other.
 //
 // Fragments (PTX ISA, m16n8k16 with bf16 inputs; lane = 4 g + t): A holds
 // rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9 of a 16 x 16 tile;
@@ -36,14 +52,16 @@
 //
 // Shared memory: the block's Q tile, K_h and V_h (all keys, zero rows past
 // Lk up to a multiple of 16) and one flag byte per key (1 valid, 0 masked,
-// 2 past Lk), staged once per block with 16-byte cp.async copies. Rows are
+// 2 past Lk; the pair chain adds KEY_PAIR where the key's pair factor is
+// set), staged once per block with 16-byte cp.async copies. Rows are
 // hd bf16 (64 or 128 bytes) with their 16-byte chunks XOR-swizzled by row,
 // so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups
 // without padding: up to 1,760 keys at hd 32 and 864 at hd 64 fit in a
 // block's 227 KB.
 //
 // The row's logits: up to RESIDENT_KEYS keys they stay in registers (32 n8
-// tiles, 128 f32 a thread) and are computed once; beyond, the warp walks
+// tiles, 128 f32 a thread; an instance may hold fewer, KEYS, in fewer
+// registers) and are computed once; beyond, the warp walks
 // the keys in chunks of CHUNK_KEYS and recomputes each chunk's logits in
 // each of the three passes (max, sum, P . V), which at hd 32-64 costs a few
 // tensor-core instructions a chunk.
@@ -65,6 +83,10 @@ constexpr int ROWS = 16 * WARPS;  // query rows per block
 constexpr int RESIDENT_KEYS = 256;
 constexpr int CHUNK_KEYS = 64;
 constexpr float NEG_INF = -1e9f;
+constexpr uint8_t KEY_PAIR = 4;  // flag bit: the key's pair factor (Chain::PAIR)
+
+// the rounding chain of a warp's softmax (see the top of this file)
+enum class Chain { BATCHED, PACKED, PAIR };
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 
@@ -82,9 +104,17 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 
 // exp(s - m); the packed chain rounds the difference and the exp to bf16
-template <bool PACKED>
+template <Chain C>
 __device__ __forceinline__ float exp_shifted(float s, float m) {
-  return PACKED ? round_bf16(expf(round_bf16(s - m))) : expf(s - m);
+  return C == Chain::PACKED ? round_bf16(expf(round_bf16(s - m))) : expf(s - m);
+}
+
+// The pair chain's logit of a key with flag f in a row with pair flag qf:
+// the f32 sum times the f32 scale; -1e9 where the key is masked or both
+// pair flags are set; -inf past Lk.
+__device__ __forceinline__ float pair_logit(float acc, uint8_t f, bool qf, float scale) {
+  if (f == 2) return -INFINITY;
+  return (f & 1) && !(qf && (f & KEY_PAIR)) ? acc * scale : NEG_INF;
 }
 
 // Element offset of 16-byte chunk `c` of row `r` in a swizzled tile of
@@ -158,11 +188,12 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* __restrict__ s
 
 // The masked logits of the warp's 16 rows against NT n8 tiles of keys from
 // key0 (tiles at or past kpad: -inf, not computed), rounded to bf16 in the
-// packed chain.
-template <int HD, int NT, bool PACKED>
+// packed chain; in the pair chain scaled by `scale` and masked by the pair
+// flags of rows g (qf0) and g + 8 (qf1).
+template <int HD, int NT, Chain C>
 __device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[HD / 16][4],
                                        const bf16* Ks, const uint8_t* flags, int key0, int kpad,
-                                       int lane) {
+                                       int lane, float scale, bool qf0, bool qf1) {
   const int t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
@@ -182,13 +213,20 @@ __device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[H
       mma_bf16(s[nt], qa[2 * hx + 1], kb[2], kb[3]);
     }
     const uint8_t f0 = flags[n0 + 2 * t], f1 = flags[n0 + 2 * t + 1];
-    s[nt][0] = f0 == 2 ? -INFINITY : (f0 ? s[nt][0] : NEG_INF);
-    s[nt][2] = f0 == 2 ? -INFINITY : (f0 ? s[nt][2] : NEG_INF);
-    s[nt][1] = f1 == 2 ? -INFINITY : (f1 ? s[nt][1] : NEG_INF);
-    s[nt][3] = f1 == 2 ? -INFINITY : (f1 ? s[nt][3] : NEG_INF);
-    if (PACKED) {
+    if constexpr (C == Chain::PAIR) {
+      s[nt][0] = pair_logit(s[nt][0], f0, qf0, scale);
+      s[nt][1] = pair_logit(s[nt][1], f1, qf0, scale);
+      s[nt][2] = pair_logit(s[nt][2], f0, qf1, scale);
+      s[nt][3] = pair_logit(s[nt][3], f1, qf1, scale);
+    } else {
+      s[nt][0] = f0 == 2 ? -INFINITY : (f0 ? s[nt][0] : NEG_INF);
+      s[nt][2] = f0 == 2 ? -INFINITY : (f0 ? s[nt][2] : NEG_INF);
+      s[nt][1] = f1 == 2 ? -INFINITY : (f1 ? s[nt][1] : NEG_INF);
+      s[nt][3] = f1 == 2 ? -INFINITY : (f1 ? s[nt][3] : NEG_INF);
+      if (C == Chain::PACKED) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
+        for (int i = 0; i < 4; ++i) s[nt][i] = round_bf16(s[nt][i]);
+      }
     }
   }
 }
@@ -214,28 +252,31 @@ __device__ __forceinline__ float quad_sum(float x) {
 // One warp: the output of 16 query rows (Qw: the warp's rows of the
 // swizzled Q tile, unscaled) over kpad staged keys (Ks, Vs, flags), in
 // o[HD / 8][4] (C layout, f32 sums of bf16 products, not rounded).
-// RESIDENT: kpad <= RESIDENT_KEYS, the logits computed once and kept.
-// PACKED: the packed kernel's rounding chain.
-template <int HD, bool RESIDENT, bool PACKED>
+// RESIDENT: kpad <= KEYS, the logits computed once and kept in KEYS / 8
+// n8 tiles. C: the rounding chain; qf0, qf1: the pair flags of rows g and
+// g + 8 (Chain::PAIR only).
+template <int HD, bool RESIDENT, Chain C, int KEYS = RESIDENT_KEYS>
 __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Qw, const bf16* Ks,
                                             const bf16* Vs, const uint8_t* flags, int kpad,
-                                            float scale, int lane) {
-  constexpr int NT = (RESIDENT ? RESIDENT_KEYS : CHUNK_KEYS) / 8;
+                                            float scale, int lane, bool qf0, bool qf1) {
+  constexpr int NT = (RESIDENT ? KEYS : CHUNK_KEYS) / 8;
   constexpr int KS = HD / 16;
   uint32_t qa[KS][4];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
     ldmatrix_x4(qa[ks], Qw + swz<HD>(lane & 15, 2 * ks + (lane >> 4)));
+    if constexpr (C != Chain::PAIR) {  // the pair chain scales the f32 sums
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qa[ks][i] = scale_bf16x2(qa[ks][i], scale);
+      for (int i = 0; i < 4; ++i) qa[ks][i] = scale_bf16x2(qa[ks][i], scale);
+    }
   }
   const int nchunk = RESIDENT ? 1 : (kpad + 8 * NT - 1) / (8 * NT);
 
   float s[NT][4];
-  if (RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, 0, kpad, lane);
+  if (RESIDENT) logits<HD, NT, C>(s, qa, Ks, flags, 0, kpad, lane, scale, qf0, qf1);
   float m0 = -INFINITY, m1 = -INFINITY;  // rows g, g + 8
   for (int c = 0; c < nchunk; ++c) {
-    if (!RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+    if (!RESIDENT) logits<HD, NT, C>(s, qa, Ks, flags, c * 8 * NT, kpad, lane, scale, qf0, qf1);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
@@ -247,12 +288,12 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 
   float l0 = 0.f, l1 = 0.f;
   for (int c = 0; c < nchunk; ++c) {
-    if (!RESIDENT) logits<HD, NT, PACKED>(s, qa, Ks, flags, c * 8 * NT, kpad, lane);
+    if (!RESIDENT) logits<HD, NT, C>(s, qa, Ks, flags, c * 8 * NT, kpad, lane, scale, qf0, qf1);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       if (c * 8 * NT + 8 * nt >= kpad) break;  // no key: P . V stops there too
-      const float e0 = exp_shifted<PACKED>(s[nt][0], m0), e1 = exp_shifted<PACKED>(s[nt][1], m0);
-      const float e2 = exp_shifted<PACKED>(s[nt][2], m1), e3 = exp_shifted<PACKED>(s[nt][3], m1);
+      const float e0 = exp_shifted<C>(s[nt][0], m0), e1 = exp_shifted<C>(s[nt][1], m0);
+      const float e2 = exp_shifted<C>(s[nt][2], m1), e3 = exp_shifted<C>(s[nt][3], m1);
       l0 += e0 + e1;
       l1 += e2 + e3;
       if (RESIDENT) {
@@ -265,7 +306,7 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
-  if (PACKED) {
+  if (C == Chain::PACKED) {
     l0 = round_bf16(l0);
     l1 = round_bf16(l1);
   }
@@ -278,20 +319,20 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
   for (int c = 0; c < nchunk; ++c) {
     const int key0 = c * 8 * NT;
     if (!RESIDENT) {
-      logits<HD, NT, PACKED>(s, qa, Ks, flags, key0, kpad, lane);
+      logits<HD, NT, C>(s, qa, Ks, flags, key0, kpad, lane, scale, qf0, qf1);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        s[nt][0] = exp_shifted<PACKED>(s[nt][0], m0);
-        s[nt][1] = exp_shifted<PACKED>(s[nt][1], m0);
-        s[nt][2] = exp_shifted<PACKED>(s[nt][2], m1);
-        s[nt][3] = exp_shifted<PACKED>(s[nt][3], m1);
+        s[nt][0] = exp_shifted<C>(s[nt][0], m0);
+        s[nt][1] = exp_shifted<C>(s[nt][1], m0);
+        s[nt][2] = exp_shifted<C>(s[nt][2], m1);
+        s[nt][3] = exp_shifted<C>(s[nt][3], m1);
       }
     }
 #pragma unroll
     for (int j = 0; j < NT / 2; ++j) {
       const int k0 = key0 + 16 * j;
       if (k0 >= kpad) break;
-      // p = bf(e / l), 0 <= e <= 1 <= l in both chains: the C tiles of keys
+      // p = bf(e / l), 0 <= e <= 1 <= l in every chain: the C tiles of keys
       // k0 .. k0 + 15 as an A fragment
       const uint32_t pa[4] = {
           pack_bf16(div_rn(s[2 * j][0], l0, r0), div_rn(s[2 * j][1], l0, r0)),
@@ -312,13 +353,19 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 // The whole block: output rows [q0, q0 + ROWS) of head h of sample b.
 // q: (B, Lq, E), k, v: (B, Lk, E), out: (B, Lq, E) bf16, 16-byte aligned;
 // mask (B, Lk) uint8. Smem<HD>::bytes(Lk) of dynamic shared memory at smem.
-template <int HD, bool RESIDENT, bool PACKED = false>
+// Chain::PAIR also reads qf (Lq) and kf (Lk), the pair factors of head h of
+// sample b as uint8, and takes the f32 softmax scale; the other chains take
+// the scale already rounded to bf16 and no factors. RESIDENT needs
+// pad16(Lk) <= KEYS.
+template <int HD, bool RESIDENT, Chain C = Chain::BATCHED, int KEYS = RESIDENT_KEYS>
 __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,
                                              const uint8_t* __restrict__ mask,
                                              bf16* __restrict__ out, int Lq, int Lk, int E,
                                              float scale, int b, int h, int q0,
-                                             unsigned char* smem) {
+                                             unsigned char* smem,
+                                             const uint8_t* __restrict__ qf = nullptr,
+                                             const uint8_t* __restrict__ kf = nullptr) {
   constexpr int CH = HD / 8;
   const int kpad = pad16(Lk);
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -329,8 +376,12 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
   stage_rows<HD>(Qs, q + ((size_t)b * Lq + q0) * E + h * HD, min(ROWS, Lq - q0), ROWS, E);
   stage_rows<HD>(Ks, k + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
   stage_rows<HD>(Vs, v + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
-  for (int j = threadIdx.x; j < kpad; j += THREADS)
-    flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) : 2;
+  for (int j = threadIdx.x; j < kpad; j += THREADS) {
+    if constexpr (C == Chain::PAIR)
+      flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) | (kf[j] ? KEY_PAIR : 0) : 2;
+    else
+      flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) : 2;
+  }
   cp_async_wait_all();
   __syncthreads();
 
@@ -338,8 +389,14 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
   const int r0 = q0 + 16 * warp;
   if (r0 >= Lq) return;
   bf16* Qw = Qs + 16 * warp * HD;  // 16 rows: the swizzle pattern repeats every 8
+  bool qf0 = false, qf1 = false;  // the pair flags of the thread's rows g and g + 8
+  if constexpr (C == Chain::PAIR) {
+    const int g = lane >> 2;
+    qf0 = r0 + g < Lq && qf[r0 + g];
+    qf1 = r0 + g + 8 < Lq && qf[r0 + g + 8];
+  }
   float o[HD / 8][4];
-  warp_attend<HD, RESIDENT, PACKED>(o, Qw, Ks, Vs, flags, kpad, scale, lane);
+  warp_attend<HD, RESIDENT, C, KEYS>(o, Qw, Ks, Vs, flags, kpad, scale, lane, qf0, qf1);
 
   // out = bf(o), through the warp's (read) Q rows, then 16-byte stores
   __syncwarp();

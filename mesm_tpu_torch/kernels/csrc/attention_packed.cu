@@ -47,7 +47,7 @@
 // computes the same products with more roundings. So it runs the bodies of
 // the per-head and all-heads kernels on their grid (attention_grid.cuh: one
 // block per (sample, 64-row query tile, head)):
-//   - bf16 on the tensor cores (attention_mma.cuh with PACKED = true: 4
+//   - bf16 on the tensor cores (attention_mma.cuh, Chain::PACKED: 4
 //     warps, K_h and V_h staged whole with cp.async into swizzled tiles,
 //     mma.sync m16n8k16 for both products, an exact two-pass softmax that
 //     rounds at the points above; the logits stay in registers up to 256
@@ -56,14 +56,27 @@
 //   - float32 on the register tiles (attention_regtile.cuh, an online f32
 //     softmax a few ulps from the plain version's two-pass one), any Lk.
 //
-// Design of the pair entry point: a CUDA-core kernel, one block of 8 warps
-// per (b, h). K_h and V_h (L x 32 bf16), the key mask and the key factor row
-// are staged once in shared memory, so k and v are read from device memory
-// once per head and q and out exactly once. One warp owns one query row at a
-// time: its lanes split the keys for the logits (the K_h rows are padded to
-// an odd word stride, so the 32 lanes hit 32 banks), the softmax is two warp
-// reductions, and for P.V each lane owns one output column. The row's
-// logits sit in a per-warp shared buffer.
+// Design of the pair entry points. bf16 operands on 16-byte boundaries take
+// the mma body on the same grid (attention_mma.cuh, Chain::PAIR: unscaled q
+// and k into the mma, the f32 sums times the f32 scale, the batched chain's
+// exact two-pass f32 softmax); the block stages its head's key factor row as
+// one more bit of the per-key flag byte, and each thread reads the query
+// factors of its two rows. Up to 128 keys (the text keys of the pair
+// sites) a row's logits stay in 64 registers a thread, up to 256 in 128;
+// beyond, they are streamed. Up to 1,760 keys at hd 32, 864 at hd 64. This
+// is attention_packed_pair_mma_launch.
+// Float32, and bf16 off a 16-byte boundary, take a CUDA-core kernel
+// (attention_packed_pair_launch), one block of 8 warps per (b, h): K_h and
+// V_h, the key mask and the key factor row are staged once in shared
+// memory, so k and v are read from device memory once per head and q and
+// out exactly once. One warp owns one query row at a time: its lanes split
+// the keys for the logits (the K_h rows are padded to an odd word stride,
+// so the 32 lanes hit 32 banks), the softmax is two warp reductions, and for
+// P.V each lane owns one output column. The row's logits sit in a per-warp
+// shared buffer. In float32 it is faster than SDPA at the charades shape;
+// its bf16 instance holds fewer keys than the mma staging (1,394 at hd 32,
+// 783 at hd 64). The wrapper picks the kernel from the operands before it
+// launches (ops/attention_packed.py).
 
 #include "attention_grid.cuh"
 #include "attention_mma.cuh"
@@ -85,8 +98,25 @@ attention_packed_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
   attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
-  mma_attn::block_attend<HD, RESIDENT, true>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0,
-                                             smem);
+  mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PACKED>(q, k, v, mask, out, Lq, Lk, E,
+                                                                scale, b, h, q0, smem);
+}
+
+// the pair entry point in bf16: scale is the f32 softmax scale; qf (B, H,
+// Lq) and kf (B, H, Lk) the pair factors as uint8. KEYS: the keys whose
+// logits stay in registers when RESIDENT
+template <int HD, bool RESIDENT, int KEYS>
+__global__ void __launch_bounds__(mma_attn::THREADS)
+attention_packed_pair_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                                 bf16* __restrict__ out, int H, int Lq, int Lk, int E, float scale,
+                                 const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
+  const size_t bh = (size_t)b * H + h;
+  mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, KEYS>(
+      q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem, qf + bh * Lq, kf + bh * Lk);
 }
 
 // at least 4 blocks an SM (64 registers), as the per-head and all-heads
@@ -123,8 +153,27 @@ int launch_tiles(const void* q, const void* k, const void* v, const void* mask, 
                                                Lq, Lk, E, scale, s);
 }
 
+// the text keys of the pair sites (up to 81 in charades) keep their logits
+// in half the registers of RESIDENT_KEYS
+constexpr int SHORT_KEYS = 128;
+
+template <int HD>
+int launch_pair_mma(const void* q, const void* k, const void* v, const void* mask, const void* qf,
+                    const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
+                    cudaStream_t s) {
+  const size_t smem = mma_attn::Smem<HD>::bytes(Lk);
+  constexpr int RK = mma_attn::RESIDENT_KEYS;
+  const auto kernel = Lk <= SHORT_KEYS ? attention_packed_pair_mma_kernel<HD, true, SHORT_KEYS>
+                      : Lk <= RK       ? attention_packed_pair_mma_kernel<HD, true, RK>
+                                       : attention_packed_pair_mma_kernel<HD, false, RK>;
+  return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS, smem, q, k, v, mask,
+                                                 out, B, H, Lq, Lk, E, scale, s,
+                                                 static_cast<const uint8_t*>(qf),
+                                                 static_cast<const uint8_t*>(kf));
+}
+
 // ---------------------------------------------------------------------------
-// the pair entry point
+// the pair entry point on the CUDA cores
 // ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
@@ -318,14 +367,15 @@ bool valid(int B, int H, int Lq, int Lk, int E, int Ev) {
 // 1) or float32 operands, head_dim `hd` and `Lk` keys (0 when hd is not one
 // the kernel takes), so the wrapper can refuse before launching: bf16
 // stages every key of the head (up to 1,760 keys at hd 32, 864 at hd 64);
-// float32 streams the keys in tiles and takes any Lk.
+// float32 streams the keys in tiles and takes any Lk. The bf16 pair entry
+// point on the mma body stages the same.
 extern "C" long long attention_packed_nopair_smem_bytes(int is_bf16, int hd, int Lk) {
   if (hd == 32) return (long long)tiles_smem_bytes<32>(is_bf16, Lk);
   if (hd == 64) return (long long)tiles_smem_bytes<64>(is_bf16, Lk);
   return 0;
 }
 
-// The same for a block of the pair entry point.
+// The same for a block of the pair entry point on the CUDA cores.
 extern "C" long long attention_packed_smem_bytes(int is_bf16, int hd, int Lk) {
   return is_bf16 ? pair_smem_bytes<bf16>(hd, Lk) : pair_smem_bytes<float>(hd, Lk);
 }
@@ -349,9 +399,11 @@ extern "C" int attention_packed_launch(const void* q, const void* k, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// attention_packed_pair_launch: qf (B, H, Lq) and kf (B, H, Lk) uint8 pair
-// factors (pair (q, k) of head (b, h) is masked when both are 1); scale is
-// the f32 softmax scale.
+// attention_packed_pair_launch (the CUDA-core kernel) and
+// attention_packed_pair_mma_launch (bf16 only, on the mma body; q, k, v and
+// out 16-byte aligned): qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors
+// (pair (q, k) of head (b, h) is masked when both are 1); scale is the f32
+// softmax scale.
 extern "C" int attention_packed_pair_launch(const void* q, const void* k, const void* v,
                                             const void* mask, const void* qf, const void* kf,
                                             void* out, int B, int H, int Lq, int Lk, int E, int Ev,
@@ -361,4 +413,16 @@ extern "C" int attention_packed_pair_launch(const void* q, const void* k, const 
   if (is_bf16)
     return dispatch_pair<bf16>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
   return dispatch_pair<float>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
+}
+
+extern "C" int attention_packed_pair_mma_launch(const void* q, const void* k, const void* v,
+                                                const void* mask, const void* qf, const void* kf,
+                                                void* out, int B, int H, int Lq, int Lk, int E,
+                                                int Ev, int is_bf16, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!valid(B, H, Lq, Lk, E, Ev) || !is_bf16) return (int)cudaErrorInvalidValue;
+  const int hd = E / H;
+  if (hd == 32) return launch_pair_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  if (hd == 64) return launch_pair_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 """The attention kernels in training: an autograd.Function with the kernel
-forward and a recomputed plain backward.
+forward and, in float32, the backward kernel.
 
 Port of mesm_tpu/ops/attention_pallas.py::fused_attention_trainable
 (`_fat_fwd`, `_fat_bwd`, :571-614). The forward is what `fused_attention`
@@ -9,14 +9,19 @@ default, bf16: the packed kernel, its pair-masked entry point or the
 short-key kernel; fp32: the batched kernel; under the variant also the
 per-head and all-heads kernels, and either family in either dtype), and
 models/attention.attention_core where the JAX function itself takes its
-plain core (a side too short, pair factors outside the packed variant). Only q, k,
-v, the key mask and the pair factors are kept for the backward, never the
-(B, H, Lq, Lk) probabilities. The backward recomputes attention_core (f32
-softmax, not the kernel's numerics, as `_fat_bwd` does) on detached inputs
-and differentiates it with torch.autograd.grad. The JAX package has no
-Pallas backward here (its backward is XLA's VJP of the plain core), so the
-port's backward is the plain core's autograd. Dropout is the caller's
-concern: only dropout-free attention may come here.
+plain core (a side too short, pair factors outside the packed variant).
+q, k, v, the key mask, the pair factors and (for the backward kernel) the
+output are kept for the backward, never the (B, H, Lq, Lk) probabilities.
+
+The gradients are attention_core's (f32 softmax, not the forward kernel's
+numerics), as `_fat_bwd`'s, which is XLA's VJP of the plain core. The route
+is chosen from the operands in the forward, before any launch: float32
+operands with no pair factors on a kernel route take the backward kernel
+(ops/attention_backward.py, whose plain version runs for CPU tensors and
+equals autograd through attention_core); every other call (pair factors,
+bf16, no kernel route) recomputes attention_core on detached inputs and
+differentiates it with torch.autograd.grad. Dropout is the caller's concern:
+only dropout-free attention may come here.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
+from .attention_backward import attention_backward
 from .attention_batched import attention_batched
 from .attention_heads import attention_all_heads, attention_per_head
 from .attention_packed import attention_packed, attention_packed_pair
@@ -67,18 +73,24 @@ class _AttentionTrainable(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads, key_valid_mask, qf, kf):
         global launches
         pair = None if qf is None else (qf, kf)
+        route = _route(q, k, pair)
         out = fused_attention(q, k, v, num_heads, key_valid_mask, pair)
-        if q.device.type == "cuda" and _route(q, k, pair) is not None:
+        if q.device.type == "cuda" and route is not None:
             launches += 1
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, key_valid_mask, qf, kf)
+        # the backward kernel takes float32 without pair factors on a kernel route
+        ctx.kernel_backward = route is not None and pair is None and q.dtype == torch.float32
+        ctx.save_for_backward(q, k, v, key_valid_mask, qf, kf, out if ctx.kernel_backward else None)
         return out
 
     @staticmethod
     def backward(ctx, g):
         from ..models.attention import attention_core
 
-        q, k, v, mask, qf, kf = ctx.saved_tensors
+        q, k, v, mask, qf, kf, out = ctx.saved_tensors
+        if ctx.kernel_backward:
+            dq, dk, dv = attention_backward(q, k, v, out, g.contiguous(), ctx.num_heads, mask)
+            return dq, dk, dv, None, None, None, None
         pair = None if qf is None else (qf, kf)
         with torch.enable_grad():
             qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
@@ -90,6 +102,7 @@ class _AttentionTrainable(torch.autograd.Function):
 def attention_trainable(q, k, v, num_heads: int, key_valid_mask=None,
                         pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """Differentiable dropout-free multi-head attention over (B, L, E)
-    operands: kernel forward, attention_core's gradients."""
+    operands: kernel forward, attention_core's gradients (the backward
+    kernel's in float32 without pair factors)."""
     qf, kf = pair_factors if pair_factors is not None else (None, None)
     return _AttentionTrainable.apply(q, k, v, num_heads, key_valid_mask, qf, kf)

@@ -139,14 +139,19 @@ def test_new_modules_are_covered():
                 "ops/attention_shortkey.py", "ops/lsap.py", "models/attention.py",
                 "kernels/__init__.py", "data/pipeline.py", "ops/attention_heads.py",
                 "ops/ffn_int8.py", "models/layers.py", "ops/stream_layer.py", "ops/anchor.py",
-                "scripts/bench_layer_kernel.py", "convert.py"):
+                "scripts/bench_layer_kernel.py", "convert.py", "ops/attention_backward.py"):
         assert f"mesm_tpu_torch/{rel}" in names, rel
     sources = {p.name for p in _cuda_sources()}
     assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
             "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu", "stream_layer.cu",
-            "anchor.cu", "attention_mma.cuh", "attention_regtile.cuh"} <= sources
+            "anchor.cu", "attention_backward.cu", "attention_mma.cuh",
+            "attention_regtile.cuh", "attention_grid.cuh"} <= sources
     wrappers = {p.name for p in _kernel_wrapper_modules()}
-    assert {"attention_heads.py", "ffn_int8.py", "stream_layer.py", "anchor.py"} <= wrappers
+    assert {"attention_heads.py", "ffn_int8.py", "stream_layer.py", "anchor.py",
+            "attention_backward.py"} <= wrappers
+    from mesm_tpu_torch.kernels.build import KERNELS
+
+    assert {p.stem for p in CSRC.glob("*.cu")} == set(KERNELS)  # build_all builds every source
 
 
 # the headers a kernel source may include: the CUDA toolkit's and C's own
@@ -175,22 +180,29 @@ def test_cuda_sources_include_only_toolkit_headers(path):
     assert "jax" not in text.replace("mesm_tpu/", "").lower(), "names jax outside a file:line"
 
 
-@pytest.mark.parametrize("name", ["attention_heads", "attention_batched", "attention_packed"])
+# the shared header each source below includes: the mma tiles, and for the
+# backward kernels the grid
+SHARED_HEADER = {"attention_backward": "attention_grid.cuh"}
+
+
+@pytest.mark.parametrize("name", ["attention_heads", "attention_batched", "attention_packed",
+                                  "attention_backward"])
 def test_library_path_follows_the_shared_headers(tmp_path, name):
     """An edited csrc/*.cuh gives every source a new library path, so a
     source that includes it is rebuilt rather than served stale; an
     unchanged tree keeps its path. Each of the sources on the shared mma
-    tiles includes their header."""
+    tiles includes their header, the backward source the grid's."""
     import shutil
 
     from mesm_tpu_torch.kernels.build import library_path
 
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC, csrc)
-    assert '#include "attention_mma.cuh"' in (csrc / f"{name}.cu").read_text()
+    included = SHARED_HEADER.get(name, "attention_mma.cuh")
+    assert f'#include "{included}"' in (csrc / f"{name}.cu").read_text()
     before = library_path(name, csrc)
     assert before == library_path(name)
-    header = csrc / "attention_mma.cuh"
+    header = csrc / included
     header.write_text(header.read_text() + "\n// edited\n")
     assert library_path(name, csrc) != before
     assert library_path(name, csrc).name.startswith(f"lib{name}-")
@@ -375,3 +387,16 @@ def test_stream_layer_and_anchor_wrappers_run_plain_version_on_cpu_and_refuse_th
     with pytest.raises(ValueError, match="unsupported device"):
         an.layout_anchor(torch.empty(2, 3, 4, device="meta"))
     assert (sl.launches, an.launches) == before
+
+
+def test_pair_entry_point_runs_the_mma_body():
+    """The bf16 pair entry point of attention_packed.cu launches the shared
+    mma body with its own rounding chain (attention_mma.cuh, Chain::PAIR),
+    which stages the key pair factors as a bit of the key flags."""
+    source = (CSRC / "attention_packed.cu").read_text()
+    assert '#include "attention_mma.cuh"' in source
+    assert 'extern "C" int attention_packed_pair_mma_launch(' in source
+    assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, KEYS>(" in source
+    header = (CSRC / "attention_mma.cuh").read_text()
+    assert "enum class Chain { BATCHED, PACKED, PAIR };" in header
+    assert "KEY_PAIR" in header
