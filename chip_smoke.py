@@ -423,25 +423,21 @@ HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 1
 BATCHED_REGTILE_SHAPES = ((2, 70, 1800, 256), (2, 70, 900, 512))
 
 
-def launched_kernels(fn, want=(), tries: int = 3):
-    """fn() under torch.profiler: its first result, the names of the device
-    kernels its calls launched, and how many calls ran. The tracer now and
-    then delivers none of a window's kernels, so fn runs again under a new
-    profiler (up to `tries` calls) until a kernel whose name holds each of
-    `want` has been seen."""
+def launched_kernels(fn):
+    """fn() under torch.profiler: its result and the names of the device
+    kernels it launched. A short spin kernel opens the window, and is left
+    out of the names: the tracer can miss the first kernel of a window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    names, outs = set(), []
-    while len(outs) < tries:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            outs.append(fn())
-            torch.cuda.synchronize()
-        names |= {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        if all(any(w in n for n in names) for w in want):
-            break
-    return outs[0], sorted(names), len(outs)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    return out, sorted(n for n in names if "spin_kernel" not in n)
 
 
 def _edge_cases():
@@ -478,7 +474,7 @@ def check_encoder_edges() -> dict:
         mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
         if B > 1:
             mask[1] = False
-        got, names, _ = launched_kernels(lambda: fn(q, k, v, H, mask), (kernel_name,))
+        got, names = launched_kernels(lambda: fn(q, k, v, H, mask))
         want = ref(q, k, v, H, mask)
         torch.cuda.synchronize()
         case = {"kernel": name, "dtype": dtype_name, "shape": [B, Lq, Lk, E, H],
@@ -510,20 +506,16 @@ def _pair_edge_cases() -> list:
     count): random pair factors, sample 0 with every key of head 0 flagged
     and every other query of that head flagged (rows whose every key is
     dropped), sample 1 (where B > 1) with every key masked; each dropped row
-    must give the mean of v over all Lk keys. Then operands off a 16-byte
-    boundary, which take the CUDA-core kernel: the other side of the route."""
+    must give the mean of v over all Lk keys."""
     import torch
 
     from mesm_tpu_torch.ops import attention_packed as ap
 
     H, tol, out = MAIN_PATH["H"], TOL["attention_packed_pair_bfloat16"], []
-    shapes = [(shape, True) for shape in HEADS_EDGE_SHAPES] + [((2, 70, 81, 256), False)]
-    for (B, Lq, Lk, E), aligned in shapes:
+    kernel_name = PAIR_KERNEL_NAMES[("attention_packed_pair", "bfloat16")]
+    for B, Lq, Lk, E in HEADS_EDGE_SHAPES:
         g = torch.Generator(device="cuda").manual_seed(B * 1000 + Lq + Lk + E + 1)
         q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
-        if not aligned:  # q starts 2 bytes past a 16-byte boundary
-            buf = torch.empty(q.numel() + 8, dtype=q.dtype, device="cuda")
-            q = buf[1:1 + q.numel()].view_as(q).copy_(q)
         k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16() for _ in range(2))
         lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
         mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
@@ -534,23 +526,17 @@ def _pair_edge_cases() -> list:
         kf[0, 0] = True
         qf[0, 0, ::2] = True
         pf = (qf, kf)
-        kernel_name = "attention_packed_pair_mma_kernel" if aligned else "attention_packed_pair_kernel"
-        before = ap.pair_mma_launches
-        got, names, runs = launched_kernels(lambda: ap.attention_packed_pair(q, k, v, H, mask, pf),
-                                            (kernel_name,))
-        on_mma = (ap.pair_mma_launches - before) / runs  # launches on the mma body a call
+        got, names = launched_kernels(lambda: ap.attention_packed_pair(q, k, v, H, mask, pf))
         want = ap.attention_packed_pair_reference(q, k, v, H, mask, pf)
         torch.cuda.synchronize()
         dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
         case = {"kernel": "attention_packed_pair", "dtype": "bfloat16", "shape": [B, Lq, Lk, E, H],
-                "aligned": aligned, "device_kernel": kernel_name, "launched": names,
-                "mma_route_launches": on_mma,
+                "device_kernel": kernel_name, "launched": names,
                 "max_abs_err": float((got.float() - want.float()).abs().max()),
                 "max_err_rel_to_max1": _rel_err(got, want), "finite": bool(torch.isfinite(got).all()),
                 "masked_rows": dead_rows, "masked_rows_vs_mean_v": dead_err, "tol": tol}
         case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol and dead_rows > 0
-                          and dead_err <= tol and on_mma == int(aligned)
-                          and any(kernel_name in n for n in names))
+                          and dead_err <= tol and any(kernel_name in n for n in names))
         out.append(case)
     return out
 
@@ -558,8 +544,7 @@ def _pair_edge_cases() -> list:
 # Lq != Lk with the roles of HEADS_EDGE_SHAPES' (2, 70, 81) swapped
 BACKWARD_EDGE_SHAPES = HEADS_EDGE_SHAPES + ((2, 81, 70, 256),)
 # the device kernels of one attention_backward call
-BACKWARD_KERNELS = ("attention_backward_stats_kernel", "attention_backward_dkdv_kernel",
-                    "attention_backward_dq_kernel")
+BACKWARD_KERNELS = ("attention_backward_dq_kernel", "attention_backward_dkdv_kernel")
 
 
 def _backward_edge_cases() -> list:
@@ -590,12 +575,12 @@ def _backward_edge_cases() -> list:
         ref_out = attention_core(*leaves, H, key_valid_mask=mask)
         ref_out.backward(cot)
         auto = [t.grad for t in leaves]
-        got, names, _ = launched_kernels(
-            lambda: abw.attention_backward(q, k, v, ref_out.detach(), cot, H, mask), BACKWARD_KERNELS)
+        got, names = launched_kernels(
+            lambda: abw.attention_backward(q, k, v, ref_out.detach(), cot, H, mask))
         want = abw.attention_backward_reference(q, k, v, cot, H, mask)
         torch.cuda.synchronize()
         case = {"kernel": "attention_backward", "dtype": "float32", "shape": [B, Lq, Lk, E, H],
-                "device_kernel": "attention_backward_{stats,dkdv,dq}_kernel",
+                "device_kernel": "attention_backward_{dq,dkdv}_kernel",
                 "launched": names,
                 "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
                 "max_err_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, want)),
@@ -643,7 +628,8 @@ def check_attention_trainable() -> list:
     the backward kernel alone on the same card tensors: against its plain
     version (and two calls bit for bit), timed beside its plain version,
     the plain autograd backward of attention_core and SDPA's backward, each
-    on a graph built once. Returns both results."""
+    on a graph built once, with the device memory it holds beyond its
+    gradients. Returns both results."""
     import torch
     import torch.nn.functional as Fn
 
@@ -726,6 +712,15 @@ def check_attention_trainable() -> list:
 
     b["ms"] = cuda_time_ms(call, iters=10)
     b["kernel_ms"] = device_kernel_ms(call, "attention_backward_", iters=10)
+    # device memory a call holds beyond its inputs and its dq, dk, dv
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = call()
+    torch.cuda.synchronize()
+    b["workspace_bytes"] = torch.cuda.max_memory_allocated() - base - sum(
+        t.numel() * t.element_size() for t in grads)
+    del grads
     b["plain_ms"] = cuda_time_ms(lambda: abw.attention_backward_reference(q, k, v, cot, H, mask),
                                  iters=10)
 
@@ -1605,14 +1600,13 @@ def phase_qvh_eval(card: str, n_batches: int = 2) -> dict:
 def phase_long_query(card: str, n_batches: int = 2) -> dict:
     """The charades model with max_words_l 80 and queries of 64-80 words in
     bf16 under "on": the T2V / enhance sites see 80 and 81 keys with the
-    pair mask, so they launch the pair-masked packed kernel, on its mma
-    body; predictions against "off" and fp32 "off"."""
+    pair mask, so they launch the pair-masked packed kernel (in bf16 on
+    its mma body); predictions against "off" and fp32 "off"."""
     import dataclasses
 
     import torch
 
     from mesm_tpu_torch.models.mesm import MESM
-    from mesm_tpu_torch.ops import attention_packed
     from mesm_tpu_torch.parallel.step import make_eval_step
 
     torch.manual_seed(0)
@@ -1624,12 +1618,8 @@ def phase_long_query(card: str, n_batches: int = 2) -> dict:
         off = step16(batches[0])
         ref32 = step32(batches[0])
     res = {"phase": "long_query", "batches": n_batches, "words": [64, 80], "tol": MODEL_TOL}
-    mma_before = attention_packed.pair_mma_launches
     res["modes"], ok = drive_modes(step16, batches, LONG_QUERY_LAUNCHES, n_batches,
                                    {"off_bf16": off, "fp32_off": ref32})
-    # every bf16 pair launch of the run on the mma body
-    res["pair_mma_launches"] = attention_packed.pair_mma_launches - mma_before
-    ok = ok and res["pair_mma_launches"] == res["modes"]["on"]["launches"]["attention_packed_pair"]
     res["rows_per_s_on"] = rows_per_s(step16, batches, "on", 6)
     res["rows_per_s_off"] = rows_per_s(step16, batches, "off", 6)
     res["card"] = card

@@ -5,8 +5,8 @@
 // Replaces the backward of mesm_tpu/ops/attention_pallas.py::
 // fused_attention_trainable (`_fat_bwd`, :599-614), which has no Pallas
 // kernel: it is XLA's VJP of the plain core, which XLA fuses on the TPU.
-// Here three kernels compute the same gradients flash-attention style,
-// and the (B, H, Lq, Lk) logits never leave the SM.
+// Here two kernels compute the same gradients flash-attention style, and
+// the (B, H, Lq, Lk) logits never leave the SM.
 //
 // What they compute, per (sample b, head h), with qs = q_h * scale (an f32
 // product, as attention_core's) and O the forward's output:
@@ -29,21 +29,25 @@
 // threads, tiles of 64 rows x 64 keys with the operands in shared memory as
 // floats (d-major for the products over head_dim, so each pair of 16-byte
 // loads feeds 16 FMAs), each thread a 4 x 4 tile of S and dP and a
-// 4 x hd/16 tile of its gradient rows. Three launches:
-//   - attention_backward_stats_kernel, one block per (b, 64-query tile, h):
-//     D of its rows from O and dO, and a walk over the key tiles for each
-//     row's max m and sum l (online, as the forward), to a scratch of
-//     (m, 1/l, D) per row;
-//   - attention_backward_dkdv_kernel, one block per (b, 64-key tile, h):
-//     its keys' K_h and V_h stay in shared memory while it walks the query
-//     tiles, recomputes S^T and P^T = exp(S^T - m) / l from the scratch,
-//     computes dP^T and dS^T, accumulates dV and dK, and writes the query
-//     tile's dQ partial sum over its 64 keys (dS . K_tile) to the scratch;
-//   - attention_backward_dq_kernel sums each query row's partials over the
-//     key tiles in tile order and scales them: dQ.
-// Six products where the function needs five (S once more, for the
-// statistics), and 4 bytes of partial sums per query row, key tile and
-// head_dim column (200 MB at the TACoS shape) through L2 and device memory.
+// 4 x hd/16 tile of its gradient rows. Two launches:
+//   - attention_backward_dq_kernel, one block per (b, 64-query tile, h):
+//     D of its rows from O and dO, then one walk over the key tiles that
+//     computes S, dP and e = exp(S - m) with each row's running max m and
+//     sum l (online, as the forward), and accumulates e o (dP - D) . K,
+//     rescaled when m grows; at the end dQ = that sum * scale / l, and
+//     (m, 1/l, D) of each row go to a (B, H, Lq, 3) scratch;
+//   - attention_backward_dkdv_kernel, after it on the stream, one block per
+//     (b, 64-key tile, h): its keys' K_h and V_h stay in shared memory while
+//     it walks the query tiles, recomputes S^T and P^T = exp(S^T - m) / l
+//     from the scratch, computes dP^T and dS^T, and accumulates dV and dK.
+// Seven products where the function needs five (S and dP in both kernels),
+// and no scratch beyond the 12 bytes of statistics a query row and head:
+// the memory of the backward grows as Lq + Lk, not as Lq * Lk. A design
+// with one product fewer (the dk / dv kernel also writing each key tile's
+// dQ partial sums, summed by a third kernel) needs 4 bytes a query row, key
+// tile and head_dim column: Lq * Lk * hd / 16 bytes a (b, h), hd / 64 of
+// the f32 logits (199 MB at the TACoS shape); PERF.md holds the two
+// against each other.
 
 #include "attention_grid.cuh"
 
@@ -60,16 +64,18 @@ constexpr float NEG_INF = -1e9f;
 
 // Dynamic shared memory of each kernel, in bytes.
 template <int HD>
-struct StatsSmem {
-  // Qd, Kd [HD][STRIDE]; Dr [TILE]; then TILE key flags
-  static constexpr size_t bytes = (size_t)(2 * HD * STRIDE + TILE) * 4 + TILE;
+struct DqSmem {
+  // Qd, Gd, Kd, Vd [HD][STRIDE]; Kr [TILE][HD]; Ps [TILE][STRIDE]; Dr [TILE];
+  // then TILE key flags
+  static constexpr size_t bytes =
+      (size_t)(4 * HD * STRIDE + TILE * HD + TILE * STRIDE + TILE) * 4 + TILE;
 };
 template <int HD>
 struct DkdvSmem {
-  // Kd, Vd, Qd, Gd [HD][STRIDE]; Kr, Qr, Gr [TILE][HD]; Pt, St, Sk
-  // [TILE][STRIDE]; Ms, Rs, Ds [TILE]
+  // Kd, Vd, Qd, Gd [HD][STRIDE]; Qr, Gr [TILE][HD]; Pt, St [TILE][STRIDE];
+  // Ms, Rs, Ds [TILE]
   static constexpr size_t bytes =
-      (size_t)(4 * HD * STRIDE + 3 * TILE * HD + 3 * TILE * STRIDE + 3 * TILE) * 4;
+      (size_t)(4 * HD * STRIDE + 2 * TILE * HD + 2 * TILE * STRIDE + 3 * TILE) * 4;
 };
 
 // Rows [0, TILE) of a tile (row stride E floats; `rows` of them read, zeros
@@ -163,18 +169,25 @@ __device__ __forceinline__ float masked_logit(float s, uint8_t f) {
   return f == 2 ? -INFINITY : (f ? s : NEG_INF);
 }
 
-// Each query row's softmax statistics and D, in scratch rows of 3 floats:
-// m (the max logit), 1 / l (l = sum_j exp(S_ij - m)) and D.
+// dQ of a query tile, and each of its rows' softmax statistics and D, in
+// scratch rows of 3 floats: m (the max logit), 1 / l (l = sum_j exp(S_ij -
+// m)) and D.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-attention_backward_stats_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ o, const float* __restrict__ g,
-                                const uint8_t* __restrict__ mask, float* __restrict__ stats,
-                                int H, int Lq, int Lk, int E, float scale) {
+attention_backward_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ o,
+                             const float* __restrict__ g, const uint8_t* __restrict__ mask,
+                             float* __restrict__ dq, float* __restrict__ stats, int H, int Lq,
+                             int Lk, int E, float scale) {
+  constexpr int CT = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qd = reinterpret_cast<float*>(smem);
-  float* Kd = Qd + HD * STRIDE;
-  float* Dr = Kd + HD * STRIDE;
+  float* Gd = Qd + HD * STRIDE;
+  float* Kd = Gd + HD * STRIDE;
+  float* Vd = Kd + HD * STRIDE;
+  float* Kr = Vd + HD * STRIDE;
+  float* Ps = Kr + TILE * HD;
+  float* Dr = Ps + TILE * STRIDE;
   uint8_t* Fs = reinterpret_cast<uint8_t*>(Dr + TILE);
 
   int b, h, q0;
@@ -184,6 +197,7 @@ attention_backward_stats_kernel(const float* __restrict__ q, const float* __rest
   const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
   const uint8_t* mask_b = mask + (size_t)b * Lk;
   stage_dmajor<HD>(Qd, q + qoff, rows, E, scale);
+  stage_dmajor<HD>(Gd, g + qoff, rows, E, 1.f);
   {  // D = rowsum(dO o O), four threads a row
     const int r = tid / 4, part = tid % 4;
     float acc = 0.f;
@@ -196,50 +210,81 @@ attention_backward_stats_kernel(const float* __restrict__ q, const float* __rest
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
     if (part == 0) Dr[r] = acc;
   }
-
-  // each row's max and sum (online, as the forward), over the rows 4 ty + r
-  float m[4], l[4];
+  __syncthreads();
+  // the rows 4 ty + r: their D, running max m and sum l, and the sum of
+  // e o (dP - D) . K over the keys so far, scaled to exp(-m)
+  float Dv[4], m[4], l[4], acc[4][CT];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
+    Dv[r] = Dr[4 * ty + r];
     m[r] = -INFINITY;
     l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) acc[r][t] = 0.f;
   }
+
   for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    __syncthreads();  // the previous tile is read
-    stage_dmajor<HD>(Kd, k + ((size_t)b * Lk + k0) * E + h * HD, min(TILE, Lk - k0), E, 1.f);
+    const int kn = min(TILE, Lk - k0);
+    const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
+    __syncthreads();  // the previous tile's K, V and dS are read
+    stage_dmajor<HD>(Kd, k + koff, kn, E, 1.f);
+    stage_rowmajor<HD>(Kr, k + koff, kn, E, 1.f);
+    stage_dmajor<HD>(Vd, v + koff, kn, E, 1.f);
     for (int j = tid; j < TILE; j += THREADS) Fs[j] = key_flag(mask_b, k0 + j, Lk);
     __syncthreads();
-    float s[4][4];
+    float s[4][4], dp[4][4];
     tile_dot<HD>(s, Qd, Kd, ty, tx);
+    tile_dot<HD>(dp, Gd, Vd, ty, tx);
+    uint8_t f[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) f[c] = Fs[4 * tx + c];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float tmax = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        s[r][c] = masked_logit(s[r][c], Fs[4 * tx + c]);
+        s[r][c] = masked_logit(s[r][c], f[c]);
         tmax = fmaxf(tmax, s[r][c]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
       const float mn = fmaxf(m[r], tmax);  // finite: a tile holds at least one key
+      const float alpha = expf(m[r] - mn);  // 0 at the first tile
       float rs = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) rs += expf(s[r][c] - mn);
+      for (int c = 0; c < 4; ++c) {
+        const float e = expf(s[r][c] - mn);
+        rs += e;
+        dp[r][c] = f[c] == 1 ? e * (dp[r][c] - Dv[r]) : 0.f;  // 0 at masked keys
+      }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[r] = l[r] * expf(m[r] - mn) + rs;
+      l[r] = l[r] * alpha + rs;
       m[r] = mn;
+#pragma unroll
+      for (int t = 0; t < CT; ++t) acc[r][t] *= alpha;
     }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(Ps + (4 * tx + c) * STRIDE + 4 * ty) =
+          make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]);
+    __syncthreads();
+    tile_acc<HD>(acc, Ps, Kr, kn, ty, tx);
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + 4 * ty + r;
-    if (tx == 0 && qi < Lq) {
+    if (qi >= Lq) continue;
+    const float rinv = 1.f / l[r];  // l >= 1: the row's largest logit adds exp(0)
+    float* dst = dq + ((size_t)b * Lq + qi) * E + h * HD + CT * tx;
+#pragma unroll
+    for (int t = 0; t < CT; ++t) dst[t] = acc[r][t] * rinv * scale;
+    if (tx == 0) {
       float* st = stats + (((size_t)b * H + h) * Lq + qi) * 3;
       st[0] = m[r];
-      st[1] = 1.f / l[r];  // l >= 1: the row's largest logit adds exp(0)
-      st[2] = Dr[4 * ty + r];
+      st[1] = rinv;
+      st[2] = Dv[r];
     }
   }
 }
@@ -249,36 +294,28 @@ __global__ void __launch_bounds__(THREADS, 2)
 attention_backward_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ g,
                                const uint8_t* __restrict__ mask, const float* __restrict__ stats,
-                               float* __restrict__ dk, float* __restrict__ dv,
-                               float* __restrict__ partial, int H, int Lq, int Lk, int E,
-                               float scale) {
+                               float* __restrict__ dk, float* __restrict__ dv, int H, int Lq,
+                               int Lk, int E, float scale) {
   constexpr int CT = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Kd = reinterpret_cast<float*>(smem);
   float* Vd = Kd + HD * STRIDE;
   float* Qd = Vd + HD * STRIDE;
   float* Gd = Qd + HD * STRIDE;
-  float* Kr = Gd + HD * STRIDE;
-  float* Qr = Kr + TILE * HD;
+  float* Qr = Gd + HD * STRIDE;
   float* Gr = Qr + TILE * HD;
   float* Pt = Gr + TILE * HD;
   float* St = Pt + TILE * STRIDE;
-  float* Sk = St + TILE * STRIDE;
-  float* Ms = Sk + TILE * STRIDE;
+  float* Ms = St + TILE * STRIDE;
   float* Rs = Ms + TILE;
   float* Ds = Rs + TILE;
 
   int b, h, k0;
   attn_grid::block_coords<TILE>(H, Lk, b, h, k0);
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int kn = min(TILE, Lk - k0);
   const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
-  stage_dmajor<HD>(Kd, k + koff, kn, E, 1.f);
-  stage_rowmajor<HD>(Kr, k + koff, kn, E, 1.f);
-  stage_dmajor<HD>(Vd, v + koff, kn, E, 1.f);
-  // this key tile's dQ partial sums: rows of HD floats, (B, H, key tiles, Lq)
-  const int ntiles = (Lk + TILE - 1) / TILE;
-  float* part = partial + (((size_t)b * H + h) * ntiles + k0 / TILE) * Lq * HD;
+  stage_dmajor<HD>(Kd, k + koff, min(TILE, Lk - k0), E, 1.f);
+  stage_dmajor<HD>(Vd, v + koff, min(TILE, Lk - k0), E, 1.f);
   uint8_t f[4];  // the flags of keys 4 ty + r
 #pragma unroll
   for (int r = 0; r < 4; ++r) f[r] = key_flag(mask + (size_t)b * Lk, k0 + 4 * ty + r, Lk);
@@ -305,8 +342,9 @@ attention_backward_dkdv_kernel(const float* __restrict__ q, const float* __restr
       Ds[i] = in ? st[(size_t)(q0 + i) * 3 + 2] : 0.f;
     }
     __syncthreads();
-    // keys 4 ty + r against queries 4 tx + c: S^T (the statistics kernel's
-    // sums in the same order, so the same P) and dP^T
+    // keys 4 ty + r against queries 4 tx + c: S^T and dP^T, the sums of the
+    // dq kernel's S and dP in the same order (so S is the one its m and l
+    // were taken from)
     float s[4][4], dp[4][4];
     tile_dot<HD>(s, Kd, Qd, ty, tx);
     tile_dot<HD>(dp, Vd, Gd, ty, tx);
@@ -325,30 +363,9 @@ attention_backward_dkdv_kernel(const float* __restrict__ q, const float* __restr
       *reinterpret_cast<float4*>(St + i * STRIDE + 4 * ty) =
           make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]);
     }
-    // dS once more with the keys as rows, for dQ
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      *reinterpret_cast<float4*>(Sk + (4 * ty + r) * STRIDE + 4 * tx) =
-          make_float4(dp[r][0], dp[r][1], dp[r][2], dp[r][3]);
     __syncthreads();
     tile_acc<HD>(adv, Pt, Gr, qn, ty, tx);
     tile_acc<HD>(adk, St, Qr, qn, ty, tx);
-    // the partial dQ of queries q0 + 4 ty + r over this tile's keys
-    float adq[4][CT];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int t = 0; t < CT; ++t) adq[r][t] = 0.f;
-    tile_acc<HD>(adq, Sk, Kr, kn, ty, tx);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + 4 * ty + r;
-      if (qi < Lq) {
-        float* dst = part + (size_t)qi * HD + CT * tx;
-#pragma unroll
-        for (int t = 0; t < CT; ++t) dst[t] = adq[r][t];
-      }
-    }
   }
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -364,93 +381,40 @@ attention_backward_dkdv_kernel(const float* __restrict__ q, const float* __restr
   }
 }
 
-// dq = scale * (the sum of the key tiles' partial sums, in tile order): one
-// float4 of dq a thread
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-attention_backward_dq_kernel(const float* __restrict__ partial, float* __restrict__ dq, int H,
-                             int Lq, int ntiles, int E, float scale, long long n4) {
-  constexpr int C4 = HD / 4;
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (idx >= n4) return;
-  const int c4 = (int)(idx % C4);
-  const long long row = idx / C4;  // (b, h, i)
-  const int i = (int)(row % Lq);
-  const long long bh = row / Lq;
-  const int h = (int)(bh % H);
-  const long long b = bh / H;
-  const float4* src = reinterpret_cast<const float4*>(partial) + (bh * ntiles * Lq + i) * C4 + c4;
-  float4 acc = src[0];
-  for (int t = 1; t < ntiles; ++t) {
-    const float4 x = src[(size_t)t * Lq * C4];
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  *reinterpret_cast<float4*>(dq + ((size_t)b * Lq + i) * E + h * HD + 4 * c4) =
-      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
-}
-
-// floats of the scratch: the statistics (3 a query row), then, on a 16-byte
-// boundary, the dQ partial sums (HD a query row and key tile)
-size_t stats_floats(int B, int H, int Lq) { return ((size_t)B * H * Lq * 3 + 3) & ~(size_t)3; }
-size_t scratch_floats(int B, int H, int Lq, int Lk, int E) {
-  const size_t ntiles = (Lk + TILE - 1) / TILE;
-  return stats_floats(B, H, Lq) + (size_t)B * H * ntiles * Lq * (E / H);
-}
-
 template <int HD>
 int launch(const float* q, const float* k, const float* v, const float* o, const float* g,
-           const uint8_t* mask, float* dq, float* dk, float* dv, float* scratch, int B, int H,
+           const uint8_t* mask, float* dq, float* dk, float* dv, float* stats, int B, int H,
            int Lq, int Lk, int E, float scale, cudaStream_t stream) {
-  const size_t s1 = StatsSmem<HD>::bytes, s2 = DkdvSmem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attention_backward_stats_kernel<HD>,
+  const size_t s1 = DqSmem<HD>::bytes, s2 = DkdvSmem<HD>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attention_backward_dq_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(attention_backward_dkdv_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return (int)err;
-  const int ntiles = (Lk + TILE - 1) / TILE;
   const long long bq = (long long)B * H * ((Lq + TILE - 1) / TILE);
-  const long long bk = (long long)B * H * ntiles;
-  const long long n4 = (long long)B * H * Lq * (HD / 4);
-  const long long br = (n4 + THREADS - 1) / THREADS;
-  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL || br > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
-  float* stats = scratch;
-  float* partial = scratch + stats_floats(B, H, Lq);
-  attention_backward_stats_kernel<HD><<<(unsigned)bq, THREADS, s1, stream>>>(
-      q, k, o, g, mask, stats, H, Lq, Lk, E, scale);
+  const long long bk = (long long)B * H * ((Lk + TILE - 1) / TILE);
+  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  attention_backward_dq_kernel<HD><<<(unsigned)bq, THREADS, s1, stream>>>(
+      q, k, v, o, g, mask, dq, stats, H, Lq, Lk, E, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attention_backward_dkdv_kernel<HD><<<(unsigned)bk, THREADS, s2, stream>>>(
-      q, k, v, g, mask, stats, dk, dv, partial, H, Lq, Lk, E, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_backward_dq_kernel<HD><<<(unsigned)br, THREADS, 0, stream>>>(partial, dq, H, Lq,
-                                                                         ntiles, E, scale, n4);
+      q, k, v, g, mask, stats, dk, dv, H, Lq, Lk, E, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Float32 scratch the entry point below needs (0 when hd is not 32 or 64).
-extern "C" long long attention_backward_scratch_floats(int B, int H, int Lq, int Lk, int E) {
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H || (E / H != 32 && E / H != 64)) return 0;
-  return (long long)scratch_floats(B, H, Lq, Lk, E);
-}
-
 // Plain C entry point, bound with ctypes. q, o, g (= dO), dq: (B, Lq, E);
 // k, v, dk, dv: (B, Lk, E); all float32, contiguous, 16-byte aligned; mask:
-// (B, Lk) uint8, 1 = attendable; scratch: attention_backward_scratch_floats
-// float32, 16-byte aligned. Head h reads and writes columns [h*hd,
-// (h+1)*hd) with hd = E / H, 32 or 64; scale is the f32 softmax scale.
-// Launches the three kernels on `stream` and returns the cudaError_t of the
-// launches (0 = success).
+// (B, Lk) uint8, 1 = attendable; stats: (B, H, Lq, 3) float32 scratch. Head
+// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 32 or 64;
+// scale is the f32 softmax scale. Launches the two kernels on `stream` and
+// returns the cudaError_t of the launches (0 = success).
 extern "C" int attention_backward_launch(const void* q, const void* k, const void* v,
                                          const void* o, const void* g, const void* mask, void* dq,
-                                         void* dk, void* dv, void* scratch, int B, int H, int Lq,
+                                         void* dk, void* dv, void* stats, int B, int H, int Lq,
                                          int Lk, int E, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -463,7 +427,7 @@ extern "C" int attention_backward_launch(const void* q, const void* k, const voi
   auto* fdq = static_cast<float*>(dq);
   auto* fdk = static_cast<float*>(dk);
   auto* fdv = static_cast<float*>(dv);
-  auto* fst = static_cast<float*>(scratch);
+  auto* fst = static_cast<float*>(stats);
   const int hd = E / H;
   if (hd == 32)
     return launch<32>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E, scale, s);

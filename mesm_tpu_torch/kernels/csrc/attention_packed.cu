@@ -56,27 +56,24 @@
 //   - float32 on the register tiles (attention_regtile.cuh, an online f32
 //     softmax a few ulps from the plain version's two-pass one), any Lk.
 //
-// Design of the pair entry points. bf16 operands on 16-byte boundaries take
-// the mma body on the same grid (attention_mma.cuh, Chain::PAIR: unscaled q
-// and k into the mma, the f32 sums times the f32 scale, the batched chain's
-// exact two-pass f32 softmax); the block stages its head's key factor row as
-// one more bit of the per-key flag byte, and each thread reads the query
-// factors of its two rows. Up to 128 keys (the text keys of the pair
-// sites) a row's logits stay in 64 registers a thread, up to 256 in 128;
-// beyond, they are streamed. Up to 1,760 keys at hd 32, 864 at hd 64. This
-// is attention_packed_pair_mma_launch.
-// Float32, and bf16 off a 16-byte boundary, take a CUDA-core kernel
-// (attention_packed_pair_launch), one block of 8 warps per (b, h): K_h and
-// V_h, the key mask and the key factor row are staged once in shared
-// memory, so k and v are read from device memory once per head and q and
-// out exactly once. One warp owns one query row at a time: its lanes split
+// Design of the pair entry point. bf16 operands (on 16-byte boundaries, as
+// for the packed entry point) take the mma body on the same grid
+// (attention_mma.cuh, Chain::PAIR: unscaled q and k into the mma, the f32
+// sums times the f32 scale, the batched chain's exact two-pass f32
+// softmax); the block stages its head's key factor row as one more bit of
+// the per-key flag byte, and each thread reads the query factors of its two
+// rows. Up to 128 keys (the text keys of the pair sites) a row's logits
+// stay in 64 registers a thread, up to 256 in 128; beyond, they are
+// streamed. Up to 1,760 keys at hd 32, 864 at hd 64.
+// Float32 operands take a CUDA-core kernel, one block of 8 warps per
+// (b, h): K_h and V_h, the key mask and the key factor row are staged once
+// in shared memory, so k and v are read from device memory once per head
+// and q and out exactly once. One warp owns one query row at a time: its lanes split
 // the keys for the logits (the K_h rows are padded to an odd word stride,
 // so the 32 lanes hit 32 banks), the softmax is two warp reductions, and for
 // P.V each lane owns one output column. The row's logits sit in a per-warp
-// shared buffer. In float32 it is faster than SDPA at the charades shape;
-// its bf16 instance holds fewer keys than the mma staging (1,394 at hd 32,
-// 783 at hd 64). The wrapper picks the kernel from the operands before it
-// launches (ops/attention_packed.py).
+// shared buffer. It is faster than SDPA at the charades shape. The entry
+// point picks the kernel by the operand dtype.
 
 #include "attention_grid.cuh"
 #include "attention_mma.cuh"
@@ -180,35 +177,11 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr float NEG_INF = -1e9f;
 
-template <typename T>
-struct IO;
-template <>
-struct IO<bf16> {
-  static __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-  // two neighbouring values of a K_h row (an even offset)
-  static __device__ __forceinline__ float2 ld2(const bf16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  static __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16(x); }
-  static __device__ __forceinline__ float rnd(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static constexpr int KPAD = 2;  // K_h row stride HD + 2: an odd number of 32-bit words
-};
-template <>
-struct IO<float> {
-  static __device__ __forceinline__ float ld(const float* p) { return *p; }
-  static __device__ __forceinline__ float2 ld2(const float* p) { return make_float2(p[0], p[1]); }
-  static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-  static __device__ __forceinline__ float rnd(float x) { return x; }
-  static constexpr int KPAD = 1;
-};
-
-template <typename T, int HD>
+template <int HD>
 struct PairSmem {
-  static constexpr int KS = HD + IO<T>::KPAD;  // K_h row stride in elements
+  static constexpr int KS = HD + 1;  // K_h row stride: an odd number of words
   static size_t bytes(int Lk) {
-    size_t b = ((size_t)Lk * KS + (size_t)Lk * HD) * sizeof(T);  // K_h, V_h
+    size_t b = ((size_t)Lk * KS + (size_t)Lk * HD) * 4;  // K_h, V_h
     b = (b + 15) & ~(size_t)15;
     b += (size_t)WARPS * Lk * 4 + (size_t)WARPS * HD * 4;  // per-warp logits row, q row
     b += 2 * (size_t)Lk;                                    // key mask, key pair factor
@@ -216,46 +189,34 @@ struct PairSmem {
   }
 };
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const uint8_t* __restrict__ mask,
+attention_packed_pair_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const uint8_t* __restrict__ mask,
                              const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf,
-                             T* __restrict__ out, int H, int Lq, int Lk, int E, int Ev,
+                             float* __restrict__ out, int H, int Lq, int Lk, int E, int Ev,
                              float scale) {
-  constexpr int KS = PairSmem<T, HD>::KS;
-  constexpr int HALF = HD / 2;
+  constexpr int KS = PairSmem<HD>::KS;
   constexpr int PER_LANE = HD / 32;  // output columns per lane in P.V
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + (size_t)Lk * KS;
-  size_t off = (((size_t)Lk * KS + (size_t)Lk * HD) * sizeof(T) + 15) & ~(size_t)15;
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + (size_t)Lk * KS;
+  const size_t off = (((size_t)Lk * KS + (size_t)Lk * HD) * 4 + 15) & ~(size_t)15;
   float* ps = reinterpret_cast<float*>(smem + off);
   float* qsm = ps + (size_t)WARPS * Lk;
   uint8_t* ms = reinterpret_cast<uint8_t*>(qsm + WARPS * HD);
   uint8_t* kfs = ms + Lk;
 
-  // stage K_h, V_h (bf16 pairs, or single floats), the mask row and the key
-  // factor row
-  const T* kb = k + (size_t)b * Lk * E + h * HD;
-  const T* vb = v + (size_t)b * Lk * Ev + h * HD;
-  if constexpr (sizeof(T) == 2) {
-    for (int idx = threadIdx.x; idx < Lk * HALF; idx += THREADS) {
-      const int j = idx / HALF, d2 = idx - (idx / HALF) * HALF;
-      reinterpret_cast<__nv_bfloat162*>(ks + (size_t)j * KS)[d2] =
-          reinterpret_cast<const __nv_bfloat162*>(kb + (size_t)j * E)[d2];
-      reinterpret_cast<__nv_bfloat162*>(vs + (size_t)j * HD)[d2] =
-          reinterpret_cast<const __nv_bfloat162*>(vb + (size_t)j * Ev)[d2];
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < Lk * HD; idx += THREADS) {
-      const int j = idx / HD, d = idx - (idx / HD) * HD;
-      ks[(size_t)j * KS + d] = kb[(size_t)j * E + d];
-      vs[(size_t)j * HD + d] = vb[(size_t)j * Ev + d];
-    }
+  // stage K_h, V_h, the mask row and the key factor row
+  const float* kb = k + (size_t)b * Lk * E + h * HD;
+  const float* vb = v + (size_t)b * Lk * Ev + h * HD;
+  for (int idx = threadIdx.x; idx < Lk * HD; idx += THREADS) {
+    const int j = idx / HD, d = idx - (idx / HD) * HD;
+    ks[(size_t)j * KS + d] = kb[(size_t)j * E + d];
+    vs[(size_t)j * HD + d] = vb[(size_t)j * Ev + d];
   }
   for (int j = threadIdx.x; j < Lk; j += THREADS) {
     ms[j] = mask[(size_t)b * Lk + j];
@@ -266,8 +227,8 @@ attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* prow = ps + (size_t)warp * Lk;
   float* qrow = qsm + warp * HD;
   for (int qi = warp; qi < Lq; qi += WARPS) {
-    const T* qsrc = q + ((size_t)b * Lq + qi) * E + h * HD;
-    for (int d = lane; d < HD; d += 32) qrow[d] = IO<T>::ld(qsrc + d) * scale;
+    const float* qsrc = q + ((size_t)b * Lq + qi) * E + h * HD;
+    for (int d = lane; d < HD; d += 32) qrow[d] = qsrc[d] * scale;
     const bool qflag = qf[((size_t)b * H + h) * Lq + qi] != 0;
     __syncwarp();
     float qr[HD];
@@ -277,14 +238,10 @@ attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // logits, lanes split the keys
     float mx = -INFINITY;
     for (int j = lane; j < Lk; j += 32) {
-      const T* kr = ks + (size_t)j * KS;
+      const float* kr = ks + (size_t)j * KS;
       float acc = 0.f;
 #pragma unroll
-      for (int d2 = 0; d2 < HALF; ++d2) {
-        const float2 kk = IO<T>::ld2(kr + 2 * d2);
-        acc = fmaf(qr[2 * d2], kk.x, acc);
-        acc = fmaf(qr[2 * d2 + 1], kk.y, acc);
-      }
+      for (int d = 0; d < HD; ++d) acc = fmaf(qr[d], kr[d], acc);
       float l = acc;
       if (qflag && kfs[j]) l = NEG_INF;
       if (!ms[j]) l = NEG_INF;
@@ -303,7 +260,7 @@ attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    for (int j = lane; j < Lk; j += 32) prow[j] = IO<T>::rnd(prow[j] / sum);
+    for (int j = lane; j < Lk; j += 32) prow[j] = prow[j] / sum;
     __syncwarp();
 
     // P.V: each lane owns PER_LANE output columns
@@ -314,47 +271,43 @@ attention_packed_pair_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = prow[j];
 #pragma unroll
       for (int t = 0; t < PER_LANE; ++t)
-        acc[t] = fmaf(p, IO<T>::ld(vs + (size_t)j * HD + lane + 32 * t), acc[t]);
+        acc[t] = fmaf(p, vs[(size_t)j * HD + lane + 32 * t], acc[t]);
     }
-    T* dst = out + ((size_t)b * Lq + qi) * Ev + h * HD;
+    float* dst = out + ((size_t)b * Lq + qi) * Ev + h * HD;
 #pragma unroll
-    for (int t = 0; t < PER_LANE; ++t) IO<T>::st(dst + lane + 32 * t, acc[t]);
+    for (int t = 0; t < PER_LANE; ++t) dst[lane + 32 * t] = acc[t];
     __syncwarp();  // prow and qrow are rewritten by the next row
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_pair(const void* q, const void* k, const void* v, const void* mask, const void* qf,
                 const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev,
                 float scale, cudaStream_t stream) {
-  const size_t smem = PairSmem<T, HD>::bytes(Lk);
-  cudaError_t err = cudaFuncSetAttribute(attention_packed_pair_kernel<T, HD>,
+  const size_t smem = PairSmem<HD>::bytes(Lk);
+  cudaError_t err = cudaFuncSetAttribute(attention_packed_pair_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attention_packed_pair_kernel<T, HD><<<B * H, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  attention_packed_pair_kernel<HD><<<B * H, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const uint8_t*>(qf),
-      static_cast<const uint8_t*>(kf), static_cast<T*>(out), H, Lq, Lk, E, Ev, scale);
+      static_cast<const uint8_t*>(kf), static_cast<float*>(out), H, Lq, Lk, E, Ev, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_pair(const void* q, const void* k, const void* v, const void* mask, const void* qf,
-                  const void* kf, void* out, int B, int H, int Lq, int Lk, int E, int Ev,
-                  float scale, cudaStream_t s) {
-  const int hd = E / H;
-  if (hd == 32)
-    return launch_pair<T, 32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
-  if (hd == 64)
-    return launch_pair<T, 64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
-  return (int)cudaErrorInvalidValue;
+// a block's shared memory on the pair entry point: the mma staging in bf16,
+// the CUDA-core kernel's in float32
+template <int HD>
+size_t pair_smem_bytes(int is_bf16, int Lk) {
+  return is_bf16 ? mma_attn::Smem<HD>::bytes(Lk) : PairSmem<HD>::bytes(Lk);
 }
 
-template <typename T>
-long long pair_smem_bytes(int hd, int Lk) {
-  if (hd == 32) return (long long)PairSmem<T, 32>::bytes(Lk);
-  if (hd == 64) return (long long)PairSmem<T, 64>::bytes(Lk);
-  return 0;
+template <int HD>
+int launch_pair_entry(const void* q, const void* k, const void* v, const void* mask,
+                      const void* qf, const void* kf, void* out, int B, int H, int Lq, int Lk,
+                      int E, int Ev, int is_bf16, float scale, cudaStream_t s) {
+  if (is_bf16) return launch_pair_mma<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  return launch_pair<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
 }
 
 bool valid(int B, int H, int Lq, int Lk, int E, int Ev) {
@@ -367,17 +320,20 @@ bool valid(int B, int H, int Lq, int Lk, int E, int Ev) {
 // 1) or float32 operands, head_dim `hd` and `Lk` keys (0 when hd is not one
 // the kernel takes), so the wrapper can refuse before launching: bf16
 // stages every key of the head (up to 1,760 keys at hd 32, 864 at hd 64);
-// float32 streams the keys in tiles and takes any Lk. The bf16 pair entry
-// point on the mma body stages the same.
+// float32 streams the keys in tiles and takes any Lk.
 extern "C" long long attention_packed_nopair_smem_bytes(int is_bf16, int hd, int Lk) {
   if (hd == 32) return (long long)tiles_smem_bytes<32>(is_bf16, Lk);
   if (hd == 64) return (long long)tiles_smem_bytes<64>(is_bf16, Lk);
   return 0;
 }
 
-// The same for a block of the pair entry point on the CUDA cores.
+// The same for a block of the pair entry point: bf16 stages as the packed
+// entry point; float32 stages K_h and V_h whole (up to 787 keys at hd 32, 418
+// at hd 64).
 extern "C" long long attention_packed_smem_bytes(int is_bf16, int hd, int Lk) {
-  return is_bf16 ? pair_smem_bytes<bf16>(hd, Lk) : pair_smem_bytes<float>(hd, Lk);
+  if (hd == 32) return (long long)pair_smem_bytes<32>(is_bf16, Lk);
+  if (hd == 64) return (long long)pair_smem_bytes<64>(is_bf16, Lk);
+  return 0;
 }
 
 // Plain C entry points, bound with ctypes. q: (B, Lq, E), k: (B, Lk, E),
@@ -399,30 +355,22 @@ extern "C" int attention_packed_launch(const void* q, const void* k, const void*
   return (int)cudaErrorInvalidValue;
 }
 
-// attention_packed_pair_launch (the CUDA-core kernel) and
-// attention_packed_pair_mma_launch (bf16 only, on the mma body; q, k, v and
-// out 16-byte aligned): qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors
-// (pair (q, k) of head (b, h) is masked when both are 1); scale is the f32
-// softmax scale.
+// attention_packed_pair_launch: bf16 on the mma body (q, k, v and out
+// 16-byte aligned), float32 on the CUDA cores; qf (B, H, Lq) and kf (B, H,
+// Lk) uint8 pair factors (pair (q, k) of head (b, h) is masked when both
+// are 1); scale is the f32 softmax scale.
 extern "C" int attention_packed_pair_launch(const void* q, const void* k, const void* v,
                                             const void* mask, const void* qf, const void* kf,
                                             void* out, int B, int H, int Lq, int Lk, int E, int Ev,
                                             int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid(B, H, Lq, Lk, E, Ev)) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch_pair<bf16>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
-  return dispatch_pair<float>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, scale, s);
-}
-
-extern "C" int attention_packed_pair_mma_launch(const void* q, const void* k, const void* v,
-                                                const void* mask, const void* qf, const void* kf,
-                                                void* out, int B, int H, int Lq, int Lk, int E,
-                                                int Ev, int is_bf16, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!valid(B, H, Lq, Lk, E, Ev) || !is_bf16) return (int)cudaErrorInvalidValue;
   const int hd = E / H;
-  if (hd == 32) return launch_pair_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-  if (hd == 64) return launch_pair_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  if (hd == 32)
+    return launch_pair_entry<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, is_bf16, scale,
+                                 s);
+  if (hd == 64)
+    return launch_pair_entry<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, is_bf16, scale,
+                                 s);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,8 +33,8 @@ from ..kernels import refuse_autograd
 from .attention_packed import NEG_INF, check_operands, mask_u8
 
 # launches of the backward kernels since import (or since the caller last
-# set it to 0): one per call, which runs the statistics, dk / dv and dq
-# kernels
+# set it to 0): one per call, which runs the dq kernel and then the dk / dv
+# kernel
 backward_launches = 0
 
 
@@ -89,16 +89,14 @@ def attention_backward(q, k, v, out, grad_out, num_heads: int,
     lib = load("attention_backward")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    floats = lib.attention_backward_scratch_floats
-    floats.restype = ctypes.c_longlong
-    floats.argtypes = [ctypes.c_int] * 5
-    # the rows' softmax statistics and the key tiles' dq partial sums
-    scratch = torch.empty(floats(B, num_heads, Lq, Lk, E), dtype=torch.float32, device=q.device)
+    # each query row's softmax max, 1 / sum and D, from the dq kernel to the
+    # dk / dv kernel
+    stats = torch.empty(B, num_heads, Lq, 3, dtype=torch.float32, device=q.device)
     scale = float(torch.tensor(hd**-0.5, dtype=torch.float32))  # attention_core's f32 scale
     fn = lib.attention_backward_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    err = fn(*(t.data_ptr() for t in (q, k, v, out, grad_out, mask, dq, dk, dv, scratch)),
+    err = fn(*(t.data_ptr() for t in (q, k, v, out, grad_out, mask, dq, dk, dv, stats)),
              B, num_heads, Lq, Lk, E, scale, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed: cudaError {err}")

@@ -16,16 +16,15 @@ bf16 on tensor-core mma tiles at the rounding points above and float32 on
 the register tiles of the batched kernel: in float32 every rounding point
 is f32, so the function is attention_batched_reference's.
 
-`attention_packed_pair` launches the same source's pair-masked entry points
+`attention_packed_pair` launches the same source's pair-masked entry point
 (the port of `_mha_kernel_packed_pair`, attention_pallas.py:170-210) and
-`attention_packed_pair_reference` is their plain version. It is not the
+`attention_packed_pair_reference` is its plain version. It is not the
 kernel above with a mask added: q is scaled in f32, the logits stay f32, the
 softmax runs in f32, and only the probabilities are rounded to bf16 before
 the f32-accumulated product with v. A pair (q, k) of head (b, h) is masked
 where both pair factors, (B, H, Lq) and (B, H, Lk), flag it. bf16 operands
-on 16-byte boundaries run on the tensor-core mma body (its pair chain), up
-to the keys its staging holds; float32, and bf16 off a 16-byte boundary, on
-a CUDA-core kernel (`_pair_on_mma`, chosen before the launch).
+(on 16-byte boundaries) run on the tensor-core mma body (its pair chain),
+float32 on a CUDA-core kernel: a route by dtype, chosen before the launch.
 """
 from __future__ import annotations
 
@@ -40,11 +39,9 @@ NEG_INF = -1e9
 MAX_SMEM = 232448  # bytes a block may use on sm_90
 
 # kernel launches since import (or since the caller last set it to 0): of
-# the packed kernel, of its pair-masked entry points, and of those the
-# launches on the mma body
+# the packed kernel, and of its pair-masked entry point
 launches = 0
 pair_launches = 0
-pair_mma_launches = 0
 
 
 def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
@@ -82,7 +79,7 @@ def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Ten
     refuse_autograd("attention_packed", q, k, v)
     if q.device.type == "cpu":
         return attention_packed_reference(q, k, v, num_heads, key_valid_mask)
-    out, _ = _launch("attention_packed", q, k, v, num_heads, key_valid_mask, None)
+    out = _launch("attention_packed", q, k, v, num_heads, key_valid_mask, None)
     launches += 1
     return out
 
@@ -170,40 +167,23 @@ def factors_u8(pair_factors, B: int, H: int, Lq: int, Lk: int, device):
     return _as_u8(qf, device), _as_u8(kf, device)
 
 
-def _smem_bytes(lib, entry: str, is_bf16: int, hd: int, Lk: int) -> int:
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_longlong
-    fn.argtypes = [ctypes.c_int] * 3
-    return fn(is_bf16, hd, Lk)
-
-
-def _pair_on_mma(lib, q, k, v, hd: int, Lk: int) -> bool:
-    """The pair entry point's route, chosen from the operands before any
-    launch: bf16 on 16-byte boundaries whose K_h and V_h fit the mma staging
-    (1,760 keys at head_dim 32, 864 at 64) takes the mma body; float32, and
-    bf16 that does not, the CUDA-core kernel (which holds fewer bf16 keys:
-    no bf16 shape that it takes is refused by the mma body)."""
-    return (q.dtype == torch.bfloat16 and not any(t.data_ptr() % 16 for t in (q, k, v))
-            and _smem_bytes(lib, "attention_packed_nopair_smem_bytes", 1, hd, Lk) <= MAX_SMEM)
-
-
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     """Checks the operands and launches kernels/csrc/attention_packed.cu: its
-    pair-masked entry points when pair_factors is given (on the mma body
-    where `_pair_on_mma`, else on the CUDA cores), else the packed one (on
-    16-byte aligned operands). Returns out and whether it ran on the mma
-    body."""
+    pair-masked entry point when pair_factors is given, else the packed one.
+    The packed one takes 16-byte aligned operands, the pair one in bf16 (on
+    the mma body, which loads them 16 bytes at a time). Returns out."""
     pair = pair_factors is not None
     B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                      (torch.bfloat16, torch.float32), aligned=not pair)
+                                      (torch.bfloat16, torch.float32),
+                                      aligned=not pair or q.dtype == torch.bfloat16)
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = load("attention_packed")
-    on_mma = pair and _pair_on_mma(lib, q, k, v, hd, Lk)
-    smem_entry = ("attention_packed_smem_bytes" if pair and not on_mma
-                  else "attention_packed_nopair_smem_bytes")
-    need = _smem_bytes(lib, smem_entry, is_bf16, hd, Lk)
+    smem_bytes = lib.attention_packed_smem_bytes if pair else lib.attention_packed_nopair_smem_bytes
+    smem_bytes.restype = ctypes.c_longlong
+    smem_bytes.argtypes = [ctypes.c_int] * 3
+    need = smem_bytes(is_bf16, hd, Lk)
     if need > MAX_SMEM:
         raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
@@ -213,7 +193,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
         operands = (q, k, v, mask, out)
         scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
     else:
-        fn = lib.attention_packed_pair_mma_launch if on_mma else lib.attention_packed_pair_launch
+        fn = lib.attention_packed_pair_launch
         operands = (q, k, v, mask, *factors_u8(pair_factors, B, num_heads, Lq, Lk, q.device), out)
         scale = hd**-0.5  # an f32 product
     fn.restype = ctypes.c_int
@@ -224,21 +204,20 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out, on_mma
+    return out
 
 
 def attention_packed_pair(q, k, v, num_heads: int, key_valid_mask, pair_factors):
     """Multi-head attention over (B, L, E) operands under the factored pair
     mask, with the pair kernel's numerics (f32 softmax, probabilities rounded
     to the operand dtype). CPU tensors take the plain version; CUDA tensors
-    launch a kernel (bf16 or float32, head_dim 32 or 64, Ev == E; bf16 on
-    16-byte boundaries on the mma body) or raise. Raises for an input that
+    launch a kernel (bf16 on 16-byte boundaries, on the mma body, or
+    float32; head_dim 32 or 64, Ev == E) or raise. Raises for an input that
     requires grad in grad mode (no graph)."""
-    global pair_launches, pair_mma_launches
+    global pair_launches
     refuse_autograd("attention_packed_pair", q, k, v)
     if q.device.type == "cpu":
         return attention_packed_pair_reference(q, k, v, num_heads, key_valid_mask, pair_factors)
-    out, on_mma = _launch("attention_packed_pair", q, k, v, num_heads, key_valid_mask, pair_factors)
+    out = _launch("attention_packed_pair", q, k, v, num_heads, key_valid_mask, pair_factors)
     pair_launches += 1
-    pair_mma_launches += on_mma
     return out

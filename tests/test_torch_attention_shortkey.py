@@ -421,20 +421,15 @@ def test_onematmul_kernel_fp32_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("B,Lq,Lk,E", HEADS_EDGE_SHAPES)
-def test_pair_kernel_bf16_at_the_tile_edges(cuda, B, Lq, Lk, E, aligned):
-    """The bf16 pair kernel at the edges of the mma tiles against its plain
-    version (3e-2): on 16-byte boundaries it runs on the mma body (its
-    route's count), off them on the CUDA-core kernel. Sample 0 has every key
-    of head 0 flagged and every other query of that head flagged, sample 1
-    (where B > 1) every key masked: those rows average v over all Lk keys."""
+def test_pair_kernel_bf16_at_the_tile_edges(cuda, B, Lq, Lk, E):
+    """The bf16 pair kernel (on the mma body) at the edges of the mma tiles
+    against its plain version (3e-2). Sample 0 has every key of head 0
+    flagged and every other query of that head flagged, sample 1 (where
+    B > 1) every key masked: those rows average v over all Lk keys."""
     H = 8
     g = torch.Generator(device="cuda").manual_seed(B + Lq + Lk + E)
     q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
-    if not aligned:  # 2 bytes past a 16-byte boundary
-        buf = torch.empty(q.numel() + 8, dtype=q.dtype, device=cuda)
-        q = buf[1:1 + q.numel()].view_as(q).copy_(q)
     k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16() for _ in range(2))
     lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
     mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
@@ -444,11 +439,11 @@ def test_pair_kernel_bf16_at_the_tile_edges(cuda, B, Lq, Lk, E, aligned):
     kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
     kf[0, 0] = True
     qf[0, 0, ::2] = True
-    before = (ap.pair_launches, ap.pair_mma_launches)
+    before = ap.pair_launches
     got = ap.attention_packed_pair(q, k, v, H, mask, (qf, kf))
     want = ap.attention_packed_pair_reference(q, k, v, H, mask, (qf, kf))
     torch.cuda.synchronize()
-    assert (ap.pair_launches, ap.pair_mma_launches) == (before[0] + 1, before[1] + int(aligned))
+    assert ap.pair_launches == before + 1
     assert torch.isfinite(got).all()
     assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
     hd = E // H

@@ -353,9 +353,24 @@ def test_variant_kernels_match_plain(cuda, kernel, dtype, B, Lq, Lk, pair, E):
         assert float((got[1].float() - v[1].float().mean(0)).abs().max()) <= tol
 
 
+def _launch_counts():
+    return (ah.per_head_launches, ah.all_heads_launches, ab.launches, ap.launches,
+            ap.pair_launches)
+
+
+def attention_packed_pair_bf16(q, k, v, num_heads):
+    """The pair entry point with no pair flagged (its bf16 route is the mma
+    body)."""
+    B, Lq, Lk = q.shape[0], q.shape[1], k.shape[1]
+    flags = (torch.zeros(B, num_heads, Lq, dtype=torch.bool, device=q.device),
+             torch.zeros(B, num_heads, Lk, dtype=torch.bool, device=q.device))
+    return ap.attention_packed_pair(q, k, v, num_heads, None, flags)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fn", [ah.attention_per_head, ah.attention_all_heads, ab.attention_batched,
-                                ap.attention_packed], ids=lambda f: f.__name__)
+                                ap.attention_packed, attention_packed_pair_bf16],
+                         ids=lambda f: f.__name__)
 def test_tile_kernels_refuse_operands_off_a_16_byte_boundary(cuda, fn):
     """The kernels on the mma and register tiles load q, k and v 16 bytes
     at a time (cp.async, float4): a contiguous tensor that starts off a
@@ -363,7 +378,7 @@ def test_tile_kernels_refuse_operands_off_a_16_byte_boundary(cuda, fn):
     B, L, E = 2, 70, 256
     q = torch.randn(B * L * E + 1, device=cuda).to(torch.bfloat16)[1:].view(B, L, E)
     k = torch.randn(B, L, E, device=cuda).to(torch.bfloat16)
-    before = (ah.per_head_launches, ah.all_heads_launches, ab.launches, ap.launches)
+    before = _launch_counts()
     with pytest.raises(ValueError, match="16-byte"):
         fn(q, k, k, 8)
-    assert (ah.per_head_launches, ah.all_heads_launches, ab.launches, ap.launches) == before
+    assert _launch_counts() == before

@@ -395,7 +395,7 @@ def test_pair_entry_point_runs_the_mma_body():
     which stages the key pair factors as a bit of the key flags."""
     source = (CSRC / "attention_packed.cu").read_text()
     assert '#include "attention_mma.cuh"' in source
-    assert 'extern "C" int attention_packed_pair_mma_launch(' in source
+    assert "if (is_bf16) return launch_pair_mma<HD>(" in source
     assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, KEYS>(" in source
     header = (CSRC / "attention_mma.cuh").read_text()
     assert "enum class Chain { BATCHED, PACKED, PAIR };" in header
