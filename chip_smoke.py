@@ -233,16 +233,22 @@ def phase_device() -> dict:
 def ptxas_by_function(log: str) -> dict:
     """Registers and spill bytes of each compiled kernel instance, from
     nvcc's -Xptxas -v log, by demangled name (mangled where c++filt is
-    missing)."""
+    missing); `wgmma_serialized` names the ptxas notes (C75xx) that say an
+    instance's wgmma instructions run one at a time."""
     import re
     import shutil
 
     found, current = {}, None
     for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\)[^']*serialized[^']*function '([^']+)'", line)
+        if m:
+            notes = found.setdefault(m.group(2), {}).setdefault("wgmma_serialized", [])
+            notes.append(m.group(1))
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             current = m.group(1)
-            found[current] = {}
+            found.setdefault(current, {})
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and current:
@@ -423,21 +429,27 @@ HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 1
 BATCHED_REGTILE_SHAPES = ((2, 70, 1800, 256), (2, 70, 900, 512))
 
 
-def launched_kernels(fn):
+def launched_kernels(fn, tries: int = 3):
     """fn() under torch.profiler: its result and the names of the device
     kernels it launched. A short spin kernel opens the window, and is left
-    out of the names: the tracer can miss the first kernel of a window."""
+    out of the names: the tracer can miss the first kernel of a window. It
+    can also return a window with no kernel at all: then fn() is traced
+    again, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        out = fn()
-        torch.cuda.synchronize()
-    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-    return out, sorted(n for n in names if "spin_kernel" not in n)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        names = sorted(n for n in names if "spin_kernel" not in n)
+        if names:
+            break
+    return out, names
 
 
 def _edge_cases():
@@ -458,7 +470,9 @@ def check_encoder_edges() -> dict:
     sample 1 has every key masked and must give the mean of v over all Lk
     keys. Each call must launch the device kernel its case names (for bf16
     batched: the mma body or, past its staging, the register tiles), seen
-    by the profiler. Untimed."""
+    by the profiler. Then the bf16 pair kernel, the fp32 backward, the bf16
+    short-key kernel and the int8 FFN at their own edges (_pair_edge_cases,
+    _backward_edge_cases, _shortkey_edge_cases, _ffn_edge_cases). Untimed."""
     import torch
 
     H, cases, ok = MAIN_PATH["H"], [], True
@@ -490,7 +504,8 @@ def check_encoder_edges() -> dict:
                           and any(kernel_name in n for n in names))
         ok = ok and case["ok"]
         cases.append(case)
-    for case in _pair_edge_cases() + _backward_edge_cases():
+    for case in (_pair_edge_cases() + _backward_edge_cases() + _shortkey_edge_cases()
+                 + _ffn_edge_cases()):
         ok = ok and case["ok"]
         cases.append(case)
     res = {"phase": "attention_edges", "ok": ok, "cases": cases}
@@ -538,6 +553,108 @@ def _pair_edge_cases() -> list:
         case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol and dead_rows > 0
                           and dead_err <= tol and any(kernel_name in n for n in names))
         out.append(case)
+    return out
+
+
+# the bf16 short-key kernel's edges: query rows around its 64-row tiles and
+# key counts around its 16-key steps (padded to 16, 16, 32, 48, 64)
+SHORTKEY_EDGE_LQ = (1, 15, 16, 63, 64, 65, 194)
+SHORTKEY_EDGE_LK = (1, 16, 17, 33, 63)
+
+
+def _shortkey_edge_cases() -> list:
+    """The bf16 short-key kernel at SHORTKEY_EDGE_LQ x SHORTKEY_EDGE_LK, with
+    and without pair factors, against its plain version (3e-2), on the mma
+    body (by its device kernel name): B = 3, sample 1 with every key masked,
+    and with pair factors sample 0 with every key of head 0 flagged and
+    every other query of that head flagged; each row whose every key is
+    dropped must give the mean of v over all Lk keys."""
+    import torch
+
+    from mesm_tpu_torch.ops import attention_shortkey as sk
+
+    B, E, H = 3, MAIN_PATH["E"], MAIN_PATH["H"]
+    tol, out = TOL["attention_shortkey_bfloat16"], []
+    kernel_name = PAIR_KERNEL_NAMES[("attention_shortkey", "bfloat16")]
+    for Lq in SHORTKEY_EDGE_LQ:
+        for Lk in SHORTKEY_EDGE_LK:
+            for pair in (True, False):
+                g = torch.Generator(device="cuda").manual_seed(Lq * 100 + Lk + pair)
+                q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
+                k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16()
+                        for _ in range(2))
+                lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+                mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+                mask[1] = False
+                pf = None
+                if pair:
+                    qf = torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4
+                    kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
+                    kf[0, 0] = True
+                    qf[0, 0, ::2] = True
+                    pf = (qf, kf)
+                got, names = launched_kernels(lambda: sk.attention_shortkey(q, k, v, H, mask, pf))
+                want = sk.attention_shortkey_reference(q, k, v, H, mask, pf)
+                torch.cuda.synchronize()
+                dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+                case = {"kernel": "attention_shortkey", "dtype": "bfloat16",
+                        "shape": [B, Lq, Lk, E, H], "pair": pair, "device_kernel": kernel_name,
+                        "launched": names,
+                        "max_abs_err": float((got.float() - want.float()).abs().max()),
+                        "max_err_rel_to_max1": _rel_err(got, want),
+                        "finite": bool(torch.isfinite(got).all()), "masked_rows": dead_rows,
+                        "masked_rows_vs_mean_v": dead_err, "tol": tol}
+                case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                                  and dead_rows > 0 and dead_err <= tol
+                                  and any(kernel_name in n for n in names))
+                out.append(case)
+    return out
+
+
+# the int8 FFN's edges: rows around its 64- and 128-row tiles and the
+# charades site, at the model's widths K = N1 = 1024 (its 64-row instance)
+# and the smallest the wrapper takes, K = N1 = K2 = 32 (its 128-row one)
+FFN_EDGE_N = (1, 63, 64, 65, 127, 128, 129, 24960)
+FFN_EDGE_WIDTHS = ((1024, 1024, 256), (32, 32, 32))
+
+
+def _ffn_edge_cases() -> list:
+    """The int8 FFN at FFN_EDGE_N x FFN_EDGE_WIDTHS in both dtypes against
+    its plain version (2**-7, bit-equal share reported), with a row of zeros
+    (the 1e-8 floor) and a row of +-1000 (every element saturates at +-127),
+    on its device kernel (by name)."""
+    import torch
+
+    from mesm_tpu_torch.ops import ffn_int8 as fi
+
+    out = []
+    for K, N1, K2 in FFN_EDGE_WIDTHS:
+        for dtype_name in ("bfloat16", "float32"):
+            g = torch.Generator(device="cuda").manual_seed(K + N1)
+            w1 = torch.randn(N1, K, generator=g, device="cuda") / K**0.5
+            b1 = 0.1 * torch.randn(N1, generator=g, device="cuda")
+            alpha = torch.full((1,), 0.25, device="cuda")
+            w2 = torch.randn(K2, N1, generator=g, device="cuda") / N1**0.5
+            b2 = 0.1 * torch.randn(K2, generator=g, device="cuda")
+            for N in FFN_EDGE_N:
+                x = torch.randn(N, K, generator=g, device="cuda")
+                x[0] = 0.0
+                if N > 1:
+                    x[1] = 1000.0 * (1 - 2 * (torch.arange(K, device="cuda") % 2))
+                x = x.to(getattr(torch, dtype_name))
+                args = (x, w1, b1, alpha, w2, b2)
+                got, names = launched_kernels(lambda: fi.ffn_int8(*args))
+                want = fi.ffn_int8_reference(*args)
+                torch.cuda.synchronize()
+                case = {"kernel": "ffn_int8", "dtype": dtype_name, "shape": [N, K, N1, K2],
+                        "device_kernel": "ffn_int8_kernel", "launched": names,
+                        "max_abs_err": float((got.float() - want.float()).abs().max()),
+                        "max_err_rel_to_max1": _rel_err(got, want),
+                        "bit_equal_share": float((got == want).float().mean()),
+                        "finite": bool(torch.isfinite(got).all()), "tol": TOL["ffn_int8"]}
+                case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= TOL["ffn_int8"]
+                                  and any("ffn_int8_kernel" in n for n in names))
+                out.append(case)
     return out
 
 
@@ -797,10 +914,12 @@ def _pair_kernels():
     }
 
 
-# the device kernel the pair wrapper launches at the long-query site, by
-# dtype: bf16 on the mma body, float32 on the CUDA cores
+# the device kernel the pair and short-key wrappers launch, by dtype: bf16
+# on the mma body, float32 on the CUDA cores (the one-matmul kernel: the
+# CUDA cores in both)
 PAIR_KERNEL_NAMES = {("attention_packed_pair", "bfloat16"): "attention_packed_pair_mma_kernel",
-                     ("attention_packed_pair", "float32"): "attention_packed_pair_kernel"}
+                     ("attention_packed_pair", "float32"): "attention_packed_pair_kernel",
+                     ("attention_shortkey", "bfloat16"): "attention_shortkey_mma_kernel"}
 
 
 def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: bool,
@@ -871,6 +990,7 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
     w2 = torch.randn(K, N1, generator=g, device="cuda") / N1**0.5
     b2 = 0.1 * torch.randn(K, generator=g, device="cuda")
     args = (x, w1, b1, alpha, w2, b2)
+    quantized = fi.weight_quantizations
     got = fi.ffn_int8(*args)
     want = fi.ffn_int8_reference(*args)
     exact = Fn.linear(Fn.prelu(Fn.linear(x.float(), w1, b1), alpha), w2, b2)
@@ -886,8 +1006,20 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
     if not (err <= TOL["ffn_int8"] and res["finite"]):
         emit(dict(res, phase="kernels", ok=False))
         raise SystemExit(f"ffn_int8 at {site}: {res}")
+    # the cached weights: 20 timed calls and the profiler's 21 quantize none
     res["ms"] = cuda_time_ms(lambda: fi.ffn_int8(*args))
     res["kernel_ms"] = device_kernel_ms(lambda: fi.ffn_int8(*args), "ffn_int8_kernel")
+    res["weight_quantizations"] = fi.weight_quantizations - quantized
+    if res["weight_quantizations"] != 1:
+        emit(dict(res, phase="kernels", ok=False))
+        raise SystemExit(f"ffn_int8 at {site}: the weights were quantized "
+                         f"{res['weight_quantizations']} times for one weight version")
+
+    def first_call():  # a call that finds no cached weights and quantizes them
+        fi._weight_cache.clear()
+        return fi.ffn_int8(*args)
+
+    res["first_call_ms"] = cuda_time_ms(first_call)
     res["plain_ms"] = cuda_time_ms(lambda: fi.ffn_int8_reference(*args))
     w1d, b1d, ad, w2d, b2d = (t.to(dt) for t in (w1, b1, alpha, w2, b2))
     res["library_ms"] = cuda_time_ms(lambda: Fn.linear(Fn.prelu(Fn.linear(x, w1d, b1d), ad), w2d, b2d))
@@ -2119,8 +2251,9 @@ def phase_int8_eval(card: str, n_batches: int = 2) -> dict:
     kernels.set_int8_ffn(True) in "auto": the launches per batch
     (INT8_LAUNCHES), the predictions against the same model with the FFN
     sites sent to ffn_int8_reference on the card (MODEL_TOL), and, not
-    gated, the distance to int8 off and rows/s with int8 on and off. Then
-    the evaluate entry point in-process with the switch set."""
+    gated, the distance to int8 off, rows/s and the device time and
+    launches per batch (torch.profiler) with int8 on and off. Then the
+    evaluate entry point in-process with the switch set."""
     import torch
 
     from mesm_tpu_torch.evaluate import inference
@@ -2161,6 +2294,10 @@ def phase_int8_eval(card: str, n_batches: int = 2) -> dict:
         turns = [(on, rate(on)) for on in (True, False, False, True)]
         r["rows_per_s_int8_on"] = [x for on, x in turns if on]
         r["rows_per_s_int8_off"] = [x for on, x in turns if not on]
+        # device ms and launches per batch, int8 on and off (torch.profiler)
+        for on in (True, False):
+            with int8_ffn(on):
+                r[f"profile_int8_{'on' if on else 'off'}"] = profile_step(step, batches, top=8)
         r["ok"] = bool(launches == want and r["finite"] and max(r["vs_plain_route"].values()) <= MODEL_TOL)
         res[site] = r
         ok = ok and r["ok"]

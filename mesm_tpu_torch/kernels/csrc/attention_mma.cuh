@@ -4,7 +4,7 @@
 // points, and the block-level staging around it. Shared by the bf16
 // attention kernels over (B, L, E) operands (attention_heads.cu,
 // attention_batched.cu, attention_packed.cu: its packed and pair entry
-// points).
+// points; attention_shortkey.cu: its bf16 short-key kernel).
 //
 // What a warp computes, for rows i of head h of sample b (as
 // attention_batched_reference, with bf() the rounding to bf16):
@@ -355,9 +355,12 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 // mask (B, Lk) uint8. Smem<HD>::bytes(Lk) of dynamic shared memory at smem.
 // Chain::PAIR also reads qf (Lq) and kf (Lk), the pair factors of head h of
 // sample b as uint8, and takes the f32 softmax scale; the other chains take
-// the scale already rounded to bf16 and no factors. RESIDENT needs
+// the scale already rounded to bf16 and no factors. With FACTORS false the
+// pair chain runs without pair factors: no key carries KEY_PAIR and no row
+// flag is read (the short-key kernel without its pair mask). RESIDENT needs
 // pad16(Lk) <= KEYS.
-template <int HD, bool RESIDENT, Chain C = Chain::BATCHED, int KEYS = RESIDENT_KEYS>
+template <int HD, bool RESIDENT, Chain C = Chain::BATCHED, int KEYS = RESIDENT_KEYS,
+          bool FACTORS = true>
 __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,
                                              const uint8_t* __restrict__ mask,
@@ -377,7 +380,7 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
   stage_rows<HD>(Ks, k + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
   stage_rows<HD>(Vs, v + (size_t)b * Lk * E + h * HD, Lk, kpad, E);
   for (int j = threadIdx.x; j < kpad; j += THREADS) {
-    if constexpr (C == Chain::PAIR)
+    if constexpr (C == Chain::PAIR && FACTORS)
       flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) | (kf[j] ? KEY_PAIR : 0) : 2;
     else
       flags[j] = j < Lk ? (mask[(size_t)b * Lk + j] ? 1 : 0) : 2;
@@ -390,7 +393,7 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
   if (r0 >= Lq) return;
   bf16* Qw = Qs + 16 * warp * HD;  // 16 rows: the swizzle pattern repeats every 8
   bool qf0 = false, qf1 = false;  // the pair flags of the thread's rows g and g + 8
-  if constexpr (C == Chain::PAIR) {
+  if constexpr (C == Chain::PAIR && FACTORS) {
     const int g = lane >> 2;
     qf0 = r0 + g < Lq && qf[r0 + g];
     qf1 = r0 + g + 8 < Lq && qf[r0 + g + 8];

@@ -1,6 +1,6 @@
 // Short-key multi-head attention for Hopper (sm_90a): long video queries
-// against a short text key sequence (Lk <= 64), all heads of a query row in
-// one warp, with the factored pair mask optional.
+// against a short text key sequence (Lk <= 64), with the factored pair mask
+// optional.
 //
 // Replaces two kernel families of mesm_tpu/ops/attention_pallas.py at the
 // T2V / enhance cross-attention sites (charades: 128 x 194 queries x 16 or 17
@@ -11,6 +11,9 @@
 //       pair (q, k) with qf[b, h, q] and kf[b, h, k] -> -1e9; masked keys -> -1e9
 //       p = round(softmax(logits)) over the row's Lk keys (f32 softmax)
 //       out_h = round(p . v_h)                      (f32 accumulation)
+//     That is the pair kernel's chain (attention_packed.cu's pair entry
+//     point, _mha_kernel_packed_pair) with fewer keys and the pair factors
+//     optional.
 //   - ONEMATMUL = true: fused_attention_shortkey -> _mha_kernel_shortkey_
 //     onematmul and _shortkey_onematmul_nopair (:262-416). Per (b, q):
 //       qs = round(q * round(scale)); logits[h, j] = qs_h . k_h[j] (f32)
@@ -36,19 +39,39 @@
 // (~0.2 GFLOP) cost nothing at the tensor-core rate. Nothing but q, k, v,
 // the masks and out touches device memory.
 //
-// Design: one block of 8 warps per (sample, tile of 16 query rows). The
-// sample's K and V (at most 64 x 256 bf16 each, 32 KB), the key mask and the
-// key pair factors sit in shared memory (the K rows padded to an odd word
-// stride, so the lanes that split the keys hit distinct banks). A warp owns a
-// query row: the row, scaled, is staged in a per-warp buffer, lanes split the
-// keys for every head's logits, which stay in a per-warp shared buffer of
-// H x Lk floats; the softmax is warp reductions; for P.V each lane owns one
-// column of the head. A CUDA-core kernel; tensor-core tiles are later work.
+// Design of the bf16 short-key kernel (ONEMATMUL = false): the tensor-core
+// body of attention_mma.cuh with the pair kernel's rounding chain
+// (Chain::PAIR: unscaled bf16 q and k into mma.sync m16n8k16, the f32 sums
+// times the f32 scale, an exact two-pass f32 softmax, p rounded to bf16,
+// P . V on the tensor cores) on the grid of attention_grid.cuh, one block
+// of 4 warps per (sample, 64-row query tile, head). K_h, V_h (padded to a
+// multiple of 16 keys with zero rows, whose keys get probability 0) and a
+// flag byte per key (valid, masked, past Lk, and KEY_PAIR where kf is set)
+// are staged with cp.async; each warp holds 16 query rows and, up to 64
+// keys, all their logits in 32 registers a thread (past 64 keys the body
+// streams them). Without pair factors no key carries KEY_PAIR and no row
+// flag is read (a compile-time instance). Operands on 16-byte boundaries,
+// head_dim 32 or 64.
+//
+// Design of the other instances (fp32, and ONEMATMUL in both dtypes: its
+// segment softmax takes its maximum over every head of a row, which the
+// per-head mma blocks do not see), on the CUDA cores: one block of 8 warps
+// per (sample, tile of 16 query rows). The sample's K and V (at most 64 x
+// 256 each), the key mask and the key pair factors sit in shared memory
+// (the K rows padded to an odd word stride, so the lanes that split the
+// keys hit distinct banks). A warp owns a query row: the row, scaled, is
+// staged in a per-warp buffer, lanes split the keys for every head's
+// logits, which stay in a per-warp shared buffer of H x Lk floats; the
+// softmax is warp reductions; for P.V each lane owns one column of the
+// head. head_dim 32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "attention_grid.cuh"
+#include "attention_mma.cuh"
 
 typedef __nv_bfloat16 bf16;
 
@@ -237,34 +260,99 @@ int dispatch_pair(const void* q, const void* k, const void* v, const void* mask,
   return launch<T, ONEMATMUL, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 short-key kernel on the tensor-core body
+// ---------------------------------------------------------------------------
+
+// keys whose logits stay in registers: every key of the short-key sites
+constexpr int SHORT_KEYS = 64;
+
+// scale: the f32 softmax scale; qf (B, H, Lq) and kf (B, H, Lk) the pair
+// factors as uint8 (PAIR), or unused. RESIDENT: pad16(Lk) <= SHORT_KEYS
+template <int HD, bool RESIDENT, bool PAIR>
+__global__ void __launch_bounds__(mma_attn::THREADS)
+attention_shortkey_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                              bf16* __restrict__ out, int H, int Lq, int Lk, int E, float scale,
+                              const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int b, h, q0;
+  attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
+  if constexpr (PAIR) {
+    const size_t bh = (size_t)b * H + h;
+    mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS>(
+        q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem, qf + bh * Lq, kf + bh * Lk);
+  } else {
+    mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS, false>(
+        q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+  }
+}
+
+template <int HD, bool PAIR>
+int launch_mma(const void* q, const void* k, const void* v, const void* mask, const void* qf,
+               const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
+               cudaStream_t s) {
+  const size_t smem = mma_attn::Smem<HD>::bytes(Lk);
+  const auto kernel = mma_attn::pad16(Lk) <= SHORT_KEYS
+                          ? attention_shortkey_mma_kernel<HD, true, PAIR>
+                          : attention_shortkey_mma_kernel<HD, false, PAIR>;
+  return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS, smem, q, k, v, mask,
+                                                 out, B, H, Lq, Lk, E, scale, s,
+                                                 static_cast<const uint8_t*>(qf),
+                                                 static_cast<const uint8_t*>(kf));
+}
+
+template <int HD>
+int dispatch_mma(const void* q, const void* k, const void* v, const void* mask, const void* qf,
+                 const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
+                 cudaStream_t s) {
+  if (qf != nullptr)
+    return launch_mma<HD, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  return launch_mma<HD, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+}
+
 }  // namespace
 
 // Shared memory the kernel needs (bytes), so the wrapper can refuse before
-// launching. is_bf16: 1 for bf16 operands, 0 for fp32.
-extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int H, int Lk, int E) {
+// launching. is_bf16: 1 for bf16 operands, 0 for fp32; onematmul as for the
+// launch. The bf16 short-key kernel stages one head (up to 1,760 keys at
+// head_dim 32, 864 at 64); the CUDA-core kernels a sample's K and V.
+extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, int H, int Lk,
+                                                   int E) {
+  if (is_bf16 && !onematmul) {
+    if (H <= 0 || E % H) return 0;
+    if (E / H == 32) return (long long)mma_attn::Smem<32>::bytes(Lk);
+    if (E / H == 64) return (long long)mma_attn::Smem<64>::bytes(Lk);
+    return 0;
+  }
   return is_bf16 ? (long long)Layout<bf16>(H, Lk, E).total
                  : (long long)Layout<float>(H, Lk, E).total;
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
-// out: (B, Lq, E), contiguous, bf16 (is_bf16 = 1) or fp32; E = 32 * H.
-// mask: (B, Lk) uint8, 1 = attendable. qf (B, H, Lq) and kf (B, H, Lk)
-// uint8 pair factors, or both null for no pair mask. onematmul: 0 = the
-// packed short-key kernel (scale in f32), 1 = the one-matmul segment-softmax
-// kernel (scale already rounded to the operand dtype). Returns the
-// cudaError_t of the launch (0 = success).
+// out: (B, Lq, E), contiguous, bf16 (is_bf16 = 1) or fp32. mask: (B, Lk)
+// uint8, 1 = attendable. qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors,
+// or both null for no pair mask. onematmul: 0 = the packed short-key kernel
+// (scale in f32), 1 = the one-matmul segment-softmax kernel (scale already
+// rounded to the operand dtype). The bf16 short-key kernel takes head_dim
+// E / H of 32 or 64 and q, k, v, out on 16-byte boundaries; the others
+// E = 32 * H. Returns the cudaError_t of the launch (0 = success).
 extern "C" int attention_shortkey_launch(const void* q, const void* k, const void* v,
                                          const void* mask, const void* qf, const void* kf,
                                          void* out, int B, int H, int Lq, int Lk, int E,
                                          int is_bf16, int onematmul, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E != HD * H || (qf == nullptr) != (kf == nullptr))
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (qf == nullptr) != (kf == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (onematmul)
-      return dispatch_pair<bf16, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-    return dispatch_pair<bf16, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  if (is_bf16 && !onematmul) {  // the route by dtype: the tensor-core body
+    if (E % H) return (int)cudaErrorInvalidValue;
+    if (E / H == 32) return dispatch_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+    if (E / H == 64) return dispatch_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+    return (int)cudaErrorInvalidValue;
   }
+  if (E != HD * H) return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return dispatch_pair<bf16, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
   if (onematmul)
     return dispatch_pair<float, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
   return dispatch_pair<float, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);

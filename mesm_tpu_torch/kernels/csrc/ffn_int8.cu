@@ -1,6 +1,6 @@
 // The fused int8 FFN for Hopper (sm_90a): out = linear2(prelu(linear1(x)))
-// with int8 x int8 -> int32 tensor-core products and the hidden activation
-// kept in shared memory.
+// with int8 x int8 -> int32 products on wgmma, the hidden activation never
+// leaving the SM.
 //
 // Replaces: mesm_tpu/ops/ffn_pallas.py::ffn_int8 -> _ffn_int8_kernel
 // (:44-142), which the FFN of every eval transformer layer runs when the
@@ -19,31 +19,78 @@
 // in the output's dtype. round() is half to even and int8() saturates to
 // [-128, 127], as XLA's conversion does. The weights come quantized per
 // output channel (w1q (N1, K), w2q (K2, N1) int8, torch's (out, in) layout;
-// s1, s2, b1, b2, alpha as bf16), made by the wrapper in torch ops, as the
-// TPU version makes them in XLA outside its pallas_call. The integer sums
-// are exact, and below 2**24 for K, N1 <= 1040, so int -> f32 -> bf16 rounds
-// once, as the plain version's.
+// s1, s2, b1, b2, alpha as bf16), made by the wrapper once per weight
+// version, as the TPU version makes them in XLA outside its pallas_call. The
+// integer sums are exact, and below 2**24 for K, N1 <= 1040, so int -> f32
+// -> bf16 rounds once, as the plain version's. The bf16 chain runs as
+// bf16x2 instructions with round-to-nearest (mul.rn / add.rn, never fused):
+// each is the correctly rounded result of the f32 operation on bf16
+// operands, which is what the plain version's bf16 tensor ops compute.
 //
 // What bounds it on the H100: the operations. At the charades site,
 // 4 * 24,960 * 256 * 1024 = 26.2 G int8 operations are 13 us at 1,979
 // TOP/s; x and out in bf16 and the int8 weights are 26 MB, 8 us at
 // 3.35 TB/s. The 51 MB bf16 hidden activation of the unfused FFN is never
-// written: it lives only in shared memory.
+// written.
 //
-// Design: one block of 8 warps per tile of R = 64 rows, 217 KB of shared
-// memory (one block per SM). (1) Each warp quantizes 8 rows of x into
-// shared memory (K + 16 bytes a row, so the mma fragment loads hit 32
-// banks). (2) linear1: the warps split the N1 columns into pieces of 32;
-// for a piece, a warp holds the 64 x 32 int32 sums of 16
-// mma.sync.m16n8k32.s8.s8.s32 tiles in registers, reading A fragments from
-// the quantized rows and B fragments straight from w1q, whose rows are the
-// k-contiguous "col" operand the instruction takes (256 KB, resident in
-// L2). The epilogue runs the bf16 dequant, bias and PReLU chain, writes h
-// as bf16 into shared memory and folds |h| into each row's amax (warp
-// shuffles, then a shared atomicMax on the float's bits). (3) Each row's
-// requantization scale, then (4) hq into shared memory as int8. (5)
-// linear2 the same way over hq and w2q, its epilogue writing the output.
-// mma.sync is not Hopper's fastest path (wgmma with TMA is later work).
+// Design. One block of WG warpgroups (128 threads each) per tile of
+// R = 64 * WG rows; warpgroup w owns rows [64 w, 64 w + 64) of the tile, so
+// every product is a wgmma m64nNk32 .s32.s8.s8 with A and B in shared
+// memory.
+//   - The weights are staged, never read by a warp from L2 inside a
+//     product. The hidden width is walked in chunks of NC columns. The
+//     wrapper keeps the int8 weights, once per weight version, in the
+//     order the stages hold them (ops/ffn_int8.stage_weights): per chunk,
+//     its NC rows of w1q (NC x K) and its NC columns of every output row of
+//     w2q (256 x NC), each in wgmma's shared-memory layout. So a stage is
+//     two contiguous cp.async.bulk copies issued by one thread, completing
+//     on the stage's mbarrier; S stages are in flight. A warp that has
+//     read a stage for the last time counts itself off on it (a shared
+//     atomic); the last of the block's warps issues the copies of the chunk
+//     that stage holds next. The two warpgroups share the stages but never
+//     wait for each other otherwise.
+//   - What one thread does is predicated PTX, not a branch: ptxas
+//     serialises every wgmma of a kernel where a wgmma's registers meet a
+//     branch on the thread (its C75xx notes, which chip_smoke.py's build
+//     line lists per instance). The k steps of linear1 are unrolled at the
+//     model's K = 256, an instance of its own; other K take a runtime loop.
+//   - The row amax of h must be known before any hq, and h does not fit a
+//     block (128 rows x 1024 x bf16 = 256 KB). So linear1 is computed
+//     twice: pass A runs it chunk by chunk for the row amax alone; pass B
+//     runs it again (the same exact integer sums, the same chain: a
+//     bit-identical h), quantizes the chunk to hq in shared memory and adds
+//     its linear2 product (hq chunk . w2q chunk^T) into the output
+//     accumulator, 64 x 256 int32 a warpgroup held in registers. That costs
+//     1.5x the int8 operations of the function (~7 us more at peak) and
+//     buys a 128-row tile, which halves the weight traffic from L2 against
+//     64-row tiles.
+//   - Each warpgroup waits for each product before it runs the product's
+//     epilogue; the tensor cores are kept busy by the other warpgroup,
+//     whose epilogue and products interleave with these. (Issuing the next
+//     chunk's linear1 into a second accumulator before this chunk's
+//     epilogue, or linear2 of a chunk under the next chunk's epilogue, was
+//     slower on the H100, and a third warpgroup does not fit the registers.)
+//   - A row's hidden columns all lie in the four lanes of one quad of one
+//     warp (the wgmma accumulator layout), so the row amax is two shuffles,
+//     with no shared atomics.
+//   - Scales and biases of linear1 sit in shared memory, loaded once per
+//     block; those of linear2 once per block of 256 output columns. x is
+//     quantized with 16-byte loads, 8 rows of a warp in flight at once
+//     (element loads where x is not on a 16-byte boundary).
+//   - Shared-memory operands use wgmma's canonical K-major layout without
+//     swizzle: 8-row x 16-byte core matrices, each 128 contiguous bytes,
+//     adjacent in K at 128 bytes (LBO), 8-row groups at K / 16 * 128 bytes
+//     (SBO). The quantize pass and the hq epilogue write it directly.
+//   - Widths the main instance (WG = 2, NC = 64, 4 stages) cannot stage in
+//     a block's 227 KB (K above 384) take a second instance of the same
+//     kernel with a 64-row tile, 32-column chunks and 3 stages (WG = 1,
+//     NC = 32), chosen by shape before the launch; it holds K = N1 = 1024.
+//     More than 256 outputs repeat pass B per block of 256 output columns
+//     (the model has 256); output columns past K2 and hidden columns past N1
+//     are zero weights and zero scales in the stages, so they add nothing
+//     and are not stored.
+// Not done: a persistent grid (one tile's x loads under the previous
+// tile's epilogue), warp-specialised producers, swizzled layouts.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -54,263 +101,669 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int R = 64;       // rows per block
-constexpr int MT = R / 16;  // m16 tiles: every warp covers all R rows
-constexpr int NT = 4;       // n8 tiles per piece of 32 columns
+constexpr int KO = 256;  // output columns per block of linear2: one m64n256 accumulator
 constexpr float INV127 = (float)(1.0 / 127.0);  // the f32 the plain version multiplies by
 
-__device__ __forceinline__ float rbf(float x) { return __bfloat162float(__float2bfloat16(x)); }
+// ---------------------------------------------------------------------------
+// bf16x2 arithmetic: one correctly rounded result per half, no contraction
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t min2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("min.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// bf(lo), bf(hi) as one bf16x2 word (lo in the low half)
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ float lo_f(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float hi_f(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+// bf(x) in both halves
+__device__ __forceinline__ uint32_t bcast2(float x) { return pack2(x, x); }
 
 // round half to even, saturated to int8
-__device__ __forceinline__ int8_t to_i8(float v) {
-  return (int8_t)fminf(fmaxf(rintf(v), -128.f), 127.f);
+__device__ __forceinline__ uint32_t to_i8(float v) {
+  return (uint32_t)max(-128, min(127, __float2int_rn(v))) & 0xffu;
+}
+// the two halves of a bf16x2 word as two int8 bytes (the low 16 bits)
+__device__ __forceinline__ uint32_t i8pair(uint32_t q) { return to_i8(lo_f(q)) | (to_i8(hi_f(q)) << 8); }
+
+// ((bf(a0, a1) * s) * xs) + b: the dequantization chain of two int32 sums
+__device__ __forceinline__ uint32_t dequant(int a0, int a1, uint32_t s, uint32_t xs, uint32_t b) {
+  return add2(mul2(mul2(pack2((float)a0, (float)a1), s), xs), b);
+}
+// PReLU as the plain version writes it: max(h, 0) + alpha * min(h, 0)
+__device__ __forceinline__ uint32_t prelu2(uint32_t h, uint32_t al) {
+  return add2(max2(h, 0u), mul2(al, min2(h, 0u)));
 }
 
-template <typename T>
-__device__ __forceinline__ float ldf(const T* p);
-template <>
-__device__ __forceinline__ float ldf<float>(const float* p) {
-  return *p;
+// ---------------------------------------------------------------------------
+// shared memory, async copies, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
-template <>
-__device__ __forceinline__ float ldf<bf16>(const bf16* p) {
-  return __bfloat162float(*p);
+// generic-proxy writes to shared memory become visible
+// to the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// keeps the compiler from moving reads of an accumulator across the wait
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+// the 128 threads of warpgroup wg (barrier 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ void st2(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void st2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+// Matrix descriptor of a K-major operand in the canonical layout without
+// swizzle (layout type 0): start address, LBO (the next core matrix in K)
+// and SBO (the next 8-row group), each in 16-byte units.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3fffu) | ((uint64_t)((lbo >> 4) & 0x3fffu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fffu) << 32);
 }
-template <>
-__device__ __forceinline__ void st2<bf16>(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+// one k step of 32 bytes is two core matrices: 256 bytes, 16 units
+constexpr uint64_t DESC_K_STEP = 16;
+// byte offset of (row r, byte k) in the canonical layout with SBO sbo
+__device__ __forceinline__ int canon(int r, int k, int sbo) {
+  return (r >> 3) * sbo + (k >> 4) * 128 + (r & 7) * 16 + (k & 15);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                       unsigned b1) {
+// d (+)= A . B^T, m64n32k32, s8 x s8 -> s32; A and B from shared memory
+__device__ __forceinline__ void wgmma_n32(int (&d)[16], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// The int32 sums of rows [0, R) x columns [n0, n0 + 32) of A (R x kdim int8
-// in shared memory, row stride lda bytes) times B^T (B: rows of kdim int8 in
-// device memory, row stride kdim). Fragment layouts of m16n8k32 (PTX ISA):
-// lane = 4 * g + t; A registers hold rows g / g + 8, bytes 4t..4t+3 (+16);
-// B registers hold column g, k = 4t..4t+3 (+16); C holds rows g / g + 8,
-// columns 2t, 2t + 1.
-__device__ __forceinline__ void piece_product(int (&acc)[MT][NT][4], const int8_t* A, int lda,
-                                              const int8_t* __restrict__ B, int kdim, int n0,
-                                              int g, int t) {
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
-#pragma unroll 2
-  for (int k0 = 0; k0 < kdim; k0 += 32) {
-    unsigned bq[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int8_t* br = B + (size_t)(n0 + nt * 8 + g) * kdim + k0 + 4 * t;
-      bq[nt][0] = __ldg(reinterpret_cast<const unsigned*>(br));
-      bq[nt][1] = __ldg(reinterpret_cast<const unsigned*>(br + 16));
-    }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int8_t* ar = A + (size_t)(mt * 16 + g) * lda + k0 + 4 * t;
-      const unsigned a[4] = {*reinterpret_cast<const unsigned*>(ar),
-                             *reinterpret_cast<const unsigned*>(ar + 8 * lda),
-                             *reinterpret_cast<const unsigned*>(ar + 16),
-                             *reinterpret_cast<const unsigned*>(ar + 8 * lda + 16)};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], a, bq[nt][0], bq[nt][1]);
-    }
-  }
+// d (+)= A . B^T, m64n64k32, s8 x s8 -> s32; A and B from shared memory
+__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A . B^T, m64n256k32, s8 x s8 -> s32; A and B from shared memory
+__device__ __forceinline__ void wgmma_n256(int (&d)[128], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// mbarriers and bulk copies: a stage is filled by one thread with
+// cp.async.bulk copies that complete on the stage's mbarrier. The kernel
+// has no branch that depends on the thread (ptxas serialises every wgmma of
+// a kernel that has one): what one thread does is predicated PTX.
+
+// with pred: initialise bar for one arrival
+__device__ __forceinline__ void mbar_init(bool pred, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n@p mbarrier.init.shared::cta.b64 [%1], 1;\n}\n" ::"r"(
+          (uint32_t)pred),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+// with pred: expect bytes1 + bytes2 on bar, then copy bytes1 from src1 to
+// dst1 and, when bytes2 > 0, bytes2 from src2 to dst2
+__device__ __forceinline__ void stage_copies(bool pred, uint64_t* bar, void* dst1, const void* src1,
+                                             uint32_t bytes1, void* dst2, const void* src2,
+                                             uint32_t bytes2) {
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 p, %0, 0;\n"
+      "setp.ne.and.u32 q, %7, 0, p;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%3], [%4], %5, [%1];\n"
+      "@q cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%6], [%8], %7, [%1];\n"
+      "}\n" ::"r"((uint32_t)pred),
+      "r"(smem_addr(bar)), "r"(bytes1 + bytes2), "r"(smem_addr(dst1)), "l"(src1), "r"(bytes1),
+      "r"(smem_addr(dst2)), "r"(bytes2), "l"(src2)
+      : "memory");
+}
+// with pred: atomically add 1 to *counter and return its old value, else -2
+__device__ __forceinline__ int count_off(bool pred, int* counter) {
+  int old;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mov.s32 %0, -2;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "@p atom.shared.add.s32 %0, [%2], 1;\n"
+      "}\n"
+      : "=r"(old)
+      : "r"((uint32_t)pred), "r"(smem_addr(counter))
+      : "memory");
+  return old;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
+      "@!P bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// the kernel
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a block of WG warpgroups with NC-column hidden
+// chunks and S weight stages: the tile's xq, the stages (a w1 chunk and a
+// w2 chunk each), an hq chunk a warpgroup, linear1's scales and biases
+// (bf16 pairs), linear2's per warpgroup, each row's bf(xs), the stages'
+// mbarriers and release counters.
+template <int WG, int NC, int S>
 struct Layout {
-  size_t xq, h, hq, rows, total;
-  int kp, hp, qp;  // row strides: xq bytes, h elements, hq bytes
+  int J;  // hidden chunks
+  size_t w1_stage, w2_stage, xq, w1, w2, hq, s1, b1, s2, xs, bars, cnt, total;
   __host__ __device__ Layout(int K, int N1) {
-    kp = K + 16;
-    hp = N1 + 8;
-    qp = N1 + 16;
+    J = (N1 + NC - 1) / NC;
+    w1_stage = (size_t)NC * K;
+    w2_stage = (size_t)KO * NC;
     xq = 0;
-    h = xq + (size_t)R * kp;
-    hq = h + (size_t)R * hp * 2;
-    rows = hq + (size_t)R * qp;
-    total = rows + 4 * (size_t)R * 4;  // bf(xs), amax bits, bf(hr), bf(hs) per row
+    w1 = xq + (size_t)64 * WG * K;
+    w2 = w1 + S * w1_stage;
+    hq = w2 + S * w2_stage;
+    s1 = hq + (size_t)WG * 64 * NC;
+    b1 = s1 + (size_t)J * NC * 2;
+    s2 = b1 + (size_t)J * NC * 2;  // per warpgroup: KO scales, then KO biases
+    xs = s2 + (size_t)WG * 2 * KO * 2;
+    bars = xs + (size_t)64 * WG * 4;
+    cnt = bars + (size_t)S * 8;
+    total = cnt + (size_t)S * 4;
   }
 };
 
+// the 8 values x[0..8) as floats: one 16-byte load of bf16, two of float
+// (element loads where x is not on a 16-byte boundary)
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1q,
-                const bf16* __restrict__ s1, const bf16* __restrict__ b1,
-                const bf16* __restrict__ alpha, const int8_t* __restrict__ w2q,
-                const bf16* __restrict__ s2, const bf16* __restrict__ b2, T* __restrict__ out,
-                int N, int K, int N1, int K2) {
-  const Layout lay(K, N1);
-  const int r0 = blockIdx.x * R;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem + lay.xq);
-  bf16* hsm = reinterpret_cast<bf16*>(smem + lay.h);
-  int8_t* hq = reinterpret_cast<int8_t*>(smem + lay.hq);
-  float* row_xs = reinterpret_cast<float*>(smem + lay.rows);  // bf(xs)
-  unsigned* row_ah = reinterpret_cast<unsigned*>(row_xs + R);  // amax |h|, float bits
-  float* row_hr = reinterpret_cast<float*>(row_ah + R);        // bf(127 / max(ah, 1e-8))
-  float* row_hs = row_hr + R;                                  // bf(max(ah, 1e-8) / 127)
-
-  // (1) quantize the rows of x; rows past N repeat row N - 1 and are not
-  // stored
-  for (int r = warp; r < R; r += WARPS) {
-    const T* xr = x + (size_t)min(r0 + r, N - 1) * K;
-    float ax = 0.f;
-    for (int d = lane; d < K; d += 32) ax = fmaxf(ax, fabsf(ldf(xr + d)));
+__device__ __forceinline__ void load8(const T* p, bool aligned, float (&f)[8]);
+template <>
+__device__ __forceinline__ void load8<bf16>(const bf16* p, bool aligned, float (&f)[8]) {
+  if (aligned) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ax = fmaxf(ax, __shfl_xor_sync(0xffffffffu, ax, o));
-    const float xs = fmaxf(ax, 1e-8f) * INV127;
-    const float inv = rbf(1.0f / xs);
-    for (int d = lane; d < K; d += 32) xq[r * lay.kp + d] = to_i8(rbf(rbf(ldf(xr + d)) * inv));
-    if (lane == 0) {
-      row_xs[r] = rbf(xs);
-      row_ah[r] = 0u;
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = lo_f(w[i]);
+      f[2 * i + 1] = hi_f(w[i]);
     }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(p[i]);
   }
-  __syncthreads();
-
-  // (2) linear1, dequant, bias, PReLU into h, and each row's amax |h|
-  const float al = __bfloat162float(alpha[0]);
-  for (int p = warp; p < N1 / 32; p += WARPS) {
-    const int n0 = p * 32;
-    int acc[MT][NT][4];
-    piece_product(acc, xq, lay.kp, w1q, K, n0, g, t);
+}
+template <>
+__device__ __forceinline__ void load8<float>(const float* p, bool aligned, float (&f)[8]) {
+  if (aligned) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+    f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+    f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+  } else {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt * 16 + g + 8 * half;
-        const float xsr = row_xs[r];
-        float amax = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = n0 + nt * 8 + 2 * t;
-          float hv[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float v = rbf((float)acc[mt][nt][2 * half + i]);
-            v = rbf(v * __bfloat162float(s1[c + i]));
-            v = rbf(v * xsr);
-            v = rbf(v + __bfloat162float(b1[c + i]));
-            v = v > 0.f ? v : rbf(al * v);
-            hv[i] = v;
-            amax = fmaxf(amax, fabsf(v));
-          }
-          *reinterpret_cast<__nv_bfloat162*>(hsm + (size_t)r * lay.hp + c) =
-              __floats2bfloat162_rn(hv[0], hv[1]);
-        }
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
-        amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
-        if (t == 0) atomicMax(row_ah + r, __float_as_uint(amax));  // amax >= 0: bits order as floats
-      }
-  }
-  __syncthreads();
-
-  // (3) each row's requantization and dequantization scales
-  for (int r = threadIdx.x; r < R; r += THREADS) {
-    const float a = fmaxf(__uint_as_float(row_ah[r]), 1e-8f);
-    row_hr[r] = rbf(127.0f / a);
-    row_hs[r] = rbf(a * INV127);
-  }
-  __syncthreads();
-
-  // (4) hq = int8(round(h * hr))
-  const int half_n1 = N1 / 2;
-  for (int idx = threadIdx.x; idx < R * half_n1; idx += THREADS) {
-    const int r = idx / half_n1, c = 2 * (idx - r * half_n1);
-    const float2 hv = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(hsm + (size_t)r * lay.hp + c));
-    const float hr = row_hr[r];
-    hq[(size_t)r * lay.qp + c] = to_i8(rbf(hv.x * hr));
-    hq[(size_t)r * lay.qp + c + 1] = to_i8(rbf(hv.y * hr));
-  }
-  __syncthreads();
-
-  // (5) linear2, dequant and bias into the output
-  for (int p = warp; p < K2 / 32; p += WARPS) {
-    const int n0 = p * 32;
-    int acc[MT][NT][4];
-    piece_product(acc, hq, lay.qp, w2q, N1, n0, g, t);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt * 16 + g + 8 * half;
-        if (r0 + r >= N) continue;
-        const float hsr = row_hs[r];
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = n0 + nt * 8 + 2 * t;
-          float ov[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            float v = rbf((float)acc[mt][nt][2 * half + i]);
-            v = rbf(v * __bfloat162float(s2[c + i]));
-            v = rbf(v * hsr);
-            ov[i] = rbf(v + __bfloat162float(b2[c + i]));
-          }
-          st2(out + (size_t)(r0 + r) * K2 + c, ov[0], ov[1]);
-        }
-      }
+    for (int i = 0; i < 8; ++i) f[i] = p[i];
   }
 }
 
+// with pred: two adjacent outputs from a bf16x2 word (predicated PTX)
 template <typename T>
-int launch(const void* x, const void* w1q, const void* s1, const void* b1, const void* alpha,
-           const void* w2q, const void* s2, const void* b2, void* out, int N, int K, int N1,
+__device__ __forceinline__ void store2(bool pred, T* p, uint32_t v);
+template <>
+__device__ __forceinline__ void store2<bf16>(bool pred, bf16* p, uint32_t v) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n@p st.global.b32 [%1], %2;\n}\n" ::"r"(
+                   (uint32_t)pred),
+               "l"(p), "r"(v)
+               : "memory");
+}
+template <>
+__device__ __forceinline__ void store2<float>(bool pred, float* p, uint32_t v) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n@p st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
+          (uint32_t)pred),
+      "l"(p), "f"(lo_f(v)), "f"(hi_f(v))
+      : "memory");
+}
+
+// linear1 of one chunk into acc: xq rows . w1 chunk^T over K / 32 k steps,
+// KS of them where KS > 0 (unrolled, the wgmma back to back), else ksteps
+template <int NC, int KS>
+__device__ __forceinline__ void linear1_ops(int (&acc)[NC / 2], uint64_t dx, uint64_t dw,
+                                            int ksteps) {
+  wgmma_fence();
+  auto step = [&](int kk) {
+    if constexpr (NC == 64)
+      wgmma_n64(acc, dx + kk * DESC_K_STEP, dw + kk * DESC_K_STEP, kk);
+    else
+      wgmma_n32(acc, dx + kk * DESC_K_STEP, dw + kk * DESC_K_STEP, kk);
+  };
+  if constexpr (KS > 0) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) step(kk);
+  } else {
+    for (int kk = 0; kk < ksteps; ++kk) step(kk);
+  }
+}
+
+// linear2 of one chunk added into acc2: hq chunk . w2 chunk^T over NC / 32
+// k steps
+template <int NC>
+__device__ __forceinline__ void linear2_ops(int (&acc2)[KO / 2], uint64_t dh, uint64_t dw) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NC / 32; ++kk)
+    wgmma_n256(acc2, dh + kk * DESC_K_STEP, dw + kk * DESC_K_STEP, 1);
+}
+
+// pass A's epilogue of one chunk: fold |h| of rows lr (A) and lr + 8 (B)
+// into mxA, mxB. s1t, b1t: the chunk's columns, as bf16 pairs
+template <int NC>
+__device__ __forceinline__ void amax_chunk(const int (&acc)[NC / 2], const uint32_t* s1t,
+                                           const uint32_t* b1t, int t, uint32_t xsA, uint32_t xsB,
+                                           uint32_t al2, uint32_t& mxA, uint32_t& mxB) {
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt) {
+    const int cw = (nt * 8 + 2 * t) >> 1;
+    const uint32_t s = s1t[cw], b = b1t[cw];
+    const uint32_t hA = prelu2(dequant(acc[4 * nt], acc[4 * nt + 1], s, xsA, b), al2);
+    const uint32_t hB = prelu2(dequant(acc[4 * nt + 2], acc[4 * nt + 3], s, xsB, b), al2);
+    mxA = max2(mxA, hA & 0x7fff7fffu);  // |h|, exact
+    mxB = max2(mxB, hB & 0x7fff7fffu);
+  }
+}
+
+// pass B's epilogue of one chunk: hq = int8(round(h * bf(hr))) of rows lr,
+// lr + 8 into the warpgroup's hq chunk (canonical layout, SBO sbo_h), two
+// n8 tiles at a time, each lane pair swapping halves so that every lane
+// stores 4 bytes (4 columns of one tile)
+template <int NC>
+__device__ __forceinline__ void hq_chunk(const int (&acc)[NC / 2], const uint32_t* s1t,
+                                         const uint32_t* b1t, int t, int lr, uint32_t xsA,
+                                         uint32_t xsB, uint32_t hrA, uint32_t hrB, uint32_t al2,
+                                         int8_t* hq, int sbo_h) {
+#pragma unroll
+  for (int n0 = 0; n0 < NC / 8; n0 += 2) {
+    const int cw = (n0 * 8 + 2 * t) >> 1;
+    const uint32_t sa = s1t[cw], ba = b1t[cw], sb = s1t[cw + 4], bb = b1t[cw + 4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t xs = half ? xsB : xsA, hr = half ? hrB : hrA;
+      const int e = 2 * half;
+      const uint32_t pa =
+          i8pair(mul2(prelu2(dequant(acc[4 * n0 + e], acc[4 * n0 + e + 1], sa, xs, ba), al2), hr));
+      const uint32_t pb = i8pair(
+          mul2(prelu2(dequant(acc[4 * n0 + 4 + e], acc[4 * n0 + 5 + e], sb, xs, bb), al2), hr));
+      const uint32_t recv = __shfl_xor_sync(0xffffffffu, (t & 1) ? pa : pb, 1);
+      const uint32_t word = (t & 1) ? (recv | (pb << 16)) : (pa | (recv << 16));
+      const int kcol = ((t & 1) ? n0 + 1 : n0) * 8 + 2 * (t & ~1);
+      *reinterpret_cast<uint32_t*>(hq + canon(lr + 8 * half, kcol, sbo_h)) = word;
+    }
+  }
+}
+
+// The weights come staged (ops/ffn_int8.stage_weights): w1s holds, chunk
+// after chunk, the NC rows of w1q of each hidden chunk in the canonical
+// layout (NC x K bytes; zero rows past N1); w2s, for each block of KO
+// output rows and each chunk, those rows' NC columns (KO x NC bytes; zeros
+// past K2 and N1). A stage is then two contiguous bulk copies.
+template <typename T, int WG, int NC, int S, int KS>
+__global__ void __launch_bounds__(128 * WG, 1)
+ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
+                const bf16* __restrict__ s1, const bf16* __restrict__ b1,
+                const bf16* __restrict__ alpha, const int8_t* __restrict__ w2s,
+                const bf16* __restrict__ s2, const bf16* __restrict__ b2, T* __restrict__ out,
+                int N, int K, int N1, int K2) {
+  constexpr int THREADS = 128 * WG, R = 64 * WG;
+  const Layout<WG, NC, S> lay(K, N1);
+  const int J = lay.J, NOB = (K2 + KO - 1) / KO, items = J * (1 + NOB);
+  const int r0 = blockIdx.x * R;
+  const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int sbo_x = K * 8;   // xq and a w1 stage: K / 16 core matrices per 8-row group
+  const int sbo_h = NC * 8;  // an hq chunk and a w2 stage: NC / 16
+  const int ksteps = K / 32;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + lay.xq);
+  int8_t* st1 = reinterpret_cast<int8_t*>(smem + lay.w1);
+  int8_t* st2 = reinterpret_cast<int8_t*>(smem + lay.w2);
+  int8_t* hq = reinterpret_cast<int8_t*>(smem + lay.hq) + wg * 64 * NC;
+  uint32_t* s1t = reinterpret_cast<uint32_t*>(smem + lay.s1);  // bf16 pairs
+  uint32_t* b1t = reinterpret_cast<uint32_t*>(smem + lay.b1);
+  uint32_t* s2t = reinterpret_cast<uint32_t*>(smem + lay.s2) + wg * KO;  // KO / 2 scales, KO / 2 biases
+  uint32_t* b2t = s2t + KO / 2;
+  uint32_t* xs_row = reinterpret_cast<uint32_t*>(smem + lay.xs);  // bf(xs), both halves
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  int* released = reinterpret_cast<int*>(smem + lay.cnt);
+
+  // Items: pass A's chunks 0 .. J - 1 (a w1 chunk), then pass B's chunks
+  // of each output block (a w1 and a w2 chunk). Item i lives in stage
+  // i % S; with pred, the calling thread issues its copies.
+  auto issue = [&](bool pred, int i) {
+    const int s = i % S;
+    const bool b = i >= J;
+    const int j = b ? (i - J) % J : i;
+    stage_copies(pred, full + s, st1 + s * lay.w1_stage, w1s + (size_t)j * lay.w1_stage,
+                 (uint32_t)lay.w1_stage, st2 + s * lay.w2_stage,
+                 w2s + (size_t)(b ? i - J : 0) * lay.w2_stage, b ? (uint32_t)lay.w2_stage : 0u);
+  };
+  // item i's stage has landed
+  auto wait_full = [&](int i) { mbar_wait(full + i % S, (uint32_t)((i / S) & 1)); };
+  // The warp has read item i's stage for the last time: its lane 0 counts
+  // the warp off on the stage, and the last of the block's warps issues the
+  // copies of item i + S into it.
+  auto release = [&](int i) {
+    const int s = i % S;
+    __syncwarp();
+    const int old = count_off(lane == 0, released + s);
+    issue(old == 4 * WG * (i / S + 1) - 1 && i + S < items, i + S);
+  };
+
+  for (int s = 0; s < S; ++s) {
+    mbar_init(tid == 0, full + s);
+    released[s] = 0;
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  for (int i = 0; i < S && i < items; ++i) issue(tid == 0, i);
+
+  // linear1's scales and biases, zero past N1 (so a padded hidden column is
+  // h = 0, outside every row's amax); linear2's of the first output block
+  for (int c0 = 0; c0 < J * NC / 2; c0 += THREADS) {
+    const int c = min(c0 + tid, J * NC / 2 - 1);  // past the end: a repeat of the last word
+    const int cin = min(c, N1 / 2 - 1);
+    const uint32_t sv = __ldg(reinterpret_cast<const unsigned int*>(s1) + cin);
+    const uint32_t bv = __ldg(reinterpret_cast<const unsigned int*>(b1) + cin);
+    s1t[c] = 2 * c < N1 ? sv : 0u;
+    b1t[c] = 2 * c < N1 ? bv : 0u;
+  }
+  static_assert(KO / 2 == 128, "one word of linear2's scales and biases per thread of a warpgroup");
+  auto load_s2 = [&](int ob) {
+    const int c = tid % 128, cin = min(ob * KO / 2 + c, K2 / 2 - 1);
+    const uint32_t sv = __ldg(reinterpret_cast<const unsigned int*>(s2) + cin);
+    const uint32_t bv = __ldg(reinterpret_cast<const unsigned int*>(b2) + cin);
+    s2t[c] = ob * KO + 2 * c < K2 ? sv : 0u;
+    b2t[c] = ob * KO + 2 * c < K2 ? bv : 0u;
+  };
+  load_s2(0);
+  const uint32_t al2 = bcast2(__bfloat162float(alpha[0]));
+
+  // quantize the tile's rows of x, 8 rows of a warp at a time; rows past N
+  // repeat row N - 1 and are not stored
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  constexpr int RB = 8;
+  for (int rb = warp * 16; rb < warp * 16 + 16; rb += RB) {
+    float ax[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) ax[u] = 0.f;
+    for (int c0 = 0; c0 < K / 8; c0 += 32) {
+      const int c = min(c0 + lane, K / 8 - 1);  // past the row: a repeat of its last chunk
+      float f[RB][8];
+#pragma unroll
+      for (int u = 0; u < RB; ++u) load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, f[u]);
+#pragma unroll
+      for (int u = 0; u < RB; ++u)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ax[u] = fmaxf(ax[u], fabsf(f[u][e]));
+    }
+    uint32_t inv2[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ax[u] = fmaxf(ax[u], __shfl_xor_sync(0xffffffffu, ax[u], o));
+      const float xs = fmaxf(ax[u], 1e-8f) * INV127;
+      inv2[u] = bcast2(1.0f / xs);
+      xs_row[rb + u] = bcast2(xs);  // the same word from every lane
+    }
+    for (int c0 = 0; c0 < K / 8; c0 += 32) {
+      const int c = min(c0 + lane, K / 8 - 1);
+#pragma unroll
+      for (int u = 0; u < RB; ++u) {
+        float f[8];
+        load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, f);
+        uint32_t qb[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qb[e] = i8pair(mul2(pack2(f[2 * e], f[2 * e + 1]), inv2[u]));
+        *reinterpret_cast<uint2*>(xq + canon(rb + u, 8 * c, sbo_x)) =
+            make_uint2(qb[0] | (qb[1] << 16), qb[2] | (qb[3] << 16));
+      }
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  // the thread's rows in the accumulators: lr and lr + 8 of its
+  // warpgroup's 64, rows rA and rA + 8 of the tile
+  const int lr = 16 * (warp & 3) + g, rA = 64 * wg + lr;
+  const uint32_t xsA = xs_row[rA], xsB = xs_row[rA + 8];
+  const uint64_t dx = make_desc(xq + wg * 8 * sbo_x, 128, sbo_x);
+  const uint64_t dh = make_desc(hq, 128, sbo_h);
+  auto dw1 = [&](int i) { return make_desc(st1 + (i % S) * lay.w1_stage, 128, sbo_x); };
+  auto dw2 = [&](int i) { return make_desc(st2 + (i % S) * lay.w2_stage, 128, sbo_h); };
+
+  // Pass A: each row's amax |h|
+  int acc1[NC / 2];
+  uint32_t mxA = 0u, mxB = 0u;
+  for (int j = 0; j < J; ++j) {
+    wait_full(j);
+    linear1_ops<NC, KS>(acc1, dx, dw1(j), ksteps);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc1);
+    release(j);
+    amax_chunk<NC>(acc1, s1t + j * NC / 2, b1t + j * NC / 2, t, xsA, xsB, al2, mxA, mxB);
+  }
+  float ahA = fmaxf(lo_f(mxA), hi_f(mxA)), ahB = fmaxf(lo_f(mxB), hi_f(mxB));
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {  // the row's other columns are in the quad
+    ahA = fmaxf(ahA, __shfl_xor_sync(0xffffffffu, ahA, o));
+    ahB = fmaxf(ahB, __shfl_xor_sync(0xffffffffu, ahB, o));
+  }
+  ahA = fmaxf(ahA, 1e-8f);
+  ahB = fmaxf(ahB, 1e-8f);
+  const uint32_t hrA = bcast2(127.0f / ahA), hrB = bcast2(127.0f / ahB);
+  const uint32_t hsA = bcast2(ahA * INV127), hsB = bcast2(ahB * INV127);
+
+  // Pass B, per block of KO output columns: linear1 again, its hq chunk,
+  // and linear2 of the chunk into acc2
+  for (int ob = 0; ob < NOB; ++ob) {
+    int acc2[KO / 2];
+#pragma unroll
+    for (int e = 0; e < KO / 2; ++e) acc2[e] = 0;
+    if (ob > 0) {  // the warpgroup's scales of the previous block are read
+      warpgroup_sync(wg);
+      load_s2(ob);
+      warpgroup_sync(wg);
+    }
+    for (int j = 0; j < J; ++j) {
+      const int i = J + ob * J + j;
+      wait_full(i);
+      linear1_ops<NC, KS>(acc1, dx, dw1(i), ksteps);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      hq_chunk<NC>(acc1, s1t + j * NC / 2, b1t + j * NC / 2, t, lr, xsA, xsB, hrA, hrB, al2, hq,
+                   sbo_h);
+      fence_async_smem();
+      warpgroup_sync(wg);
+      linear2_ops<NC>(acc2, dh, dw2(i));
+      wgmma_commit();
+      wgmma_wait<0>();  // also frees hq for the next chunk
+      fence_regs(acc2);
+      release(i);
+    }
+    // out = ((bf(acc2) * s2) * bf(hs)) + b2 for the rows below N
+#pragma unroll
+    for (int nt = 0; nt < KO / 8; ++nt) {
+      if (ob * KO + nt * 8 >= K2) break;  // K2 is a multiple of 32
+      const int c = nt * 8 + 2 * t, col = ob * KO + c;
+      const uint32_t s = s2t[c >> 1], b = b2t[c >> 1];
+      store2(r0 + rA < N, out + (size_t)(r0 + rA) * K2 + col,
+             dequant(acc2[4 * nt], acc2[4 * nt + 1], s, hsA, b));
+      store2(r0 + rA + 8 < N, out + (size_t)(r0 + rA + 8) * K2 + col,
+             dequant(acc2[4 * nt + 2], acc2[4 * nt + 3], s, hsB, b));
+    }
+  }
+}
+
+constexpr size_t MAX_SMEM = 232448;  // bytes a block may use on sm_90
+
+// the instances: 128-row tiles with 64-column chunks and 4 stages, with the
+// k steps of the model's K = 256 unrolled, or any K; 64-row tiles with
+// 32-column chunks and 3 stages where the 128-row tile does not fit
+typedef Layout<2, 64, 4> MainLayout;
+typedef Layout<1, 32, 3> SmallLayout;
+bool main_fits(int K, int N1) { return MainLayout(K, N1).total <= MAX_SMEM; }
+
+template <typename T, int WG, int NC, int S, int KS>
+int launch(const void* x, const void* w1s, const void* s1, const void* b1, const void* alpha,
+           const void* w2s, const void* s2, const void* b2, void* out, int N, int K, int N1,
            int K2, cudaStream_t stream) {
-  const size_t smem = Layout(K, N1).total;
-  cudaError_t err = cudaFuncSetAttribute(ffn_int8_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = Layout<WG, NC, S>(K, N1).total;
+  const auto kernel = ffn_int8_kernel<T, WG, NC, S, KS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  ffn_int8_kernel<T><<<(N + R - 1) / R, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w1q), static_cast<const bf16*>(s1),
+  kernel<<<(N + 64 * WG - 1) / (64 * WG), 128 * WG, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const int8_t*>(w1s), static_cast<const bf16*>(s1),
       static_cast<const bf16*>(b1), static_cast<const bf16*>(alpha),
-      static_cast<const int8_t*>(w2q), static_cast<const bf16*>(s2),
+      static_cast<const int8_t*>(w2s), static_cast<const bf16*>(s2),
       static_cast<const bf16*>(b2), static_cast<T*>(out), N, K, N1, K2);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int route(const void* x, const void* w1s, const void* s1, const void* b1, const void* alpha,
+          const void* w2s, const void* s2, const void* b2, void* out, int N, int K, int N1,
+          int K2, cudaStream_t s) {
+  if (K == 256 && main_fits(K, N1))
+    return launch<T, 2, 64, 4, 8>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
+  if (main_fits(K, N1))
+    return launch<T, 2, 64, 4, 0>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
+  return launch<T, 1, 32, 3, 0>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
+}
+
 }  // namespace
 
-// Shared memory a block needs for K inputs and N1 hidden units (bytes), so
-// the wrapper can refuse before launching.
-extern "C" long long ffn_int8_smem_bytes(int K, int N1) { return (long long)Layout(K, N1).total; }
+// Shared memory a block needs for K inputs and N1 hidden units (bytes): the
+// main instance's where it fits, else the 64-row instance's, so the wrapper
+// can refuse before launching.
+extern "C" long long ffn_int8_smem_bytes(int K, int N1) {
+  return main_fits(K, N1) ? (long long)MainLayout(K, N1).total
+                          : (long long)SmallLayout(K, N1).total;
+}
+
+// Hidden columns per chunk of the instance the launch for K, N1 takes (64 or
+// 32): the wrapper stages the weights for it (ops/ffn_int8.stage_weights).
+extern "C" int ffn_int8_chunk_cols(int K, int N1) { return main_fits(K, N1) ? 64 : 32; }
 
 // Plain C entry point, bound with ctypes. x: (N, K) and out: (N, K2), both
-// bf16 (is_bf16 = 1) or both float32, contiguous; w1q: (N1, K) and w2q:
-// (K2, N1) int8, contiguous; s1, b1: (N1,), s2, b2: (K2,) and alpha: (1,)
-// bf16. K, N1 and K2 are multiples of 32, K and N1 at most 1040. Returns the
-// cudaError_t of the launch (0 = success).
-extern "C" int ffn_int8_launch(const void* x, const void* w1q, const void* s1, const void* b1,
-                               const void* alpha, const void* w2q, const void* s2, const void* b2,
+// bf16 (is_bf16 = 1) or both float32, contiguous; w1s and w2s the int8
+// weights staged for ffn_int8_chunk_cols(K, N1) columns a chunk, on 16-byte
+// boundaries; s1, b1: (N1,), s2, b2: (K2,) and alpha: (1,) bf16, on 4-byte
+// boundaries. K, N1 and K2 are multiples of 32, K and N1 at most 1040.
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int ffn_int8_launch(const void* x, const void* w1s, const void* s1, const void* b1,
+                               const void* alpha, const void* w2s, const void* s2, const void* b2,
                                void* out, int N, int K, int N1, int K2, int is_bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || K <= 0 || N1 <= 0 || K2 <= 0 || K % 32 || N1 % 32 || K2 % 32 || K > 1040 ||
       N1 > 1040)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) return launch<bf16>(x, w1q, s1, b1, alpha, w2q, s2, b2, out, N, K, N1, K2, s);
-  return launch<float>(x, w1q, s1, b1, alpha, w2q, s2, b2, out, N, K, N1, K2, s);
+  if (is_bf16) return route<bf16>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
+  return route<float>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
 }

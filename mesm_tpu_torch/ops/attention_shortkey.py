@@ -24,8 +24,11 @@ kernels/csrc/attention_shortkey.cu:
   reads each head's slice of the model-native operands and packs nothing.
   Plain version: `attention_shortkey_onematmul_reference`.
 
-CPU tensors take the plain versions; CUDA tensors launch the kernel (bf16 or
-fp32, head_dim 32, Ev == E) or raise.
+CPU tensors take the plain versions; CUDA tensors launch the kernel or raise:
+bf16 or fp32, Ev == E, head_dim 32; `attention_shortkey` in bf16 runs on
+the tensor-core body of the pair kernel (kernels/csrc/attention_mma.cuh,
+its pair chain), which also takes head_dim 64 and needs q, k and v on
+16-byte boundaries.
 """
 from __future__ import annotations
 
@@ -84,9 +87,14 @@ def attention_shortkey_onematmul_reference(q, k, v, num_heads: int, key_valid_ma
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: PairFactors,
             onematmul: bool):
     """Checks the operands and launches kernels/csrc/attention_shortkey.cu;
-    returns out."""
+    returns out. The packed short-key kernel in bf16 runs on the tensor-core
+    body (head_dim 32 or 64, operands on 16-byte boundaries); fp32 and the
+    one-matmul kernel on the CUDA cores (head_dim 32): a route by dtype and
+    kernel, taken before the launch."""
+    mma = q.dtype == torch.bfloat16 and not onematmul
     B, Lq, Lk, E, _ = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                     (torch.bfloat16, torch.float32), (32,))
+                                     (torch.bfloat16, torch.float32), (32, 64) if mma else (32,),
+                                     aligned=mma)
     H = num_heads
     from ..kernels.build import load
 
@@ -94,8 +102,8 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: Pa
     lib = load("attention_shortkey")
     smem_bytes = lib.attention_shortkey_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
-    smem_bytes.argtypes = [ctypes.c_int] * 4
-    need = smem_bytes(is_bf16, H, Lk, E)
+    smem_bytes.argtypes = [ctypes.c_int] * 5
+    need = smem_bytes(is_bf16, int(onematmul), H, Lk, E)
     if need > MAX_SMEM:
         raise ValueError(f"{name}: {Lk} keys of width {E} need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)

@@ -19,6 +19,7 @@ on the card and skip here.
 from __future__ import annotations
 
 import itertools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,8 +35,9 @@ from mesm_tpu_torch.models.attention import dispatch_attention_core
 from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_shortkey as sk
 
-from chip_smoke import HEADS_EDGE_SHAPES
+from chip_smoke import HEADS_EDGE_SHAPES, SHORTKEY_EDGE_LK, SHORTKEY_EDGE_LQ
 
+REPO = Path(__file__).resolve().parents[1]
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -354,6 +356,50 @@ def test_short_key_wrappers_refuse_what_the_kernel_does_not_take():
     assert (sk.launches, sk.onematmul_launches, ap.pair_launches) == before
 
 
+def test_bf16_short_key_kernel_runs_the_mma_body():
+    """attention_shortkey.cu sends bf16 operands of the packed short-key
+    kernel (not the one-matmul kernel) to the shared mma body with the pair
+    kernel's rounding chain (attention_mma.cuh, Chain::PAIR), with at most 64
+    keys resident and the pair factors a compile-time option; fp32 and the
+    one-matmul kernel keep the CUDA-core body, which has no bf16 instance of
+    the packed short-key kernel left."""
+    csrc = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
+    source = (csrc / "attention_shortkey.cu").read_text()
+    assert '#include "attention_mma.cuh"' in source
+    assert "if (is_bf16 && !onematmul) {" in source
+    assert "return dispatch_mma<32>(" in source and "return dispatch_mma<64>(" in source
+    assert "constexpr int SHORT_KEYS = 64;" in source
+    assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS>(" in source
+    assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS, false>(" in source
+    assert "dispatch_pair<bf16, false>" not in source
+    assert "dispatch_pair<bf16, true>" in source  # kernel 5 in bf16
+    header = (csrc / "attention_mma.cuh").read_text()
+    assert "bool FACTORS = true>" in header
+    assert "if constexpr (C == Chain::PAIR && FACTORS)" in header
+
+
+@pytest.mark.parametrize("dtype,onematmul,hd,accepted", [
+    (torch.bfloat16, False, 32, True), (torch.bfloat16, False, 64, True),
+    (torch.bfloat16, False, 48, False), (torch.float32, False, 32, True),
+    (torch.float32, False, 64, False), (torch.bfloat16, True, 64, False),
+    (torch.bfloat16, True, 32, True),
+])
+def test_short_key_wrappers_accept_the_head_dims_of_their_route(dtype, onematmul, hd, accepted):
+    """The route by dtype and kernel, before any launch: the bf16 short-key
+    kernel (the mma body) takes head_dim 32 and 64, the CUDA-core kernels
+    32. On a device that is neither the CPU nor CUDA an accepted operand set
+    reaches the device check, a refused one stops at the head_dim check; no
+    launch is counted."""
+    H, B, Lq, Lk = 4, 2, 5, 7
+    q = torch.empty(B, Lq, H * hd, dtype=dtype, device="meta")
+    k = torch.empty(B, Lk, H * hd, dtype=dtype, device="meta")
+    fn = sk.attention_shortkey_onematmul if onematmul else sk.attention_shortkey
+    before = (sk.launches, sk.onematmul_launches)
+    with pytest.raises(ValueError, match="unsupported device" if accepted else "head_dim"):
+        fn(q, k, k, H)
+    assert (sk.launches, sk.onematmul_launches) == before
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -390,7 +436,8 @@ def _card_case(B, Lq, Lk, pair: bool, dtype=torch.bfloat16, seed=0):
     ("shortkey", 30, 75, 33, False), ("onematmul", 128, 194, 17, True),
     ("onematmul", 30, 75, 33, True), ("onematmul", 30, 75, 33, False),
     ("packed_pair", 128, 194, 81, True),
-])
+] + [("shortkey", 3, Lq, Lk, pair)  # the bf16 mma body's tile edges
+     for Lq, Lk, pair in itertools.product(SHORTKEY_EDGE_LQ, SHORTKEY_EDGE_LK, (True, False))])
 def test_short_key_kernels_match_plain(cuda, kernel, B, Lq, Lk, pair):
     q, k, v, mask, pf, H = _card_case(B, Lq, Lk, pair)
     fns = {"shortkey": (sk.attention_shortkey, sk.attention_shortkey_reference, "launches"),

@@ -29,6 +29,8 @@ from mesm_tpu_torch import kernels
 from mesm_tpu_torch.models import layers
 from mesm_tpu_torch.ops import ffn_int8 as fi
 
+from chip_smoke import FFN_EDGE_N
+
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 MODEL_TOL = 5e-2
@@ -257,6 +259,129 @@ def test_int8_model_forward_matches_jax(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the quantized weights' cache and the kernel's staging order
+# ---------------------------------------------------------------------------
+
+
+def _ffn_module(seed=0, K=64, N1=128):
+    """A module holding the five FFN parameters, as a model layer does."""
+    torch.manual_seed(seed)
+    m = torch.nn.Module()
+    m.lin1 = torch.nn.Linear(K, N1)
+    m.lin2 = torch.nn.Linear(N1, K)
+    m.alpha = torch.nn.Parameter(torch.full((1,), 0.25))
+    return m
+
+
+def _params(m):
+    return m.lin1.weight, m.lin1.bias, m.alpha, m.lin2.weight, m.lin2.bias
+
+
+def _expected_values(w1, b1, alpha, w2, b2):
+    bf = torch.bfloat16
+    w1q, s1 = fi.quantize_weight(w1.detach())
+    w2q, s2 = fi.quantize_weight(w2.detach())
+    return (w1q, s1.to(bf), b1.detach().to(bf), alpha.detach().to(bf).reshape(1), w2q,
+            s2.to(bf), b2.detach().to(bf))
+
+
+def _assert_bit_equal(values, want):
+    assert len(values) == len(want)
+    for got, ref in zip(values, want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got, ref)
+
+
+def test_weight_cache_reuses_the_entry_of_unchanged_parameters():
+    """The same five tensors, unchanged, give the very same cached tensors
+    and quantize once; the values are quantize_weight's, bit for bit, and
+    share no memory with a parameter."""
+    m = _ffn_module()
+    before = fi.weight_quantizations
+    first = fi.quantized_weights(*_params(m))
+    second = fi.quantized_weights(*_params(m))
+    assert first is second
+    assert fi.weight_quantizations == before + 1
+    _assert_bit_equal(first, _expected_values(*_params(m)))
+    ptrs = {t.data_ptr() for t in _params(m)}
+    assert not any(t.data_ptr() in ptrs for t in first)
+
+
+@pytest.mark.parametrize("update", ["add_", "load_state_dict", "copy_", "bias"])
+def test_weight_cache_refreshes_after_an_in_place_update(update):
+    """An in-place update of a parameter (an optimizer-like add_ under
+    no_grad, load_state_dict, copy_, or a bias) bumps its version: the next
+    call quantizes again, bit-equal to quantize_weight of the new values."""
+    m = _ffn_module()
+    old = fi.quantized_weights(*_params(m))
+    before = fi.weight_quantizations
+    with torch.no_grad():
+        if update == "add_":
+            m.lin1.weight.add_(0.5 * torch.randn_like(m.lin1.weight))
+        elif update == "load_state_dict":
+            m.load_state_dict(_ffn_module(seed=1).state_dict())
+        elif update == "copy_":
+            m.lin2.weight.copy_(_ffn_module(seed=2).lin2.weight)
+        else:
+            m.lin2.bias.add_(1.0)
+    new = fi.quantized_weights(*_params(m))
+    assert new is not old
+    assert fi.weight_quantizations == before + 1
+    _assert_bit_equal(new, _expected_values(*_params(m)))
+    assert fi.quantized_weights(*_params(m)) is new
+
+
+def test_weight_cache_keeps_nothing_of_a_freed_module():
+    """The cache holds the parameters by weak reference only: deleting the
+    module frees its entry, and with it the quantized weights."""
+    import gc
+    import weakref
+
+    m = _ffn_module()
+    values = fi.quantized_weights(*_params(m))
+    fi.staged_weights(*_params(m), 32)
+    key = id(m.lin1.weight)
+    assert key in fi._weight_cache
+    alive = weakref.ref(values[0])
+    del m, values
+    gc.collect()
+    assert key not in fi._weight_cache
+    assert alive() is None
+
+
+def _canonical(r, k, cols):
+    """Byte offset of (row r, byte k) of a (rows x cols) piece in wgmma's
+    K-major layout without swizzle."""
+    return (r // 8) * (cols // 16) * 128 + (k // 16) * 128 + (r % 8) * 16 + k % 16
+
+
+@pytest.mark.parametrize("N1,K,K2,nc", [(96, 64, 288, 64), (1024, 256, 256, 64), (32, 32, 32, 32),
+                                        (64, 1024, 256, 32)])
+def test_stage_weights_puts_each_byte_where_the_kernel_reads_it(N1, K, K2, nc):
+    """stage_weights against the kernel's addressing written out: w1 chunk
+    j at j * nc * K, byte (n, k) of it at the canonical offset; w2 block
+    (ob, j) at (ob * J + j) * 256 * nc; zeros past N1 and K2."""
+    g = torch.Generator().manual_seed(N1 + K)
+    w1q = torch.randint(-127, 128, (N1, K), generator=g, dtype=torch.int8)
+    w2q = torch.randint(-127, 128, (K2, N1), generator=g, dtype=torch.int8)
+    w1s, w2s = fi.stage_weights(w1q, w2q, nc)
+    J = -(-N1 // nc)
+    nob = -(-K2 // fi.KO)
+    assert w1s.numel() == J * nc * K and w2s.numel() == nob * J * fi.KO * nc
+    n = torch.arange(J * nc)[:, None]
+    k = torch.arange(K)[None, :]
+    idx = (n // nc) * nc * K + _canonical(n % nc, k, K)
+    want = torch.zeros(J * nc, K, dtype=torch.int8)
+    want[:N1] = w1q
+    assert torch.equal(w1s[idx], want)
+    o = torch.arange(nob * fi.KO)[:, None]
+    h = torch.arange(J * nc)[None, :]
+    idx = ((o // fi.KO) * J + h // nc) * fi.KO * nc + _canonical(o % fi.KO, h % nc, nc)
+    want = torch.zeros(nob * fi.KO, J * nc, dtype=torch.int8)
+    want[:K2, :N1] = w2q
+    assert torch.equal(w2s[idx], want)
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -269,12 +394,22 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,N", [("bfloat16", 24960), ("float32", 9616), ("bfloat16", 51)])
-def test_ffn_int8_kernel_matches_plain(cuda, dtype, N):
+@pytest.mark.parametrize("dtype,N,K,N1", [
+    ("bfloat16", 24960, 256, 1024), ("float32", 9616, 256, 1024), ("bfloat16", 51, 256, 1024),
+] + [(dtype, N, K, N1)  # the tile edges, at the model's widths and the smallest
+     for dtype, N, (K, N1) in itertools.product(("bfloat16", "float32"), FFN_EDGE_N,
+                                                ((1024, 1024), (32, 32)))])
+def test_ffn_int8_kernel_matches_plain(cuda, dtype, N, K, N1):
     """The charades site (bf16) and the TACoS site (fp32) at width 256 and
-    FFN 1024, and a ragged tail: the integer sums are exact and the rounding
-    points the plain version's, so within one bf16 step of the output."""
-    x, w1, b1, alpha, w2, b2 = _mk(3, N, 256, 1024)
+    FFN 1024, a ragged tail, and rows around the kernel's 64- and 128-row
+    tiles at K = N1 = 1024 and 32, with a row of zeros (the 1e-8 floor) and
+    a row of +-1000 (every element at +-127): the integer sums are exact and
+    the rounding points the plain version's, so within one bf16 step of the
+    output."""
+    x, w1, b1, alpha, w2, b2 = _mk(3, N, K, N1)
+    x[0] = 0.0
+    if N > 1:
+        x[1] = 1000.0 * (1 - 2 * (np.arange(K) % 2))
     args = [a.to(cuda) for a in _torch_args(x, w1, b1, alpha, w2, b2, dtype)]
     before = fi.launches
     got = fi.ffn_int8(*args)
@@ -284,4 +419,25 @@ def test_ffn_int8_kernel_matches_plain(cuda, dtype, N):
     assert torch.isfinite(got).all() and got.dtype == args[0].dtype
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1))
     print(f"max err {err:.3e}, bit-equal share {float((got == want).float().mean()):.6f}")
+    assert err <= 2.0**-7
+
+
+@pytest.mark.cuda
+def test_ffn_int8_quantizes_once_per_weight_version(cuda):
+    """Calls on unchanged weights reuse the cached quantized weights; an
+    in-place update of w1 makes the next call quantize again, and the kernel
+    then matches the plain version on the new weights."""
+    x, w1, b1, alpha, w2, b2 = _mk(4, 300, 256, 1024)
+    args = [a.to(cuda) for a in _torch_args(x, w1, b1, alpha, w2, b2, "bfloat16")]
+    before = fi.weight_quantizations
+    for _ in range(3):
+        fi.ffn_int8(*args)
+    assert fi.weight_quantizations == before + 1
+    with torch.no_grad():
+        args[1].mul_(1.5)
+    got = fi.ffn_int8(*args)
+    want = fi.ffn_int8_reference(*args)
+    torch.cuda.synchronize()
+    assert fi.weight_quantizations == before + 2
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1))
     assert err <= 2.0**-7
