@@ -48,7 +48,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12, "tf32": 494.7e12}
 
 # kernel-vs-plain tolerances, each in units of max(1, |plain|):
 #   ln_dense bf16: 2**-6, two bf16 steps at 1.0 (the output is rounded to bf16,
@@ -471,7 +471,7 @@ def check_encoder_edges() -> dict:
     keys. Each call must launch the device kernel its case names (for bf16
     batched: the mma body or, past its staging, the register tiles), seen
     by the profiler. Then the bf16 pair kernel, the fp32 backward, the bf16
-    short-key kernel and the int8 FFN at their own edges (_pair_edge_cases,
+    short-key kernels and the int8 FFN at their own edges (_pair_edge_cases,
     _backward_edge_cases, _shortkey_edge_cases, _ffn_edge_cases). Untimed."""
     import torch
 
@@ -556,58 +556,103 @@ def _pair_edge_cases() -> list:
     return out
 
 
-# the bf16 short-key kernel's edges: query rows around its 64-row tiles and
-# key counts around its 16-key steps (padded to 16, 16, 32, 48, 64)
+# the bf16 short-key kernels' edges: query rows around their 64-row tiles
+# and key counts around their 16-key steps (padded to 16, 16, 32, 48, 64);
+# the one-matmul kernel also at head_dim 64 (E = 512) on a subset
 SHORTKEY_EDGE_LQ = (1, 15, 16, 63, 64, 65, 194)
 SHORTKEY_EDGE_LK = (1, 16, 17, 33, 63)
+ONEMATMUL_EDGE_HD64 = ((1, 17), (65, 63), (194, 33))
+
+
+def _shortkey_edge_inputs(B: int, Lq: int, Lk: int, E: int, pair: bool, seed: int):
+    """q, k, v, a key mask with sample 1 fully masked and, with pair factors,
+    sample 0 with every key of head 0 flagged and every other query of that
+    head flagged (rows whose every key is dropped)."""
+    import torch
+
+    H = MAIN_PATH["H"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16() for _ in range(2))
+    lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+    mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+    mask[1] = False
+    pf = None
+    if pair:
+        qf = torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4
+        kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
+        kf[0, 0] = True
+        qf[0, 0, ::2] = True
+        pf = (qf, kf)
+    return q, k, v, mask, pf
+
+
+def _shortkey_edge_case(name: str, q, k, v, mask, pf):
+    """One bf16 short-key kernel call against its plain version (3e-2), on
+    its mma device kernel (by name); each row whose every key is dropped
+    must give the mean of v over all Lk keys. Returns the case and the
+    kernel's output."""
+    import torch
+
+    H = MAIN_PATH["H"]
+    fn, ref = _pair_kernels()[name]
+    tol, kernel_name = TOL[f"{name}_bfloat16"], PAIR_KERNEL_NAMES[(name, "bfloat16")]
+    got, names = launched_kernels(lambda: fn(q, k, v, H, mask, pf))
+    want = ref(q, k, v, H, mask, pf)
+    torch.cuda.synchronize()
+    dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+    case = {"kernel": name, "dtype": "bfloat16", "shape": [*q.shape[:2], k.shape[1], q.shape[2], H],
+            "pair": pf is not None, "device_kernel": kernel_name, "launched": names,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_err_rel_to_max1": _rel_err(got, want), "finite": bool(torch.isfinite(got).all()),
+            "masked_rows": dead_rows, "masked_rows_vs_mean_v": dead_err, "tol": tol}
+    case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol and dead_rows > 0
+                      and dead_err <= tol and any(kernel_name in n for n in names))
+    return case, got
+
+
+def _onematmul_underflow_case(hd: int) -> dict:
+    """The bf16 one-matmul kernel where sample 2's head 1 logits sit ~180
+    (hd 32) or ~250 (hd 64) above its head 0 logits (0): head 0's segment
+    sum underflows to 0 and takes 1/Lk on every key, so its output is the
+    mean of v over all Lk keys (padded keys included), while head 1 keeps
+    its own softmax."""
+    import torch
+
+    B, Lq, Lk, H = 3, 70, 17, MAIN_PATH["H"]
+    q, k, v, mask, pf = _shortkey_edge_inputs(B, Lq, Lk, H * hd, True, seed=7 + hd)
+    sign = torch.randint(0, 2, (hd,), generator=torch.Generator().manual_seed(9)).cuda() * 2 - 1
+    q[2, :, hd:2 * hd] = (40.0 * sign).bfloat16()
+    k[2, :, hd:2 * hd] = (k[2, :, hd:2 * hd].float().abs() * sign).bfloat16()
+    k[2, :, :hd] = 0.0
+    pf[0][2, 1] = False  # head 1 keeps every unmasked key
+    case, got = _shortkey_edge_case("attention_shortkey_onematmul", q, k, v, mask, pf)
+    head0 = got[2, :, :hd].float() - v[2, :, :hd].float().mean(0)
+    case["underflow_rows_vs_mean_v"] = float(head0.abs().max())
+    case["ok"] = bool(case["ok"] and case["underflow_rows_vs_mean_v"] <= case["tol"])
+    return case
 
 
 def _shortkey_edge_cases() -> list:
-    """The bf16 short-key kernel at SHORTKEY_EDGE_LQ x SHORTKEY_EDGE_LK, with
-    and without pair factors, against its plain version (3e-2), on the mma
-    body (by its device kernel name): B = 3, sample 1 with every key masked,
-    and with pair factors sample 0 with every key of head 0 flagged and
-    every other query of that head flagged; each row whose every key is
-    dropped must give the mean of v over all Lk keys."""
-    import torch
-
-    from mesm_tpu_torch.ops import attention_shortkey as sk
-
-    B, E, H = 3, MAIN_PATH["E"], MAIN_PATH["H"]
-    tol, out = TOL["attention_shortkey_bfloat16"], []
-    kernel_name = PAIR_KERNEL_NAMES[("attention_shortkey", "bfloat16")]
-    for Lq in SHORTKEY_EDGE_LQ:
-        for Lk in SHORTKEY_EDGE_LK:
-            for pair in (True, False):
-                g = torch.Generator(device="cuda").manual_seed(Lq * 100 + Lk + pair)
-                q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
-                k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16()
-                        for _ in range(2))
-                lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
-                mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
-                mask[1] = False
-                pf = None
-                if pair:
-                    qf = torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4
-                    kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
-                    kf[0, 0] = True
-                    qf[0, 0, ::2] = True
-                    pf = (qf, kf)
-                got, names = launched_kernels(lambda: sk.attention_shortkey(q, k, v, H, mask, pf))
-                want = sk.attention_shortkey_reference(q, k, v, H, mask, pf)
-                torch.cuda.synchronize()
-                dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
-                case = {"kernel": "attention_shortkey", "dtype": "bfloat16",
-                        "shape": [B, Lq, Lk, E, H], "pair": pair, "device_kernel": kernel_name,
-                        "launched": names,
-                        "max_abs_err": float((got.float() - want.float()).abs().max()),
-                        "max_err_rel_to_max1": _rel_err(got, want),
-                        "finite": bool(torch.isfinite(got).all()), "masked_rows": dead_rows,
-                        "masked_rows_vs_mean_v": dead_err, "tol": tol}
-                case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
-                                  and dead_rows > 0 and dead_err <= tol
-                                  and any(kernel_name in n for n in names))
-                out.append(case)
+    """The bf16 short-key kernels at SHORTKEY_EDGE_LQ x SHORTKEY_EDGE_LK,
+    with and without pair factors (_shortkey_edge_case, B = 3, E = 256), the
+    one-matmul kernel also at ONEMATMUL_EDGE_HD64 with E = 512 and where one
+    head's segment underflows against another's maximum (head_dim 32 and
+    64)."""
+    out = []
+    for name in ("attention_shortkey", "attention_shortkey_onematmul"):
+        for Lq in SHORTKEY_EDGE_LQ:
+            for Lk in SHORTKEY_EDGE_LK:
+                for pair in (True, False):
+                    inputs = _shortkey_edge_inputs(3, Lq, Lk, MAIN_PATH["E"], pair,
+                                                   seed=Lq * 100 + Lk + pair)
+                    out.append(_shortkey_edge_case(name, *inputs)[0])
+    for Lq, Lk in ONEMATMUL_EDGE_HD64:
+        for pair in (True, False):
+            inputs = _shortkey_edge_inputs(3, Lq, Lk, 2 * MAIN_PATH["E"], pair,
+                                           seed=Lq * 100 + Lk + pair + 1)
+            out.append(_shortkey_edge_case("attention_shortkey_onematmul", *inputs)[0])
+    out.extend(_onematmul_underflow_case(hd) for hd in (32, 64))
     return out
 
 
@@ -661,7 +706,7 @@ def _ffn_edge_cases() -> list:
 # Lq != Lk with the roles of HEADS_EDGE_SHAPES' (2, 70, 81) swapped
 BACKWARD_EDGE_SHAPES = HEADS_EDGE_SHAPES + ((2, 81, 70, 256),)
 # the device kernels of one attention_backward call
-BACKWARD_KERNELS = ("attention_backward_dq_kernel", "attention_backward_dkdv_kernel")
+BACKWARD_KERNELS = ("attention_backward_dq_3xtf32_kernel", "attention_backward_dkdv_3xtf32_kernel")
 
 
 def _backward_edge_cases() -> list:
@@ -697,7 +742,7 @@ def _backward_edge_cases() -> list:
         want = abw.attention_backward_reference(q, k, v, cot, H, mask)
         torch.cuda.synchronize()
         case = {"kernel": "attention_backward", "dtype": "float32", "shape": [B, Lq, Lk, E, H],
-                "device_kernel": "attention_backward_{dq,dkdv}_kernel",
+                "device_kernel": "attention_backward_{dq,dkdv}_3xtf32_kernel",
                 "launched": names,
                 "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
                 "max_err_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, want)),
@@ -829,6 +874,8 @@ def check_attention_trainable() -> list:
 
     b["ms"] = cuda_time_ms(call, iters=10)
     b["kernel_ms"] = device_kernel_ms(call, "attention_backward_", iters=10)
+    b["dq_kernel_ms"], b["dkdv_kernel_ms"] = (device_kernel_ms(call, name, iters=10)
+                                              for name in BACKWARD_KERNELS)
     # device memory a call holds beyond its inputs and its dq, dk, dv
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -850,9 +897,13 @@ def check_attention_trainable() -> list:
     b["autograd_backward_ms"] = cuda_time_ms(backward_of(plain), iters=10)
     b["library_ms"] = cuda_time_ms(backward_of(sdpa), iters=10)
     # q, k, v, O, d_out and the mask read once; dq, dk, dv written once; five
-    # products: S (only q, k, v, O and d_out are given), dP, dV, dQ and dK
+    # products: S (only q, k, v, O and d_out are given), dP, dV, dQ and dK,
+    # each three TF32 products on the tensor cores (3xTF32), as the kernels
+    # take them; and the same five in fp32 without the tensor cores
     moved = 8 * B * L * E * 4 + B * L
-    b["bound_ms"], b["bound_by"] = bound(moved, 5 * 2.0 * B * H * L * L * hd, "float32")
+    flops = 5 * 2.0 * B * H * L * L * hd
+    b["bound_ms"], b["bound_by"] = bound(moved, 3 * flops, "tf32")
+    b["bound_fp32_ms"], _ = bound(moved, flops, "float32")
     return [res, b]
 
 
@@ -915,15 +966,16 @@ def _pair_kernels():
 
 
 # the device kernel the pair and short-key wrappers launch, by dtype: bf16
-# on the mma body, float32 on the CUDA cores (the one-matmul kernel: the
-# CUDA cores in both)
+# on the mma tiles, float32 on the CUDA cores
 PAIR_KERNEL_NAMES = {("attention_packed_pair", "bfloat16"): "attention_packed_pair_mma_kernel",
                      ("attention_packed_pair", "float32"): "attention_packed_pair_kernel",
-                     ("attention_shortkey", "bfloat16"): "attention_shortkey_mma_kernel"}
+                     ("attention_shortkey", "bfloat16"): "attention_shortkey_mma_kernel",
+                     ("attention_shortkey_onematmul", "bfloat16"):
+                         "attention_shortkey_onematmul_mma_kernel"}
 
 
 def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: bool,
-                         dtype_name: str = "bfloat16", time_it: bool = True, seed: int = 4,
+                         dtype_name: str = "bfloat16", seed: int = 4,
                          summary=None) -> dict:
     """A pair-masked or short-key attention kernel against its plain version
     at a model site, then its time, its plain version's, and SDPA's on the
@@ -952,20 +1004,19 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     if not (err <= tol and res["finite"] and dead_rows > 0 and dead_err <= tol):
         emit(dict(res, phase="kernels", ok=False))
         raise SystemExit(f"{name} at {site}: {res}")
-    if time_it:
-        res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask, pf))
-        res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask, pf), PAIR_KERNEL_NAMES.get(
-            (name, dtype_name), "attention_shortkey_kernel"))
-        res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask, pf))
-        am = torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
-            _dead_pairs(mask, pf, H, Lq), -1e9)
-        qh, kh, vh = (t.view(B, -1, H, hd).transpose(1, 2) for t in (q, k, v))
-        res["library_ms"] = cuda_time_ms(
-            lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
-        )
-        item = q.element_size()
-        moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
-        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
+    res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask, pf))
+    res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask, pf), PAIR_KERNEL_NAMES.get(
+        (name, dtype_name), "attention_shortkey_kernel"))
+    res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask, pf))
+    am = torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
+        _dead_pairs(mask, pf, H, Lq), -1e9)
+    qh, kh, vh = (t.view(B, -1, H, hd).transpose(1, 2) for t in (q, k, v))
+    res["library_ms"] = cuda_time_ms(
+        lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
+    )
+    item = q.element_size()
+    moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
+    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
     return res
 
 
@@ -1164,7 +1215,7 @@ def phase_kernels() -> dict:
     # the one-matmul kernel in fp32 ("auto" with SHORTKEY_VARIANT "kernel" on
     # an fp32 model, e.g. TACoS: 16 x 600 video queries x 17 text keys)
     results.append(check_pair_attention("attention_shortkey_onematmul", "tacos_fp32", TACOS["B"],
-                                        TACOS["Lv"], 17, True, "float32", time_it=False))
+                                        TACOS["Lv"], 17, True, "float32"))
     results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE,
                                         summary="attention_packed_pair"))
     # the fp32 instances of the pair and short-key kernels (MESM_ATTN_VARIANT
@@ -1526,6 +1577,8 @@ def phase_model(card: str, n_batches: int = 4) -> dict:
         res[f"rows_per_s_{mode}"] = [r for m, r in turns if m == mode]
     res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     res["profile"] = profile_step(step16, batches)
+    with dispatch_mode("auto+kernel"):
+        res["profile_auto_kernel"] = profile_step(step16, batches)
     res["card"] = card
     res["ok"] = bool(ok)
     emit(res)

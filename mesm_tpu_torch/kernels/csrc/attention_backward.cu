@@ -1,6 +1,7 @@
 // The backward of float32 multi-head attention over (B, L, E) operands for
-// Hopper (sm_90a), on the CUDA cores: the gradients that autograd gives for
-// models/attention.attention_core with a key mask and no pair factors.
+// Hopper (sm_90a), its products on the tensor cores in 3xTF32: the
+// gradients that autograd gives for models/attention.attention_core with a
+// key mask and no pair factors.
 //
 // Replaces the backward of mesm_tpu/ops/attention_pallas.py::
 // fused_attention_trainable (`_fat_bwd`, :599-614), which has no Pallas
@@ -20,34 +21,54 @@
 // takes; here it comes from O, since P is never stored.
 //
 // What bounds it on the H100: the operations. At the TACoS train shape (32
-// x 601 x 601, H 8, hd 32) one product is 5.9 GFLOP, 88 us at 67 TFLOP/s;
-// the gradients need at least five (S, dP, dV, dQ, dK). The tensor cores'
-// TF32 keeps 10 mantissa bits, too few for the f32 core's gradients.
+// x 601 x 601, H 8, hd 32) one product is 5.9 GFLOP, 88 us at the 67
+// TFLOP/s of fp32 without the tensor cores; the gradients need at least
+// five (S, dP, dV, dQ, dK). One TF32 product keeps 10 mantissa bits of each
+// operand, too few for the f32 core's gradients; 3xTF32 keeps about 21:
+// each operand x splits into hi = tf32(x) and lo = tf32(x - hi), and a
+// product a . b is lo_a . hi_b + hi_a . lo_b + hi_a . hi_b (lo . lo, about
+// 2^-22 of the product, is dropped), three tensor-core products that the
+// tensor cores' 495 TFLOP/s TF32 rate turn into ~0.04 ms each at TACoS.
 //
-// Design: deterministic (no atomics: each sum is taken by one thread in a
-// fixed order), on register tiles as attention_regtile.cuh: blocks of 256
-// threads, tiles of 64 rows x 64 keys with the operands in shared memory as
-// floats (d-major for the products over head_dim, so each pair of 16-byte
-// loads feeds 16 FMAs), each thread a 4 x 4 tile of S and dP and a
-// 4 x hd/16 tile of its gradient rows. Two launches:
-//   - attention_backward_dq_kernel, one block per (b, 64-query tile, h):
-//     D of its rows from O and dO, then one walk over the key tiles that
-//     computes S, dP and e = exp(S - m) with each row's running max m and
-//     sum l (online, as the forward), and accumulates e o (dP - D) . K,
+// Design: deterministic (no atomics: each sum is taken in a fixed order),
+// on mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 (PTX ISA: A holds
+// rows g and g + 8, columns t and t + 4 of a 16 x 8 tile, lane = 4 g + t;
+// B column g, rows t and t + 4; C rows g and g + 8, columns 2t and 2t + 1).
+// Blocks of 4 warps, tiles of 64 rows (16 a warp) against the 64 keys or
+// queries of a tile of the other side, 32 of them a step. A warp's own
+// rows (qs and dO, or K and V) are A fragments in registers, read once from
+// device memory and split at each step. The other side's tiles are staged
+// by cp.async into two buffers (the next tile lands while this one is
+// computed) and split once a block: each thread splits the chunks it
+// copied, in place (hi) and into a second array (lo), as f32 rows at a
+// stride of hd + 4 floats, so each B fragment load (8 rows x 4 columns, or
+// 4 row pairs x 8 columns) hits 32 distinct banks. Splitting in the warps
+// instead (each value once for each of the four warps and each product that
+// reads it) was slower: the splits, not the loads, held the products back;
+// now the three mma.sync TF32 products do. A product whose result feeds the
+// next one keeps it in registers: the C tile of 8 keys is the A fragment of
+// those keys when the k index t stands for key 2t and t + 4 for key 2t + 1,
+// and the B fragment is read in that order. Sums over keys or queries are
+// taken a step at a time from zero on the tensor cores and added to the
+// running sum on the CUDA cores in f32, so that the tensor cores' own
+// accumulation (which truncates) rounds only short sums. The
+// exponentials, dS, the masks and the statistics stay f32 on the CUDA
+// cores. Two launches:
+//   - attention_backward_dq_3xtf32_kernel, one block per (b, 64-query tile,
+//     h): D of its rows from O and dO, then one walk over the key tiles that
+//     computes S and dP, e = exp(S - m) with each row's running max m and
+//     sum l (online, as the forward), and the sum of e o (dP - D) . K,
 //     rescaled when m grows; at the end dQ = that sum * scale / l, and
 //     (m, 1/l, D) of each row go to a (B, H, Lq, 3) scratch;
-//   - attention_backward_dkdv_kernel, after it on the stream, one block per
-//     (b, 64-key tile, h): its keys' K_h and V_h stay in shared memory while
-//     it walks the query tiles, recomputes S^T and P^T = exp(S^T - m) / l
-//     from the scratch, computes dP^T and dS^T, and accumulates dV and dK.
+//   - attention_backward_dkdv_3xtf32_kernel, after it on the stream, one
+//     block per (b, 64-key tile, h): it walks the query tiles, recomputes
+//     S^T and P^T = exp(S^T - m) / l from the scratch, computes dP^T and
+//     dS^T, and accumulates dV and dK.
 // Seven products where the function needs five (S and dP in both kernels),
 // and no scratch beyond the 12 bytes of statistics a query row and head:
-// the memory of the backward grows as Lq + Lk, not as Lq * Lk. A design
-// with one product fewer (the dk / dv kernel also writing each key tile's
-// dQ partial sums, summed by a third kernel) needs 4 bytes a query row, key
-// tile and head_dim column: Lq * Lk * hd / 16 bytes a (b, h), hd / 64 of
-// the f32 logits (199 MB at the TACoS shape); PERF.md holds the two
-// against each other.
+// the memory of the backward grows as Lq + Lk, not as Lq * Lk. Shared
+// memory: 72 KB a block at hd 32 (2 blocks an SM: 8 warps, no spills), 136
+// KB at hd 64 (one block an SM).
 
 #include "attention_grid.cuh"
 
@@ -57,105 +78,194 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 64;    // query rows or keys of a tile
-constexpr int STRIDE = 68;  // row stride (floats) of the d-major and transposed tiles
+constexpr int THREADS = 128;  // 4 warps, 16 rows each
+constexpr int TILE = 64;      // query rows or keys of a tile
 constexpr float NEG_INF = -1e9f;
 
-// Dynamic shared memory of each kernel, in bytes.
+// row stride (floats) of a staged tile: conflict-free fragment loads
+template <int HD>
+constexpr int RS = HD + 4;
+// keys (dq kernel) or queries (dk / dv kernel) of a tile taken in one step
+constexpr int STEP = 32;
+
+// Dynamic shared memory of each kernel, in bytes: two buffers, each the hi
+// and lo parts of two tiles [TILE][RS]; the dq kernel adds TILE key flags a
+// buffer, the dk / dv kernel TILE rows of statistics (3 floats) a buffer.
 template <int HD>
 struct DqSmem {
-  // Qd, Gd, Kd, Vd [HD][STRIDE]; Kr [TILE][HD]; Ps [TILE][STRIDE]; Dr [TILE];
-  // then TILE key flags
-  static constexpr size_t bytes =
-      (size_t)(4 * HD * STRIDE + TILE * HD + TILE * STRIDE + TILE) * 4 + TILE;
+  static constexpr size_t bytes = (size_t)8 * TILE * RS<HD> * 4 + 2 * TILE;
 };
 template <int HD>
 struct DkdvSmem {
-  // Kd, Vd, Qd, Gd [HD][STRIDE]; Qr, Gr [TILE][HD]; Pt, St [TILE][STRIDE];
-  // Ms, Rs, Ds [TILE]
-  static constexpr size_t bytes =
-      (size_t)(4 * HD * STRIDE + 2 * TILE * HD + 2 * TILE * STRIDE + 3 * TILE) * 4;
+  static constexpr size_t bytes = ((size_t)8 * TILE * RS<HD> + 2 * TILE * 3) * 4;
 };
 
-// Rows [0, TILE) of a tile (row stride E floats; `rows` of them read, zeros
-// beyond), each value times `mul`, into dst d-major: dst[d * STRIDE + r].
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N groups of this thread's copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x as tf32, rounded to nearest with ties away from zero: cvt.rna.tf32.f32
+// for every finite x, in two integer instructions (half a tf32 ulp added to
+// the magnitude, the 13 low bits cleared); the cvt itself was slower
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo to about 21 bits: hi = tf32(x), lo = tf32(x - hi) (exact
+// difference)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (4 f32 values), split.
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
+    split(a0, hi[0], lo[0]);
+    split(a1, hi[1], lo[1]);
+    split(a2, hi[2], lo[2]);
+    split(a3, hi[3], lo[3]);
+  }
+};
+
+// A staged tile, split: hi = tf32(x), lo = tf32(x - hi) at the same offsets.
+struct SplitTile {
+  const float* hi;
+  const float* lo;
+};
+
+// c += a . b in 3xTF32, the small terms first: lo . hi, hi . lo, hi . hi;
+// b's two values at offsets o0, o1 of a split tile
+__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, const SplitTile& T, int o0,
+                                     int o1) {
+  const uint32_t bh0 = __float_as_uint(T.hi[o0]), bh1 = __float_as_uint(T.hi[o1]);
+  const uint32_t bl0 = __float_as_uint(T.lo[o0]), bl1 = __float_as_uint(T.lo[o1]);
+  mma_tf32(c, a.lo, bh0, bh1);
+  mma_tf32(c, a.hi, bl0, bl1);
+  mma_tf32(c, a.hi, bh0, bh1);
+}
+
+// cp.async of rows [0, TILE) of an f32 tile (row stride E in device
+// memory; `rows` of them read, zeros beyond) into dst at row stride RS: a
+// thread copies the 16-byte chunks i = tid + n THREADS.
 template <int HD>
-__device__ __forceinline__ void stage_dmajor(float* dst, const float* __restrict__ src, int rows,
-                                             int E, float mul) {
-  constexpr int D4 = HD / 4;
-  for (int idx = threadIdx.x; idx < TILE * D4; idx += THREADS) {
-    const int r = idx % TILE, d4 = idx / TILE;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = *reinterpret_cast<const float4*>(src + (size_t)r * E + 4 * d4);
-    dst[(4 * d4 + 0) * STRIDE + r] = x.x * mul;
-    dst[(4 * d4 + 1) * STRIDE + r] = x.y * mul;
-    dst[(4 * d4 + 2) * STRIDE + r] = x.z * mul;
-    dst[(4 * d4 + 3) * STRIDE + r] = x.w * mul;
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int rows,
+                                           int E) {
+  constexpr int C4 = HD / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < TILE * C4; i += THREADS) {
+    const int r = i / C4, c = i % C4;
+    float* d = dst + r * RS<HD> + 4 * c;
+    if (r < rows)
+      cp_async16(d, src + (size_t)r * E + 4 * c);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
-// The same tile row-major: dst[r * HD + d].
+// The chunks this thread staged into `hi` (its own copies, arrived), each
+// value times `mul`, split in place: hi keeps tf32(x * mul), lo gets the
+// rest. Visible to the block after the next barrier.
 template <int HD>
-__device__ __forceinline__ void stage_rowmajor(float* dst, const float* __restrict__ src,
-                                               int rows, int E, float mul) {
-  constexpr int D4 = HD / 4;
-  for (int idx = threadIdx.x; idx < TILE * D4; idx += THREADS) {
-    const int r = idx / D4, d4 = idx % D4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < rows) x = *reinterpret_cast<const float4*>(src + (size_t)r * E + 4 * d4);
-    *reinterpret_cast<float4*>(dst + r * HD + 4 * d4) =
-        make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+__device__ __forceinline__ void split_tile(float* hi, float* lo, float mul) {
+  constexpr int C4 = HD / 4;
+  for (int i = threadIdx.x; i < TILE * C4; i += THREADS) {
+    const int off = i / C4 * RS<HD> + 4 * (i % C4);
+    const float4 x = *reinterpret_cast<const float4*>(hi + off);
+    uint4 h, l;
+    split(x.x * mul, h.x, l.x);
+    split(x.y * mul, h.y, l.y);
+    split(x.z * mul, h.z, l.z);
+    split(x.w * mul, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-// s[r][c] = sum_d A[d][4 ty + r] * Bm[d][4 tx + c], d in order, both d-major.
+// The A fragments of rows r0 .. r0 + 16 (row stride E, from device memory),
+// every k step of HD, each value times `mul`; rows at or past `rows` are 0.
 template <int HD>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A, const float* Bm, int ty,
-                                         int tx) {
+__device__ __forceinline__ void load_a(float (&a)[HD / 8][4], const float* __restrict__ src,
+                                       int r0, int rows, int E, int lane, float mul) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool in0 = r0 + g < rows, in1 = r0 + g + 8 < rows;
+  const float* p0 = src + (size_t)(r0 + g) * E + t;
+  const float* p1 = p0 + (size_t)8 * E;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(A + d * STRIDE + 4 * ty);
-    const float4 bb = *reinterpret_cast<const float4*>(Bm + d * STRIDE + 4 * tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = fmaf(av[r], bv[c], s[r][c]);
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    a[ks][0] = in0 ? p0[8 * ks] * mul : 0.f;
+    a[ks][1] = in1 ? p1[8 * ks] * mul : 0.f;
+    a[ks][2] = in0 ? p0[8 * ks + 4] * mul : 0.f;
+    a[ks][3] = in1 ? p1[8 * ks + 4] * mul : 0.f;
   }
 }
 
-// acc[r][t] += sum_{j < n} T[j][4 ty + r] * R[j][CT tx + t]: T transposed
-// [TILE][STRIDE], R row-major [TILE][HD].
-template <int HD>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][HD / 16], const float* T, const float* R,
-                                         int n, int ty, int tx) {
-  constexpr int CT = HD / 16;
-#pragma unroll 4
-  for (int j = 0; j < n; ++j) {
-    const float4 p = *reinterpret_cast<const float4*>(T + j * STRIDE + 4 * ty);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-    float rv[CT];
-    if constexpr (CT == 2) {
-      const float2 x = *reinterpret_cast<const float2*>(R + j * HD + 2 * tx);
-      rv[0] = x.x;
-      rv[1] = x.y;
-    } else {
-      const float4 x = *reinterpret_cast<const float4*>(R + j * HD + 4 * tx);
-      rv[0] = x.x;
-      rv[1] = x.y;
-      rv[2] = x.z;
-      rv[3] = x.w;
+// c[nt] = A . T^T over HD: the rows n0 + 8 nt + g of split tile T are the B
+// columns (S = qs . K^T with T = K).
+template <int HD, int NT>
+__device__ __forceinline__ void product_nt(float (&c)[NT][4], const float (&a)[HD / 8][4],
+                                           const SplitTile& T, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    const SplitA sa(a[ks][0], a[ks][1], a[ks][2], a[ks][3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int off = (n0 + 8 * nt + g) * RS<HD> + 8 * ks + t;
+      mma3(c[nt], sa, T, off, off + 4);
     }
+  }
+}
+
+// c = X . T over the KT rows k0 .. k0 + KT of split tile T (the HD columns
+// of T are the output columns), with X the C tiles x[KT / 8] of a previous
+// product (16 rows x KT): tile ks's C values (row g: keys 2t, 2t + 1; row
+// g + 8: the same) are the A fragment of k step ks when k index t stands
+// for row 2t of T and t + 4 for row 2t + 1.
+template <int HD, int KT>
+__device__ __forceinline__ void product_kt(float (&c)[HD / 8][4], const float (&x)[KT / 8][4],
+                                           const SplitTile& T, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+  for (int nd = 0; nd < HD / 8; ++nd)
 #pragma unroll
-      for (int t = 0; t < CT; ++t) acc[r][t] = fmaf(pv[r], rv[t], acc[r][t]);
+    for (int i = 0; i < 4; ++i) c[nd][i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KT / 8; ++ks) {
+    const SplitA sa(x[ks][0], x[ks][2], x[ks][1], x[ks][3]);
+    const int off = (k0 + 8 * ks + 2 * t) * RS<HD> + g;
+#pragma unroll
+    for (int nd = 0; nd < HD / 8; ++nd) mma3(c[nd], sa, T, off + 8 * nd, off + RS<HD> + 8 * nd);
   }
 }
 
@@ -169,214 +279,312 @@ __device__ __forceinline__ float masked_logit(float s, uint8_t f) {
   return f == 2 ? -INFINITY : (f ? s : NEG_INF);
 }
 
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The walk over the tiles of the other side, two buffers: tile it + 1's
+// copies land while tile it is computed, tile it + 2's are issued as soon
+// as every warp is done with tile it's buffer, and each thread splits its
+// own chunks of tile it + 1 before the barrier that opens it.
+//   stage(it, buf): issue (and commit) tile it's copies into buffer buf
+//   split(buf): split this thread's chunks of buffer buf
+//   compute(it, buf): the products of tile it
+//   between(it): work for tile it + 1 after the first barrier
+template <typename Stage, typename Split, typename Compute, typename Between>
+__device__ __forceinline__ void walk(int ntiles, Stage stage, Split split_own, Compute compute,
+                                     Between between) {
+  stage(0, 0);
+  if (ntiles > 1) stage(1, 1);
+  if (ntiles > 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+  split_own(0);
+  __syncthreads();
+  for (int it = 0; it < ntiles; ++it) {
+    compute(it, it & 1);
+    __syncthreads();  // every warp is done with buffer it & 1
+    if (it + 2 < ntiles) stage(it + 2, it & 1);
+    if (it + 1 < ntiles) {
+      if (it + 2 < ntiles)
+        cp_async_wait<1>();
+      else
+        cp_async_wait<0>();
+      split_own((it + 1) & 1);
+      between(it);
+    }
+    __syncthreads();  // tile it + 1 is split
+  }
+}
+
 // dQ of a query tile, and each of its rows' softmax statistics and D, in
 // scratch rows of 3 floats: m (the max logit), 1 / l (l = sum_j exp(S_ij -
 // m)) and D.
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-attention_backward_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                             const float* __restrict__ v, const float* __restrict__ o,
-                             const float* __restrict__ g, const uint8_t* __restrict__ mask,
-                             float* __restrict__ dq, float* __restrict__ stats, int H, int Lq,
-                             int Lk, int E, float scale) {
-  constexpr int CT = HD / 16;
+attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ o,
+                                    const float* __restrict__ g, const uint8_t* __restrict__ mask,
+                                    float* __restrict__ dq, float* __restrict__ stats, int H,
+                                    int Lq, int Lk, int E, float scale) {
+  constexpr int NT = STEP / 8, ND = HD / 8;
+  constexpr int T1 = TILE * RS<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Qd = reinterpret_cast<float*>(smem);
-  float* Gd = Qd + HD * STRIDE;
-  float* Kd = Gd + HD * STRIDE;
-  float* Vd = Kd + HD * STRIDE;
-  float* Kr = Vd + HD * STRIDE;
-  float* Ps = Kr + TILE * HD;
-  float* Dr = Ps + TILE * STRIDE;
-  uint8_t* Fs = reinterpret_cast<uint8_t*>(Dr + TILE);
+  float* buf = reinterpret_cast<float*>(smem);  // [2][Khi, Klo, Vhi, Vlo][T1]
+  uint8_t* Fs = reinterpret_cast<uint8_t*>(buf + 8 * T1);  // [2][TILE]
 
   int b, h, q0;
   attn_grid::block_coords<TILE>(H, Lq, b, h, q0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const int rows = min(TILE, Lq - q0);
   const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
   const uint8_t* mask_b = mask + (size_t)b * Lk;
-  stage_dmajor<HD>(Qd, q + qoff, rows, E, scale);
-  stage_dmajor<HD>(Gd, g + qoff, rows, E, 1.f);
-  {  // D = rowsum(dO o O), four threads a row
-    const int r = tid / 4, part = tid % 4;
-    float acc = 0.f;
-    if (r < rows) {
-      const size_t off = qoff + (size_t)r * E + part * (HD / 4);
+  const int ntiles = (Lk + TILE - 1) / TILE;
+  auto tiles_of = [&](int bi) { return buf + bi * 4 * T1; };
+  // the warp's rows 16 warp + g and + 8: qs and dO as A fragments, D
+  float qa[ND][4], ga[ND][4];
+  load_a<HD>(qa, q + qoff, 16 * warp, rows, E, lane, scale);
+  load_a<HD>(ga, g + qoff, 16 * warp, rows, E, lane, 1.f);
+  float D0 = 0.f, D1 = 0.f;  // rowsum(dO o O) of rows g and g + 8, four lanes a row
+  {
+    const int r0 = 16 * warp + gq;
 #pragma unroll
-      for (int d = 0; d < HD / 4; ++d) acc = fmaf(g[off + d], o[off + d], acc);
+    for (int d = 0; d < HD / 4; ++d) {
+      const int col = tq * (HD / 4) + d;
+      if (r0 < rows) D0 = fmaf(g[qoff + (size_t)r0 * E + col], o[qoff + (size_t)r0 * E + col], D0);
+      if (r0 + 8 < rows)
+        D1 = fmaf(g[qoff + (size_t)(r0 + 8) * E + col], o[qoff + (size_t)(r0 + 8) * E + col], D1);
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (part == 0) Dr[r] = acc;
+    D0 = quad_sum(D0);
+    D1 = quad_sum(D1);
   }
-  __syncthreads();
-  // the rows 4 ty + r: their D, running max m and sum l, and the sum of
+  // the running max m and sum l of rows g and g + 8, and the sum of
   // e o (dP - D) . K over the keys so far, scaled to exp(-m)
-  float Dv[4], m[4], l[4], acc[4][CT];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[ND][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    Dv[r] = Dr[4 * ty + r];
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int t = 0; t < CT; ++t) acc[r][t] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+  // the key flags: thread tid < TILE holds key tid's of the next tile
+  if (tid < TILE) Fs[tid] = key_flag(mask_b, tid, Lk);
+  uint8_t fnext = 0;
 
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    const int kn = min(TILE, Lk - k0);
-    const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
-    __syncthreads();  // the previous tile's K, V and dS are read
-    stage_dmajor<HD>(Kd, k + koff, kn, E, 1.f);
-    stage_rowmajor<HD>(Kr, k + koff, kn, E, 1.f);
-    stage_dmajor<HD>(Vd, v + koff, kn, E, 1.f);
-    for (int j = tid; j < TILE; j += THREADS) Fs[j] = key_flag(mask_b, k0 + j, Lk);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(s, Qd, Kd, ty, tx);
-    tile_dot<HD>(dp, Gd, Vd, ty, tx);
-    uint8_t f[4];
+  walk(
+      ntiles,
+      [&](int it, int bi) {
+        const int k0 = it * TILE;
+        const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
+        stage_tile<HD>(tiles_of(bi), k + koff, min(TILE, Lk - k0), E);
+        stage_tile<HD>(tiles_of(bi) + 2 * T1, v + koff, min(TILE, Lk - k0), E);
+        cp_async_commit();
+      },
+      [&](int bi) {
+        split_tile<HD>(tiles_of(bi), tiles_of(bi) + T1, 1.f);
+        split_tile<HD>(tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1, 1.f);
+      },
+      [&](int it, int bi) {
+        if (tid < TILE) fnext = key_flag(mask_b, (it + 1) * TILE + tid, Lk);
+        const SplitTile Kt{tiles_of(bi), tiles_of(bi) + T1};
+        const SplitTile Vt{tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1};
+        const uint8_t* Fb = Fs + bi * TILE;
+        const int kn = min(TILE, Lk - it * TILE);
+        for (int kk = 0; kk < kn; kk += STEP) {  // a step holds at least one key < Lk
+          float s[NT][4], dp[NT][4];
+          product_nt<HD, NT>(s, qa, Kt, kk, lane);
+          product_nt<HD, NT>(dp, ga, Vt, kk, lane);
+          float tmax0 = -INFINITY, tmax1 = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) f[c] = Fs[4 * tx + c];
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint8_t f0 = Fb[kk + 8 * nt + 2 * tq], f1 = Fb[kk + 8 * nt + 2 * tq + 1];
+            s[nt][0] = masked_logit(s[nt][0], f0);
+            s[nt][1] = masked_logit(s[nt][1], f1);
+            s[nt][2] = masked_logit(s[nt][2], f0);
+            s[nt][3] = masked_logit(s[nt][3], f1);
+            tmax0 = fmaxf(tmax0, fmaxf(s[nt][0], s[nt][1]));
+            tmax1 = fmaxf(tmax1, fmaxf(s[nt][2], s[nt][3]));
+          }
+          const float mn0 = fmaxf(m0, quad_max(tmax0)), mn1 = fmaxf(m1, quad_max(tmax1));
+          const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 0 at the first step
+          float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float tmax = -INFINITY;
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint8_t f0 = Fb[kk + 8 * nt + 2 * tq], f1 = Fb[kk + 8 * nt + 2 * tq + 1];
+            const float e0 = expf(s[nt][0] - mn0), e1 = expf(s[nt][1] - mn0);
+            const float e2 = expf(s[nt][2] - mn1), e3 = expf(s[nt][3] - mn1);
+            rs0 += e0 + e1;
+            rs1 += e2 + e3;
+            // e o (dP - D), 0 at masked keys
+            s[nt][0] = f0 == 1 ? e0 * (dp[nt][0] - D0) : 0.f;
+            s[nt][1] = f1 == 1 ? e1 * (dp[nt][1] - D0) : 0.f;
+            s[nt][2] = f0 == 1 ? e2 * (dp[nt][2] - D1) : 0.f;
+            s[nt][3] = f1 == 1 ? e3 * (dp[nt][3] - D1) : 0.f;
+          }
+          l0 = l0 * alpha0 + quad_sum(rs0);
+          l1 = l1 * alpha1 + quad_sum(rs1);
+          m0 = mn0;
+          m1 = mn1;
+          float part[ND][4];
+          product_kt<HD, STEP>(part, s, Kt, kk, lane);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = masked_logit(s[r][c], f[c]);
-        tmax = fmaxf(tmax, s[r][c]);
-      }
+          for (int nd = 0; nd < ND; ++nd) {
+            acc[nd][0] = fmaf(acc[nd][0], alpha0, part[nd][0]);
+            acc[nd][1] = fmaf(acc[nd][1], alpha0, part[nd][1]);
+            acc[nd][2] = fmaf(acc[nd][2], alpha1, part[nd][2]);
+            acc[nd][3] = fmaf(acc[nd][3], alpha1, part[nd][3]);
+          }
+        }
+      },
+      [&](int it) {
+        if (tid < TILE) Fs[((it + 1) & 1) * TILE + tid] = fnext;
+      });
+
+  // l >= 1: the row's largest logit adds exp(0)
+  const float rinv0 = 1.f / l0, rinv1 = 1.f / l1;
+  const int qi0 = q0 + 16 * warp + gq, qi1 = qi0 + 8;
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float mn = fmaxf(m[r], tmax);  // finite: a tile holds at least one key
-      const float alpha = expf(m[r] - mn);  // 0 at the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = expf(s[r][c] - mn);
-        rs += e;
-        dp[r][c] = f[c] == 1 ? e * (dp[r][c] - Dv[r]) : 0.f;  // 0 at masked keys
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[r] = l[r] * alpha + rs;
-      m[r] = mn;
-#pragma unroll
-      for (int t = 0; t < CT; ++t) acc[r][t] *= alpha;
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      *reinterpret_cast<float4*>(Ps + (4 * tx + c) * STRIDE + 4 * ty) =
-          make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]);
-    __syncthreads();
-    tile_acc<HD>(acc, Ps, Kr, kn, ty, tx);
+  for (int nd = 0; nd < ND; ++nd) {
+    const int col = h * HD + 8 * nd + 2 * tq;
+    if (qi0 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * Lq + qi0) * E + col) =
+          make_float2(acc[nd][0] * rinv0 * scale, acc[nd][1] * rinv0 * scale);
+    if (qi1 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * Lq + qi1) * E + col) =
+          make_float2(acc[nd][2] * rinv1 * scale, acc[nd][3] * rinv1 * scale);
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi >= Lq) continue;
-    const float rinv = 1.f / l[r];  // l >= 1: the row's largest logit adds exp(0)
-    float* dst = dq + ((size_t)b * Lq + qi) * E + h * HD + CT * tx;
-#pragma unroll
-    for (int t = 0; t < CT; ++t) dst[t] = acc[r][t] * rinv * scale;
-    if (tx == 0) {
-      float* st = stats + (((size_t)b * H + h) * Lq + qi) * 3;
-      st[0] = m[r];
-      st[1] = rinv;
-      st[2] = Dv[r];
+  if (tq == 0) {
+    float* st = stats + ((size_t)b * H + h) * Lq * 3;
+    if (qi0 < Lq) {
+      st[(size_t)qi0 * 3] = m0;
+      st[(size_t)qi0 * 3 + 1] = rinv0;
+      st[(size_t)qi0 * 3 + 2] = D0;
+    }
+    if (qi1 < Lq) {
+      st[(size_t)qi1 * 3] = m1;
+      st[(size_t)qi1 * 3 + 1] = rinv1;
+      st[(size_t)qi1 * 3 + 2] = D1;
     }
   }
 }
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2)
-attention_backward_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ g,
-                               const uint8_t* __restrict__ mask, const float* __restrict__ stats,
-                               float* __restrict__ dk, float* __restrict__ dv, int H, int Lq,
-                               int Lk, int E, float scale) {
-  constexpr int CT = HD / 16;
+attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v, const float* __restrict__ g,
+                                      const uint8_t* __restrict__ mask,
+                                      const float* __restrict__ stats, float* __restrict__ dk,
+                                      float* __restrict__ dv, int H, int Lq, int Lk, int E,
+                                      float scale) {
+  constexpr int NT = STEP / 8, ND = HD / 8;
+  constexpr int T1 = TILE * RS<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* Kd = reinterpret_cast<float*>(smem);
-  float* Vd = Kd + HD * STRIDE;
-  float* Qd = Vd + HD * STRIDE;
-  float* Gd = Qd + HD * STRIDE;
-  float* Qr = Gd + HD * STRIDE;
-  float* Gr = Qr + TILE * HD;
-  float* Pt = Gr + TILE * HD;
-  float* St = Pt + TILE * STRIDE;
-  float* Ms = St + TILE * STRIDE;
-  float* Rs = Ms + TILE;
-  float* Ds = Rs + TILE;
+  float* buf = reinterpret_cast<float*>(smem);  // [2][Qhi, Qlo, Ghi, Glo][T1]
+  float* St = buf + 8 * T1;                     // [2][TILE * 3]
 
   int b, h, k0;
   attn_grid::block_coords<TILE>(H, Lk, b, h, k0);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gk = lane >> 2, tk = lane & 3;
   const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
-  stage_dmajor<HD>(Kd, k + koff, min(TILE, Lk - k0), E, 1.f);
-  stage_dmajor<HD>(Vd, v + koff, min(TILE, Lk - k0), E, 1.f);
-  uint8_t f[4];  // the flags of keys 4 ty + r
-#pragma unroll
-  for (int r = 0; r < 4; ++r) f[r] = key_flag(mask + (size_t)b * Lk, k0 + 4 * ty + r, Lk);
   const float* st = stats + ((size_t)b * H + h) * Lq * 3;
+  const int ntiles = (Lq + TILE - 1) / TILE;
+  // the warp's keys 16 warp + g and + 8: K and V as A fragments, their flags
+  float ka[ND][4], va[ND][4];
+  load_a<HD>(ka, k + koff, 16 * warp, Lk - k0, E, lane, 1.f);
+  load_a<HD>(va, v + koff, 16 * warp, Lk - k0, E, lane, 1.f);
+  const int kj0 = k0 + 16 * warp + gk, kj1 = kj0 + 8;
+  const uint8_t f0 = key_flag(mask + (size_t)b * Lk, kj0, Lk);
+  const uint8_t f1 = key_flag(mask + (size_t)b * Lk, kj1, Lk);
 
-  float adv[4][CT], adk[4][CT];
+  float adv[ND][4], adk[ND][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
-    for (int t = 0; t < CT; ++t) adv[r][t] = adk[r][t] = 0.f;
-  for (int q0 = 0; q0 < Lq; q0 += TILE) {
-    const int qn = min(TILE, Lq - q0);
-    const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
-    __syncthreads();  // the previous tile's Q, dO, P and dS are read
-    stage_dmajor<HD>(Qd, q + qoff, qn, E, scale);
-    stage_rowmajor<HD>(Qr, q + qoff, qn, E, scale);
-    stage_dmajor<HD>(Gd, g + qoff, qn, E, 1.f);
-    stage_rowmajor<HD>(Gr, g + qoff, qn, E, 1.f);
-    // rows past Lq: q = 0 gives S = 0, and 1/l = 0 gives P = 0
-    for (int i = tid; i < TILE; i += THREADS) {
-      const bool in = i < qn;
-      Ms[i] = in ? st[(size_t)(q0 + i) * 3] : 0.f;
-      Rs[i] = in ? st[(size_t)(q0 + i) * 3 + 1] : 0.f;
-      Ds[i] = in ? st[(size_t)(q0 + i) * 3 + 2] : 0.f;
+    for (int i = 0; i < 4; ++i) adv[nd][i] = adk[nd][i] = 0.f;
+  walk(
+      ntiles,
+      [&](int it, int bi) {
+        const int q0 = it * TILE, qn = min(TILE, Lq - q0);
+        const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
+        stage_tile<HD>(buf + bi * 4 * T1, q + qoff, qn, E);
+        stage_tile<HD>(buf + bi * 4 * T1 + 2 * T1, g + qoff, qn, E);
+        // (m, 1/l, D) of each row; rows past Lq: q = 0 gives S = 0, and
+        // 1/l = 0 gives P = 0
+        float* sb = St + bi * TILE * 3;
+        for (int i = tid; i < TILE * 3; i += THREADS) {
+          if (i < qn * 3)
+            cp_async4(sb + i, st + (size_t)q0 * 3 + i);
+          else
+            sb[i] = 0.f;
+        }
+        cp_async_commit();
+      },
+      [&](int bi) {
+        float* base = buf + bi * 4 * T1;
+        split_tile<HD>(base, base + T1, scale);  // qs = q * scale, split
+        split_tile<HD>(base + 2 * T1, base + 3 * T1, 1.f);
+      },
+      [&](int it, int bi) {
+        const float* base = buf + bi * 4 * T1;
+        const SplitTile Qt{base, base + T1}, Gt{base + 2 * T1, base + 3 * T1};
+        const float* Sb = St + bi * TILE * 3;
+        const int qn = min(TILE, Lq - it * TILE);
+        for (int qq = 0; qq < qn; qq += STEP) {
+          // keys g, g + 8 against queries qq + 8 nt + 2t, + 1: S^T and dP^T,
+          // the sums of the dq kernel's S and dP over the same products
+          float s[NT][4], dp[NT][4];
+          product_nt<HD, NT>(s, ka, Qt, qq, lane);
+          product_nt<HD, NT>(dp, va, Gt, qq, lane);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float* sa = Sb + (qq + 8 * nt + 2 * tk) * 3;  // queries i, i + 1
+            const float p0 = expf(masked_logit(s[nt][0], f0) - sa[0]) * sa[1];
+            const float p1 = expf(masked_logit(s[nt][1], f0) - sa[3]) * sa[4];
+            const float p2 = expf(masked_logit(s[nt][2], f1) - sa[0]) * sa[1];
+            const float p3 = expf(masked_logit(s[nt][3], f1) - sa[3]) * sa[4];
+            dp[nt][0] = f0 == 1 ? p0 * (dp[nt][0] - sa[2]) : 0.f;
+            dp[nt][1] = f0 == 1 ? p1 * (dp[nt][1] - sa[5]) : 0.f;
+            dp[nt][2] = f1 == 1 ? p2 * (dp[nt][2] - sa[2]) : 0.f;
+            dp[nt][3] = f1 == 1 ? p3 * (dp[nt][3] - sa[5]) : 0.f;
+            s[nt][0] = p0;
+            s[nt][1] = p1;
+            s[nt][2] = p2;
+            s[nt][3] = p3;
+          }
+          float part[ND][4];
+          product_kt<HD, STEP>(part, s, Gt, qq, lane);  // P^T . dO
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) adv[nd][i] += part[nd][i];
+          product_kt<HD, STEP>(part, dp, Qt, qq, lane);  // dS^T . qs
+#pragma unroll
+          for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) adk[nd][i] += part[nd][i];
+        }
+      },
+      [](int) {});
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    const int col = h * HD + 8 * nd + 2 * tk;
+    if (kj0 < Lk) {
+      const size_t off = ((size_t)b * Lk + kj0) * E + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(adk[nd][0], adk[nd][1]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(adv[nd][0], adv[nd][1]);
     }
-    __syncthreads();
-    // keys 4 ty + r against queries 4 tx + c: S^T and dP^T, the sums of the
-    // dq kernel's S and dP in the same order (so S is the one its m and l
-    // were taken from)
-    float s[4][4], dp[4][4];
-    tile_dot<HD>(s, Kd, Qd, ty, tx);
-    tile_dot<HD>(dp, Vd, Gd, ty, tx);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int i = 4 * tx + c;
-      const float mi = Ms[i], ri = Rs[i], di = Ds[i];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float p = expf(masked_logit(s[r][c], f[r]) - mi) * ri;
-        dp[r][c] = f[r] == 1 ? p * (dp[r][c] - di) : 0.f;
-        s[r][c] = p;
-      }
-      *reinterpret_cast<float4*>(Pt + i * STRIDE + 4 * ty) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-      *reinterpret_cast<float4*>(St + i * STRIDE + 4 * ty) =
-          make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]);
-    }
-    __syncthreads();
-    tile_acc<HD>(adv, Pt, Gr, qn, ty, tx);
-    tile_acc<HD>(adk, St, Qr, qn, ty, tx);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int kj = k0 + 4 * ty + r;
-    if (kj < Lk) {
-      const size_t off = ((size_t)b * Lk + kj) * E + h * HD + CT * tx;
-#pragma unroll
-      for (int t = 0; t < CT; ++t) {
-        dk[off + t] = adk[r][t];
-        dv[off + t] = adv[r][t];
-      }
+    if (kj1 < Lk) {
+      const size_t off = ((size_t)b * Lk + kj1) * E + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(adk[nd][2], adk[nd][3]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(adv[nd][2], adv[nd][3]);
     }
   }
 }
@@ -386,20 +594,20 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
            const uint8_t* mask, float* dq, float* dk, float* dv, float* stats, int B, int H,
            int Lq, int Lk, int E, float scale, cudaStream_t stream) {
   const size_t s1 = DqSmem<HD>::bytes, s2 = DkdvSmem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(attention_backward_dq_kernel<HD>,
+  cudaError_t err = cudaFuncSetAttribute(attention_backward_dq_3xtf32_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attention_backward_dkdv_kernel<HD>,
+  err = cudaFuncSetAttribute(attention_backward_dkdv_3xtf32_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return (int)err;
   const long long bq = (long long)B * H * ((Lq + TILE - 1) / TILE);
   const long long bk = (long long)B * H * ((Lk + TILE - 1) / TILE);
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  attention_backward_dq_kernel<HD><<<(unsigned)bq, THREADS, s1, stream>>>(
+  attention_backward_dq_3xtf32_kernel<HD><<<(unsigned)bq, THREADS, s1, stream>>>(
       q, k, v, o, g, mask, dq, stats, H, Lq, Lk, E, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  attention_backward_dkdv_kernel<HD><<<(unsigned)bk, THREADS, s2, stream>>>(
+  attention_backward_dkdv_3xtf32_kernel<HD><<<(unsigned)bk, THREADS, s2, stream>>>(
       q, k, v, g, mask, stats, dk, dv, H, Lq, Lk, E, scale);
   return (int)cudaGetLastError();
 }

@@ -53,9 +53,32 @@
 // flag is read (a compile-time instance). Operands on 16-byte boundaries,
 // head_dim 32 or 64.
 //
-// Design of the other instances (fp32, and ONEMATMUL in both dtypes: its
-// segment softmax takes its maximum over every head of a row, which the
-// per-head mma blocks do not see), on the CUDA cores: one block of 8 warps
+// Design of the bf16 one-matmul kernel (ONEMATMUL = true): one block per
+// (sample, 64-row query tile) that handles every head, so that the row's
+// maximum over all heads stays inside the block: 2 groups of 4 warps, each
+// warp 16 query rows of every other head. In the mma.sync m16n8k16
+// fragments a row's values sit in one quad of lanes: a warp's maximum is a
+// running fmaxf in registers and two quad shuffles, and the two groups'
+// meet through shared memory at one barrier. Every head's Q tile, the
+// sample's K and V (all heads, padded to a multiple of 16 keys with zero
+// rows), a flag byte per key and head (valid, masked, past Lk, and KEY_PAIR
+// where kf is set) and the rows' pair flags are staged once (cp.async for
+// the tiles) into the swizzled per-head tiles of attention_mma.cuh. A warp
+// walks its heads twice: pass 1 computes each head's logits (qs = bf(q *
+// bf(scale)) into the mma, f32 sums, the masks) and keeps only the running
+// maximum; pass 2 recomputes them (the same instructions on the same
+// operands: the same values), takes e = exp(l - gmax), the segment sum s_h
+// (quad shuffles), p = bf(s_h > 0 ? e / s_h : 1/Lk) and that head's P . V
+// on the tensor cores. Holding every head's logits at once would take 8
+// heads x 32 keys, 128 f32 registers a thread; the recomputation costs a
+// few mma a head at Lk <= 64. e / s_h is a true f32 division: s_h may sit
+// far below 1, so both are scaled by the power of two that brings s_h into
+// [1, 2) (exact) before div_rn. An empty segment takes 1/Lk on the Lk real
+// keys and 0 on the padding. A head's logits stay in 32 registers between
+// the sum and P . V, so it takes at most 64 keys, the short-key tier's.
+// head_dim 32 or 64, operands on 16-byte boundaries.
+//
+// Design of the fp32 instances, on the CUDA cores: one block of 8 warps
 // per (sample, tile of 16 query rows). The sample's K and V (at most 64 x
 // 256 each), the key mask and the key pair factors sit in shared memory
 // (the K rows padded to an odd word stride, so the lanes that split the
@@ -86,20 +109,11 @@ constexpr float NEG_INF = -1e9f;
 template <typename T>
 struct IO;
 template <>
-struct IO<bf16> {
-  static __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16(x); }
-  static __device__ __forceinline__ float rnd(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-  static constexpr int KPAD = 2;  // K row stride E + 2: an odd number of 32-bit words
-};
-template <>
 struct IO<float> {
   static __device__ __forceinline__ float ld(const float* p) { return *p; }
   static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
   static __device__ __forceinline__ float rnd(float x) { return x; }
-  static constexpr int KPAD = 1;
+  static constexpr int KPAD = 1;  // K row stride E + 1: an odd number of 32-bit words
 };
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
@@ -311,22 +325,326 @@ int dispatch_mma(const void* q, const void* k, const void* v, const void* mask, 
   return launch_mma<HD, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 one-matmul kernel on the tensor-core tiles
+// ---------------------------------------------------------------------------
+
+// The one-matmul kernel's block: ONEMATMUL_GROUPS groups of 4 warps, each
+// group every ONEMATMUL_GROUPS-th head of the same 64 query rows (16 rows a
+// warp). At charades two groups were faster than one (a block's 64 KB of
+// staged tiles leave 3 blocks an SM) and than four (fewer blocks fit).
+constexpr int ONEMATMUL_GROUPS = 2;
+constexpr int ONEMATMUL_THREADS = 32 * mma_attn::WARPS * ONEMATMUL_GROUPS;
+// the most keys the kernel takes: a warp keeps a head's logits of every key
+// in registers (the short-key tier's keys, kernels.SHORTKEY_MAX_LK)
+constexpr int ONEMATMUL_KEYS = 64;
+
+// Dynamic shared memory of a block: every head's Q tile (ROWS x hd), K and
+// V (kpad x hd each), kpad key flag bytes a head, each group's row maxima,
+// then ROWS row pair flags a head.
+template <int HD>
+struct OneMatmulSmem {
+  __host__ __device__ static size_t kv(int H, int Lk) {  // the offset of the flags
+    const size_t kp = (size_t)mma_attn::pad16(Lk);
+    return ((size_t)mma_attn::ROWS + 2 * kp) * H * HD * sizeof(bf16);
+  }
+  __host__ __device__ static size_t maxima(int H, int Lk) {
+    return align16(kv(H, Lk) + (size_t)mma_attn::pad16(Lk) * H);
+  }
+  __host__ __device__ static size_t rowflags(int H, int Lk) {
+    return maxima(H, Lk) + (size_t)ONEMATMUL_GROUPS * mma_attn::ROWS * sizeof(float);
+  }
+  __host__ __device__ static size_t bytes(int H, int Lk) {
+    return rowflags(H, Lk) + (size_t)H * mma_attn::ROWS;
+  }
+};
+
+// The (row, 16-byte chunk) pairs of a (rows_pad, rc chunks) block that
+// thread `tid` of `threads` takes, in steps of `threads` pairs: one
+// division up front, none in the walk.
+struct ChunkWalk {
+  int r, x, dr, dx, rc;
+  __device__ __forceinline__ ChunkWalk(int tid, int threads, int chunks)
+      : r(tid / chunks), x(tid % chunks), dr(threads / chunks), dx(threads % chunks),
+        rc(chunks) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    x += dx;
+    if (x >= rc) {
+      x -= rc;
+      ++r;
+    }
+  }
+};
+
+// Stage `rows` rows of (rows, E = H * HD) bf16 (row stride E in device
+// memory) into H swizzled tiles of rows_pad x HD, head h's at
+// dst + h * rows_pad * HD, zeros past `rows`: consecutive threads copy
+// consecutive 16-byte chunks of a row.
+template <int HD>
+__device__ __forceinline__ void stage_heads(bf16* dst, const bf16* __restrict__ src, int rows,
+                                            int rows_pad, int H, int E) {
+  constexpr int CH = HD / 8;
+  for (ChunkWalk w(threadIdx.x, ONEMATMUL_THREADS, H * CH); w.r < rows_pad; w.next()) {
+    bf16* d = dst + (size_t)(w.x / CH) * rows_pad * HD + mma_attn::swz<HD>(w.r, w.x % CH);
+    if (w.r < rows)
+      mma_attn::cp_async16(d, src + (size_t)w.r * E + 8 * w.x);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// e -> e / s correctly rounded, for 0 <= e <= s and 0 < s <= Lk: a head's
+// segment sum may sit far below 1 (its keys below another head's maximum),
+// so e and s are scaled exactly by the powers of two that bring s into
+// [1, 2) before div_rn (no reciprocal of a tiny s overflows, and no
+// division takes the operator's slow path).
+struct SegmentDivide {
+  float pre, mul, l, r;
+  __device__ __forceinline__ explicit SegmentDivide(float s) {
+    pre = s < 1.17549435e-38f ? 0x1p64f : 1.f;  // a subnormal sum: normal first
+    const float s1 = s * pre;
+    const int ex = (__float_as_int(s1) >> 23) & 0xff;
+    mul = __int_as_float((254 - ex) << 23);  // 2^(127 - ex): s1 * mul in [1, 2)
+    l = s1 * mul;
+    r = __frcp_rn(l);
+  }
+  __device__ __forceinline__ float operator()(float e) const {
+    return mma_attn::div_rn(e * pre * mul, l, r);
+  }
+};
+
+// The A fragments of head h's Q rows for the warp, scaled: qs = bf(q * scale)
+// with the scale already bf16 (a product in bf16, as the plain version's).
+template <int HD>
+__device__ __forceinline__ void scaled_q(uint32_t (&qa)[HD / 16][4], const bf16* Qw, int lane,
+                                         float scale) {
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    mma_attn::ldmatrix_x4(qa[ks], Qw + mma_attn::swz<HD>(lane & 15, 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qa[ks][i] = mma_attn::scale_bf16x2(qa[ks][i], scale);
+  }
+}
+
+// scale: the softmax scale rounded to bf16; qf (B, H, Lq) and kf (B, H, Lk)
+// the pair factors as uint8 (PAIR), or unused. One block per (sample, ROWS
+// query rows), every head; pad16(Lk) <= ONEMATMUL_KEYS.
+template <int HD, bool PAIR>
+__global__ void __launch_bounds__(ONEMATMUL_THREADS)
+attention_shortkey_onematmul_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                        const bf16* __restrict__ v,
+                                        const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                                        int H, int Lq, int Lk, int E, float scale,
+                                        const uint8_t* __restrict__ qf,
+                                        const uint8_t* __restrict__ kf) {
+  using mma_attn::swz;
+  constexpr int NT = ONEMATMUL_KEYS / 8;  // n8 key tiles
+  constexpr int QROWS = mma_attn::ROWS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = mma_attn::pad16(Lk);
+  const int tiles = (Lq + QROWS - 1) / QROWS;
+  const int b = blockIdx.x / tiles, q0 = blockIdx.x % tiles * QROWS;
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + (size_t)H * QROWS * HD;
+  bf16* Vs = Ks + (size_t)H * kpad * HD;
+  uint8_t* flags = smem + OneMatmulSmem<HD>::kv(H, Lk);
+  float* maxima = reinterpret_cast<float*>(smem + OneMatmulSmem<HD>::maxima(H, Lk));
+  uint8_t* rowflags = smem + OneMatmulSmem<HD>::rowflags(H, Lk);
+
+  const int rows = min(QROWS, Lq - q0);
+  stage_heads<HD>(Qs, q + ((size_t)b * Lq + q0) * E, rows, QROWS, H, E);
+  stage_heads<HD>(Ks, k + (size_t)b * Lk * E, Lk, kpad, H, E);
+  stage_heads<HD>(Vs, v + (size_t)b * Lk * E, Lk, kpad, H, E);
+  for (int i = threadIdx.x; i < H * kpad; i += ONEMATMUL_THREADS) {
+    const int h = i / kpad, j = i - h * kpad;
+    uint8_t f = 2;
+    if (j < Lk) {
+      f = mask[(size_t)b * Lk + j] ? 1 : 0;
+      if (PAIR && kf[((size_t)b * H + h) * Lk + j]) f |= mma_attn::KEY_PAIR;
+    }
+    flags[i] = f;
+  }
+  if (PAIR)
+    for (int i = threadIdx.x; i < H * QROWS; i += ONEMATMUL_THREADS) {
+      const int h = i / QROWS, r = i % QROWS;
+      rowflags[i] = r < rows && qf[((size_t)b * H + h) * Lq + q0 + r];
+    }
+  mma_attn::cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rw = warp % mma_attn::WARPS, group = warp / mma_attn::WARPS;
+  const int r0 = q0 + 16 * rw;
+  const bool active = r0 < Lq;  // a warp past Lq still meets the barriers
+  const int g = lane >> 2, t = lane & 3;
+  // the pair flags of the thread's rows g and g + 8 in head h
+  auto row_flags = [&](int h, bool& qf0, bool& qf1) {
+    qf0 = PAIR && rowflags[h * QROWS + 16 * rw + g];
+    qf1 = PAIR && rowflags[h * QROWS + 16 * rw + g + 8];
+  };
+  uint32_t qa[HD / 16][4];
+  float s[NT][4];
+  bool qf0, qf1;
+
+  // pass 1: the maximum of rows g and g + 8 over the group's heads' logits
+  // (the masks as the pair chain's, with the scale already in qs), then
+  // over every group's
+  float m0 = -INFINITY, m1 = -INFINITY;
+  if (active) {
+    for (int h = group; h < H; h += ONEMATMUL_GROUPS) {
+      const bf16* Kh = Ks + (size_t)h * kpad * HD;
+      scaled_q<HD>(qa, Qs + ((size_t)h * QROWS + 16 * rw) * HD, lane, scale);
+      row_flags(h, qf0, qf1);
+      mma_attn::logits<HD, NT, mma_attn::Chain::PAIR>(s, qa, Kh, flags + h * kpad, 0, kpad, lane,
+                                                      1.f, qf0, qf1);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
+        m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
+      }
+    }
+    m0 = mma_attn::quad_max(m0);
+    m1 = mma_attn::quad_max(m1);
+    if (t == 0) {
+      maxima[group * QROWS + 16 * rw + g] = m0;
+      maxima[group * QROWS + 16 * rw + g + 8] = m1;
+    }
+  }
+  __syncthreads();
+  if (active) {
+    m0 = m1 = -INFINITY;
+#pragma unroll
+    for (int gi = 0; gi < ONEMATMUL_GROUPS; ++gi) {
+      m0 = fmaxf(m0, maxima[gi * QROWS + 16 * rw + g]);
+      m1 = fmaxf(m1, maxima[gi * QROWS + 16 * rw + g + 8]);
+    }  // finite: Lk >= 1 and a masked key is -1e9
+
+    // pass 2, head by head: the segment softmax and P . V
+    const float uniform = mma_attn::round_bf16(__fdiv_rn(1.f, (float)Lk));
+    for (int h = group; h < H; h += ONEMATMUL_GROUPS) {
+      const bf16* Kh = Ks + (size_t)h * kpad * HD;
+      const bf16* Vh = Vs + (size_t)h * kpad * HD;
+      const uint8_t* fh = flags + h * kpad;
+      bf16* Qw = Qs + ((size_t)h * QROWS + 16 * rw) * HD;
+      scaled_q<HD>(qa, Qw, lane, scale);
+      row_flags(h, qf0, qf1);
+      mma_attn::logits<HD, NT, mma_attn::Chain::PAIR>(s, qa, Kh, fh, 0, kpad, lane, 1.f, qf0, qf1);
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (8 * nt >= kpad) break;
+        s[nt][0] = expf(s[nt][0] - m0);
+        s[nt][1] = expf(s[nt][1] - m0);
+        s[nt][2] = expf(s[nt][2] - m1);
+        s[nt][3] = expf(s[nt][3] - m1);
+        l0 += s[nt][0] + s[nt][1];
+        l1 += s[nt][2] + s[nt][3];
+      }
+      l0 = mma_attn::quad_sum(l0);
+      l1 = mma_attn::quad_sum(l1);
+      // an empty segment (every e underflowed): 1/Lk on each real key
+      const bool empty0 = !(l0 > 0.f), empty1 = !(l1 > 0.f);
+      const SegmentDivide div0(l0), div1(l1);
+      auto prob = [&](float e, bool row1, int key) {
+        if (row1 ? empty1 : empty0) return key < Lk ? uniform : 0.f;
+        return row1 ? div1(e) : div0(e);
+      };
+
+      float o[HD / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        const int k0 = 16 * j;
+        if (k0 >= kpad) break;
+        const int ka = k0 + 2 * t, kb = k0 + 8 + 2 * t;  // the keys of the two n8 tiles
+        const uint32_t pa[4] = {
+            mma_attn::pack_bf16(prob(s[2 * j][0], false, ka), prob(s[2 * j][1], false, ka + 1)),
+            mma_attn::pack_bf16(prob(s[2 * j][2], true, ka), prob(s[2 * j][3], true, ka + 1)),
+            mma_attn::pack_bf16(prob(s[2 * j + 1][0], false, kb),
+                                prob(s[2 * j + 1][1], false, kb + 1)),
+            mma_attn::pack_bf16(prob(s[2 * j + 1][2], true, kb),
+                                prob(s[2 * j + 1][3], true, kb + 1))};
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t vb[4];  // keys k0 .. k0 + 15 of d chunks 2dp, 2dp + 1
+          mma_attn::ldmatrix_x4_trans(vb, Vh + swz<HD>(k0 + (lane & 7) + (lane & 8),
+                                                       2 * dp + (lane >> 4)));
+          mma_attn::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_attn::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+      // out_h = bf(o), into the warp's (read) Q rows of head h
+      __syncwarp();
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        *reinterpret_cast<uint32_t*>(Qw + swz<HD>(g, dt) + 2 * t) =
+            mma_attn::pack_bf16(o[dt][0], o[dt][1]);
+        *reinterpret_cast<uint32_t*>(Qw + swz<HD>(g + 8, dt) + 2 * t) =
+            mma_attn::pack_bf16(o[dt][2], o[dt][3]);
+      }
+    }
+  }
+  // every head's output rows, 16-byte stores along each row
+  __syncthreads();
+  constexpr int CH = HD / 8;
+  for (ChunkWalk w(threadIdx.x, ONEMATMUL_THREADS, H * CH); w.r < rows; w.next())
+    *reinterpret_cast<uint4*>(out + ((size_t)b * Lq + q0 + w.r) * E + 8 * w.x) =
+        *reinterpret_cast<const uint4*>(Qs + (size_t)(w.x / CH) * QROWS * HD +
+                                        swz<HD>(w.r, w.x % CH));
+}
+
+template <int HD, bool PAIR>
+int launch_onematmul_mma(const void* q, const void* k, const void* v, const void* mask,
+                         const void* qf, const void* kf, void* out, int B, int H, int Lq, int Lk,
+                         int E, float scale, cudaStream_t s) {
+  const size_t smem = OneMatmulSmem<HD>::bytes(H, Lk);
+  const auto kernel = attention_shortkey_onematmul_mma_kernel<HD, PAIR>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * ((Lq + mma_attn::ROWS - 1) / mma_attn::ROWS);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, ONEMATMUL_THREADS, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), H, Lq, Lk, E, scale,
+      static_cast<const uint8_t*>(qf), static_cast<const uint8_t*>(kf));
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch_onematmul_mma(const void* q, const void* k, const void* v, const void* mask,
+                           const void* qf, const void* kf, void* out, int B, int H, int Lq,
+                           int Lk, int E, float scale, cudaStream_t s) {
+  if (qf != nullptr)
+    return launch_onematmul_mma<HD, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  return launch_onematmul_mma<HD, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+}
+
 }  // namespace
 
 // Shared memory the kernel needs (bytes), so the wrapper can refuse before
 // launching. is_bf16: 1 for bf16 operands, 0 for fp32; onematmul as for the
 // launch. The bf16 short-key kernel stages one head (up to 1,760 keys at
-// head_dim 32, 864 at 64); the CUDA-core kernels a sample's K and V.
+// head_dim 32, 864 at 64), the bf16 one-matmul kernel every head of a
+// 64-row query tile and of the sample's keys, the fp32 kernels a sample's K
+// and V.
 extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, int H, int Lk,
                                                    int E) {
-  if (is_bf16 && !onematmul) {
+  if (is_bf16) {
     if (H <= 0 || E % H) return 0;
-    if (E / H == 32) return (long long)mma_attn::Smem<32>::bytes(Lk);
-    if (E / H == 64) return (long long)mma_attn::Smem<64>::bytes(Lk);
+    if (E / H == 32)
+      return onematmul ? (long long)OneMatmulSmem<32>::bytes(H, Lk)
+                       : (long long)mma_attn::Smem<32>::bytes(Lk);
+    if (E / H == 64)
+      return onematmul ? (long long)OneMatmulSmem<64>::bytes(H, Lk)
+                       : (long long)mma_attn::Smem<64>::bytes(Lk);
     return 0;
   }
-  return is_bf16 ? (long long)Layout<bf16>(H, Lk, E).total
-                 : (long long)Layout<float>(H, Lk, E).total;
+  return (long long)Layout<float>(H, Lk, E).total;
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
@@ -334,9 +652,10 @@ extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, i
 // uint8, 1 = attendable. qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors,
 // or both null for no pair mask. onematmul: 0 = the packed short-key kernel
 // (scale in f32), 1 = the one-matmul segment-softmax kernel (scale already
-// rounded to the operand dtype). The bf16 short-key kernel takes head_dim
-// E / H of 32 or 64 and q, k, v, out on 16-byte boundaries; the others
-// E = 32 * H. Returns the cudaError_t of the launch (0 = success).
+// rounded to the operand dtype). bf16 runs on the tensor cores and takes
+// head_dim E / H of 32 or 64 and q, k, v, out on 16-byte boundaries; fp32
+// runs on the CUDA cores and takes E = 32 * H. Returns the cudaError_t of
+// the launch (0 = success).
 extern "C" int attention_shortkey_launch(const void* q, const void* k, const void* v,
                                          const void* mask, const void* qf, const void* kf,
                                          void* out, int B, int H, int Lq, int Lk, int E,
@@ -344,15 +663,21 @@ extern "C" int attention_shortkey_launch(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (qf == nullptr) != (kf == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16 && !onematmul) {  // the route by dtype: the tensor-core body
+  if (is_bf16) {  // the route by dtype: the tensor-core kernels
     if (E % H) return (int)cudaErrorInvalidValue;
+    if (onematmul) {
+      if (Lk > ONEMATMUL_KEYS) return (int)cudaErrorInvalidValue;
+      if (E / H == 32)
+        return dispatch_onematmul_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+      if (E / H == 64)
+        return dispatch_onematmul_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+      return (int)cudaErrorInvalidValue;
+    }
     if (E / H == 32) return dispatch_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
     if (E / H == 64) return dispatch_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (E != HD * H) return (int)cudaErrorInvalidValue;
-  if (is_bf16)
-    return dispatch_pair<bf16, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
   if (onematmul)
     return dispatch_pair<float, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
   return dispatch_pair<float, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);

@@ -19,8 +19,10 @@ with D_i = sum_j P_ij dP_ij = sum_d dO_id O_id. The plain version
 materialises P and takes D from it, through softmax's own backward, in the
 order of autograd's ops on attention_core: on the CPU its gradients are
 those of torch.autograd.grad through attention_core, bit for bit. The
-kernels never store P; they take D from the forward's output O, and sum in
-another order (f32 rounding differences only).
+kernels never store P; they take D from the forward's output O, and take
+each product on the tensor cores in 3xTF32 (each operand split into two
+TF32 parts, three TF32 products a step: about 21 bits of each operand) and
+in another order, within 1e-5 of the plain version.
 """
 from __future__ import annotations
 

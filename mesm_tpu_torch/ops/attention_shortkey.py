@@ -25,10 +25,13 @@ kernels/csrc/attention_shortkey.cu:
   Plain version: `attention_shortkey_onematmul_reference`.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or raise:
-bf16 or fp32, Ev == E, head_dim 32; `attention_shortkey` in bf16 runs on
-the tensor-core body of the pair kernel (kernels/csrc/attention_mma.cuh,
-its pair chain), which also takes head_dim 64 and needs q, k and v on
-16-byte boundaries.
+bf16 or fp32, Ev == E. bf16 runs on the tensor cores (head_dim 32 or 64, q,
+k and v on 16-byte boundaries): `attention_shortkey` on the body of the pair
+kernel (kernels/csrc/attention_mma.cuh, its pair chain), one block per
+sample, query tile and head; `attention_shortkey_onematmul` on the same mma
+tiles with one block per sample and query tile that walks every head twice
+(the row's maximum over all heads, then each head's segment softmax and
+P . V), at most 64 keys. fp32 runs on the CUDA cores (head_dim 32).
 """
 from __future__ import annotations
 
@@ -42,6 +45,10 @@ from .attention_packed import (MAX_SMEM, NEG_INF, attention_packed_pair_referenc
                                factors_u8, mask_u8)
 
 PairFactors = Optional[Tuple[torch.Tensor, torch.Tensor]]
+
+# the most keys the bf16 one-matmul kernel takes (it keeps a head's logits
+# of every key in registers): the short-key tier's, kernels.SHORTKEY_MAX_LK
+ONEMATMUL_MAX_LK = 64
 
 # kernel launches since import (or since the caller last set them to 0)
 launches = 0  # the packed short-key kernel
@@ -87,11 +94,14 @@ def attention_shortkey_onematmul_reference(q, k, v, num_heads: int, key_valid_ma
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: PairFactors,
             onematmul: bool):
     """Checks the operands and launches kernels/csrc/attention_shortkey.cu;
-    returns out. The packed short-key kernel in bf16 runs on the tensor-core
-    body (head_dim 32 or 64, operands on 16-byte boundaries); fp32 and the
-    one-matmul kernel on the CUDA cores (head_dim 32): a route by dtype and
-    kernel, taken before the launch."""
-    mma = q.dtype == torch.bfloat16 and not onematmul
+    returns out. Both kernels run bf16 on the tensor cores (head_dim 32 or
+    64, operands on 16-byte boundaries; the one-matmul kernel at most
+    ONEMATMUL_MAX_LK keys) and fp32 on the CUDA cores (head_dim 32): a route
+    by dtype, taken before the launch."""
+    mma = q.dtype == torch.bfloat16
+    if mma and onematmul and k.ndim == 3 and k.shape[1] > ONEMATMUL_MAX_LK:
+        raise ValueError(f"{name}: the bf16 kernel takes at most {ONEMATMUL_MAX_LK} keys, "
+                         f"got {k.shape[1]}")
     B, Lq, Lk, E, _ = check_operands(name, q, k, v, num_heads, key_valid_mask,
                                      (torch.bfloat16, torch.float32), (32, 64) if mma else (32,),
                                      aligned=mma)

@@ -15,6 +15,8 @@ here.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ from mesm_tpu_torch.ops import attention_trainable as at
 
 from chip_smoke import HEADS_EDGE_SHAPES
 
+REPO = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 H = 2
 # (B, Lq, Lk, E) with H = 2: head_dim 32 at E = 64, 64 at E = 128; Lq != Lk
@@ -188,6 +191,140 @@ def test_function_backward_route(recorded_backward, monkeypatch, dtype, pair, Lq
             torch.testing.assert_close(a.grad, b, rtol=0, atol=0)
         else:
             assert _err(a.grad.float().numpy(), b.float().numpy()) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# the kernels' 3xTF32 products
+# ---------------------------------------------------------------------------
+
+CSRC = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
+
+
+def test_backward_kernels_run_their_products_as_3xtf32():
+    """attention_backward.cu issues every product of both kernels on the
+    tensor cores as three tf32 mma of split operands (hi = rna(x), lo =
+    rna(x - hi): cvt.rna.tf32.f32's rounding, as _tf32_rna below), the small
+    terms first: S and dP in each kernel (product_nt), dQ in the dq kernel
+    and dV and dK in the dk / dv kernel (product_kt); the staged operands
+    are split once a block (split_tile), the A fragments at each step
+    (SplitA); no CUDA-core product is left."""
+    source = (CSRC / "attention_backward.cu").read_text()
+    assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in source
+    assert "hi = tf32(x);\n  lo = tf32(x - __uint_as_float(hi));" in source
+    assert source.count('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "') == 1
+    body = source[source.index("__device__ __forceinline__ void mma3("):]
+    body = body[:body.index("\n}\n")]
+    assert [line.strip() for line in body.splitlines() if "mma_tf32(" in line] == [
+        "mma_tf32(c, a.lo, bh0, bh1);", "mma_tf32(c, a.hi, bl0, bl1);",
+        "mma_tf32(c, a.hi, bh0, bh1);"]
+    assert source.count("mma3(") == 3  # its definition, product_nt, product_kt
+    assert source.count("split(x.") == 4  # split_tile: the staged operands
+    assert source.count("split(a") == 4  # SplitA: the A fragments
+    dq = source[source.index("attention_backward_dq_3xtf32_kernel(const"):
+                source.index("attention_backward_dkdv_3xtf32_kernel(const")]
+    dkdv = source[source.index("attention_backward_dkdv_3xtf32_kernel(const"):]
+    assert dq.count("product_nt<HD, NT>(") == 2 and dq.count("product_kt<HD, STEP>(") == 1
+    assert dkdv.count("product_nt<HD, NT>(") == 2 and dkdv.count("product_kt<HD, STEP>(") == 2
+    assert "fmaf(av[" not in source and "tile_dot" not in source
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """The kernels' integer tf32 rounding, (bits + 0x1000) & ~0x1fff, is
+    cvt.rna.tf32.f32's on finite values: the nearer of the two tf32 values
+    around x (10 mantissa bits), ties away from zero on both signs."""
+    ulp = 2.0**-10
+    ties = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + 1.5 * ulp, 2 - ulp / 2])
+    assert _tf32_rna(ties).tolist() == [1 + ulp, -(1 + ulp), 1 + 2 * ulp, 2.0]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((rng.normal(size=20000) * 10.0 ** rng.integers(-30, 30, 20000))
+                         .astype(np.float32))
+    x64 = x.double()
+    down = (x.view(torch.int32) & -0x2000).view(torch.float32).double()  # toward zero
+    step = torch.ldexp(torch.ones_like(x64), torch.frexp(x64)[1] - 11)  # a tf32 ulp at |x|
+    away = down + torch.sign(x64) * step
+    nearer_down = (x64 - down).abs() < (away - x64).abs()
+    assert torch.equal(_tf32_rna(x).double(), torch.where(nearer_down, down, away))
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: x rounded to 10 mantissa bits, ties away from zero
+    (add half a tf32 ulp to the magnitude, clear the 13 low bits)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _round_toward_zero(x64: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32 rounded toward zero: the tensor cores' sums
+    truncate (the worse case for a long sum: every rounding one way)."""
+    x32 = x64.float()
+    over = x32.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(x32, torch.zeros_like(x32)), x32)
+
+
+def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, tile: int, terms: str = "3x") -> torch.Tensor:
+    """a (M, K) @ b (K, N) as the kernels take it: each operand split into
+    hi = rna(x) and lo = rna(x - hi); per step of 8 k, the mma products lo .
+    hi, hi . lo, hi . hi, each added to the f32 accumulator with exact
+    products and a truncated sum; the accumulator starts from 0 every `tile`
+    k and each tile's sum is added to the running f32 sum (round to
+    nearest). terms="1x" takes hi . hi alone (one TF32 product)."""
+    ah, bh = _tf32_rna(a), _tf32_rna(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    pairs = [(al, bh), (ah, bl), (ah, bh)] if terms == "3x" else [(ah, bh)]
+    total = torch.zeros(a.shape[0], b.shape[1])
+    for t0 in range(0, a.shape[1], tile):
+        c = torch.zeros(a.shape[0], b.shape[1])
+        for k0 in range(t0, min(t0 + tile, a.shape[1]), 8):
+            for x, y in pairs:
+                step = x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()
+                c = _round_toward_zero(c.double() + step)
+        total = total + c
+    return total
+
+
+def _backward_3xtf32(q, k, v, g, mask, heads: int, terms: str = "3x"):
+    """The plain version's backward with each of its five products taken as
+    _mm_3xtf32 at the kernels' tiles: S and dP over head_dim (one tile), dV,
+    dQ and dK over 64 keys or queries a tile."""
+    B, Lq, E = q.shape
+    hd = E // heads
+    scale = torch.tensor(hd**-0.5)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for h in range(heads):
+            cols = slice(h * hd, (h + 1) * hd)
+            qs, kh, vh, gh = q[b, :, cols] * scale, k[b, :, cols], v[b, :, cols], g[b, :, cols]
+            s = _mm_3xtf32(qs, kh.T, hd, terms)
+            s = torch.where(mask[b][None], s, torch.tensor(-1e9))
+            p = torch.softmax(s, -1)
+            dp = _mm_3xtf32(gh, vh.T, hd, terms)
+            ds = torch._softmax_backward_data(dp, p, -1, p.dtype)
+            ds = torch.where(mask[b][None], ds, torch.tensor(0.0))
+            dv[b, :, cols] = _mm_3xtf32(p.T, gh, 64, terms)
+            dq[b, :, cols] = _mm_3xtf32(ds, kh, 64, terms) * scale
+            dk[b, :, cols] = _mm_3xtf32(ds.T, qs, 64, terms)
+    return dq, dk, dv
+
+
+def test_3xtf32_products_hold_the_fp32_tolerance_at_the_tacos_sizes():
+    """An emulation of the kernels' 3xTF32 products (split operands, three
+    mma terms a step, truncated tensor-core sums, 64-key tiles added in f32)
+    on the TACoS train shape's sums: S and dP over head_dim 32, dV, dQ and
+    dK over 601 keys or queries, with padded keys. The gradients stay within
+    the kernel's 1e-5 of the f32 plain version (in units of max(1, max
+    |reference|)); one TF32 product (hi . hi alone) does not."""
+    B, L, E, heads = 1, 601, 64, 2  # head_dim 32
+    rng = np.random.default_rng(21)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(B, L, E)).astype(np.float32))
+                  for _ in range(4))
+    mask = torch.arange(L)[None] < 560
+    want = abw.attention_backward_reference(q, k, v, g, heads, mask)
+    got = _backward_3xtf32(q, k, v, g, mask, heads)
+    one = _backward_3xtf32(q, k, v, g, mask, heads, terms="1x")
+    errs = [_err(a.numpy(), b.numpy()) for a, b in zip(got, want)]
+    errs_1x = [_err(a.numpy(), b.numpy()) for a, b in zip(one, want)]
+    assert max(errs) <= TOL / 4, errs
+    assert max(errs_1x) > TOL, errs_1x
 
 
 # ---------------------------------------------------------------------------

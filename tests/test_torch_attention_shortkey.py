@@ -136,21 +136,24 @@ def test_attention_shortkey_reference_matches_pallas(lk, with_pair, dtype):
     assert _err(got, want) <= TOL[dtype]
 
 
+@pytest.mark.parametrize("hd", [32, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_pair", [False, True])
 @pytest.mark.parametrize("lk", [9, 17, 33, 64])
-def test_attention_shortkey_onematmul_reference_matches_pallas(lk, with_pair, dtype):
-    """Kernel 5: the one-matmul segment softmax. Sample 3's head 1 logits sit
-    ~180 above its head 0 logits (0), so head 0's segment underflows to a sum
-    of 0 and takes the 1/Lk fallback. In fp32 a logit of ~180 carries an ulp
-    of 1.5e-5, which its exp turns into a relative error of the same size, so
-    the fp32 tolerance here is 1e-4."""
-    B, Lq, E, H = 4, 64, 64, 2
+def test_attention_shortkey_onematmul_reference_matches_pallas(lk, with_pair, dtype, hd):
+    """Kernel 5: the one-matmul segment softmax, at head_dim 32 and 64 (the
+    two the bf16 kernel takes). Sample 3's head 1 logits sit ~180 (hd 32) or
+    ~250 (hd 64) above its head 0 logits (0), so head 0's segment underflows
+    to a sum of 0 and takes the 1/Lk fallback. In fp32 a logit of ~250
+    carries an ulp of 1.5e-5, which its exp turns into a relative error of
+    the same size, so the fp32 tolerance here is 1e-4."""
+    B, Lq, H = 4, 64, 2
+    E = H * hd
     q, k, v, mask, pair = _case(2, B, Lq, lk, E, H)
-    sign = np.sign(np.random.default_rng(9).normal(size=32)).astype(np.float32)
-    q[3, :, 32:] = 40.0 * sign
-    k[3, :, 32:] = np.abs(k[3, :, 32:]) * sign
-    k[3, :, :32] = 0.0
+    sign = np.sign(np.random.default_rng(9).normal(size=hd)).astype(np.float32)
+    q[3, :, hd:] = 40.0 * sign
+    k[3, :, hd:] = np.abs(k[3, :, hd:]) * sign
+    k[3, :, :hd] = 0.0
     pair = pair if with_pair else None
     jdt = JAX_DT[dtype]
     with jax.default_matmul_precision("highest"):
@@ -172,7 +175,7 @@ def test_attention_shortkey_onematmul_reference_matches_pallas(lk, with_pair, dt
     live1 = mask[3] & ~(pair[0][3, 1][:, None] & pair[1][3, 1][None, :]) if pair else mask[3][None]
     rows = np.flatnonzero(np.broadcast_to(live1, (Lq, lk)).any(1))
     assert len(rows) > 0
-    np.testing.assert_allclose(got[3, rows, :32], np.broadcast_to(vt[3, :, :32].mean(0), (len(rows), 32)),
+    np.testing.assert_allclose(got[3, rows, :hd], np.broadcast_to(vt[3, :, :hd].mean(0), (len(rows), hd)),
                                atol=TOL[dtype])
     assert _err(got, want) <= (1e-4 if dtype == "float32" else TOL[dtype])
 
@@ -357,22 +360,28 @@ def test_short_key_wrappers_refuse_what_the_kernel_does_not_take():
 
 
 def test_bf16_short_key_kernel_runs_the_mma_body():
-    """attention_shortkey.cu sends bf16 operands of the packed short-key
-    kernel (not the one-matmul kernel) to the shared mma body with the pair
-    kernel's rounding chain (attention_mma.cuh, Chain::PAIR), with at most 64
-    keys resident and the pair factors a compile-time option; fp32 and the
-    one-matmul kernel keep the CUDA-core body, which has no bf16 instance of
-    the packed short-key kernel left."""
+    """attention_shortkey.cu sends bf16 operands of both short-key kernels to
+    the tensor cores: the packed short-key kernel to the shared mma body with
+    the pair kernel's rounding chain (attention_mma.cuh, Chain::PAIR), with
+    at most 64 keys resident and the pair factors a compile-time option; the
+    one-matmul kernel to its own kernel on the same mma tiles, one block per
+    (sample, query tile) over every head, its logits through the pair
+    chain's masks with the bf16 scale already in q, its segment sums divided
+    exactly. fp32 keeps the CUDA-core body, which has no bf16 instance left."""
     csrc = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
     source = (csrc / "attention_shortkey.cu").read_text()
     assert '#include "attention_mma.cuh"' in source
-    assert "if (is_bf16 && !onematmul) {" in source
+    assert "if (is_bf16) {  // the route by dtype: the tensor-core kernels" in source
     assert "return dispatch_mma<32>(" in source and "return dispatch_mma<64>(" in source
+    assert "return dispatch_onematmul_mma<32>(" in source
+    assert "return dispatch_onematmul_mma<64>(" in source
     assert "constexpr int SHORT_KEYS = 64;" in source
     assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS>(" in source
     assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS, false>(" in source
-    assert "dispatch_pair<bf16, false>" not in source
-    assert "dispatch_pair<bf16, true>" in source  # kernel 5 in bf16
+    assert "attention_shortkey_onematmul_mma_kernel(" in source
+    assert "mma_attn::logits<HD, NT, mma_attn::Chain::PAIR>(" in source
+    assert "mma_attn::div_rn(e * pre * mul, l, r)" in source
+    assert "dispatch_pair<bf16" not in source and "struct IO<bf16>" not in source
     header = (csrc / "attention_mma.cuh").read_text()
     assert "bool FACTORS = true>" in header
     assert "if constexpr (C == Chain::PAIR && FACTORS)" in header
@@ -381,13 +390,13 @@ def test_bf16_short_key_kernel_runs_the_mma_body():
 @pytest.mark.parametrize("dtype,onematmul,hd,accepted", [
     (torch.bfloat16, False, 32, True), (torch.bfloat16, False, 64, True),
     (torch.bfloat16, False, 48, False), (torch.float32, False, 32, True),
-    (torch.float32, False, 64, False), (torch.bfloat16, True, 64, False),
-    (torch.bfloat16, True, 32, True),
+    (torch.float32, False, 64, False), (torch.bfloat16, True, 64, True),
+    (torch.bfloat16, True, 32, True), (torch.float32, True, 64, False),
 ])
 def test_short_key_wrappers_accept_the_head_dims_of_their_route(dtype, onematmul, hd, accepted):
-    """The route by dtype and kernel, before any launch: the bf16 short-key
-    kernel (the mma body) takes head_dim 32 and 64, the CUDA-core kernels
-    32. On a device that is neither the CPU nor CUDA an accepted operand set
+    """The route by dtype, before any launch: both bf16 short-key kernels
+    (the mma tiles) take head_dim 32 and 64, the fp32 CUDA-core kernels 32.
+    On a device that is neither the CPU nor CUDA an accepted operand set
     reaches the device check, a refused one stops at the head_dim check; no
     launch is counted."""
     H, B, Lq, Lk = 4, 2, 5, 7
@@ -398,6 +407,24 @@ def test_short_key_wrappers_accept_the_head_dims_of_their_route(dtype, onematmul
     with pytest.raises(ValueError, match="unsupported device" if accepted else "head_dim"):
         fn(q, k, k, H)
     assert (sk.launches, sk.onematmul_launches) == before
+
+
+@pytest.mark.parametrize("dtype,onematmul,lk,accepted", [
+    (torch.bfloat16, True, 64, True), (torch.bfloat16, True, 65, False),
+    (torch.float32, True, 65, True), (torch.bfloat16, False, 65, True),
+])
+def test_bf16_onematmul_kernel_takes_at_most_64_keys(dtype, onematmul, lk, accepted):
+    """The bf16 one-matmul kernel keeps every key's logit of a head in
+    registers: it takes the short-key tier's keys (at most 64) and refuses
+    more before any launch; the fp32 one-matmul kernel and the packed
+    short-key kernel take more."""
+    H, B, Lq = 8, 2, 5
+    q = torch.empty(B, Lq, 256, dtype=dtype, device="meta")
+    k = torch.empty(B, lk, 256, dtype=dtype, device="meta")
+    fn = sk.attention_shortkey_onematmul if onematmul else sk.attention_shortkey
+    assert sk.ONEMATMUL_MAX_LK == kernels.SHORTKEY_MAX_LK
+    with pytest.raises(ValueError, match="unsupported device" if accepted else "at most 64 keys"):
+        fn(q, k, k, H)
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +439,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _card_case(B, Lq, Lk, pair: bool, dtype=torch.bfloat16, seed=0):
+def _card_case(B, Lq, Lk, pair: bool, dtype=torch.bfloat16, seed=0, E=256):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    E, H = 256, 8
+    H = 8
     q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dtype)
     k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dtype) for _ in range(2))
     lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
@@ -436,10 +463,12 @@ def _card_case(B, Lq, Lk, pair: bool, dtype=torch.bfloat16, seed=0):
     ("shortkey", 30, 75, 33, False), ("onematmul", 128, 194, 17, True),
     ("onematmul", 30, 75, 33, True), ("onematmul", 30, 75, 33, False),
     ("packed_pair", 128, 194, 81, True),
-] + [("shortkey", 3, Lq, Lk, pair)  # the bf16 mma body's tile edges
-     for Lq, Lk, pair in itertools.product(SHORTKEY_EDGE_LQ, SHORTKEY_EDGE_LK, (True, False))])
-def test_short_key_kernels_match_plain(cuda, kernel, B, Lq, Lk, pair):
-    q, k, v, mask, pf, H = _card_case(B, Lq, Lk, pair)
+] + [(kernel, 3, Lq, Lk, pair)  # the bf16 mma tiles' edges
+     for kernel, Lq, Lk, pair in itertools.product(("shortkey", "onematmul"), SHORTKEY_EDGE_LQ,
+                                                   SHORTKEY_EDGE_LK, (True, False))])
+@pytest.mark.parametrize("E", [256, 512])  # head_dim 32 and 64
+def test_short_key_kernels_match_plain(cuda, kernel, B, Lq, Lk, pair, E):
+    q, k, v, mask, pf, H = _card_case(B, Lq, Lk, pair, E=E)
     fns = {"shortkey": (sk.attention_shortkey, sk.attention_shortkey_reference, "launches"),
            "onematmul": (sk.attention_shortkey_onematmul, sk.attention_shortkey_onematmul_reference,
                          "onematmul_launches"),
@@ -456,6 +485,34 @@ def test_short_key_kernels_match_plain(cuda, kernel, B, Lq, Lk, pair):
     assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
     # sample 1: every key masked, every head uniform over all Lk keys
     assert float((got[1].float() - v[1].float().mean(0)).abs().max()) <= TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [256, 512])  # head_dim 32 and 64
+def test_onematmul_kernel_bf16_takes_the_fallback_of_an_underflowed_segment(cuda, E):
+    """Sample 2's head 1 logits sit ~180 (hd 32) or ~250 (hd 64) above its
+    other heads': their segment sums underflow to 0, so each of those heads
+    takes 1/Lk on every key (the mean of v over all Lk keys, padded keys
+    included) while head 1 keeps its own softmax; the kernel agrees with its
+    plain version (3e-2)."""
+    q, k, v, mask, pf, H = _card_case(3, 70, 17, True, E=E, seed=5)
+    hd = E // H
+    sign = torch.randint(0, 2, (hd,), generator=torch.Generator().manual_seed(9)).cuda() * 2 - 1
+    q[2, :, hd:2 * hd] = (40.0 * sign).bfloat16()
+    k[2, :, hd:2 * hd] = (k[2, :, hd:2 * hd].float().abs() * sign).bfloat16()
+    pf[0][2, 1] = False  # head 1 keeps every unmasked key
+    before = sk.onematmul_launches
+    got = sk.attention_shortkey_onematmul(q, k, v, H, mask, pf)
+    want = sk.attention_shortkey_onematmul_reference(q, k, v, H, mask, pf)
+    torch.cuda.synchronize()
+    assert sk.onematmul_launches == before + 1
+    assert torch.isfinite(got).all()
+    assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
+    mean_v = v[2].float().mean(0)
+    for h in (0, 2, 7):
+        cols = slice(h * hd, (h + 1) * hd)
+        assert float((got[2, :, cols].float() - mean_v[cols]).abs().max()) <= TOL["bfloat16"]
+    assert float((got[2, :, hd:2 * hd].float() - mean_v[hd:2 * hd]).abs().max()) > TOL["bfloat16"]
 
 
 @pytest.mark.cuda

@@ -35,7 +35,8 @@ def _imported_modules(path: Path):
 
 
 def _port_sources():
-    return sorted((REPO / "mesm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "mesm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                              REPO / "compare_steps.py"]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(REPO)))
