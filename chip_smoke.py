@@ -6,7 +6,12 @@
 run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
 torch version at the main paths' shapes (the encoder attention kernels
-also at the edges of their tiles), drives charades C+SF_C bf16
+also at the edges of their tiles, the fused LayerNorm -> Dense at the edges
+of its tiles and its domain: any N, D and F), holds every attention kernel
+at head_dim 16, 24 (padded), 64 and 128 in both dtypes (the backward
+against autograd too) and runs the charades bf16 eval step and the TACoS
+fp32 train step at --nheads 16 (head_dim 16) on the kernels, drives
+charades C+SF_C bf16
 inference through the port's eval step and through its
 `python -m mesm_tpu_torch.evaluate` entry point (the eval step also in the
 "on" mode and with the one-matmul short-key kernel), the TACoS fp32 eval
@@ -291,42 +296,97 @@ def _rel_err(got, want) -> float:
     return float(((g - w).abs() / torch.clamp(w.abs(), min=1.0)).max())
 
 
-def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PATH["N"],
-                   D: int = MAIN_PATH["D"], summary=None) -> dict:
+def _ln_inputs(dtype_name: str, N: int, D: int, F: int, seed: int = 0):
+    """x (N, D) in the dtype, f32 gamma, beta, the (F, D) weight and bias,
+    from a seed, at the scales of the model's input projection."""
     import torch
 
-    from mesm_tpu_torch.ops import ln_dense as ld
-
     dt = getattr(torch, dtype_name)
-    F = MAIN_PATH["F"]
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(N, D, generator=g, device="cuda") * 2 + 0.3).to(dt)
     gamma = 1 + 0.1 * torch.randn(D, generator=g, device="cuda")
     beta = 0.1 * torch.randn(D, generator=g, device="cuda")
     w = torch.randn(F, D, generator=g, device="cuda") / D**0.5
     b = 0.1 * torch.randn(F, generator=g, device="cuda")
-    got = ld.ln_dense(x, gamma, beta, w, b, relu)
+    return x, gamma, beta, w, b
+
+
+def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PATH["N"],
+                   D: int = MAIN_PATH["D"], summary=None, F: int = MAIN_PATH["F"]) -> dict:
+    """ln_dense against its plain version (TOL, in units of max(1, |plain|))
+    on its two device kernels; timed: CUDA events (ms), the kernels alone
+    from the profiler (kernel_ms, the statistics pass and the product), the
+    plain version and the library pair F.linear(F.layer_norm(x)) (+ ReLU) in
+    the input dtype (TF32 off), the bound by bytes and by operations (fp32:
+    also the 3xTF32 bound, three TF32 products)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.ops import ln_dense as ld
+
+    x, gamma, beta, w, b = _ln_inputs(dtype_name, N, D, F)
+    got, names = launched_kernels(lambda: ld.ln_dense(x, gamma, beta, w, b, relu))
     want = ld.ln_dense_reference(x, gamma, beta, w, b, relu)
     torch.cuda.synchronize()
     err = _rel_err(got, want)
     tol = TOL[f"ln_dense_{dtype_name}"]
     res = {
         "kernel": "ln_dense", "dtype": dtype_name, "relu": relu, "shape": [N, D, F],
-        "summary_name": summary,
+        "summary_name": summary, "launched": names,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
     }
-    if not (err <= tol and res["finite"]):
+    kernels_ok = all(any(k in n for n in names) for k in LN_DENSE_KERNELS)
+    if not (err <= tol and res["finite"] and kernels_ok):
         emit(dict(res, phase="kernels", ok=False))
-        raise SystemExit(f"ln_dense {dtype_name} relu={relu}: error {err} > {tol}")
+        raise SystemExit(f"ln_dense {dtype_name} {N}x{D}->{F} relu={relu}: {res}")
     if time_it:
         item = x.element_size()
-        res["ms"] = cuda_time_ms(lambda: ld.ln_dense(x, gamma, beta, w, b, relu))
+        run = lambda: ld.ln_dense(x, gamma, beta, w, b, relu)  # noqa: E731
+        res["ms"] = cuda_time_ms(run)
+        res["kernel_ms"] = device_kernel_ms(run, "ln_")
+        # the two launches apart: the statistics pass and the product
+        res["stats_kernel_ms"] = device_kernel_ms(run, LN_DENSE_KERNELS[0])
+        res["product_kernel_ms"] = device_kernel_ms(run, LN_DENSE_KERNELS[1])
         res["plain_ms"] = cuda_time_ms(lambda: ld.ln_dense_reference(x, gamma, beta, w, b, relu))
-        res["library_ms"] = None  # no single PyTorch call computes LN -> Dense
-        moved = N * D * item + 2 * D * 4 + F * D * 4 + F * 4 + N * F * item
-        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * N * D * F, dtype_name)
+        dt = x.dtype
+        g2, b2, w2, bb2 = gamma.to(dt), beta.to(dt), w.to(dt), b.to(dt)
+
+        def pair():
+            y = Fn.linear(Fn.layer_norm(x, (D,), g2, b2, ld.LN_EPS), w2, bb2)
+            return torch.relu_(y) if relu else y
+
+        res["library_ms"] = cuda_time_ms(pair)
+        res["library_kernel_ms"] = device_kernel_ms(pair, "")
+        moved = N * D * item + 2 * D * 4 + F * D * item + F * 4 + N * F * item
+        flops = 2.0 * N * D * F
+        res["bound_ms"], res["bound_by"] = bound(moved, flops, dtype_name)
+        if dtype_name == "float32":
+            res["bound_3xtf32_ms"], res["bound_3xtf32_by"] = bound(moved, 3 * flops, "tf32")
     return res
+
+
+# the device kernels of one ln_dense call: the statistics pass, the product
+LN_DENSE_KERNELS = ("ln_stats_kernel", "ln_dense_wgmma_kernel")
+# ln_dense at the edges of its tiles and domain, (dtype, N, D, F, relu):
+# ragged row tiles (1, 63, 129 rows and one past the charades shape), F
+# not a multiple of 16 (40) and above one 256-column tile (512, 300), D of
+# one K tile's multiple (256), wide (8192) and odd (2817: element loads)
+LN_DENSE_EDGES = tuple(
+    (dt, N, D, F, relu)
+    for dt in ("bfloat16", "float32")
+    for N, D, F in ((1, 2818, 256), (63, 2818, 256), (129, 4098, 256), (10283, 2818, 256),
+                    (200, 256, 40), (200, 2818, 512), (130, 8192, 300), (77, 2817, 256),
+                    (64, 256, 256))
+    for relu in (True, False))
+
+
+def check_ln_dense_edges() -> list:
+    """ln_dense at LN_DENSE_EDGES against its plain version (TOL), untimed."""
+    out = []
+    for dtype_name, N, D, F, relu in LN_DENSE_EDGES:
+        out.append(check_ln_dense(dtype_name, relu, False, N=N, D=D, F=F))
+    return out
 
 
 def _encoder_qkv(B: int, L: int, dtype_name: str, seed: int):
@@ -1172,6 +1232,266 @@ def check_layout_anchor(strided: bool, summary=None) -> dict:
     return res
 
 
+# The head-dim phase: every attention kernel at the head dims of its
+# instances 16, 64 and 128 and at a padded 24 (run on the 32 instance with
+# zero columns), in both dtypes (the backward in fp32), against its plain
+# version within the kernel's own tolerance (TOL), by its device kernel's
+# name; each case with H = 4 heads (E = 4 hd) at a tile edge (70 queries,
+# keys not a multiple of 16) and a fully masked sample.
+HEAD_DIMS = (16, 24, 64, 128)
+HEAD_DIM_H = 4
+# (B, Lq, Lk) of each route's cases: the encoder kernels past the registers'
+# resident keys at hd 128 (128) and beyond 256; the short-key kernels at
+# their sites' key counts
+HEAD_DIM_SHAPES = {"encoder": ((2, 70, 81), (2, 70, 300)), "pair": ((2, 70, 81),),
+                   "shortkey": ((3, 70, 17), (3, 65, 33)), "backward": ((2, 70, 81), (2, 81, 130))}
+# the per-launch timings at hd 16 and 128 on the main paths' shapes, E =
+# 256 with 16 and 2 heads: (route, dtype, B, Lq, Lk)
+HEAD_DIM_TIMED = (("attention_packed", "bfloat16", 128, 195, 195),
+                  ("attention_batched", "float32", 32, 601, 601),
+                  ("attention_per_head", "bfloat16", 128, 195, 195),
+                  ("attention_all_heads", "float32", 16, 601, 601),
+                  ("attention_batched", "bfloat16", 128, 195, 195),
+                  ("attention_packed", "float32", 16, 601, 601),
+                  ("attention_packed_pair", "bfloat16", 128, 194, 81),
+                  ("attention_shortkey", "bfloat16", 128, 194, 17),
+                  ("attention_shortkey_onematmul", "bfloat16", 128, 194, 17),
+                  ("attention_shortkey", "float32", 16, 600, 17),
+                  ("attention_backward", "float32", 32, 601, 601))
+
+
+def _hd_inputs(B: int, Lq: int, Lk: int, E: int, H: int, dtype_name: str, pair: bool, seed: int):
+    """q, k, v, a key mask (sample 1 fully masked) and, with `pair`, pair
+    factors (sample 0's head 0: every key flagged and every other query)."""
+    import torch
+
+    dt = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dt) for _ in range(2))
+    lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
+    mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
+    mask[1] = False
+    pf = None
+    if pair:
+        qf = torch.rand(B, H, Lq, generator=g, device="cuda") < 0.4
+        kf = torch.rand(B, H, Lk, generator=g, device="cuda") < 0.4
+        kf[0, 0] = True
+        qf[0, 0, ::2] = True
+        pf = (qf, kf)
+    return q, k, v, mask, pf
+
+
+def _hd_routes():
+    """(wrapper, plain version, takes pair factors, shape group, device
+    kernel name by dtype) of every forward attention route."""
+    enc, pk = _encoder_kernels(), _pair_kernels()
+    routes = {name: (*enc[name], False, "encoder", ENCODER_KERNEL_NAMES[name]) for name in enc}
+    for name in pk:
+        routes[name] = (*pk[name], True, "pair" if name == "attention_packed_pair" else "shortkey",
+                        {d: PAIR_KERNEL_NAMES.get((name, d), "attention_shortkey_kernel")
+                         for d in ("bfloat16", "float32")})
+    return routes
+
+
+def _hd_backward_case(B: int, Lq: int, Lk: int, hd: int, seed: int) -> dict:
+    """The fp32 backward at head_dim hd against its plain version and
+    autograd through attention_core (1e-5), with the trainable Function's
+    output and gradients where the shape is on a kernel route."""
+    import torch
+
+    from mesm_tpu_torch.models.attention import attention_core
+    from mesm_tpu_torch.ops import attention_backward as abw
+    from mesm_tpu_torch.ops.attention_trainable import attention_trainable
+
+    H, tol = HEAD_DIM_H, TOL["attention_backward"]
+    q, k, v, mask, _ = _hd_inputs(B, Lq, Lk, H * hd, H, "float32", False, seed)
+    cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(seed + 1),
+                      device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_out = attention_core(*leaves, H, key_valid_mask=mask)
+    ref_out.backward(cot)
+    auto = [t.grad for t in leaves]
+    got, names = launched_kernels(
+        lambda: abw.attention_backward(q, k, v, ref_out.detach(), cot, H, mask))
+    want = abw.attention_backward_reference(q, k, v, cot, H, mask)
+    fn_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fn_out = attention_trainable(*fn_leaves, H, mask)
+    fn_out.backward(cot)
+    torch.cuda.synchronize()
+    case = {"kernel": "attention_backward", "dtype": "float32", "head_dim": hd,
+            "shape": [B, Lq, Lk, H * hd, H], "launched": names,
+            "max_abs_err": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            "max_err_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, want)),
+            "vs_autograd_rel_to_max1": max(_rel_err(a, b) for a, b in zip(got, auto)),
+            "function_vs_autograd_rel_to_max1": max(
+                _rel_err(a, b) for a, b in zip([fn_out.detach()] + [t.grad for t in fn_leaves],
+                                               [ref_out.detach()] + auto)),
+            "masked_sample_dq_dk_max": max(float(got[0][1].abs().max()),
+                                           float(got[1][1].abs().max())),
+            "finite": all(bool(torch.isfinite(a).all()) for a in got), "tol": tol}
+    case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                      and case["vs_autograd_rel_to_max1"] <= tol
+                      and case["function_vs_autograd_rel_to_max1"] <= tol
+                      and case["masked_sample_dq_dk_max"] == 0.0
+                      and all(any(n in x for x in names) for n in BACKWARD_KERNELS))
+    return case
+
+
+def check_head_dims() -> list:
+    """Every route at HEAD_DIMS x both dtypes x its HEAD_DIM_SHAPES (with
+    and without pair factors where it takes them), and the backward, against
+    the plain versions; each fully masked row must give the mean of v."""
+    import torch
+
+    H, cases = HEAD_DIM_H, []
+    for name, (fn, ref, takes_pair, group, kernel_names) in _hd_routes().items():
+        for hd in HEAD_DIMS:
+            for dtype_name in ("bfloat16", "float32"):
+                for B, Lq, Lk in HEAD_DIM_SHAPES[group]:
+                    for pair in ((True, False) if takes_pair else (False,)):
+                        if name == "attention_packed_pair" and not pair:
+                            continue
+                        seed = hd * 1000 + Lq + Lk + pair
+                        q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, H * hd, H, dtype_name, pair,
+                                                       seed)
+                        args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
+                        got, names = launched_kernels(lambda: fn(*args))
+                        want = ref(*args)
+                        torch.cuda.synchronize()
+                        tol = TOL[f"{name}_{dtype_name}"]
+                        dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+                        kname = kernel_names[dtype_name]
+                        case = {"kernel": name, "dtype": dtype_name, "head_dim": hd,
+                                "shape": [B, Lq, Lk, H * hd, H], "pair": pair,
+                                "launched": names,
+                                "max_abs_err": float((got.float() - want.float()).abs().max()),
+                                "max_err_rel_to_max1": _rel_err(got, want),
+                                "finite": bool(torch.isfinite(got).all()),
+                                "masked_rows_vs_mean_v": dead_err, "tol": tol}
+                        case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                                          and dead_rows > 0 and dead_err <= tol
+                                          and any(kname in n for n in names))
+                        cases.append(case)
+    for hd in HEAD_DIMS:
+        for B, Lq, Lk in HEAD_DIM_SHAPES["backward"]:
+            cases.append(_hd_backward_case(B, Lq, Lk, hd, seed=hd + Lq + Lk))
+    return cases
+
+
+def time_head_dims() -> list:
+    """Per launch at HEAD_DIM_TIMED's shapes with E = 256 at hd 16 (16
+    heads) and 128 (2 heads): CUDA events and the kernel alone from the
+    profiler; the backward against its plain version and autograd's."""
+    import torch
+
+    from mesm_tpu_torch.models.attention import attention_core
+    from mesm_tpu_torch.ops import attention_backward as abw
+
+    routes, out = _hd_routes(), []
+    E = MAIN_PATH["E"]
+    for name, dtype_name, B, Lq, Lk in HEAD_DIM_TIMED:
+        for hd in (16, 128):
+            H = E // hd
+            pair = name != "attention_shortkey_onematmul" and name in _pair_kernels()
+            q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, E, H, dtype_name, pair, seed=hd + B)
+            if name == "attention_backward":
+                out_t = attention_core(q, k, v, H, key_valid_mask=mask)
+                g = torch.randn_like(q)
+                fn = lambda: abw.attention_backward(q, k, v, out_t, g, H, mask)  # noqa: E731
+                plain = lambda: abw.attention_backward_reference(q, k, v, g, H, mask)  # noqa: E731
+                key = "attention_backward_"
+            else:
+                f, ref, takes_pair, _, names = routes[name]
+                args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
+                fn = lambda: f(*args)  # noqa: E731
+                plain = lambda: ref(*args)  # noqa: E731
+                key = names[dtype_name]
+            out.append({"kernel": name, "dtype": dtype_name, "head_dim": hd, "heads": H,
+                        "shape": [B, Lq, Lk, E], "pair": pair, "ms": cuda_time_ms(fn, iters=10),
+                        "kernel_ms": device_kernel_ms(fn, key, iters=10),
+                        "plain_ms": cuda_time_ms(plain, iters=5)})
+    return out
+
+
+def _nheads16_step_checks(card: str) -> dict:
+    """The charades bf16 eval step in "auto" at --nheads 16 (head_dim 16:
+    the packed kernel at the encoder) against kernels "off", and the
+    kernel-engaged TACoS fp32 train step at --nheads 16 (the batched kernel
+    and the backward kernel at head_dim 16) against its plain run, with the
+    train phase's tolerances."""
+    import dataclasses
+
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.losses import CriterionConfig
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    torch.manual_seed(0)
+    model = MESM(dataclasses.replace(_model_config(), nheads=16)).cuda().eval()
+    step = make_eval_step(model, _encode_batch, torch.bfloat16)
+    batch = make_eval_batch(0)
+    reset_launches()
+    got = step(batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    with kernels.pallas_scope("off"):
+        off = step(batch)
+    want = expected_launches(CHARADES_LAUNCHES["auto"], 1)
+    ev = {"launches": launches, "launches_expected": want, "vs_off_bf16": _pred_err(got, off),
+          "finite": all(bool(torch.isfinite(x.float()).all()) for x in got.values()),
+          "tol": MODEL_TOL}
+    ev["ok"] = bool(launches == want and ev["finite"] and max(ev["vs_off_bf16"].values()) <= MODEL_TOL)
+    del model, step
+
+    cfg = dataclasses.replace(_tacos_config(dropout=0.0), nheads=16)
+    torch.manual_seed(0)
+    init = MESM(cfg).state_dict()
+    ccfg = CriterionConfig(**TACOS_CRITERION)
+    tbatch = make_train_batch(0, TACOS["B"], TACOS["Lv"], TACOS["Dv"], TACOS["Lw"], TACOS["Dt"],
+                              cfg.num_classes)
+    first = {}
+    for mode in ("auto", "off"):
+        m = MESM(cfg)
+        m.load_state_dict(init)
+        reset_launches()
+        first[mode] = _first_grads(m.cuda(), ccfg, tbatch, mode)
+        torch.cuda.synchronize()
+        first[mode] += (read_launches(),)
+    (loss_a, g_a, launches_a), (loss_o, g_o, _) = first["auto"], first["off"]
+    want = expected_launches({"attention_batched": 2, "attention_trainable": 2,
+                              "attention_backward": 2}, 1)
+    tr = {"launches": launches_a, "launches_expected": want, "first_loss_auto": loss_a,
+          "first_loss_off": loss_o,
+          "first_loss_rel_err": abs(loss_a - loss_o) / max(1.0, abs(loss_o)),
+          "grad_max_err_rel_to_max1": _grad_err(g_a, g_o),
+          "grads_same_params": sorted(g_a) == sorted(g_o),
+          "loss_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    tr["ok"] = bool(launches_a == want and tr["grads_same_params"]
+                    and tr["first_loss_rel_err"] <= TRAIN_LOSS_TOL
+                    and tr["grad_max_err_rel_to_max1"] <= TRAIN_GRAD_TOL)
+    return {"charades_eval_nheads16": ev, "tacos_train_nheads16": tr}
+
+
+def phase_head_dims(card: str) -> dict:
+    """The head-dim domain on the card: check_head_dims, time_head_dims and
+    the --nheads 16 eval and train steps."""
+    cases = check_head_dims()
+    res = {"phase": "head_dims", "card": card, "cases": cases}
+    res.update(_nheads16_step_checks(card))
+    res["ok"] = bool(all(c["ok"] for c in cases) and res["charades_eval_nheads16"]["ok"]
+                     and res["tacos_train_nheads16"]["ok"])
+    res["failed"] = [c for c in cases if not c["ok"]]
+    if res["ok"]:
+        res["timed"] = time_head_dims()
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("head-dim phase: a check failed")
+    return res
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version at its main paths' shapes,
     timed; each check names the kernel summary's entry it stands for."""
@@ -1184,6 +1504,8 @@ def phase_kernels() -> dict:
                                           summary="ln_dense" if main else None))
     # the TACoS eval input projection: fp32, 6 videos x 600 clips of 4098
     results.append(check_ln_dense("float32", True, time_it=True, N=6 * TACOS["Lv"], D=TACOS["Dv"]))
+    # the edges of its tiles and its domain (any N, D, F), untimed
+    results.extend(check_ln_dense_edges())
     # the DETR encoder's self-attention: charades bf16 (128 x 195), TACoS
     # fp32 eval (16 x 601) and stacked train (32 x 601); the bf16 batched
     # and fp32 packed instances, and the per-head and all-heads layouts, are
@@ -2694,6 +3016,7 @@ def main() -> int:
     card = device["nvidia_smi"]
     phase_build()
     kernels = phase_kernels()
+    phase_head_dims(card)
     phase_model(card)
     cli = phase_cli()
     phase_tacos_eval(card)

@@ -80,6 +80,11 @@ INT8_FFN_MIN_ROWS = 4096
 # the (B, H, L, hd) attention layouts the JAX package reaches only through
 # this environment variable (attention_pallas.py:635-637), read per call
 ATTN_VARIANT_ENV = "MESM_ATTN_VARIANT"
+# the head dims every attention kernel has an instance for; the wrappers
+# zero-pad any other head_dim up to ATTN_MAX_HEAD_DIM to the next of them
+# (ops/attention_packed.kernel_head_dim), and a route is refused above it
+ATTN_HEAD_DIMS = (16, 32, 64, 128)
+ATTN_MAX_HEAD_DIM = ATTN_HEAD_DIMS[-1]
 
 
 def _normalize_mode(enabled) -> str:
@@ -197,7 +202,7 @@ def use_shortkey_packed(B: int, Lq: int, Lk: int, device, training: bool = False
 
 
 def attention_kernel(B: int, Lq: int, Lk: int, dtype, device, pair: bool = False,
-                     training: bool = False) -> Optional[str]:
+                     training: bool = False, head_dim: Optional[int] = None) -> Optional[str]:
     """The kernel an attention site launches, or None for attention_core, for
     a call with no split_qk and no active dropout (the caller has excluded
     both: neither tier takes them). In the order of
@@ -206,12 +211,21 @@ def attention_kernel(B: int, Lq: int, Lk: int, dtype, device, pair: bool = False
     "all_heads", "per_head"; in training it runs as the trainable
     Function's forward), then, in eval,
     the short-key tier: "shortkey_onematmul" when SHORTKEY_VARIANT is
-    "kernel", else attention_core."""
+    "kernel", else attention_core. Raises ValueError where it picks a kernel
+    for a head_dim above ATTN_MAX_HEAD_DIM, which no kernel takes (the
+    Pallas kernels take any; attention_core would round at other points
+    than the bf16 kernels)."""
+    route = None
     if use_pallas_attention(B, Lq, Lk, dtype, device):
-        return fused_route(Lq, Lk, dtype, pair)
-    if use_shortkey_packed(B, Lq, Lk, device, training) and SHORTKEY_VARIANT == "kernel":
-        return "shortkey_onematmul"
-    return None
+        route = fused_route(Lq, Lk, dtype, pair)
+    elif use_shortkey_packed(B, Lq, Lk, device, training) and SHORTKEY_VARIANT == "kernel":
+        route = "shortkey_onematmul"
+    if route is not None and head_dim is not None and head_dim > ATTN_MAX_HEAD_DIM:
+        raise ValueError(
+            f"attention route {route!r}: the attention kernels take head_dim <= "
+            f"{ATTN_MAX_HEAD_DIM}, got {head_dim}"
+        )
+    return route
 
 
 def refuse_autograd(name: str, *tensors) -> None:

@@ -69,6 +69,15 @@
 // the memory of the backward grows as Lq + Lk, not as Lq * Lk. Shared
 // memory: 72 KB a block at hd 32 (2 blocks an SM: 8 warps, no spills), 136
 // KB at hd 64 (one block an SM).
+//
+// Head dims 16, 32, 64 and 128. At hd 128 a warp's own rows as A fragments
+// would take 64 registers each (qs and dO, or K and V) on top of a 64 x 128
+// f32 sum or two: so there the block stages its own rows once in shared
+// memory (unsplit, at the row stride RS) and each step reads its fragments
+// from there; the other side's tiles hold 32 rows (one step) instead of 64,
+// so that both fit 227 KB; and the products whose output is hd wide are
+// taken half the columns at a time, into 32 registers. The sums are the
+// same, in the same order.
 
 #include "attention_grid.cuh"
 
@@ -79,7 +88,7 @@
 namespace {
 
 constexpr int THREADS = 128;  // 4 warps, 16 rows each
-constexpr int TILE = 64;      // query rows or keys of a tile
+constexpr int TILE = 64;      // a block's own query rows or keys
 constexpr float NEG_INF = -1e9f;
 
 // row stride (floats) of a staged tile: conflict-free fragment loads
@@ -87,17 +96,30 @@ template <int HD>
 constexpr int RS = HD + 4;
 // keys (dq kernel) or queries (dk / dv kernel) of a tile taken in one step
 constexpr int STEP = 32;
+// rows of a tile of the other side: 64, or one step at hd 128
+template <int HD>
+constexpr int KT = HD >= 128 ? STEP : 64;
+// the block's own rows staged in shared memory (hd 128), not in registers
+template <int HD>
+constexpr bool OWN_SMEM = HD >= 128;
+// output column tiles (of 8) of a product taken at once: all, or half at
+// hd 128
+template <int HD>
+constexpr int NH = HD >= 128 ? HD / 16 : HD / 8;
 
-// Dynamic shared memory of each kernel, in bytes: two buffers, each the hi
-// and lo parts of two tiles [TILE][RS]; the dq kernel adds TILE key flags a
-// buffer, the dk / dv kernel TILE rows of statistics (3 floats) a buffer.
+// Dynamic shared memory of each kernel, in bytes: at hd 128 the own rows
+// (two arrays [TILE][RS]) first; then two buffers, each the hi and lo parts
+// of two tiles [KT][RS]; the dq kernel adds KT key flags a buffer, the
+// dk / dv kernel KT rows of statistics (3 floats) a buffer.
 template <int HD>
 struct DqSmem {
-  static constexpr size_t bytes = (size_t)8 * TILE * RS<HD> * 4 + 2 * TILE;
+  static constexpr size_t own = OWN_SMEM<HD> ? (size_t)2 * TILE * RS<HD> * 4 : 0;
+  static constexpr size_t bytes = own + (size_t)8 * KT<HD> * RS<HD> * 4 + 2 * KT<HD>;
 };
 template <int HD>
 struct DkdvSmem {
-  static constexpr size_t bytes = ((size_t)8 * TILE * RS<HD> + 2 * TILE * 3) * 4;
+  static constexpr size_t own = DqSmem<HD>::own;
+  static constexpr size_t bytes = own + ((size_t)8 * KT<HD> * RS<HD> + 2 * KT<HD> * 3) * 4;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -172,14 +194,14 @@ __device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, const Split
   mma_tf32(c, a.hi, bh0, bh1);
 }
 
-// cp.async of rows [0, TILE) of an f32 tile (row stride E in device
-// memory; `rows` of them read, zeros beyond) into dst at row stride RS: a
-// thread copies the 16-byte chunks i = tid + n THREADS.
+// cp.async of rows [0, KT) of an f32 tile (row stride E in device memory;
+// `rows` of them read, zeros beyond) into dst at row stride RS: a thread
+// copies the 16-byte chunks i = tid + n THREADS.
 template <int HD>
 __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int rows,
                                            int E) {
   constexpr int C4 = HD / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < TILE * C4; i += THREADS) {
+  for (int i = threadIdx.x; i < KT<HD> * C4; i += THREADS) {
     const int r = i / C4, c = i % C4;
     float* d = dst + r * RS<HD> + 4 * c;
     if (r < rows)
@@ -195,7 +217,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__
 template <int HD>
 __device__ __forceinline__ void split_tile(float* hi, float* lo, float mul) {
   constexpr int C4 = HD / 4;
-  for (int i = threadIdx.x; i < TILE * C4; i += THREADS) {
+  for (int i = threadIdx.x; i < KT<HD> * C4; i += THREADS) {
     const int off = i / C4 * RS<HD> + 4 * (i % C4);
     const float4 x = *reinterpret_cast<const float4*>(hi + off);
     uint4 h, l;
@@ -226,11 +248,54 @@ __device__ __forceinline__ void load_a(float (&a)[HD / 8][4], const float* __res
   }
 }
 
+// A warp's own 16 rows as the A fragments of every k step of HD (rows g and
+// g + 8, columns 8 ks + t and + 4): in registers, read from device memory
+// once (load_a)...
+template <int HD, bool SMEM = OWN_SMEM<HD>>
+struct OwnRows {
+  float a[HD / 8][4];
+  __device__ __forceinline__ void load(const float* __restrict__ src, int r0, int rows, int E,
+                                       int lane, float mul, float*) {
+    load_a<HD>(a, src, r0, rows, E, lane, mul);
+  }
+  __device__ __forceinline__ void frag(int ks, float (&f)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) f[i] = a[ks][i];
+  }
+};
+// ... or, at hd 128, in the warp's 16 rows of shared memory (row stride RS,
+// each value times `mul`, rows at or past `rows` 0), read at each step
+template <int HD>
+struct OwnRows<HD, true> {
+  const float* w;  // the thread's (g, t) in the warp's rows
+  __device__ __forceinline__ void load(const float* __restrict__ src, int r0, int rows, int E,
+                                       int lane, float mul, float* dst) {
+    constexpr int C4 = HD / 4;
+    for (int i = lane; i < 16 * C4; i += 32) {
+      const int r = i / C4, c = i % C4;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r0 + r < rows) {
+        x = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * E + 4 * c);
+        x = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+      }
+      *reinterpret_cast<float4*>(dst + r * RS<HD> + 4 * c) = x;
+    }
+    __syncwarp();
+    w = dst + (lane >> 2) * RS<HD> + (lane & 3);
+  }
+  __device__ __forceinline__ void frag(int ks, float (&f)[4]) const {
+    f[0] = w[8 * ks];
+    f[1] = w[8 * RS<HD> + 8 * ks];
+    f[2] = w[8 * ks + 4];
+    f[3] = w[8 * RS<HD> + 8 * ks + 4];
+  }
+};
+
 // c[nt] = A . T^T over HD: the rows n0 + 8 nt + g of split tile T are the B
 // columns (S = qs . K^T with T = K).
-template <int HD, int NT>
-__device__ __forceinline__ void product_nt(float (&c)[NT][4], const float (&a)[HD / 8][4],
-                                           const SplitTile& T, int n0, int lane) {
+template <int HD, int NT, typename A>
+__device__ __forceinline__ void product_nt(float (&c)[NT][4], const A& a, const SplitTile& T,
+                                           int n0, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -238,7 +303,9 @@ __device__ __forceinline__ void product_nt(float (&c)[NT][4], const float (&a)[H
     for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
 #pragma unroll
   for (int ks = 0; ks < HD / 8; ++ks) {
-    const SplitA sa(a[ks][0], a[ks][1], a[ks][2], a[ks][3]);
+    float f[4];
+    a.frag(ks, f);
+    const SplitA sa(f[0], f[1], f[2], f[3]);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int off = (n0 + 8 * nt + g) * RS<HD> + 8 * ks + t;
@@ -247,25 +314,25 @@ __device__ __forceinline__ void product_nt(float (&c)[NT][4], const float (&a)[H
   }
 }
 
-// c = X . T over the KT rows k0 .. k0 + KT of split tile T (the HD columns
-// of T are the output columns), with X the C tiles x[KT / 8] of a previous
-// product (16 rows x KT): tile ks's C values (row g: keys 2t, 2t + 1; row
-// g + 8: the same) are the A fragment of k step ks when k index t stands
-// for row 2t of T and t + 4 for row 2t + 1.
-template <int HD, int KT>
-__device__ __forceinline__ void product_kt(float (&c)[HD / 8][4], const float (&x)[KT / 8][4],
-                                           const SplitTile& T, int k0, int lane) {
+// c = X . T over the K rows k0 .. k0 + K of split tile T, output columns
+// 8 (nd0 + nd) .. of T for nd < NC, with X the C tiles x[K / 8] of a
+// previous product (16 rows x K): tile ks's C values (row g: keys 2t,
+// 2t + 1; row g + 8: the same) are the A fragment of k step ks when k index
+// t stands for row 2t of T and t + 4 for row 2t + 1.
+template <int HD, int K, int NC>
+__device__ __forceinline__ void product_kt(float (&c)[NC][4], const float (&x)[K / 8][4],
+                                           const SplitTile& T, int k0, int lane, int nd0) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd)
+  for (int nd = 0; nd < NC; ++nd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[nd][i] = 0.f;
 #pragma unroll
-  for (int ks = 0; ks < KT / 8; ++ks) {
+  for (int ks = 0; ks < K / 8; ++ks) {
     const SplitA sa(x[ks][0], x[ks][2], x[ks][1], x[ks][3]);
-    const int off = (k0 + 8 * ks + 2 * t) * RS<HD> + g;
+    const int off = (k0 + 8 * ks + 2 * t) * RS<HD> + g + 8 * nd0;
 #pragma unroll
-    for (int nd = 0; nd < HD / 8; ++nd) mma3(c[nd], sa, T, off + 8 * nd, off + RS<HD> + 8 * nd);
+    for (int nd = 0; nd < NC; ++nd) mma3(c[nd], sa, T, off + 8 * nd, off + RS<HD> + 8 * nd);
   }
 }
 
@@ -328,17 +395,18 @@ __device__ __forceinline__ void walk(int ntiles, Stage stage, Split split_own, C
 // scratch rows of 3 floats: m (the max logit), 1 / l (l = sum_j exp(S_ij -
 // m)) and D.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, OWN_SMEM<HD> ? 1 : 2)
 attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                     const float* __restrict__ v, const float* __restrict__ o,
                                     const float* __restrict__ g, const uint8_t* __restrict__ mask,
                                     float* __restrict__ dq, float* __restrict__ stats, int H,
                                     int Lq, int Lk, int E, float scale) {
-  constexpr int NT = STEP / 8, ND = HD / 8;
-  constexpr int T1 = TILE * RS<HD>;
+  constexpr int NT = STEP / 8, ND = HD / 8, KTL = KT<HD>;
+  constexpr int T1 = KTL * RS<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* buf = reinterpret_cast<float*>(smem);  // [2][Khi, Klo, Vhi, Vlo][T1]
-  uint8_t* Fs = reinterpret_cast<uint8_t*>(buf + 8 * T1);  // [2][TILE]
+  float* own = reinterpret_cast<float*>(smem);  // hd 128: [qs, dO][TILE][RS]
+  float* buf = reinterpret_cast<float*>(smem + DqSmem<HD>::own);  // [2][Khi, Klo, Vhi, Vlo][T1]
+  uint8_t* Fs = reinterpret_cast<uint8_t*>(buf + 8 * T1);  // [2][KTL]
 
   int b, h, q0;
   attn_grid::block_coords<TILE>(H, Lq, b, h, q0);
@@ -347,12 +415,12 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
   const int rows = min(TILE, Lq - q0);
   const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
   const uint8_t* mask_b = mask + (size_t)b * Lk;
-  const int ntiles = (Lk + TILE - 1) / TILE;
+  const int ntiles = (Lk + KTL - 1) / KTL;
   auto tiles_of = [&](int bi) { return buf + bi * 4 * T1; };
   // the warp's rows 16 warp + g and + 8: qs and dO as A fragments, D
-  float qa[ND][4], ga[ND][4];
-  load_a<HD>(qa, q + qoff, 16 * warp, rows, E, lane, scale);
-  load_a<HD>(ga, g + qoff, 16 * warp, rows, E, lane, 1.f);
+  OwnRows<HD> qa, ga;
+  qa.load(q + qoff, 16 * warp, rows, E, lane, scale, own + 16 * warp * RS<HD>);
+  ga.load(g + qoff, 16 * warp, rows, E, lane, 1.f, own + (TILE + 16 * warp) * RS<HD>);
   float D0 = 0.f, D1 = 0.f;  // rowsum(dO o O) of rows g and g + 8, four lanes a row
   {
     const int r0 = 16 * warp + gq;
@@ -374,17 +442,17 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
-  // the key flags: thread tid < TILE holds key tid's of the next tile
-  if (tid < TILE) Fs[tid] = key_flag(mask_b, tid, Lk);
+  // the key flags: thread tid < KTL holds key tid's of the next tile
+  if (tid < KTL) Fs[tid] = key_flag(mask_b, tid, Lk);
   uint8_t fnext = 0;
 
   walk(
       ntiles,
       [&](int it, int bi) {
-        const int k0 = it * TILE;
+        const int k0 = it * KTL;
         const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
-        stage_tile<HD>(tiles_of(bi), k + koff, min(TILE, Lk - k0), E);
-        stage_tile<HD>(tiles_of(bi) + 2 * T1, v + koff, min(TILE, Lk - k0), E);
+        stage_tile<HD>(tiles_of(bi), k + koff, min(KTL, Lk - k0), E);
+        stage_tile<HD>(tiles_of(bi) + 2 * T1, v + koff, min(KTL, Lk - k0), E);
         cp_async_commit();
       },
       [&](int bi) {
@@ -392,11 +460,11 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
         split_tile<HD>(tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1, 1.f);
       },
       [&](int it, int bi) {
-        if (tid < TILE) fnext = key_flag(mask_b, (it + 1) * TILE + tid, Lk);
+        if (tid < KTL) fnext = key_flag(mask_b, (it + 1) * KTL + tid, Lk);
         const SplitTile Kt{tiles_of(bi), tiles_of(bi) + T1};
         const SplitTile Vt{tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1};
-        const uint8_t* Fb = Fs + bi * TILE;
-        const int kn = min(TILE, Lk - it * TILE);
+        const uint8_t* Fb = Fs + bi * KTL;
+        const int kn = min(KTL, Lk - it * KTL);
         for (int kk = 0; kk < kn; kk += STEP) {  // a step holds at least one key < Lk
           float s[NT][4], dp[NT][4];
           product_nt<HD, NT>(s, qa, Kt, kk, lane);
@@ -432,19 +500,22 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
           l1 = l1 * alpha1 + quad_sum(rs1);
           m0 = mn0;
           m1 = mn1;
-          float part[ND][4];
-          product_kt<HD, STEP>(part, s, Kt, kk, lane);
 #pragma unroll
-          for (int nd = 0; nd < ND; ++nd) {
-            acc[nd][0] = fmaf(acc[nd][0], alpha0, part[nd][0]);
-            acc[nd][1] = fmaf(acc[nd][1], alpha0, part[nd][1]);
-            acc[nd][2] = fmaf(acc[nd][2], alpha1, part[nd][2]);
-            acc[nd][3] = fmaf(acc[nd][3], alpha1, part[nd][3]);
+          for (int n0 = 0; n0 < ND; n0 += NH<HD>) {
+            float part[NH<HD>][4];
+            product_kt<HD, STEP, NH<HD>>(part, s, Kt, kk, lane, n0);
+#pragma unroll
+            for (int nd = 0; nd < NH<HD>; ++nd) {
+              acc[n0 + nd][0] = fmaf(acc[n0 + nd][0], alpha0, part[nd][0]);
+              acc[n0 + nd][1] = fmaf(acc[n0 + nd][1], alpha0, part[nd][1]);
+              acc[n0 + nd][2] = fmaf(acc[n0 + nd][2], alpha1, part[nd][2]);
+              acc[n0 + nd][3] = fmaf(acc[n0 + nd][3], alpha1, part[nd][3]);
+            }
           }
         }
       },
       [&](int it) {
-        if (tid < TILE) Fs[((it + 1) & 1) * TILE + tid] = fnext;
+        if (tid < KTL) Fs[((it + 1) & 1) * KTL + tid] = fnext;
       });
 
   // l >= 1: the row's largest logit adds exp(0)
@@ -476,18 +547,19 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, OWN_SMEM<HD> ? 1 : 2)
 attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                       const float* __restrict__ v, const float* __restrict__ g,
                                       const uint8_t* __restrict__ mask,
                                       const float* __restrict__ stats, float* __restrict__ dk,
                                       float* __restrict__ dv, int H, int Lq, int Lk, int E,
                                       float scale) {
-  constexpr int NT = STEP / 8, ND = HD / 8;
-  constexpr int T1 = TILE * RS<HD>;
+  constexpr int NT = STEP / 8, ND = HD / 8, KTL = KT<HD>;
+  constexpr int T1 = KTL * RS<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* buf = reinterpret_cast<float*>(smem);  // [2][Qhi, Qlo, Ghi, Glo][T1]
-  float* St = buf + 8 * T1;                     // [2][TILE * 3]
+  float* own = reinterpret_cast<float*>(smem);  // hd 128: [K, V][TILE][RS]
+  float* buf = reinterpret_cast<float*>(smem + DkdvSmem<HD>::own);  // [2][Qhi, Qlo, Ghi, Glo][T1]
+  float* St = buf + 8 * T1;                                         // [2][KTL * 3]
 
   int b, h, k0;
   attn_grid::block_coords<TILE>(H, Lk, b, h, k0);
@@ -495,11 +567,11 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
   const int gk = lane >> 2, tk = lane & 3;
   const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
   const float* st = stats + ((size_t)b * H + h) * Lq * 3;
-  const int ntiles = (Lq + TILE - 1) / TILE;
+  const int ntiles = (Lq + KTL - 1) / KTL;
   // the warp's keys 16 warp + g and + 8: K and V as A fragments, their flags
-  float ka[ND][4], va[ND][4];
-  load_a<HD>(ka, k + koff, 16 * warp, Lk - k0, E, lane, 1.f);
-  load_a<HD>(va, v + koff, 16 * warp, Lk - k0, E, lane, 1.f);
+  OwnRows<HD> ka, va;
+  ka.load(k + koff, 16 * warp, Lk - k0, E, lane, 1.f, own + 16 * warp * RS<HD>);
+  va.load(v + koff, 16 * warp, Lk - k0, E, lane, 1.f, own + (TILE + 16 * warp) * RS<HD>);
   const int kj0 = k0 + 16 * warp + gk, kj1 = kj0 + 8;
   const uint8_t f0 = key_flag(mask + (size_t)b * Lk, kj0, Lk);
   const uint8_t f1 = key_flag(mask + (size_t)b * Lk, kj1, Lk);
@@ -512,14 +584,14 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
   walk(
       ntiles,
       [&](int it, int bi) {
-        const int q0 = it * TILE, qn = min(TILE, Lq - q0);
+        const int q0 = it * KTL, qn = min(KTL, Lq - q0);
         const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
         stage_tile<HD>(buf + bi * 4 * T1, q + qoff, qn, E);
         stage_tile<HD>(buf + bi * 4 * T1 + 2 * T1, g + qoff, qn, E);
         // (m, 1/l, D) of each row; rows past Lq: q = 0 gives S = 0, and
         // 1/l = 0 gives P = 0
-        float* sb = St + bi * TILE * 3;
-        for (int i = tid; i < TILE * 3; i += THREADS) {
+        float* sb = St + bi * KTL * 3;
+        for (int i = tid; i < KTL * 3; i += THREADS) {
           if (i < qn * 3)
             cp_async4(sb + i, st + (size_t)q0 * 3 + i);
           else
@@ -535,8 +607,8 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
       [&](int it, int bi) {
         const float* base = buf + bi * 4 * T1;
         const SplitTile Qt{base, base + T1}, Gt{base + 2 * T1, base + 3 * T1};
-        const float* Sb = St + bi * TILE * 3;
-        const int qn = min(TILE, Lq - it * TILE);
+        const float* Sb = St + bi * KTL * 3;
+        const int qn = min(KTL, Lq - it * KTL);
         for (int qq = 0; qq < qn; qq += STEP) {
           // keys g, g + 8 against queries qq + 8 nt + 2t, + 1: S^T and dP^T,
           // the sums of the dq kernel's S and dP over the same products
@@ -559,17 +631,24 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
             s[nt][2] = p2;
             s[nt][3] = p3;
           }
-          float part[ND][4];
-          product_kt<HD, STEP>(part, s, Gt, qq, lane);  // P^T . dO
 #pragma unroll
-          for (int nd = 0; nd < ND; ++nd)
+          for (int n0 = 0; n0 < ND; n0 += NH<HD>) {
+            float part[NH<HD>][4];
+            product_kt<HD, STEP, NH<HD>>(part, s, Gt, qq, lane, n0);  // P^T . dO
 #pragma unroll
-            for (int i = 0; i < 4; ++i) adv[nd][i] += part[nd][i];
-          product_kt<HD, STEP>(part, dp, Qt, qq, lane);  // dS^T . qs
+            for (int nd = 0; nd < NH<HD>; ++nd)
 #pragma unroll
-          for (int nd = 0; nd < ND; ++nd)
+              for (int i = 0; i < 4; ++i) adv[n0 + nd][i] += part[nd][i];
+          }
 #pragma unroll
-            for (int i = 0; i < 4; ++i) adk[nd][i] += part[nd][i];
+          for (int n0 = 0; n0 < ND; n0 += NH<HD>) {
+            float part[NH<HD>][4];
+            product_kt<HD, STEP, NH<HD>>(part, dp, Qt, qq, lane, n0);  // dS^T . qs
+#pragma unroll
+            for (int nd = 0; nd < NH<HD>; ++nd)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) adk[n0 + nd][i] += part[nd][i];
+          }
         }
       },
       [](int) {});
@@ -600,7 +679,7 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   err = cudaFuncSetAttribute(attention_backward_dkdv_3xtf32_kernel<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return (int)err;
-  const long long bq = (long long)B * H * ((Lq + TILE - 1) / TILE);
+  const long long bq = (long long)B * H * ((Lq + TILE - 1) / TILE);  // own rows: TILE
   const long long bk = (long long)B * H * ((Lk + TILE - 1) / TILE);
   if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   attention_backward_dq_3xtf32_kernel<HD><<<(unsigned)bq, THREADS, s1, stream>>>(
@@ -617,7 +696,8 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
 // Plain C entry point, bound with ctypes. q, o, g (= dO), dq: (B, Lq, E);
 // k, v, dk, dv: (B, Lk, E); all float32, contiguous, 16-byte aligned; mask:
 // (B, Lk) uint8, 1 = attendable; stats: (B, H, Lq, 3) float32 scratch. Head
-// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 32 or 64;
+// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64
+// or 128;
 // scale is the f32 softmax scale. Launches the two kernels on `stream` and
 // returns the cudaError_t of the launches (0 = success).
 extern "C" int attention_backward_launch(const void* q, const void* k, const void* v,
@@ -636,10 +716,8 @@ extern "C" int attention_backward_launch(const void* q, const void* k, const voi
   auto* fdk = static_cast<float*>(dk);
   auto* fdv = static_cast<float*>(dv);
   auto* fst = static_cast<float*>(stats);
-  const int hd = E / H;
-  if (hd == 32)
-    return launch<32>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E, scale, s);
-  if (hd == 64)
-    return launch<64>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    return launch<decltype(c)::value>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E,
+                                      scale, s);
+  });
 }

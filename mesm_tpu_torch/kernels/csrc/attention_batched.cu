@@ -29,7 +29,8 @@
 //     K_h and V_h staged whole with cp.async, mma.sync m16n8k16 tiles, an
 //     exact two-pass softmax) on their grid (attention_grid.cuh);
 //   - float32, and bf16 whose K_h and V_h do not fit a block's shared
-//     memory (more than 1,760 keys at hd 32, 864 at hd 64), run the
+//     memory (more than 3,536 keys at hd 16, 1,760 at 32, 864 at 64, 416
+//     at 128), run the
 //     register-tile body (attention_regtile.cuh: 256 threads per (b, h) and
 //     64 query rows, key tiles of 64 streamed, an online softmax in fp32 and
 //     two walks in bf16), which takes any Lk. The bf16 choice is a route by
@@ -97,8 +98,9 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
            int Lq, int Lk, int E, float scale, cudaStream_t s) {
   if constexpr (sizeof(T) == 2) {
     if (mma_fits<HD>(Lk)) {
-      const auto kernel = Lk <= mma_attn::RESIDENT_KEYS ? attention_batched_mma_kernel<HD, true>
-                                                        : attention_batched_mma_kernel<HD, false>;
+      const auto kernel = Lk <= mma_attn::resident_keys<HD>()
+                              ? attention_batched_mma_kernel<HD, true>
+                              : attention_batched_mma_kernel<HD, false>;
       return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS,
                                                      mma_attn::Smem<HD>::bytes(Lk), q, k, v, mask,
                                                      out, B, H, Lq, Lk, E, scale, s);
@@ -110,29 +112,29 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
              int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  const int hd = E / H;
-  if (hd == 32) return launch<T, 32>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  if (hd == 64) return launch<T, 64>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    return launch<T, decltype(c)::value>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  });
 }
 
 }  // namespace
 
 // Shared memory a block takes for bf16 (is_bf16 = 1) or float32 operands,
-// head_dim `hd` and `Lk` keys (0 when hd is not one the kernel takes): the
+// head_dim `hd` (16, 32, 64 or 128) and `Lk` keys (0 for another hd): the
 // staging of K_h and V_h in bf16 where it fits, else the register tiles'
 // constant, since their keys stream through in tiles.
 extern "C" long long attention_batched_smem_bytes(int is_bf16, int hd, int Lk) {
-  if (hd == 32) return (long long)(is_bf16 ? smem_bytes<bf16, 32>(Lk) : smem_bytes<float, 32>(Lk));
-  if (hd == 64) return (long long)(is_bf16 ? smem_bytes<bf16, 64>(Lk) : smem_bytes<float, 64>(Lk));
-  return 0;
+  return attn_grid::by_head_dim(hd, 0LL, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return (long long)(is_bf16 ? smem_bytes<bf16, HD>(Lk) : smem_bytes<float, HD>(Lk));
+  });
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k and v: (B, Lk, E),
 // out: (B, Lq, E), all float32 (is_bf16 = 0) or all bf16 (is_bf16 = 1),
 // contiguous and 16-byte aligned; mask: (B, Lk) uint8, 1 = attendable. Head
-// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 32 or 64.
-// scale is the softmax scale rounded to the operand dtype. Returns the
+// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64 or
+// 128. scale is the softmax scale rounded to the operand dtype. Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int attention_batched_launch(const void* q, const void* k, const void* v,
                                         const void* mask, void* out, int B, int H, int Lq, int Lk,

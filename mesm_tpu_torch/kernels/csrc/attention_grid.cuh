@@ -3,7 +3,8 @@
 // (b, tile, h), so the blocks of every head of a query tile run together,
 // and the launch that sets a block's dynamic shared memory and checks the
 // grid's size. Shared by attention_heads.cu, attention_batched.cu and
-// attention_packed.cu.
+// attention_packed.cu. Also the head dims every attention kernel has an
+// instance for, shared by every attention source.
 
 #pragma once
 
@@ -11,6 +12,28 @@
 #include <stdint.h>
 
 namespace attn_grid {
+
+// The head dims of the kernels' instances: 16, 32, 64 and 128. The wrappers
+// zero-pad any other head_dim up to 128 to the next of them (zero columns
+// add exact zeros to the f32 sums of q . k and give zero columns of p . v)
+// and refuse more than 128. by_head_dim(hd, invalid, f) returns
+// f(HeadDim<HD>{}) for hd one of them, else `invalid`; f reads the head_dim
+// as decltype(c)::value.
+template <int HD>
+struct HeadDim {
+  static constexpr int value = HD;
+};
+
+template <typename R, typename F>
+R by_head_dim(int hd, R invalid, F&& f) {
+  switch (hd) {
+    case 16: return f(HeadDim<16>{});
+    case 32: return f(HeadDim<32>{});
+    case 64: return f(HeadDim<64>{});
+    case 128: return f(HeadDim<128>{});
+    default: return invalid;
+  }
+}
 
 // shared memory a block may take on sm_90 (opt-in above 48 KB)
 constexpr size_t MAX_SMEM = 232448;

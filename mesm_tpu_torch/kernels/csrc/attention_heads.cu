@@ -81,7 +81,7 @@ attention_heads_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
 // at least 4 blocks an SM: 64 registers, as the batched kernel gets (79
 // and 3 blocks without the bound: ~8 % slower at TACoS on the H100 above)
 template <int HD>
-__global__ void __launch_bounds__(regtile::THREADS, 4)
+__global__ void __launch_bounds__(regtile::THREADS, regtile::min_blocks<HD>())
 attention_heads_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const uint8_t* __restrict__ mask,
                            float* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
@@ -102,8 +102,8 @@ size_t smem_bytes(int Lk) {
 template <int HD>
 int dispatch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
                   int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  const auto kernel = Lk <= mma_attn::RESIDENT_KEYS ? attention_heads_kernel_bf16<HD, true>
-                                                    : attention_heads_kernel_bf16<HD, false>;
+  const auto kernel = Lk <= mma_attn::resident_keys<HD>() ? attention_heads_kernel_bf16<HD, true>
+                                                          : attention_heads_kernel_bf16<HD, false>;
   return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS,
                                                  smem_bytes<bf16, HD>(Lk), q, k, v, mask, out, B,
                                                  H, Lq, Lk, E, scale, s);
@@ -120,34 +120,31 @@ int dispatch_f32(const void* q, const void* k, const void* v, const void* mask, 
 }  // namespace
 
 // Shared memory a block needs for bf16 (is_bf16 = 1) or float32 operands,
-// head_dim `hd` and `Lk` keys (0 when hd is not one the kernel takes), so
+// head_dim `hd` (16, 32, 64 or 128) and `Lk` keys (0 for another hd), so
 // the wrapper can refuse before launching. bf16 stages every key of the
-// head (up to 1,760 keys at hd 32, 864 at hd 64); float32 streams the keys
-// in tiles and takes any Lk.
+// head (up to 3,536 keys at hd 16, 1,760 at 32, 864 at 64, 416 at 128);
+// float32 streams the keys in tiles and takes any Lk.
 extern "C" long long attention_heads_smem_bytes(int is_bf16, int hd, int Lk) {
-  if (hd == 32) return (long long)(is_bf16 ? smem_bytes<bf16, 32>(Lk) : smem_bytes<float, 32>(Lk));
-  if (hd == 64) return (long long)(is_bf16 ? smem_bytes<bf16, 64>(Lk) : smem_bytes<float, 64>(Lk));
-  return 0;
+  return attn_grid::by_head_dim(hd, 0LL, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return (long long)(is_bf16 ? smem_bytes<bf16, HD>(Lk) : smem_bytes<float, HD>(Lk));
+  });
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
 // out: (B, Lq, E), all bf16 (is_bf16 = 1) or all float32, contiguous and
 // 16-byte aligned; mask: (B, Lk) uint8, 1 = attendable. Head h reads and
-// writes columns [h*hd, (h+1)*hd) with hd = E / H, 32 or 64. scale is the
-// softmax scale rounded to the operand dtype. Returns the cudaError_t of
-// the launch (0 = success).
+// writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64 or 128. scale
+// is the softmax scale rounded to the operand dtype. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int attention_heads_launch(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, int B, int H, int Lq, int Lk,
                                       int E, int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H != 0) return (int)cudaErrorInvalidValue;
-  const int hd = E / H;
-  if (is_bf16) {
-    if (hd == 32) return dispatch_bf16<32>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-    if (hd == 64) return dispatch_bf16<64>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  } else {
-    if (hd == 32) return dispatch_f32<32>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-    if (hd == 64) return dispatch_f32<64>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    return is_bf16 ? dispatch_bf16<HD>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s)
+                   : dispatch_f32<HD>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  });
 }

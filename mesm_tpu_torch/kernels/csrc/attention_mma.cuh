@@ -54,14 +54,19 @@
 // Lk up to a multiple of 16) and one flag byte per key (1 valid, 0 masked,
 // 2 past Lk; the pair chain adds KEY_PAIR where the key's pair factor is
 // set), staged once per block with 16-byte cp.async copies. Rows are
-// hd bf16 (64 or 128 bytes) with their 16-byte chunks XOR-swizzled by row,
+// hd bf16 (32 to 256 bytes) with their 16-byte chunks XOR-swizzled by row,
 // so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups
-// without padding: up to 1,760 keys at hd 32 and 864 at hd 64 fit in a
-// block's 227 KB.
+// without padding: up to 3,536 keys at hd 16, 1,760 at hd 32, 864 at hd 64
+// and 416 at hd 128 fit in a block's 227 KB.
 //
-// The row's logits: up to RESIDENT_KEYS keys they stay in registers (32 n8
-// tiles, 128 f32 a thread; an instance may hold fewer, KEYS, in fewer
-// registers) and are computed once; beyond, the warp walks
+// Head dims 16, 32, 64 and 128: at hd 16 the q . k^T of an n8 key tile is
+// one k step of 16 (an ldmatrix x2 of K), at hd 128 a row of a tile spans
+// two 128-byte lines and the swizzle permutes its chunks within 8.
+//
+// The row's logits: up to resident_keys<HD>() keys (RESIDENT_KEYS, 128 at
+// hd 128, where q's fragments and the output take 96 registers) they stay
+// in registers (32 n8 tiles, 128 f32 a thread; an instance may hold fewer,
+// KEYS, in fewer registers) and are computed once; beyond, the warp walks
 // the keys in chunks of CHUNK_KEYS and recomputes each chunk's logits in
 // each of the three passes (max, sum, P . V), which at hd 32-64 costs a few
 // tensor-core instructions a chunk.
@@ -89,6 +94,12 @@ constexpr uint8_t KEY_PAIR = 4;  // flag bit: the key's pair factor (Chain::PAIR
 enum class Chain { BATCHED, PACKED, PAIR };
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
+
+// the keys whose logits a warp keeps in registers at head_dim HD
+template <int HD>
+__host__ __device__ constexpr int resident_keys() {
+  return HD >= 128 ? 128 : RESIDENT_KEYS;
+}
 
 // Dynamic shared memory of a block: Q tile, K_h, V_h, key flags.
 template <int HD>
@@ -118,12 +129,14 @@ __device__ __forceinline__ float pair_logit(float acc, uint8_t f, bool qf, float
 }
 
 // Element offset of 16-byte chunk `c` of row `r` in a swizzled tile of
-// rows of HD bf16: chunk c ^ ((r / rows_per_128_bytes) % chunks_per_row).
+// rows of HD bf16: chunk c ^ ((r / rows_per_128_bytes) % chunks_per_row),
+// or c ^ (r % 8) where a row spans more than one 128-byte line (hd 128).
 template <int HD>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int CH = HD / 8;
-  constexpr int RPL = 8 / CH;
-  return r * HD + ((c ^ ((r / RPL) % CH)) << 3);
+  constexpr int RPL = CH >= 8 ? 1 : 8 / CH;
+  constexpr int X = CH >= 8 ? 8 : CH;
+  return r * HD + ((c ^ ((r / RPL) % X)) << 3);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -141,6 +154,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(p)));
 }
 
@@ -212,6 +231,11 @@ __device__ __forceinline__ void logits(float (&s)[NT][4], const uint32_t (&qa)[H
       mma_bf16(s[nt], qa[2 * hx], kb[0], kb[1]);
       mma_bf16(s[nt], qa[2 * hx + 1], kb[2], kb[3]);
     }
+    if constexpr (HD % 32 == 16) {  // hd 16: one k step, d chunks 0 and 1
+      uint32_t kb[2];
+      ldmatrix_x2(kb, Ks + swz<HD>(n0 + (lane & 7), ((lane >> 3) & 1) + 4 * (HD / 32)));
+      mma_bf16(s[nt], qa[2 * (HD / 32)], kb[0], kb[1]);
+    }
     const uint8_t f0 = flags[n0 + 2 * t], f1 = flags[n0 + 2 * t + 1];
     if constexpr (C == Chain::PAIR) {
       s[nt][0] = pair_logit(s[nt][0], f0, qf0, scale);
@@ -255,7 +279,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 // RESIDENT: kpad <= KEYS, the logits computed once and kept in KEYS / 8
 // n8 tiles. C: the rounding chain; qf0, qf1: the pair flags of rows g and
 // g + 8 (Chain::PAIR only).
-template <int HD, bool RESIDENT, Chain C, int KEYS = RESIDENT_KEYS>
+template <int HD, bool RESIDENT, Chain C, int KEYS = resident_keys<HD>()>
 __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Qw, const bf16* Ks,
                                             const bf16* Vs, const uint8_t* flags, int kpad,
                                             float scale, int lane, bool qf0, bool qf1) {
@@ -359,7 +383,7 @@ __device__ __forceinline__ void warp_attend(float (&o)[HD / 8][4], const bf16* Q
 // pair chain runs without pair factors: no key carries KEY_PAIR and no row
 // flag is read (the short-key kernel without its pair mask). RESIDENT needs
 // pad16(Lk) <= KEYS.
-template <int HD, bool RESIDENT, Chain C = Chain::BATCHED, int KEYS = RESIDENT_KEYS,
+template <int HD, bool RESIDENT, Chain C = Chain::BATCHED, int KEYS = resident_keys<HD>(),
           bool FACTORS = true>
 __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                              const bf16* __restrict__ v,

@@ -51,8 +51,9 @@
 //     warps, K_h and V_h staged whole with cp.async into swizzled tiles,
 //     mma.sync m16n8k16 for both products, an exact two-pass softmax that
 //     rounds at the points above; the logits stay in registers up to 256
-//     keys, e is kept in them between passes; beyond, every pass recomputes
-//     the same bf16 values). Up to 1,760 keys at hd 32, 864 at hd 64;
+//     keys (128 at hd 128), e is kept in them between passes; beyond, every
+//     pass recomputes the same bf16 values). Up to 3,536 keys at hd 16,
+//     1,760 at 32, 864 at 64, 416 at 128;
 //   - float32 on the register tiles (attention_regtile.cuh, an online f32
 //     softmax a few ulps from the plain version's two-pass one), any Lk.
 //
@@ -64,7 +65,7 @@
 // the per-key flag byte, and each thread reads the query factors of its two
 // rows. Up to 128 keys (the text keys of the pair sites) a row's logits
 // stay in 64 registers a thread, up to 256 in 128; beyond, they are
-// streamed. Up to 1,760 keys at hd 32, 864 at hd 64.
+// streamed. The same key limits as the packed entry point's.
 // Float32 operands take a CUDA-core kernel, one block of 8 warps per
 // (b, h): K_h and V_h, the key mask and the key factor row are staged once
 // in shared memory, so k and v are read from device memory once per head
@@ -119,7 +120,7 @@ attention_packed_pair_mma_kernel(const bf16* __restrict__ q, const bf16* __restr
 // at least 4 blocks an SM (64 registers), as the per-head and all-heads
 // kernels' float32 instance
 template <int HD>
-__global__ void __launch_bounds__(regtile::THREADS, 4)
+__global__ void __launch_bounds__(regtile::THREADS, regtile::min_blocks<HD>())
 attention_packed_regtile_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
                                 float* __restrict__ out, int H, int Lq, int Lk, int E,
@@ -140,8 +141,9 @@ int launch_tiles(const void* q, const void* k, const void* v, const void* mask, 
                  int H, int Lq, int Lk, int E, int is_bf16, float scale, cudaStream_t s) {
   const size_t smem = tiles_smem_bytes<HD>(is_bf16, Lk);
   if (is_bf16) {
-    const auto kernel = Lk <= mma_attn::RESIDENT_KEYS ? attention_packed_mma_kernel<HD, true>
-                                                      : attention_packed_mma_kernel<HD, false>;
+    const auto kernel = Lk <= mma_attn::resident_keys<HD>()
+                            ? attention_packed_mma_kernel<HD, true>
+                            : attention_packed_mma_kernel<HD, false>;
     return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS, smem, q, k, v, mask,
                                                    out, B, H, Lq, Lk, E, scale, s);
   }
@@ -159,7 +161,7 @@ int launch_pair_mma(const void* q, const void* k, const void* v, const void* mas
                     const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
                     cudaStream_t s) {
   const size_t smem = mma_attn::Smem<HD>::bytes(Lk);
-  constexpr int RK = mma_attn::RESIDENT_KEYS;
+  constexpr int RK = mma_attn::resident_keys<HD>();
   const auto kernel = Lk <= SHORT_KEYS ? attention_packed_pair_mma_kernel<HD, true, SHORT_KEYS>
                       : Lk <= RK       ? attention_packed_pair_mma_kernel<HD, true, RK>
                                        : attention_packed_pair_mma_kernel<HD, false, RK>;
@@ -197,7 +199,9 @@ attention_packed_pair_kernel(const float* __restrict__ q, const float* __restric
                              float* __restrict__ out, int H, int Lq, int Lk, int E, int Ev,
                              float scale) {
   constexpr int KS = PairSmem<HD>::KS;
-  constexpr int PER_LANE = HD / 32;  // output columns per lane in P.V
+  // output columns per lane in P.V: lane + 32 t for t < PER_LANE (at hd 16
+  // lanes 16-31 own none)
+  constexpr int PER_LANE = (HD + 31) / 32;
   const int b = blockIdx.x / H, h = blockIdx.x - (blockIdx.x / H) * H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -271,11 +275,12 @@ attention_packed_pair_kernel(const float* __restrict__ q, const float* __restric
       const float p = prow[j];
 #pragma unroll
       for (int t = 0; t < PER_LANE; ++t)
-        acc[t] = fmaf(p, vs[(size_t)j * HD + lane + 32 * t], acc[t]);
+        if (lane + 32 * t < HD) acc[t] = fmaf(p, vs[(size_t)j * HD + lane + 32 * t], acc[t]);
     }
     float* dst = out + ((size_t)b * Lq + qi) * Ev + h * HD;
 #pragma unroll
-    for (int t = 0; t < PER_LANE; ++t) dst[lane + 32 * t] = acc[t];
+    for (int t = 0; t < PER_LANE; ++t)
+      if (lane + 32 * t < HD) dst[lane + 32 * t] = acc[t];
     __syncwarp();  // prow and qrow are rewritten by the next row
   }
 }
@@ -317,30 +322,30 @@ bool valid(int B, int H, int Lq, int Lk, int E, int Ev) {
 }  // namespace
 
 // Shared memory a block of the packed entry point needs for bf16 (is_bf16 =
-// 1) or float32 operands, head_dim `hd` and `Lk` keys (0 when hd is not one
-// the kernel takes), so the wrapper can refuse before launching: bf16
-// stages every key of the head (up to 1,760 keys at hd 32, 864 at hd 64);
-// float32 streams the keys in tiles and takes any Lk.
+// 1) or float32 operands, head_dim `hd` (16, 32, 64 or 128) and `Lk` keys (0
+// for another hd), so the wrapper can refuse before launching: bf16 stages
+// every key of the head (up to 3,536 keys at hd 16, 1,760 at 32, 864 at 64,
+// 416 at 128); float32 streams the keys in tiles and takes any Lk.
 extern "C" long long attention_packed_nopair_smem_bytes(int is_bf16, int hd, int Lk) {
-  if (hd == 32) return (long long)tiles_smem_bytes<32>(is_bf16, Lk);
-  if (hd == 64) return (long long)tiles_smem_bytes<64>(is_bf16, Lk);
-  return 0;
+  return attn_grid::by_head_dim(hd, 0LL, [&](auto c) {
+    return (long long)tiles_smem_bytes<decltype(c)::value>(is_bf16, Lk);
+  });
 }
 
 // The same for a block of the pair entry point: bf16 stages as the packed
-// entry point; float32 stages K_h and V_h whole (up to 787 keys at hd 32, 418
-// at hd 64).
+// entry point; float32 stages K_h and V_h whole (up to 1,397 keys at hd 16,
+// 787 at 32, 418 at 64, 215 at 128).
 extern "C" long long attention_packed_smem_bytes(int is_bf16, int hd, int Lk) {
-  if (hd == 32) return (long long)pair_smem_bytes<32>(is_bf16, Lk);
-  if (hd == 64) return (long long)pair_smem_bytes<64>(is_bf16, Lk);
-  return 0;
+  return attn_grid::by_head_dim(hd, 0LL, [&](auto c) {
+    return (long long)pair_smem_bytes<decltype(c)::value>(is_bf16, Lk);
+  });
 }
 
 // Plain C entry points, bound with ctypes. q: (B, Lq, E), k: (B, Lk, E),
 // v: (B, Lk, Ev), out: (B, Lq, Ev), all bf16 (is_bf16 = 1) or all float32,
 // contiguous; mask: (B, Lk) uint8, 1 = attendable. Head h reads and writes
-// columns [h*hd, (h+1)*hd) with hd = E / H = Ev / H, 32 or 64. Each returns
-// the cudaError_t of the launch (0 = success).
+// columns [h*hd, (h+1)*hd) with hd = E / H = Ev / H, 16, 32, 64 or 128. Each
+// returns the cudaError_t of the launch (0 = success).
 //
 // attention_packed_launch: q, k, v and out 16-byte aligned; scale is the
 // softmax scale already rounded to the operand dtype.
@@ -349,10 +354,10 @@ extern "C" int attention_packed_launch(const void* q, const void* k, const void*
                                        int E, int Ev, int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid(B, H, Lq, Lk, E, Ev)) return (int)cudaErrorInvalidValue;
-  const int hd = E / H;
-  if (hd == 32) return launch_tiles<32>(q, k, v, mask, out, B, H, Lq, Lk, E, is_bf16, scale, s);
-  if (hd == 64) return launch_tiles<64>(q, k, v, mask, out, B, H, Lq, Lk, E, is_bf16, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    return launch_tiles<decltype(c)::value>(q, k, v, mask, out, B, H, Lq, Lk, E, is_bf16, scale,
+                                            s);
+  });
 }
 
 // attention_packed_pair_launch: bf16 on the mma body (q, k, v and out
@@ -365,12 +370,8 @@ extern "C" int attention_packed_pair_launch(const void* q, const void* k, const 
                                             int is_bf16, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid(B, H, Lq, Lk, E, Ev)) return (int)cudaErrorInvalidValue;
-  const int hd = E / H;
-  if (hd == 32)
-    return launch_pair_entry<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, is_bf16, scale,
-                                 s);
-  if (hd == 64)
-    return launch_pair_entry<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev, is_bf16, scale,
-                                 s);
-  return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    return launch_pair_entry<decltype(c)::value>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, Ev,
+                                                 is_bf16, scale, s);
+  });
 }

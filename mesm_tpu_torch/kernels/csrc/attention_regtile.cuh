@@ -32,7 +32,8 @@
 // row's max and sum, the second recomputes the logits and accumulates
 // round(p) . v. Keys past Lk are left out (probability 0); masked keys take
 // -1e9, as in the plain version. q, k, v and out start on 16-byte
-// boundaries (float4 / 8-byte loads).
+// boundaries (float4 / 8-byte loads). head_dim 16, 32, 64 or 128 (CT = hd /
+// 16 output columns a thread).
 
 #pragma once
 
@@ -76,6 +77,14 @@ struct IO<bf16> {
   static __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16(x); }
   static constexpr bool TWO_PASS = true;
 };
+
+// the blocks an SM should hold (a __launch_bounds__ minimum): 4 up to hd
+// 64 (64 registers a thread), 1 at hd 128, whose 120 KB of tiles leave one
+// block an SM and whose 8 output columns a thread want more registers
+template <int HD>
+constexpr int min_blocks() {
+  return HD >= 128 ? 1 : 4;
+}
 
 template <int HD>
 struct Smem {
@@ -222,16 +231,21 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
         const float4 p = *reinterpret_cast<const float4*>(Ps + j * STRIDE + 4 * ty);
         const float pv[4] = {p.x, p.y, p.z, p.w};
         float vv[CT];
-        if constexpr (CT == 2) {
+        if constexpr (CT == 1) {
+          vv[0] = Vs[j * HD + tx];
+        } else if constexpr (CT == 2) {
           const float2 x = *reinterpret_cast<const float2*>(Vs + j * HD + 2 * tx);
           vv[0] = x.x;
           vv[1] = x.y;
         } else {
-          const float4 x = *reinterpret_cast<const float4*>(Vs + j * HD + 4 * tx);
-          vv[0] = x.x;
-          vv[1] = x.y;
-          vv[2] = x.z;
-          vv[3] = x.w;
+#pragma unroll
+          for (int u = 0; u < CT / 4; ++u) {
+            const float4 x = *reinterpret_cast<const float4*>(Vs + j * HD + CT * tx + 4 * u);
+            vv[4 * u] = x.x;
+            vv[4 * u + 1] = x.y;
+            vv[4 * u + 2] = x.z;
+            vv[4 * u + 3] = x.w;
+          }
         }
 #pragma unroll
         for (int r = 0; r < 4; ++r)

@@ -51,7 +51,7 @@
 // keys, all their logits in 32 registers a thread (past 64 keys the body
 // streams them). Without pair factors no key carries KEY_PAIR and no row
 // flag is read (a compile-time instance). Operands on 16-byte boundaries,
-// head_dim 32 or 64.
+// head_dim 16, 32, 64 or 128.
 //
 // Design of the bf16 one-matmul kernel (ONEMATMUL = true): one block per
 // (sample, 64-row query tile) that handles every head, so that the row's
@@ -76,7 +76,7 @@
 // [1, 2) (exact) before div_rn. An empty segment takes 1/Lk on the Lk real
 // keys and 0 on the padding. A head's logits stay in 32 registers between
 // the sum and P . V, so it takes at most 64 keys, the short-key tier's.
-// head_dim 32 or 64, operands on 16-byte boundaries.
+// head_dim 16, 32, 64 or 128, operands on 16-byte boundaries.
 //
 // Design of the fp32 instances, on the CUDA cores: one block of 8 warps
 // per (sample, tile of 16 query rows). The sample's K and V (at most 64 x
@@ -85,8 +85,9 @@
 // keys hit distinct banks). A warp owns a query row: the row, scaled, is
 // staged in a per-warp buffer, lanes split the keys for every head's
 // logits, which stay in a per-warp shared buffer of H x Lk floats; the
-// softmax is warp reductions; for P.V each lane owns one column of the
-// head. head_dim 32.
+// softmax is warp reductions; for P.V each lane owns the columns c, c +
+// 32, ... of the head (none at hd 16 for lanes 16-31). head_dim 16, 32, 64
+// or 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -103,7 +104,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int ROWS = 16;  // query rows per block
-constexpr int HD = 32;    // head_dim
 constexpr float NEG_INF = -1e9f;
 
 template <typename T>
@@ -144,7 +144,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, bool ONEMATMUL, bool PAIR>
+template <typename T, int HD, bool ONEMATMUL, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 attention_shortkey_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -235,25 +235,27 @@ attention_shortkey_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    // P.V: lane c owns column c of each head
+    // P.V: lane c owns columns c, c + 32, ... of each head
     T* dst = out + ((size_t)b * Lq + qi) * E;
     for (int h = 0; h < H; ++h) {
       const float* lh = lg + (size_t)h * Lk;
-      const T* vc = vs + h * HD + lane;
-      float acc = 0.f;
-      for (int j = 0; j < Lk; ++j) acc = fmaf(lh[j], IO<T>::ld(vc + (size_t)j * E), acc);
-      IO<T>::st(dst + h * HD + lane, acc);
+      for (int c = lane; c < HD; c += 32) {
+        const T* vc = vs + h * HD + c;
+        float acc = 0.f;
+        for (int j = 0; j < Lk; ++j) acc = fmaf(lh[j], IO<T>::ld(vc + (size_t)j * E), acc);
+        IO<T>::st(dst + h * HD + c, acc);
+      }
     }
     __syncwarp();  // qrow and lg are rewritten by the next row
   }
 }
 
-template <typename T, bool ONEMATMUL, bool PAIR>
+template <typename T, int HD, bool ONEMATMUL, bool PAIR>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* qf,
            const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
            cudaStream_t stream) {
   const size_t smem = Layout<T>(H, Lk, E).total;
-  auto kernel = attention_shortkey_kernel<T, ONEMATMUL, PAIR>;
+  auto kernel = attention_shortkey_kernel<T, HD, ONEMATMUL, PAIR>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -265,13 +267,13 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool ONEMATMUL>
+template <typename T, int HD, bool ONEMATMUL>
 int dispatch_pair(const void* q, const void* k, const void* v, const void* mask, const void* qf,
                   const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
                   cudaStream_t s) {
   if (qf != nullptr)
-    return launch<T, ONEMATMUL, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-  return launch<T, ONEMATMUL, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+    return launch<T, HD, ONEMATMUL, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  return launch<T, HD, ONEMATMUL, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -627,24 +629,20 @@ int dispatch_onematmul_mma(const void* q, const void* k, const void* v, const vo
 }  // namespace
 
 // Shared memory the kernel needs (bytes), so the wrapper can refuse before
-// launching. is_bf16: 1 for bf16 operands, 0 for fp32; onematmul as for the
-// launch. The bf16 short-key kernel stages one head (up to 1,760 keys at
-// head_dim 32, 864 at 64), the bf16 one-matmul kernel every head of a
-// 64-row query tile and of the sample's keys, the fp32 kernels a sample's K
-// and V.
+// launching (0 for a head_dim E / H with no instance). is_bf16: 1 for bf16
+// operands, 0 for fp32; onematmul as for the launch. The bf16 short-key
+// kernel stages one head (up to 3,536 keys at head_dim 16, 1,760 at 32, 864
+// at 64, 416 at 128), the bf16 one-matmul kernel every head of a 64-row
+// query tile and of the sample's keys, the fp32 kernels a sample's K and V.
 extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, int H, int Lk,
                                                    int E) {
-  if (is_bf16) {
-    if (H <= 0 || E % H) return 0;
-    if (E / H == 32)
-      return onematmul ? (long long)OneMatmulSmem<32>::bytes(H, Lk)
-                       : (long long)mma_attn::Smem<32>::bytes(Lk);
-    if (E / H == 64)
-      return onematmul ? (long long)OneMatmulSmem<64>::bytes(H, Lk)
-                       : (long long)mma_attn::Smem<64>::bytes(Lk);
-    return 0;
-  }
-  return (long long)Layout<float>(H, Lk, E).total;
+  if (H <= 0 || E % H) return 0;
+  return attn_grid::by_head_dim(E / H, 0LL, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    if (!is_bf16) return (long long)Layout<float>(H, Lk, E).total;
+    return onematmul ? (long long)OneMatmulSmem<HD>::bytes(H, Lk)
+                     : (long long)mma_attn::Smem<HD>::bytes(Lk);
+  });
 }
 
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
@@ -652,33 +650,27 @@ extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, i
 // uint8, 1 = attendable. qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors,
 // or both null for no pair mask. onematmul: 0 = the packed short-key kernel
 // (scale in f32), 1 = the one-matmul segment-softmax kernel (scale already
-// rounded to the operand dtype). bf16 runs on the tensor cores and takes
-// head_dim E / H of 32 or 64 and q, k, v, out on 16-byte boundaries; fp32
-// runs on the CUDA cores and takes E = 32 * H. Returns the cudaError_t of
-// the launch (0 = success).
+// rounded to the operand dtype). head_dim E / H is 16, 32, 64 or 128. bf16
+// runs on the tensor cores and takes q, k, v, out on 16-byte boundaries;
+// fp32 runs on the CUDA cores. Returns the cudaError_t of the launch (0 =
+// success).
 extern "C" int attention_shortkey_launch(const void* q, const void* k, const void* v,
                                          const void* mask, const void* qf, const void* kf,
                                          void* out, int B, int H, int Lq, int Lk, int E,
                                          int is_bf16, int onematmul, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || (qf == nullptr) != (kf == nullptr))
+  if (B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || E % H || (qf == nullptr) != (kf == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {  // the route by dtype: the tensor-core kernels
-    if (E % H) return (int)cudaErrorInvalidValue;
-    if (onematmul) {
-      if (Lk > ONEMATMUL_KEYS) return (int)cudaErrorInvalidValue;
-      if (E / H == 32)
-        return dispatch_onematmul_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-      if (E / H == 64)
-        return dispatch_onematmul_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-      return (int)cudaErrorInvalidValue;
+  if (is_bf16 && onematmul && Lk > ONEMATMUL_KEYS) return (int)cudaErrorInvalidValue;
+  return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    if (is_bf16) {  // the route by dtype: the tensor-core kernels
+      if (onematmul)
+        return dispatch_onematmul_mma<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+      return dispatch_mma<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
     }
-    if (E / H == 32) return dispatch_mma<32>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-    if (E / H == 64) return dispatch_mma<64>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (E != HD * H) return (int)cudaErrorInvalidValue;
-  if (onematmul)
-    return dispatch_pair<float, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
-  return dispatch_pair<float, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+    if (onematmul)
+      return dispatch_pair<float, HD, true>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+    return dispatch_pair<float, HD, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+  });
 }

@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from ..kernels import refuse_autograd
-from .attention_packed import NEG_INF, check_operands, mask_u8
+from .attention_packed import NEG_INF, check_operands, kernel_head_dim, mask_u8, pad_heads, unpad_heads
 
 # launches of the backward kernels since import (or since the caller last
 # set it to 0): one per call, which runs the dq kernel and then the dk / dv
@@ -41,13 +41,16 @@ backward_launches = 0
 
 
 def attention_backward_reference(q, k, v, grad_out, num_heads: int,
-                                 key_valid_mask: Optional[torch.Tensor] = None):
+                                 key_valid_mask: Optional[torch.Tensor] = None,
+                                 head_dim: Optional[int] = None):
     """Plain torch version. q (B, Lq, E), k, v (B, Lk, E), grad_out (B, Lq,
-    E), key_valid_mask (B, Lk) True = attendable (or None) -> (dq, dk, dv)."""
+    E), key_valid_mask (B, Lk) True = attendable (or None) -> (dq, dk, dv).
+    head_dim: the head_dim whose scale head_dim**-0.5 the logits take (E //
+    num_heads when None; see attention_packed.pad_heads)."""
     B, Lq, E = q.shape
     H = num_heads
     hd = E // H
-    scale = torch.tensor(hd**-0.5, dtype=q.dtype)  # as attention_core's
+    scale = torch.tensor((head_dim or hd)**-0.5, dtype=q.dtype)  # as attention_core's
     qh, kh, vh, gh = (t.reshape(B, -1, H, hd).transpose(1, 2) for t in (q, k, v, grad_out))
     qs = qh * scale
     logits = torch.matmul(qs, kh.transpose(-1, -2))  # (B, H, Lq, Lk)
@@ -72,20 +75,25 @@ def attention_backward(q, k, v, out, grad_out, num_heads: int,
     """dq, dk, dv of attention_core at (q, k, v) for the output gradient
     grad_out, given the forward's output `out`. CPU tensors take the plain
     version (which does not read `out`); CUDA tensors launch the kernels
-    (float32, contiguous, 16-byte aligned, head_dim 32 or 64, Ev == E) or
+    (float32, contiguous, 16-byte aligned, head_dim up to 128, Ev == E) or
     raise. Raises for an input that requires grad in grad mode (no graph:
     no double backward)."""
     global backward_launches
     refuse_autograd("attention_backward", q, k, v, out, grad_out)
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, grad_out, num_heads, key_valid_mask)
-    B, Lq, Lk, E, hd = check_operands("attention_backward", q, k, v, num_heads, key_valid_mask,
+    B, Lq, Lk, _, hd = check_operands("attention_backward", q, k, v, num_heads, key_valid_mask,
                                       (torch.float32,), aligned=True)
     for t in (out, grad_out):
         if (t.dtype != torch.float32 or t.shape != q.shape or t.device != q.device
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError("attention_backward: out and grad_out must be contiguous float32 "
                              f"{tuple(q.shape)} on q's device, on a 16-byte boundary")
+    # a head_dim without an instance runs on the next one, zero-padded: the
+    # padded columns of dq, dk and dv come out 0 and are dropped
+    hdp = kernel_head_dim(hd)
+    q, k, v, out, grad_out = (pad_heads(t, num_heads, hdp) for t in (q, k, v, out, grad_out))
+    E = num_heads * hdp
     from ..kernels.build import load
 
     lib = load("attention_backward")
@@ -103,4 +111,4 @@ def attention_backward(q, k, v, out, grad_out, num_heads: int,
     if err != 0:
         raise RuntimeError(f"attention_backward kernel launch failed: cudaError {err}")
     backward_launches += 1
-    return dq, dk, dv
+    return tuple(unpad_heads(t, num_heads, hd) for t in (dq, dk, dv))

@@ -23,15 +23,18 @@ from typing import Optional
 import torch
 
 from ..kernels import refuse_autograd
-from .attention_packed import MAX_SMEM, NEG_INF, check_operands, mask_u8
+from .attention_packed import (MAX_SMEM, NEG_INF, check_operands, kernel_head_dim, mask_u8,
+                               pad_heads, unpad_heads)
 
 # kernel launches since import (or since the caller last set it to 0)
 launches = 0
 
 
-def attention_batched_reference(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
+def attention_batched_reference(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None,
+                                head_dim: Optional[int] = None):
     """Plain torch version. q (B, Lq, E), k (B, Lk, E), v (B, Lk, Ev),
-    key_valid_mask (B, Lk) bool with True = attendable -> (B, Lq, Ev)."""
+    key_valid_mask (B, Lk) bool with True = attendable -> (B, Lq, Ev).
+    head_dim: as attention_packed_reference's."""
     B, Lq, E = q.shape
     Lk, Ev = k.shape[1], v.shape[-1]
     H = num_heads
@@ -39,7 +42,7 @@ def attention_batched_reference(q, k, v, num_heads: int, key_valid_mask: Optiona
     qh = q.reshape(B, Lq, H, hd).transpose(1, 2)
     kh = k.reshape(B, Lk, H, hd).transpose(1, 2)
     vh = v.reshape(B, Lk, H, hdv).transpose(1, 2)
-    qs = qh * torch.tensor(hd**-0.5, dtype=q.dtype)  # product in the input dtype
+    qs = qh * torch.tensor((head_dim or hd)**-0.5, dtype=q.dtype)  # product in the input dtype
     logits = torch.matmul(qs.float(), kh.float().transpose(-1, -2))
     if key_valid_mask is not None:
         logits = torch.where(
@@ -54,14 +57,17 @@ def attention_batched_reference(q, k, v, num_heads: int, key_valid_mask: Optiona
 def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the batched
     kernel's numerics. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (float32 or bf16, head_dim 32 or 64, Ev == E) or
+    launch the kernel (float32 or bf16, head_dim up to 128, Ev == E) or
     raise. Raises for an input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("attention_batched", q, k, v)
     if q.device.type == "cpu":
         return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
-    B, Lq, Lk, E, hd = check_operands("attention_batched", q, k, v, num_heads, key_valid_mask,
+    B, Lq, Lk, _, hd = check_operands("attention_batched", q, k, v, num_heads, key_valid_mask,
                                       (torch.float32, torch.bfloat16), aligned=True)
+    hdp = kernel_head_dim(hd)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -69,9 +75,10 @@ def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Te
     smem_bytes = lib.attention_batched_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hd, Lk)
+    need = smem_bytes(is_bf16, hdp, Lk)
     if need > MAX_SMEM:
-        raise ValueError(f"attention_batched: {Lk} keys need {need} bytes of shared memory")
+        raise ValueError(f"attention_batched: {Lk} keys at head_dim {hdp} need {need} bytes of "
+                         "shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=v.dtype, device=q.device)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
@@ -86,4 +93,4 @@ def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Te
     if err != 0:
         raise RuntimeError(f"attention_batched kernel launch failed: cudaError {err}")
     launches += 1
-    return out
+    return unpad_heads(out, num_heads, hd)

@@ -21,7 +21,8 @@ import torch
 
 from ..kernels import refuse_autograd
 from .attention_batched import attention_batched_reference
-from .attention_packed import MAX_SMEM, check_operands, mask_u8
+from .attention_packed import (MAX_SMEM, check_operands, kernel_head_dim, mask_u8, pad_heads,
+                               unpad_heads)
 
 # kernel launches since import (or since the caller last set them to 0)
 per_head_launches = 0
@@ -31,8 +32,11 @@ all_heads_launches = 0
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     """Checks the operands and launches kernels/csrc/attention_heads.cu;
     returns out."""
-    B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
+    B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
                                       (torch.bfloat16, torch.float32), aligned=True)
+    hdp = kernel_head_dim(hd)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -40,9 +44,9 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     smem_bytes = lib.attention_heads_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hd, Lk)
+    need = smem_bytes(is_bf16, hdp, Lk)
     if need > MAX_SMEM:
-        raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
+        raise ValueError(f"{name}: {Lk} keys at head_dim {hdp} need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=q.dtype, device=q.device)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
@@ -54,13 +58,13 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out
+    return unpad_heads(out, num_heads, hd)
 
 
 def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
     """The per-head layout (MESM_ATTN_VARIANT=per_head). CPU tensors take
     the plain version; CUDA tensors launch the kernel (bf16 or float32,
-    head_dim 32 or 64, Ev == E) or raise. Raises for an input that requires
+    head_dim up to 128, Ev == E) or raise. Raises for an input that requires
     grad in grad mode (no graph)."""
     global per_head_launches
     refuse_autograd("attention_per_head", q, k, v)
@@ -74,7 +78,7 @@ def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
 def attention_all_heads(q, k, v, num_heads: int, key_valid_mask=None):
     """The all-heads layout (MESM_ATTN_VARIANT=all_heads). CPU tensors take
     the plain version; CUDA tensors launch the kernel (bf16 or float32,
-    head_dim 32 or 64, Ev == E) or raise. Raises for an input that requires
+    head_dim up to 128, Ev == E) or raise. Raises for an input that requires
     grad in grad mode (no graph)."""
     global all_heads_launches
     refuse_autograd("attention_all_heads", q, k, v)

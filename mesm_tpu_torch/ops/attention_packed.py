@@ -32,8 +32,9 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from ..kernels import refuse_autograd
+from ..kernels import ATTN_HEAD_DIMS, ATTN_MAX_HEAD_DIM, refuse_autograd
 
 NEG_INF = -1e9
 MAX_SMEM = 232448  # bytes a block may use on sm_90
@@ -44,9 +45,13 @@ launches = 0
 pair_launches = 0
 
 
-def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
+def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None,
+                               head_dim: Optional[int] = None):
     """Plain torch version. q (B, Lq, E), k (B, Lk, E), v (B, Lk, Ev),
-    key_valid_mask (B, Lk) bool with True = attendable -> (B, Lq, Ev)."""
+    key_valid_mask (B, Lk) bool with True = attendable -> (B, Lq, Ev).
+    head_dim: the head_dim whose scale head_dim**-0.5 the logits take
+    (E // num_heads when None: another is what a kernel run on zero-padded
+    heads takes, see pad_heads)."""
     B, Lq, E = q.shape
     Lk, Ev = k.shape[1], v.shape[-1]
     H = num_heads
@@ -55,7 +60,7 @@ def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional
     qh = q.reshape(B, Lq, H, hd).transpose(1, 2)
     kh = k.reshape(B, Lk, H, hd).transpose(1, 2)
     vh = v.reshape(B, Lk, H, hdv).transpose(1, 2)
-    qs = qh * torch.tensor(hd**-0.5, dtype=dt)  # product rounded to the input dtype
+    qs = qh * torch.tensor((head_dim or hd)**-0.5, dtype=dt)  # product rounded to the input dtype
     logits = torch.matmul(qs.float(), kh.float().transpose(-1, -2)).to(dt)
     if key_valid_mask is not None:
         logits = torch.where(
@@ -73,8 +78,8 @@ def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional
 def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the packed kernel's
     numerics. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16 or float32, head_dim 32 or 64, Ev == E) or raise. Raises for
-    an input that requires grad in grad mode (no graph)."""
+    kernel (bf16 or float32, head_dim up to 128, Ev == E) or raise. Raises
+    for an input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("attention_packed", q, k, v)
     if q.device.type == "cpu":
@@ -85,16 +90,16 @@ def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Ten
 
 
 def attention_packed_pair_reference(q, k, v, num_heads: int, key_valid_mask=None,
-                                    pair_factors=None):
+                                    pair_factors=None, head_dim: Optional[int] = None):
     """Plain torch version of the pair-masked kernel. q (B, Lq, E), k (B, Lk,
     E), v (B, Lk, Ev), key_valid_mask (B, Lk) True = attendable (or None),
     pair_factors ((B, H, Lq), (B, H, Lk)) bool (or None: no pair mask) ->
-    (B, Lq, Ev) in v's dtype."""
+    (B, Lq, Ev) in v's dtype. head_dim: as attention_packed_reference's."""
     B, Lq, E = q.shape
     Lk, Ev = k.shape[1], v.shape[-1]
     H = num_heads
     hd, hdv = E // H, Ev // H
-    qh = q.reshape(B, Lq, H, hd).transpose(1, 2).float() * (hd**-0.5)
+    qh = q.reshape(B, Lq, H, hd).transpose(1, 2).float() * ((head_dim or hd)**-0.5)
     kh = k.reshape(B, Lk, H, hd).transpose(1, 2).float()
     vh = v.reshape(B, Lk, H, hdv).transpose(1, 2)
     logits = torch.matmul(qh, kh.transpose(-1, -2))  # (B, H, Lq, Lk) f32
@@ -109,13 +114,47 @@ def attention_packed_pair_reference(q, k, v, num_heads: int, key_valid_mask=None
     return out.transpose(1, 2).reshape(B, Lq, Ev).to(v.dtype)
 
 
+def kernel_head_dim(hd: int) -> int:
+    """The head_dim of the kernel instance a head_dim runs on: the smallest
+    of kernels.ATTN_HEAD_DIMS (16, 32, 64, 128) that holds it. Raises
+    ValueError above ATTN_MAX_HEAD_DIM, naming the limit."""
+    for d in ATTN_HEAD_DIMS:
+        if hd <= d:
+            return d
+    raise ValueError(f"the attention kernels take head_dim <= {ATTN_MAX_HEAD_DIM}, got {hd}")
+
+
+def pad_heads(t, num_heads: int, hdp: int):
+    """(B, L, H * hd) -> (B, L, H * hdp): each head's columns followed by
+    hdp - hd zero columns; t itself when hd == hdp. Zero columns add exact
+    zeros to the f32 sums of q . k and give zero columns of p . v, so a
+    kernel at head_dim hdp, given the real head_dim's scale, computes the
+    unpadded function."""
+    B, L, E = t.shape
+    hd = E // num_heads
+    if hd == hdp:
+        return t
+    return F.pad(t.reshape(B, L, num_heads, hd), (0, hdp - hd)).reshape(B, L, num_heads * hdp)
+
+
+def unpad_heads(t, num_heads: int, hd: int):
+    """The inverse of pad_heads: the first hd columns of each head, as a
+    contiguous (B, L, H * hd); t itself when it has no padding."""
+    B, L, Ep = t.shape
+    hdp = Ep // num_heads
+    if hd == hdp:
+        return t
+    return t.reshape(B, L, num_heads, hdp)[..., :hd].reshape(B, L, num_heads * hd)
+
+
 def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
-                   dtypes=(torch.bfloat16,), head_dims=(32, 64), aligned: bool = False):
+                   dtypes=(torch.bfloat16,), aligned: bool = False):
     """The checks every (B, L, E) attention wrapper makes before it
     launches: one dtype of `dtypes`, contiguous, on one CUDA device, Ev == E,
-    a head_dim of `head_dims`, a (B, Lk) mask, and with `aligned` q, k, v on
-    16-byte boundaries (for cp.async and 16-byte loads). Returns (B, Lq, Lk,
-    E, head_dim)."""
+    a head_dim of at most ATTN_MAX_HEAD_DIM (any other than 16, 32, 64 or
+    128 is padded by the wrapper: `kernel_head_dim`, `pad_heads`), a (B, Lk)
+    mask, and with `aligned` q, k, v on 16-byte boundaries (for cp.async and
+    16-byte loads). Returns (B, Lq, Lk, E, head_dim)."""
     for t in (q, k, v):
         if t.dtype not in dtypes or t.dtype != q.dtype:
             names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
@@ -130,10 +169,8 @@ def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
             f"v {tuple(v.shape)} with {num_heads} heads"
         )
     hd = E // num_heads
-    if hd not in head_dims:
-        raise ValueError(
-            f"{name}: the kernel takes head_dim {' or '.join(map(str, head_dims))}, got {hd}"
-        )
+    if hd > ATTN_MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the kernel takes head_dim <= {ATTN_MAX_HEAD_DIM}, got {hd}")
     if key_valid_mask is not None and key_valid_mask.shape != (B, Lk):
         raise ValueError(f"{name}: mask {tuple(key_valid_mask.shape)} != {(B, Lk)}")
     if q.device.type != "cuda":
@@ -173,9 +210,12 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     The packed one takes 16-byte aligned operands, the pair one in bf16 (on
     the mma body, which loads them 16 bytes at a time). Returns out."""
     pair = pair_factors is not None
-    B, Lq, Lk, E, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
+    B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
                                       (torch.bfloat16, torch.float32),
                                       aligned=not pair or q.dtype == torch.bfloat16)
+    hdp = kernel_head_dim(hd)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -183,9 +223,9 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
     smem_bytes = lib.attention_packed_smem_bytes if pair else lib.attention_packed_nopair_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hd, Lk)
+    need = smem_bytes(is_bf16, hdp, Lk)
     if need > MAX_SMEM:
-        raise ValueError(f"{name}: {Lk} keys need {need} bytes of shared memory")
+        raise ValueError(f"{name}: {Lk} keys at head_dim {hdp} need {need} bytes of shared memory")
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=v.dtype, device=q.device)
     if not pair:
@@ -204,7 +244,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
              float(scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out
+    return unpad_heads(out, num_heads, hd)
 
 
 def attention_packed_pair(q, k, v, num_heads: int, key_valid_mask, pair_factors):
@@ -212,7 +252,7 @@ def attention_packed_pair(q, k, v, num_heads: int, key_valid_mask, pair_factors)
     mask, with the pair kernel's numerics (f32 softmax, probabilities rounded
     to the operand dtype). CPU tensors take the plain version; CUDA tensors
     launch a kernel (bf16 on 16-byte boundaries, on the mma body, or
-    float32; head_dim 32 or 64, Ev == E) or raise. Raises for an input that
+    float32; head_dim up to 128, Ev == E) or raise. Raises for an input that
     requires grad in grad mode (no graph)."""
     global pair_launches
     refuse_autograd("attention_packed_pair", q, k, v)

@@ -25,13 +25,14 @@ kernels/csrc/attention_shortkey.cu:
   Plain version: `attention_shortkey_onematmul_reference`.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or raise:
-bf16 or fp32, Ev == E. bf16 runs on the tensor cores (head_dim 32 or 64, q,
+bf16 or fp32, Ev == E, head_dim up to 128 (16, 32, 64 and 128 native, any
+other zero-padded to the next of them). bf16 runs on the tensor cores (q,
 k and v on 16-byte boundaries): `attention_shortkey` on the body of the pair
 kernel (kernels/csrc/attention_mma.cuh, its pair chain), one block per
 sample, query tile and head; `attention_shortkey_onematmul` on the same mma
 tiles with one block per sample and query tile that walks every head twice
 (the row's maximum over all heads, then each head's segment softmax and
-P . V), at most 64 keys. fp32 runs on the CUDA cores (head_dim 32).
+P . V), at most 64 keys. fp32 runs on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ import torch
 
 from ..kernels import refuse_autograd
 from .attention_packed import (MAX_SMEM, NEG_INF, attention_packed_pair_reference, check_operands,
-                               factors_u8, mask_u8)
+                               factors_u8, kernel_head_dim, mask_u8, pad_heads, unpad_heads)
 
 PairFactors = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -56,22 +57,26 @@ onematmul_launches = 0  # the one-matmul segment-softmax kernel
 
 
 def attention_shortkey_reference(q, k, v, num_heads: int, key_valid_mask=None,
-                                 pair_factors: PairFactors = None):
+                                 pair_factors: PairFactors = None,
+                                 head_dim: Optional[int] = None):
     """Plain torch version of the packed short-key kernel: the pair kernel's
     f32 softmax, with the pair mask optional."""
-    return attention_packed_pair_reference(q, k, v, num_heads, key_valid_mask, pair_factors)
+    return attention_packed_pair_reference(q, k, v, num_heads, key_valid_mask, pair_factors,
+                                           head_dim)
 
 
 def attention_shortkey_onematmul_reference(q, k, v, num_heads: int, key_valid_mask=None,
-                                           pair_factors: PairFactors = None):
+                                           pair_factors: PairFactors = None,
+                                           head_dim: Optional[int] = None):
     """Plain torch version of the one-matmul short-key kernel. q (B, Lq, E),
     k (B, Lk, E), v (B, Lk, Ev), key_valid_mask (B, Lk) True = attendable,
-    pair_factors ((B, H, Lq), (B, H, Lk)) bool -> (B, Lq, Ev) in v's dtype."""
+    pair_factors ((B, H, Lq), (B, H, Lk)) bool -> (B, Lq, Ev) in v's dtype.
+    head_dim: as attention_packed_reference's."""
     B, Lq, E = q.shape
     Lk, Ev = k.shape[1], v.shape[-1]
     H = num_heads
     hd, hdv = E // H, Ev // H
-    qs = q * torch.tensor(hd**-0.5, dtype=q.dtype)  # product rounded to the operand dtype
+    qs = q * torch.tensor((head_dim or hd)**-0.5, dtype=q.dtype)  # product rounded to the operand dtype
     qh = qs.reshape(B, Lq, H, hd).float()
     kh = k.reshape(B, Lk, H, hd).float()
     logits = torch.einsum("bqhd,bkhd->bqhk", qh, kh)  # (B, Lq, H, Lk) f32
@@ -94,18 +99,20 @@ def attention_shortkey_onematmul_reference(q, k, v, num_heads: int, key_valid_ma
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: PairFactors,
             onematmul: bool):
     """Checks the operands and launches kernels/csrc/attention_shortkey.cu;
-    returns out. Both kernels run bf16 on the tensor cores (head_dim 32 or
-    64, operands on 16-byte boundaries; the one-matmul kernel at most
-    ONEMATMUL_MAX_LK keys) and fp32 on the CUDA cores (head_dim 32): a route
-    by dtype, taken before the launch."""
+    returns out. Both kernels run bf16 on the tensor cores (operands on
+    16-byte boundaries; the one-matmul kernel at most ONEMATMUL_MAX_LK keys)
+    and fp32 on the CUDA cores: a route by dtype, taken before the launch.
+    head_dim up to 128, padded to the next instance (16, 32, 64, 128)."""
     mma = q.dtype == torch.bfloat16
     if mma and onematmul and k.ndim == 3 and k.shape[1] > ONEMATMUL_MAX_LK:
         raise ValueError(f"{name}: the bf16 kernel takes at most {ONEMATMUL_MAX_LK} keys, "
                          f"got {k.shape[1]}")
-    B, Lq, Lk, E, _ = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                     (torch.bfloat16, torch.float32), (32, 64) if mma else (32,),
-                                     aligned=mma)
+    B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
+                                      (torch.bfloat16, torch.float32), aligned=mma)
     H = num_heads
+    hdp = kernel_head_dim(hd)
+    q, k, v = (pad_heads(t, H, hdp) for t in (q, k, v))
+    E = H * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -120,7 +127,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: Pa
     qf = kf = None
     if pair_factors is not None:
         qf, kf = factors_u8(pair_factors, B, H, Lq, Lk, q.device)
-    scale = (E // H) ** -0.5
+    scale = hd**-0.5
     if onematmul:  # q * scale is a product in the operand dtype
         scale = float(torch.tensor(scale, dtype=q.dtype))
     out = torch.empty(B, Lq, E, dtype=q.dtype, device=q.device)
@@ -135,7 +142,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: Pa
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    return out
+    return unpad_heads(out, H, hd)
 
 
 def attention_shortkey(q, k, v, num_heads: int, key_valid_mask=None,

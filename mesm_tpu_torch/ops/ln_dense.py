@@ -1,27 +1,42 @@
 """Fused LayerNorm -> Dense (-> ReLU): the wide input projection.
 
-`ln_dense` launches the CUDA kernel kernels/csrc/ln_dense.cu (the port of
-mesm_tpu/ops/layer_pallas.py::fused_ln_dense) on CUDA tensors and runs
+`ln_dense` launches the CUDA kernels of kernels/csrc/ln_dense.cu (the port
+of mesm_tpu/ops/layer_pallas.py::fused_ln_dense) on CUDA tensors and runs
 `ln_dense_reference`, its plain torch version, on CPU tensors. The two
 compute the same function at the same rounding points: f32 statistics with
 var = E[x^2] - mean^2 unclamped, the normalised rows rounded to the input
 dtype, a Dense with f32 accumulation and an f32 bias, an optional ReLU, the
-result in the input dtype.
+result in the input dtype. The kernel takes any D and any F: bf16 products
+on wgmma, float32 products in 3xTF32 on wgmma (three TF32 products of
+split operands, partial sums added in f32 a K tile at a time).
+
+The kernel reads the Dense weight through TMA tensor maps, as a copy in
+the input dtype with its rows padded to a 16-byte stride (in float32 split
+into its tf32 hi and lo parts: each value split once per weight version).
+`kernel_weights` makes those copies once per version of the weight and
+dtype and keeps them while the weight lives
+(keyed on the weight's identity, `data_ptr()` and `_version`, as
+ops/ffn_int8.quantized_weights): an in-place update or a freed weight drops
+it. So a launch allocates only its output, whose storage also holds the
+rows' statistics (8 bytes a row past the output) between the kernel's two
+passes.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import Dict, Tuple
 
 import torch
 
 from ..kernels import refuse_autograd
 
 LN_EPS = 1e-5
-THREADS = 256
-MAX_SMEM = 232448  # bytes a block may use on sm_90
 
-# kernel launches since import (or since the caller last set it to 0)
+# kernel launches since import (or since the caller last set it to 0), and
+# the padded (and split) weight copies made
 launches = 0
+weight_copies = 0
 
 
 def ln_dense_reference(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EPS):
@@ -39,30 +54,73 @@ def ln_dense_reference(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: flo
     return out.to(x.dtype)
 
 
-def _geometry(dtype, D: int, F: int):
-    """(DP, DS, rows per block, shared bytes) for the kernel, or None when
-    no block of rows fits in shared memory."""
-    DP = -16 * (-D // 16)
-    if dtype == torch.bfloat16:
-        DS = DP + 8
-        for bm in (32, 16):
-            smem = max(bm * DS * 2, bm * F * 4)
-            if smem <= MAX_SMEM:
-                return DP, DS, bm, smem
-    else:
-        DS = DP
-        for bm in (16, 8):
-            smem = bm * DS * 4
-            if smem <= MAX_SMEM:
-                return DP, DS, bm, smem
-    return None
+def tf32_split(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 w as (hi, lo): hi = tf32(w) rounded to nearest with ties away
+    from zero (cvt.rna.tf32.f32: half a tf32 ulp added to the magnitude, the
+    13 low bits cleared), lo = tf32(w - hi); hi + lo keeps about 21 bits.
+    The kernel splits the normalised rows the same way."""
+    def rna(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(w)
+    return hi, rna(w - hi)
+
+
+def padded_width(D: int, dtype) -> int:
+    """The row stride (elements) of the cached weight: D rounded up to 16
+    bytes, as a TMA tensor map's strides must be."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-D // per) * per
+
+
+class _Entry:
+    """One weight's kernel copies: a weak reference to it, its (data_ptr,
+    _version) stamp, and its copies by dtype."""
+
+    __slots__ = ("ref", "stamp", "copies")
+
+    def __init__(self, weight):
+        self.ref = weakref.ref(weight)
+        self.stamp = (weight.data_ptr(), weight._version)
+        self.copies: Dict[torch.dtype, Tuple[torch.Tensor, ...]] = {}
+
+    def matches(self, weight) -> bool:
+        return self.ref() is weight and self.stamp == (weight.data_ptr(), weight._version)
+
+
+# id(weight) -> _Entry; an entry goes when its weight is freed
+_weight_cache: Dict[int, _Entry] = {}
+
+
+def kernel_weights(weight: torch.Tensor, dtype) -> Tuple[torch.Tensor, ...]:
+    """The weight (F, D) as the kernel reads it: (wp,) in bf16, (hi, lo) in
+    float32 (tf32_split), each (F, padded_width(D)) with zero columns past
+    D, contiguous and on their own memory; made at the first call of each
+    version of the weight and dtype, then reused."""
+    global weight_copies
+    key = id(weight)
+    entry = _weight_cache.get(key)
+    if entry is None or not entry.matches(weight):
+        if entry is None:  # first entry of this weight: drop it when the weight is freed
+            weakref.finalize(weight, _weight_cache.pop, key, None)
+        entry = _weight_cache[key] = _Entry(weight)
+    copies = entry.copies.get(dtype)
+    if copies is None:
+        F, D = weight.shape
+        with torch.no_grad():
+            wp = torch.zeros(F, padded_width(D, dtype), dtype=dtype, device=weight.device)
+            wp[:, :D] = weight.detach()
+            copies = (wp,) if dtype == torch.bfloat16 else tf32_split(wp)
+        entry.copies[dtype] = copies
+        weight_copies += 1
+    return copies
 
 
 def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EPS):
     """LayerNorm over the last axis of x, then Dense (weight (F, D), torch
     layout), optional ReLU. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise. Raises for an input that requires grad in
-    grad mode (no graph)."""
+    launch the kernel (bf16 or float32, any D and F) or raise. Raises for an
+    input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("ln_dense", x, ln_weight, ln_bias, weight, bias)
     if x.device.type == "cpu":
@@ -76,8 +134,6 @@ def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EP
             f"ln_dense: shapes x {tuple(x.shape)}, ln {tuple(ln_weight.shape)}/"
             f"{tuple(ln_bias.shape)}, weight {tuple(weight.shape)}, bias {tuple(bias.shape)}"
         )
-    if F > THREADS or (x.dtype == torch.bfloat16 and F % 16):
-        raise ValueError(f"ln_dense: the kernel takes F <= {THREADS} (a multiple of 16 in bf16), got {F}")
     if not x.is_contiguous():
         raise ValueError("ln_dense: x must be contiguous")
     if x.device.type != "cuda":
@@ -85,33 +141,34 @@ def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EP
     for t in (ln_weight, ln_bias, weight, bias):
         if t.device != x.device:
             raise ValueError("ln_dense: all operands must be on the same device")
-    geom = _geometry(x.dtype, D, F)
-    if geom is None:
-        raise ValueError(f"ln_dense: D = {D} does not fit one block of rows in shared memory")
-    DP, DS, bm, smem = geom
     N = x.numel() // D
-    out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
-    if N == 0:
-        return out
-    # the weight in the input dtype, rows padded to DP with zeros: the K
-    # tail then adds nothing and every row of it is 16-byte aligned
-    wp = torch.zeros(F, DP, dtype=x.dtype, device=x.device)
-    wp[:, :D] = weight
-    gamma = ln_weight.float().contiguous()
-    beta = ln_bias.float().contiguous()
+    if N == 0 or D == 0:
+        return torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
+    ws = kernel_weights(weight, x.dtype)
+    # f32 and on 16-byte boundaries (the bf16 kernel copies K tiles of them
+    # 16 bytes at a time): a parameter as it is, or a copy
+    gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (ln_weight.float().contiguous(), ln_bias.float().contiguous()))
     b = bias.float().contiguous()
+    # the output, and past it (from a 16-byte boundary) 8 bytes a row for
+    # the statistics pass
+    item = x.element_size()
+    stats_at = -(-N * F * item // 16) * 16
+    storage = torch.empty((stats_at + 8 * N) // item, dtype=x.dtype, device=x.device)
+    out = storage[: N * F].view(*x.shape[:-1], F)
     from ..kernels.build import load
 
     lib = load("ln_dense")
     fn = lib.ln_dense_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     err = fn(
-        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wp.data_ptr(), b.data_ptr(),
-        out.data_ptr(), N, D, DP, DS, F, int(bool(relu)), float(eps),
-        1 if x.dtype == torch.bfloat16 else 0, bm, smem,
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ws[0].data_ptr(),
+        ws[1].data_ptr() if len(ws) > 1 else None, b.data_ptr(), out.data_ptr(),
+        storage.data_ptr() + stats_at, N, D, ws[0].shape[1], F, int(bool(relu)), float(eps),
+        1 if x.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

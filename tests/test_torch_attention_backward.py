@@ -128,8 +128,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = abw.backward_launches
     with pytest.raises(TypeError):
         abw.attention_backward(*(t.to(torch.bfloat16) for t in meta), H)  # float32 only
-    with pytest.raises(ValueError, match="head_dim"):
-        abw.attention_backward(*meta, 4)  # head_dim 16
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        abw.attention_backward(*(torch.empty(B, L, 1024, device="meta") for _ in range(5)),
+                               4)  # head_dim 256
+    with pytest.raises(ValueError, match="unsupported device"):
+        abw.attention_backward(*meta, 4)  # head_dim 16: an instance
     with pytest.raises(ValueError, match="unsupported device"):
         abw.attention_backward(*meta, H)
     with pytest.raises(RuntimeError, match="requires grad"):
@@ -223,8 +226,11 @@ def test_backward_kernels_run_their_products_as_3xtf32():
     dq = source[source.index("attention_backward_dq_3xtf32_kernel(const"):
                 source.index("attention_backward_dkdv_3xtf32_kernel(const")]
     dkdv = source[source.index("attention_backward_dkdv_3xtf32_kernel(const"):]
-    assert dq.count("product_nt<HD, NT>(") == 2 and dq.count("product_kt<HD, STEP>(") == 1
-    assert dkdv.count("product_nt<HD, NT>(") == 2 and dkdv.count("product_kt<HD, STEP>(") == 2
+    # product_kt takes the output columns in NH<HD> tiles at a time (half of
+    # them at head_dim 128, all below)
+    assert dq.count("product_nt<HD, NT>(") == 2 and dq.count("product_kt<HD, STEP, NH<HD>>(") == 1
+    assert (dkdv.count("product_nt<HD, NT>(") == 2
+            and dkdv.count("product_kt<HD, STEP, NH<HD>>(") == 2)
     assert "fmaf(av[" not in source and "tile_dot" not in source
 
 

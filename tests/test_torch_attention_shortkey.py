@@ -341,11 +341,15 @@ def test_short_key_wrappers_refuse_what_the_kernel_does_not_take():
     meta = dict(device="meta")
     q = torch.zeros(2, 64, 64, dtype=torch.bfloat16, **meta)
     k = torch.zeros(2, 17, 64, dtype=torch.bfloat16, **meta)
+    qw = torch.zeros(2, 64, 512, dtype=torch.bfloat16, **meta)
+    kw = torch.zeros(2, 17, 512, dtype=torch.bfloat16, **meta)
     for fn in (sk.attention_shortkey, sk.attention_shortkey_onematmul):
         with pytest.raises(TypeError):
             fn(q.half(), k.half(), k.half(), 2)
-        with pytest.raises(ValueError, match="head_dim 32"):
-            fn(q, k, k, 4)
+        with pytest.raises(ValueError, match="head_dim <= 128"):
+            fn(qw, kw, kw, 2)  # head_dim 256
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, k, k, 4)  # head_dim 16: an instance
         with pytest.raises(ValueError, match="shapes"):
             fn(q, k, k[..., :32].contiguous(), 2)
         with pytest.raises(ValueError, match="unsupported device"):
@@ -372,9 +376,9 @@ def test_bf16_short_key_kernel_runs_the_mma_body():
     source = (csrc / "attention_shortkey.cu").read_text()
     assert '#include "attention_mma.cuh"' in source
     assert "if (is_bf16) {  // the route by dtype: the tensor-core kernels" in source
-    assert "return dispatch_mma<32>(" in source and "return dispatch_mma<64>(" in source
-    assert "return dispatch_onematmul_mma<32>(" in source
-    assert "return dispatch_onematmul_mma<64>(" in source
+    assert "return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue" in source
+    assert "return dispatch_mma<HD>(" in source
+    assert "return dispatch_onematmul_mma<HD>(" in source
     assert "constexpr int SHORT_KEYS = 64;" in source
     assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS>(" in source
     assert "mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS, false>(" in source
@@ -389,16 +393,18 @@ def test_bf16_short_key_kernel_runs_the_mma_body():
 
 @pytest.mark.parametrize("dtype,onematmul,hd,accepted", [
     (torch.bfloat16, False, 32, True), (torch.bfloat16, False, 64, True),
-    (torch.bfloat16, False, 48, False), (torch.float32, False, 32, True),
-    (torch.float32, False, 64, False), (torch.bfloat16, True, 64, True),
-    (torch.bfloat16, True, 32, True), (torch.float32, True, 64, False),
+    (torch.bfloat16, False, 48, True), (torch.float32, False, 32, True),
+    (torch.float32, False, 64, True), (torch.bfloat16, True, 64, True),
+    (torch.bfloat16, True, 32, True), (torch.float32, True, 64, True),
+    (torch.bfloat16, False, 256, False), (torch.float32, False, 256, False),
+    (torch.bfloat16, True, 256, False), (torch.float32, True, 256, False),
 ])
 def test_short_key_wrappers_accept_the_head_dims_of_their_route(dtype, onematmul, hd, accepted):
-    """The route by dtype, before any launch: both bf16 short-key kernels
-    (the mma tiles) take head_dim 32 and 64, the fp32 CUDA-core kernels 32.
-    On a device that is neither the CPU nor CUDA an accepted operand set
-    reaches the device check, a refused one stops at the head_dim check; no
-    launch is counted."""
+    """Before any launch: both short-key kernels take head_dim up to 128
+    in both dtypes (16, 32, 64 and 128 native, any other padded to the next)
+    and refuse more. On a device that is neither the CPU nor CUDA an
+    accepted operand set reaches the device check, a refused one stops at
+    the head_dim check; no launch is counted."""
     H, B, Lq, Lk = 4, 2, 5, 7
     q = torch.empty(B, Lq, H * hd, dtype=dtype, device="meta")
     k = torch.empty(B, Lk, H * hd, dtype=dtype, device="meta")

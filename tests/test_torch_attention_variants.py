@@ -259,11 +259,14 @@ def test_variant_wrappers_refuse_what_the_kernel_does_not_take():
     tensors stand in for device tensors)."""
     before = (ah.per_head_launches, ah.all_heads_launches)
     q = torch.zeros(2, 64, 64, dtype=torch.float32, device="meta")
+    wide = torch.zeros(2, 64, 512, dtype=torch.float32, device="meta")
     for fn in (ah.attention_per_head, ah.attention_all_heads):
         with pytest.raises(TypeError):
             fn(q.half(), q.half(), q.half(), 2)
-        with pytest.raises(ValueError, match="head_dim"):
-            fn(q, q, q, 4)
+        with pytest.raises(ValueError, match="head_dim <= 128"):
+            fn(wide, wide, wide, 2)  # head_dim 256
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(q, q, q, 4)  # head_dim 16: an instance
         with pytest.raises(ValueError, match="shapes"):
             fn(q, q, q[..., :32].contiguous(), 2)
         with pytest.raises(ValueError, match="unsupported device"):

@@ -156,7 +156,8 @@ def test_new_modules_are_covered():
 
 
 # the headers a kernel source may include: the CUDA toolkit's and C's own
-CUDA_HEADERS = {"cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "mma.h", "math.h", "stdint.h"}
+CUDA_HEADERS = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "mma.h", "math.h",
+                "stdint.h"}
 
 
 CSRC = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
@@ -277,8 +278,10 @@ def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
     )
     with pytest.raises(TypeError):
         ab.attention_batched(*_attn_args(torch.float16, "meta"), 2)  # the kernel is fp32 or bf16
-    with pytest.raises(ValueError, match="head_dim"):
-        ab.attention_batched(*_attn_args(torch.float32, "meta"), 4)  # head_dim 16
+    with pytest.raises(ValueError, match="unsupported device"):
+        ab.attention_batched(*_attn_args(torch.float32, "meta"), 4)  # head_dim 16: an instance
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        ab.attention_batched(*_attn_args(torch.float32, "meta", E=512), 2)  # head_dim 256
     q, k, v = _attn_args(torch.float32, "meta")
     with pytest.raises(ValueError, match="shapes"):
         ab.attention_batched(q, k, v[..., :32].contiguous(), 2)
@@ -312,8 +315,11 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
     before = (ld.launches, ap.launches)
     with pytest.raises(TypeError):
         ld.ln_dense(*_ln_args(torch.float16, "meta"), relu=True)
-    with pytest.raises(ValueError, match="F <="):
-        ld.ln_dense(*_ln_args(torch.bfloat16, "meta", F=40), relu=True)  # bf16 needs F % 16 == 0
+    # any F (40: not a multiple of 16; 512: above one warpgroup's 256) and
+    # any D reach the device check
+    for F, D in ((40, 70), (512, 70), (48, 8192)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            ld.ln_dense(*_ln_args(torch.bfloat16, "meta", D=D, F=F), relu=True)
     x, gamma, beta, w, b = _ln_args(torch.float32, "meta")
     with pytest.raises(ValueError, match="shapes"):
         ld.ln_dense(x, gamma, beta, w[:, :-1], b, relu=False)
@@ -321,8 +327,10 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         ld.ln_dense(x.t().contiguous().t(), gamma, beta, w, b, relu=False)
     with pytest.raises(TypeError):
         ap.attention_packed(*_attn_args(torch.float16, "meta"), 2)  # the kernel is bf16 or fp32
-    with pytest.raises(ValueError, match="head_dim"):
-        ap.attention_packed(*_attn_args(torch.bfloat16, "meta"), 4)  # head_dim 16
+    with pytest.raises(ValueError, match="unsupported device"):
+        ap.attention_packed(*_attn_args(torch.bfloat16, "meta"), 4)  # head_dim 16: an instance
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        ap.attention_packed(*_attn_args(torch.bfloat16, "meta", E=512), 2)  # head_dim 256
     q, k, v = _attn_args(torch.bfloat16, "meta")
     with pytest.raises(ValueError, match="shapes"):
         ap.attention_packed(q, k, v[..., :32].contiguous(), 2)
