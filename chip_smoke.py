@@ -311,10 +311,21 @@ def _ln_inputs(dtype_name: str, N: int, D: int, F: int, seed: int = 0):
     return x, gamma, beta, w, b
 
 
+def _offset_view(t, offset: int):
+    """t's values in a view `offset` elements into a larger buffer of NaNs."""
+    import torch
+
+    buf = torch.full((t.numel() + 2 * offset,), float("nan"), dtype=t.dtype, device=t.device)
+    buf[offset:offset + t.numel()] = t.flatten()
+    return buf[offset:offset + t.numel()].view(t.shape)
+
+
 def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PATH["N"],
-                   D: int = MAIN_PATH["D"], summary=None, F: int = MAIN_PATH["F"]) -> dict:
+                   D: int = MAIN_PATH["D"], summary=None, F: int = MAIN_PATH["F"],
+                   offset: int = 0) -> dict:
     """ln_dense against its plain version (TOL, in units of max(1, |plain|))
-    on its two device kernels; timed: CUDA events (ms), the kernels alone
+    on its two device kernels, with x, gamma and beta `offset` elements into
+    larger buffers of NaNs where offset > 0; timed: CUDA events (ms), the kernels alone
     from the profiler (kernel_ms, the statistics pass and the product), the
     plain version and the library pair F.linear(F.layer_norm(x)) (+ ReLU) in
     the input dtype (TF32 off), the bound by bytes and by operations (fp32:
@@ -325,6 +336,8 @@ def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PAT
     from mesm_tpu_torch.ops import ln_dense as ld
 
     x, gamma, beta, w, b = _ln_inputs(dtype_name, N, D, F)
+    if offset:
+        x, gamma, beta = (_offset_view(t, offset) for t in (x, gamma, beta))
     got, names = launched_kernels(lambda: ld.ln_dense(x, gamma, beta, w, b, relu))
     want = ld.ln_dense_reference(x, gamma, beta, w, b, relu)
     torch.cuda.synchronize()
@@ -332,7 +345,7 @@ def check_ln_dense(dtype_name: str, relu: bool, time_it: bool, N: int = MAIN_PAT
     tol = TOL[f"ln_dense_{dtype_name}"]
     res = {
         "kernel": "ln_dense", "dtype": dtype_name, "relu": relu, "shape": [N, D, F],
-        "summary_name": summary, "launched": names,
+        "offset": offset, "summary_name": summary, "launched": names,
         "max_abs_err": float((got.float() - want.float()).abs().max()),
         "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
     }
@@ -382,10 +395,14 @@ LN_DENSE_EDGES = tuple(
 
 
 def check_ln_dense_edges() -> list:
-    """ln_dense at LN_DENSE_EDGES against its plain version (TOL), untimed."""
+    """ln_dense at LN_DENSE_EDGES against its plain version (TOL), untimed;
+    then with x, gamma and beta off 16-byte boundaries (one element into
+    their buffers) at an odd D."""
     out = []
     for dtype_name, N, D, F, relu in LN_DENSE_EDGES:
         out.append(check_ln_dense(dtype_name, relu, False, N=N, D=D, F=F))
+    for dtype_name in ("bfloat16", "float32"):
+        out.append(check_ln_dense(dtype_name, True, False, N=77, D=2817, F=256, offset=1))
     return out
 
 
@@ -1379,39 +1396,91 @@ def check_head_dims() -> list:
     return cases
 
 
-def time_head_dims() -> list:
-    """Per launch at HEAD_DIM_TIMED's shapes with E = 256 at hd 16 (16
-    heads) and 128 (2 heads): CUDA events and the kernel alone from the
-    profiler; the backward against its plain version and autograd's."""
+def _hd_timed_case(name: str, dtype_name: str, B: int, Lq: int, Lk: int, hd: int) -> dict:
+    """One HEAD_DIM_TIMED case with E = 256 at head_dim hd: the wrapper
+    against its plain version on the same inputs (its route's TOL; the
+    backward at 1e-5, also against autograd through attention_core; each
+    forward's fully masked rows against the mean of v); then, if it holds,
+    per launch: CUDA events, the kernel alone from the profiler, the plain
+    version's time, SDPA's on the same function (the backward: SDPA's
+    backward), and the bound."""
     import torch
+    import torch.nn.functional as Fn
 
     from mesm_tpu_torch.models.attention import attention_core
     from mesm_tpu_torch.ops import attention_backward as abw
 
-    routes, out = _hd_routes(), []
     E = MAIN_PATH["E"]
-    for name, dtype_name, B, Lq, Lk in HEAD_DIM_TIMED:
-        for hd in (16, 128):
-            H = E // hd
-            pair = name != "attention_shortkey_onematmul" and name in _pair_kernels()
-            q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, E, H, dtype_name, pair, seed=hd + B)
-            if name == "attention_backward":
-                out_t = attention_core(q, k, v, H, key_valid_mask=mask)
-                g = torch.randn_like(q)
-                fn = lambda: abw.attention_backward(q, k, v, out_t, g, H, mask)  # noqa: E731
-                plain = lambda: abw.attention_backward_reference(q, k, v, g, H, mask)  # noqa: E731
-                key = "attention_backward_"
-            else:
-                f, ref, takes_pair, _, names = routes[name]
-                args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
-                fn = lambda: f(*args)  # noqa: E731
-                plain = lambda: ref(*args)  # noqa: E731
-                key = names[dtype_name]
-            out.append({"kernel": name, "dtype": dtype_name, "head_dim": hd, "heads": H,
-                        "shape": [B, Lq, Lk, E], "pair": pair, "ms": cuda_time_ms(fn, iters=10),
-                        "kernel_ms": device_kernel_ms(fn, key, iters=10),
-                        "plain_ms": cuda_time_ms(plain, iters=5)})
-    return out
+    H = E // hd
+    routes = _hd_routes()
+    pair = name != "attention_shortkey_onematmul" and name in _pair_kernels()
+    q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, E, H, dtype_name, pair, seed=hd + B)
+    case = {"kernel": name, "dtype": dtype_name, "head_dim": hd, "heads": H,
+            "shape": [B, Lq, Lk, E], "pair": pair}
+    if name == "attention_backward":
+        g = torch.randn_like(q)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out_t = attention_core(*leaves, H, key_valid_mask=mask)
+        out_t.backward(g)
+        auto = [t.grad for t in leaves]
+        out_t = out_t.detach()
+        fn = lambda: abw.attention_backward(q, k, v, out_t, g, H, mask)  # noqa: E731
+        plain = lambda: abw.attention_backward_reference(q, k, v, g, H, mask)  # noqa: E731
+        key, tol = "attention_backward_", TOL["attention_backward"]
+        got, names = launched_kernels(fn)
+        want = plain()
+        torch.cuda.synchronize()
+        case.update(max_err_rel_to_max1=max(_rel_err(a, b) for a, b in zip(got, want)),
+                    vs_autograd_rel_to_max1=max(_rel_err(a, b) for a, b in zip(got, auto)),
+                    finite=all(bool(torch.isfinite(a).all()) for a in got))
+        ok = case["vs_autograd_rel_to_max1"] <= tol and all(
+            any(n in x for x in names) for n in BACKWARD_KERNELS)
+        del auto
+    else:
+        f, ref, takes_pair, _, kernel_names = routes[name]
+        args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
+        fn = lambda: f(*args)  # noqa: E731
+        plain = lambda: ref(*args)  # noqa: E731
+        key, tol = kernel_names[dtype_name], TOL[f"{name}_{dtype_name}"]
+        got, names = launched_kernels(fn)
+        want = plain()
+        torch.cuda.synchronize()
+        dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+        case.update(max_err_rel_to_max1=_rel_err(got, want), finite=bool(torch.isfinite(got).all()),
+                    masked_rows_vs_mean_v=dead_err)
+        ok = dead_rows > 0 and dead_err <= tol and any(key in n for n in names)
+    case.update(launched=names, tol=tol)
+    case["ok"] = bool(ok and case["finite"] and case["max_err_rel_to_max1"] <= tol)
+    del got, want
+    if not case["ok"]:
+        return case
+    qh, kh, vh = (t.view(B, -1, H, hd).transpose(1, 2) for t in (q, k, v))
+    am = (torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
+        _dead_pairs(mask, pf, H, Lq), -1e9) if pair else _sdpa_mask(mask))
+    item = q.element_size()
+    if name == "attention_backward":
+        sl = [t.clone().requires_grad_(True) for t in (qh, kh, vh)]
+        so = Fn.scaled_dot_product_attention(*sl, attn_mask=am)
+        gh = g.view(B, Lq, H, hd).transpose(1, 2)
+        library = lambda: torch.autograd.grad(so, sl, gh, retain_graph=True)  # noqa: E731
+        # as check_attention_trainable: q, k, v, O, d_out, the mask read and
+        # dq, dk, dv written once; five products, each 3 TF32 products
+        moved = 8 * B * Lq * E * 4 + B * Lk
+        bnd = bound(moved, 3 * 5 * 2.0 * B * H * Lq * Lk * hd, "tf32")
+    else:
+        library = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)  # noqa: E731
+        moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
+        bnd = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
+    case.update(ms=cuda_time_ms(fn, iters=10), kernel_ms=device_kernel_ms(fn, key, iters=10),
+                plain_ms=cuda_time_ms(plain, iters=5), library_ms=cuda_time_ms(library, iters=10),
+                bound_ms=bnd[0], bound_by=bnd[1])
+    return case
+
+
+def time_head_dims() -> list:
+    """_hd_timed_case at each HEAD_DIM_TIMED shape, at hd 16 (16 heads) and
+    128 (2 heads)."""
+    return [_hd_timed_case(*shape, hd) for shape in HEAD_DIM_TIMED for hd in (16, 128)]
 
 
 def _nheads16_step_checks(card: str) -> dict:
@@ -1476,16 +1545,16 @@ def _nheads16_step_checks(card: str) -> dict:
 
 
 def phase_head_dims(card: str) -> dict:
-    """The head-dim domain on the card: check_head_dims, time_head_dims and
-    the --nheads 16 eval and train steps."""
+    """The head-dim domain on the card: check_head_dims, time_head_dims
+    (each timed case held against its plain version first) and the
+    --nheads 16 eval and train steps."""
     cases = check_head_dims()
-    res = {"phase": "head_dims", "card": card, "cases": cases}
+    timed = time_head_dims()
+    res = {"phase": "head_dims", "card": card, "cases": cases, "timed": timed}
     res.update(_nheads16_step_checks(card))
-    res["ok"] = bool(all(c["ok"] for c in cases) and res["charades_eval_nheads16"]["ok"]
+    res["ok"] = bool(all(c["ok"] for c in cases + timed) and res["charades_eval_nheads16"]["ok"]
                      and res["tacos_train_nheads16"]["ok"])
-    res["failed"] = [c for c in cases if not c["ok"]]
-    if res["ok"]:
-        res["timed"] = time_head_dims()
+    res["failed"] = [c for c in cases + timed if not c["ok"]]
     emit(res)
     if not res["ok"]:
         raise SystemExit("head-dim phase: a check failed")
@@ -3016,7 +3085,7 @@ def main() -> int:
     card = device["nvidia_smi"]
     phase_build()
     kernels = phase_kernels()
-    phase_head_dims(card)
+    head_dims = phase_head_dims(card)
     phase_model(card)
     cli = phase_cli()
     phase_tacos_eval(card)
@@ -3029,6 +3098,11 @@ def main() -> int:
     variants = phase_attn_variants(card)
     stream = phase_stream_layer(card)
     phase_processes()
+    # the head-dim timings again, short, where the end of the output keeps them
+    emit({"phase": "head_dims_timed", "card": card, "timed": [
+        {k: c.get(k) for k in ("kernel", "dtype", "head_dim", "shape", "max_err_rel_to_max1", "ms",
+                               "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        for c in head_dims["timed"]]})
     print(card, flush=True)
     launches = dict(cli["launches"])
     for name in ("attention_batched", "attention_trainable", "attention_backward"):

@@ -371,12 +371,13 @@ __device__ __forceinline__ float tf32(float x) {
   return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
 }
 
-// cp.async of 16 bytes from src to dst (both on 16-byte boundaries), zeros
-// in their place unless `in` (src is then not read); the L2 fetches the
-// 256 bytes around src from device memory (the row's next K tile)
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool in) {
+// cp.async of 16 bytes to dst from src (both on 16-byte boundaries): the
+// first `n` (0-16) are read from src, the rest are zeros (src is not read
+// past them); the L2 fetches the 256 bytes around src from device memory
+// (the row's next K tile)
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int n) {
   asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0)
+               "l"(src), "r"(n)
                : "memory");
 }
 // one arrival on bar once every cp.async this thread issued has landed
@@ -540,8 +541,8 @@ ln_dense_wgmma_kernel(const __grid_constant__ CUtensorMap map0,
     // the producer: for each K tile of each of the block's tiles, once the
     // consumers have released its stage, the weight's tile by TMA and the
     // raw K tile of the tile's rows by cp.async (each lane RAW_CHUNKS of
-    // the BM x RAW_CHUNKS 16-byte chunks; rows past N and chunks past x's
-    // end are zeros)
+    // the BM x RAW_CHUNKS 16-byte chunks; rows past N and the bytes past
+    // x's end are zeros, not read)
     const int pt = threadIdx.x - 2 * WG;
     const uintptr_t xend = xb + (uintptr_t)N * D * sizeof(T);
     for (int t = first; t >= 0; t -= (int)gridDim.x) {
@@ -561,13 +562,15 @@ ln_dense_wgmma_kernel(const __grid_constant__ CUtensorMap map0,
           const uintptr_t src = (a & ~(uintptr_t)15) + 16 * q;
           const bool in = row0 + r < N && src < xend;
           cp_async16_zfill(st + L::RAW_AT + r * RAW_ROW + 16 * q,
-                           reinterpret_cast<const void*>(in ? src : xb), in);
+                           reinterpret_cast<const void*>(in ? src : xb),
+                           in ? (int)min((uintptr_t)16, xend - src) : 0);
         }
         if (Cfg<T>::A_REGS && pt < 32) {
           // the K tile's gamma (chunks 0-15) and beta (16-31), zeros past D
           const int c = kt * BK + 4 * (pt % 16);
           const float* src = (pt < 16 ? gamma : beta) + c;
-          cp_async16_zfill(st + L::GB_AT + 16 * pt, c < D ? src : gamma, c < D);
+          cp_async16_zfill(st + L::GB_AT + 16 * pt, c < D ? src : gamma,
+                           c < D ? 4 * min(4, D - c) : 0);
         }
         cp_async_arrive(&full[s]);
         if (++s == S) s = 0, ph ^= 1;
@@ -807,7 +810,8 @@ int launch(const void* x, const void* gamma, const void* beta, const void* w0, c
 }  // namespace
 
 // Plain C entry point, bound with ctypes. x: (N, D) row-major in `dtype` (0
-// = float32, 1 = bfloat16); gamma, beta: (D,) f32; the weight (F, D) in
+// = float32, 1 = bfloat16); gamma, beta: (D,) f32; x, gamma and beta on
+// 16-byte boundaries (the producer copies them in 16-byte chunks); the weight (F, D) in
 // torch layout as the wrapper caches it, rows padded to DP values (a
 // multiple of 16 bytes) on 16-byte boundaries: w0 in bf16, or w0 = its
 // tf32 hi part and w1 its lo part in float32 (w1 null in bf16); bias: (F,)
@@ -821,6 +825,9 @@ extern "C" int ln_dense_launch(const void* x, const void* gamma, const void* bet
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || D <= 0 || F <= 0 || DP < D) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(gamma) |
+       reinterpret_cast<uintptr_t>(beta)) & 15)
+    return (int)cudaErrorMisalignedAddress;
   if (dtype == 1)
     return launch<bf16>(x, gamma, beta, w0, nullptr, bias, out, stats, N, D, DP, F, relu, eps, s);
   if (dtype == 0) {

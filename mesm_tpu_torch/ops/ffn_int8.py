@@ -29,8 +29,9 @@ the wrapper keeps in the order the kernel's stages hold them
 (`stage_weights`).
 
 The kernel's wrapper takes the quantized weights from `quantized_weights`,
-which computes them once per weight version: its cache is keyed on each
-parameter tensor's identity, `data_ptr()` and `_version`, so an in-place
+which computes them once per weight version: its cache
+(ops/_weight_cache.py) is keyed on the parameters' identity, `data_ptr()`
+and `_version`, so an in-place
 update (an optimizer step, `load_state_dict`, `copy_` under no_grad) makes
 the next call quantize again, and it holds the parameters only by weak
 reference, so a freed model leaves no entry behind. The JAX package
@@ -41,12 +42,12 @@ version quantizes inline on every call, as the JAX oracle does.
 from __future__ import annotations
 
 import ctypes
-import weakref
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from ..kernels import refuse_autograd
+from ._weight_cache import Entry, derived
 
 MAX_SMEM = 232448  # bytes a block may use on sm_90
 # an int8 product's sums, <= 127 * 127 * depth, stay below 2**24 (so int ->
@@ -77,29 +78,8 @@ def quantize_weight(w: torch.Tensor):
     return torch.round(wf / s[:, None]).to(torch.int8), s
 
 
-class _Entry:
-    """The kernel's weight operands for one version of (w1, b1, alpha, w2,
-    b2): weak references to the parameters, their (data_ptr, _version)
-    stamps, the values, and the int8 weights staged per chunk width."""
-
-    __slots__ = ("refs", "stamps", "values", "staged")
-
-    def __init__(self, params, values):
-        self.refs = tuple(weakref.ref(t) for t in params)
-        self.stamps = _stamps(params)
-        self.values = values
-        self.staged: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
-
-    def matches(self, params) -> bool:
-        return all(r() is t for r, t in zip(self.refs, params)) and self.stamps == _stamps(params)
-
-
-def _stamps(params) -> Tuple[Tuple[int, int], ...]:
-    return tuple((t.data_ptr(), t._version) for t in params)
-
-
-# id(w1) -> _Entry; an entry goes when its w1 is freed
-_weight_cache: Dict[int, _Entry] = {}
+# id(w1) -> _weight_cache.Entry; an entry goes when its w1 is freed
+_weight_cache: Dict[int, Entry] = {}
 
 
 def quantized_weights(w1, b1, alpha, w2, b2):
@@ -109,25 +89,20 @@ def quantized_weights(w1, b1, alpha, w2, b2):
     values are quantize_weight's and the bf16 casts of b1, alpha, b2, computed
     once per version of the five tensors (see the module docstring)."""
     global weight_quantizations
-    params = (w1, b1, alpha, w2, b2)
-    key = id(w1)
-    entry = _weight_cache.get(key)
-    if entry is not None and entry.matches(params):
-        return entry.values
-    bf = torch.bfloat16
-    with torch.no_grad():
-        w1q, s1 = quantize_weight(w1.detach())
-        w2q, s2 = quantize_weight(w2.detach())
-        values = (w1q.contiguous(), s1.to(bf).contiguous(),
-                  b1.detach().to(bf, copy=True).contiguous(),
-                  alpha.detach().to(bf, copy=True).reshape(1).contiguous(),
-                  w2q.contiguous(), s2.to(bf).contiguous(),
-                  b2.detach().to(bf, copy=True).contiguous())
-    if entry is None:  # first entry of this w1: drop it when w1 is freed
-        weakref.finalize(w1, _weight_cache.pop, key, None)
-    _weight_cache[key] = _Entry(params, values)
-    weight_quantizations += 1
-    return values
+    values = derived(_weight_cache, (w1, b1, alpha, w2, b2))
+    if "quantized" not in values:
+        bf = torch.bfloat16
+        with torch.no_grad():
+            w1q, s1 = quantize_weight(w1.detach())
+            w2q, s2 = quantize_weight(w2.detach())
+            values["quantized"] = (
+                w1q.contiguous(), s1.to(bf).contiguous(),
+                b1.detach().to(bf, copy=True).contiguous(),
+                alpha.detach().to(bf, copy=True).reshape(1).contiguous(),
+                w2q.contiguous(), s2.to(bf).contiguous(),
+                b2.detach().to(bf, copy=True).contiguous())
+        weight_quantizations += 1
+    return values["quantized"]
 
 
 # output columns per block of the kernel's linear2
@@ -157,12 +132,11 @@ def stage_weights(w1q: torch.Tensor, w2q: torch.Tensor, nc: int):
 def staged_weights(w1, b1, alpha, w2, b2, nc: int):
     """stage_weights of quantized_weights' int8 weights, kept in the same
     cache entry (computed once per weight version and chunk width)."""
-    values = quantized_weights(w1, b1, alpha, w2, b2)
-    entry = _weight_cache[id(w1)]
-    staged = entry.staged.get(nc)
-    if staged is None:
-        staged = entry.staged[nc] = stage_weights(values[0], values[4], nc)
-    return staged
+    w1q, _, _, _, w2q, _, _ = quantized_weights(w1, b1, alpha, w2, b2)
+    values = derived(_weight_cache, (w1, b1, alpha, w2, b2))
+    if ("staged", nc) not in values:
+        values["staged", nc] = stage_weights(w1q, w2q, nc)
+    return values["staged", nc]
 
 
 def _to_i8(v: torch.Tensor) -> torch.Tensor:

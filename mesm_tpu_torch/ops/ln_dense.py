@@ -14,22 +14,20 @@ The kernel reads the Dense weight through TMA tensor maps, as a copy in
 the input dtype with its rows padded to a 16-byte stride (in float32 split
 into its tf32 hi and lo parts: each value split once per weight version).
 `kernel_weights` makes those copies once per version of the weight and
-dtype and keeps them while the weight lives
-(keyed on the weight's identity, `data_ptr()` and `_version`, as
+dtype and keeps them while the weight lives (ops/_weight_cache.py, as
 ops/ffn_int8.quantized_weights): an in-place update or a freed weight drops
-it. So a launch allocates only its output, whose storage also holds the
-rows' statistics (8 bytes a row past the output) between the kernel's two
-passes.
+them. So a launch allocates only its output and the rows' statistics (8
+bytes a row) that the kernel's two passes share.
 """
 from __future__ import annotations
 
 import ctypes
-import weakref
 from typing import Dict, Tuple
 
 import torch
 
 from ..kernels import refuse_autograd
+from ._weight_cache import Entry, derived
 
 LN_EPS = 1e-5
 
@@ -73,23 +71,8 @@ def padded_width(D: int, dtype) -> int:
     return -(-D // per) * per
 
 
-class _Entry:
-    """One weight's kernel copies: a weak reference to it, its (data_ptr,
-    _version) stamp, and its copies by dtype."""
-
-    __slots__ = ("ref", "stamp", "copies")
-
-    def __init__(self, weight):
-        self.ref = weakref.ref(weight)
-        self.stamp = (weight.data_ptr(), weight._version)
-        self.copies: Dict[torch.dtype, Tuple[torch.Tensor, ...]] = {}
-
-    def matches(self, weight) -> bool:
-        return self.ref() is weight and self.stamp == (weight.data_ptr(), weight._version)
-
-
-# id(weight) -> _Entry; an entry goes when its weight is freed
-_weight_cache: Dict[int, _Entry] = {}
+# id(weight) -> _weight_cache.Entry; an entry goes when its weight is freed
+_weight_cache: Dict[int, Entry] = {}
 
 
 def kernel_weights(weight: torch.Tensor, dtype) -> Tuple[torch.Tensor, ...]:
@@ -98,22 +81,15 @@ def kernel_weights(weight: torch.Tensor, dtype) -> Tuple[torch.Tensor, ...]:
     D, contiguous and on their own memory; made at the first call of each
     version of the weight and dtype, then reused."""
     global weight_copies
-    key = id(weight)
-    entry = _weight_cache.get(key)
-    if entry is None or not entry.matches(weight):
-        if entry is None:  # first entry of this weight: drop it when the weight is freed
-            weakref.finalize(weight, _weight_cache.pop, key, None)
-        entry = _weight_cache[key] = _Entry(weight)
-    copies = entry.copies.get(dtype)
-    if copies is None:
+    copies = derived(_weight_cache, (weight,))
+    if dtype not in copies:
         F, D = weight.shape
         with torch.no_grad():
             wp = torch.zeros(F, padded_width(D, dtype), dtype=dtype, device=weight.device)
             wp[:, :D] = weight.detach()
-            copies = (wp,) if dtype == torch.bfloat16 else tf32_split(wp)
-        entry.copies[dtype] = copies
+            copies[dtype] = (wp,) if dtype == torch.bfloat16 else tf32_split(wp)
         weight_copies += 1
-    return copies
+    return copies[dtype]
 
 
 def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EPS):
@@ -145,17 +121,13 @@ def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EP
     if N == 0 or D == 0:
         return torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
     ws = kernel_weights(weight, x.dtype)
-    # f32 and on 16-byte boundaries (the bf16 kernel copies K tiles of them
-    # 16 bytes at a time): a parameter as it is, or a copy
-    gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (ln_weight.float().contiguous(), ln_bias.float().contiguous()))
+    # x, and gamma and beta in f32, on 16-byte boundaries (the kernel copies
+    # K tiles of them 16 bytes at a time): as they are, or a copy
+    x, gamma, beta = (t if t.data_ptr() % 16 == 0 else t.clone() for t in
+                      (x, ln_weight.float().contiguous(), ln_bias.float().contiguous()))
     b = bias.float().contiguous()
-    # the output, and past it (from a 16-byte boundary) 8 bytes a row for
-    # the statistics pass
-    item = x.element_size()
-    stats_at = -(-N * F * item // 16) * 16
-    storage = torch.empty((stats_at + 8 * N) // item, dtype=x.dtype, device=x.device)
-    out = storage[: N * F].view(*x.shape[:-1], F)
+    out = torch.empty(*x.shape[:-1], F, dtype=x.dtype, device=x.device)
+    stats = torch.empty(N, 2, dtype=torch.float32, device=x.device)
     from ..kernels.build import load
 
     lib = load("ln_dense")
@@ -167,7 +139,7 @@ def ln_dense(x, ln_weight, ln_bias, weight, bias, relu: bool, eps: float = LN_EP
     err = fn(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ws[0].data_ptr(),
         ws[1].data_ptr() if len(ws) > 1 else None, b.data_ptr(), out.data_ptr(),
-        storage.data_ptr() + stats_at, N, D, ws[0].shape[1], F, int(bool(relu)), float(eps),
+        stats.data_ptr(), N, D, ws[0].shape[1], F, int(bool(relu)), float(eps),
         1 if x.dtype == torch.bfloat16 else 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -147,8 +147,9 @@ def cuda():
 @pytest.mark.cuda
 def test_kernel_matches_plain_at_its_edges(cuda):
     """chip_smoke's ln_dense edges (ragged row tiles, F 40, 300 and 512, D
-    256, 2817 and 8192, with and without ReLU, both dtypes) on its two
-    device kernels, within bf16 2**-6 and fp32 1e-4 of the plain version."""
+    256, 2817 and 8192, with and without ReLU, both dtypes; x, gamma and
+    beta off 16-byte boundaries) on its two device kernels, within bf16
+    2**-6 and fp32 1e-4 of the plain version."""
     from chip_smoke import check_ln_dense_edges
 
     assert all(r["max_err_rel_to_max1"] <= r["tol"] for r in check_ln_dense_edges())
