@@ -7,10 +7,13 @@ run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
 torch version at the main paths' shapes (the encoder attention kernels
 also at the edges of their tiles, the fused LayerNorm -> Dense at the edges
-of its tiles and its domain: any N, D and F), holds every attention kernel
-at head_dim 16, 24 (padded), 64 and 128 in both dtypes (the backward
-against autograd too) and runs the charades bf16 eval step and the TACoS
-fp32 train step at --nheads 16 (head_dim 16) on the kernels, drives
+of its tiles and its domain: any N, D and F; the fp32 attention body at 16
+and 32 x 601 x 601 and head_dim 16, 32, 128 and 256, timed beside the
+register tiles it replaced and SDPA), holds every attention kernel at
+head_dim 16, 24 (padded), 64, 128, 192 (padded), 256 and 512 in both
+dtypes (the backward against autograd too) and runs the charades bf16 eval
+step and the TACoS fp32 train step at --nheads 16 (head_dim 16) and
+--nheads 1 (head_dim 256, the wide bodies) on the kernels, drives
 charades C+SF_C bf16
 inference through the port's eval step and through its
 `python -m mesm_tpu_torch.evaluate` entry point (the eval step also in the
@@ -424,18 +427,33 @@ def _encoder_qkv(B: int, L: int, dtype_name: str, seed: int):
 
 
 # the device kernel each (B, L, E) encoder attention wrapper launches, by
-# dtype (a name no other kernel's name contains); bf16 batched past the mma
-# staging (BATCHED_REGTILE_SHAPES) launches the float32 instance's body
+# dtype (a name no other kernel's name contains): bf16 on the mma tiles,
+# float32 on the 3xTF32 body; bf16 batched past the mma staging
+# (BATCHED_REGTILE_SHAPES) launches its register-tile kernel
 ENCODER_KERNEL_NAMES = {
     "attention_per_head": {"bfloat16": "attention_heads_kernel_bf16",
-                           "float32": "attention_heads_kernel_f32"},
+                           "float32": "attention_heads_3xtf32_kernel"},
     "attention_all_heads": {"bfloat16": "attention_heads_kernel_bf16",
-                            "float32": "attention_heads_kernel_f32"},
+                            "float32": "attention_heads_3xtf32_kernel"},
     "attention_batched": {"bfloat16": "attention_batched_mma_kernel",
-                          "float32": "attention_batched_kernel"},
+                          "float32": "attention_batched_3xtf32_kernel"},
     "attention_packed": {"bfloat16": "attention_packed_mma_kernel",
-                         "float32": "attention_packed_regtile_kernel"},
+                         "float32": "attention_packed_3xtf32_kernel"},
 }
+BATCHED_REGTILE_KERNEL = "attention_batched_regtile_kernel"
+
+
+def attention_bound(B: int, H: int, Lq: int, Lk: int, hd: int, moved: float, dtype_name: str,
+                    products: int = 2):
+    """(bound_ms, bound_by, bound_fp32_ms) of `products` attention products
+    of B * H * Lq * Lk * hd multiply-adds each: bf16 at its tensor-core
+    rate; float32 as the kernels take it, three TF32 products each (3xTF32),
+    with the fp32 figure without the tensor cores beside (a 3xTF32 kernel
+    may beat it, so it bounds nothing)."""
+    flops = products * 2.0 * B * H * Lq * Lk * hd
+    if dtype_name != "float32":
+        return bound(moved, flops, dtype_name) + (None,)
+    return bound(moved, 3 * flops, "tf32") + (bound(moved, flops, "float32")[0],)
 
 
 def _encoder_kernels():
@@ -453,7 +471,8 @@ def _encoder_kernels():
     }
 
 
-def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=None) -> dict:
+def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=None,
+                            heads: int = MAIN_PATH["H"]) -> dict:
     """An encoder self-attention kernel of a MESM_ATTN_VARIANT layout (or a
     new dtype instance) against its plain version, then its time (CUDA
     events, and the kernel alone from the profiler), its plain version's and
@@ -463,7 +482,7 @@ def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=
 
     fn, ref = _encoder_kernels()[name]
     key = ENCODER_KERNEL_NAMES[name][dtype_name]
-    E, H = MAIN_PATH["E"], MAIN_PATH["H"]
+    E, H = MAIN_PATH["E"], heads
     hd = E // H
     q, k, v, mask = _encoder_qkv(B, L, dtype_name, seed=7)
     got = fn(q, k, v, H, mask)
@@ -489,8 +508,32 @@ def check_encoder_attention(name: str, dtype_name: str, B: int, L: int, summary=
         lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)
     )
     moved = 4 * B * L * E * q.element_size() + B * L
-    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * L * L * 2 * hd, dtype_name)
+    res["bound_ms"], res["bound_by"], res["bound_fp32_ms"] = attention_bound(B, H, L, L, hd, moved,
+                                                                             dtype_name)
     return res
+
+
+# the fp32 body's timing grid (32 stacked TACoS train rows, 16 eval rows,
+# L = 601, E = 256, head_dim hd with 256 / hd heads), and each shape's
+# kernel time on the register tiles it replaced (PERF.md section 6, rows 6
+# and 7: 0.594 / 0.301 ms at hd 32, 0.793 / 0.740 ms at hd 16 / 128 at 32
+# rows, H100 80GB HBM3 at 700 W); None where they were not timed
+FP32_BODY_GRID = tuple((B, hd) for B in (32, 16) for hd in (16, 32, 128, 256))
+REGTILE_MS = {(32, 32): 0.594, (16, 32): 0.301, (32, 16): 0.793, (32, 128): 0.740}
+
+
+def check_fp32_body() -> list:
+    """The float32 body of kernels 2, 6, 7 and 8 (3xTF32 on the tensor
+    cores) through the batched wrapper at FP32_BODY_GRID, as
+    check_encoder_attention holds and times it, with the time of the
+    register tiles it replaced beside."""
+    out = []
+    for B, hd in FP32_BODY_GRID:
+        res = check_encoder_attention("attention_batched", "float32", B, TACOS["L"],
+                                      heads=TACOS["E"] // hd)
+        res.update(body="3xtf32", head_dim=hd, regtile_ms=REGTILE_MS.get((B, hd)))
+        out.append(res)
+    return out
 
 
 # the shapes at the edges of the (B, L, E) encoder kernels' tiles, (B, Lq,
@@ -506,21 +549,24 @@ HEADS_EDGE_SHAPES = ((1, 1, 17, 256), (2, 70, 81, 256), (2, 70, 601, 256), (3, 1
 BATCHED_REGTILE_SHAPES = ((2, 70, 1800, 256), (2, 70, 900, 512))
 
 
-def launched_kernels(fn, tries: int = 3):
+def launched_kernels(fn, tries: int = 6):
     """fn() under torch.profiler: its result and the names of the device
-    kernels it launched. A short spin kernel opens the window, and is left
-    out of the names: the tracer can miss the first kernel of a window. It
-    can also return a window with no kernel at all: then fn() is traced
-    again, up to `tries` times."""
+    kernels it launched. Short spin kernels open and close the window, and
+    are left out of the names: the tracer can miss the first kernel of a
+    window. It can also return a window with no kernel at all, several in a
+    row: then fn() is traced again after a pause, up to `tries` times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(tries):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(0.2 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             out = fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
         names = sorted(n for n in names if "spin_kernel" not in n)
@@ -536,8 +582,7 @@ def _edge_cases():
     cases = [(name, dtype_name, shape, ENCODER_KERNEL_NAMES[name][dtype_name])
              for name in ENCODER_KERNEL_NAMES for dtype_name in ("bfloat16", "float32")
              for shape in HEADS_EDGE_SHAPES]
-    regtile = ENCODER_KERNEL_NAMES["attention_batched"]["float32"]
-    return cases + [("attention_batched", "bfloat16", shape, regtile)
+    return cases + [("attention_batched", "bfloat16", shape, BATCHED_REGTILE_KERNEL)
                     for shape in BATCHED_REGTILE_SHAPES]
 
 
@@ -784,6 +829,26 @@ def _ffn_edge_cases() -> list:
 BACKWARD_EDGE_SHAPES = HEADS_EDGE_SHAPES + ((2, 81, 70, 256),)
 # the device kernels of one attention_backward call
 BACKWARD_KERNELS = ("attention_backward_dq_3xtf32_kernel", "attention_backward_dkdv_3xtf32_kernel")
+# the backward's kernels at a head_dim above 128 (one block per 128 columns)
+BACKWARD_WIDE_KERNELS = ("attention_backward_dq_wide_kernel",
+                         "attention_backward_dkdv_wide_kernel")
+
+
+def backward_kernels(hd: int) -> tuple:
+    """The backward's two kernels at head_dim hd."""
+    return BACKWARD_WIDE_KERNELS if hd > 128 else BACKWARD_KERNELS
+# the kernels a forward route launches at a head_dim above 128 where they
+# are not its own kernels' wide instances: the bf16 one-matmul kernel's wide
+# block
+WIDE_KERNEL_NAMES = {("attention_shortkey_onematmul", "bfloat16"):
+                         "attention_shortkey_onematmul_wide_kernel"}
+
+
+def route_kernel_name(name: str, dtype_name: str, hd: int, kernel_names: dict) -> str:
+    """The device kernel a forward route launches at head_dim hd."""
+    if hd > 128:
+        return WIDE_KERNEL_NAMES.get((name, dtype_name), kernel_names[dtype_name])
+    return kernel_names[dtype_name]
 
 
 def _backward_edge_cases() -> list:
@@ -922,9 +987,11 @@ def check_attention_trainable() -> list:
     # inputs q, k, v, mask, d_out read once; out, dq, dk, dv written once;
     # six products: the function of (q, k, v, d_out) needs S and P.V
     # forward, dP, dV, dQ and dK backward; S once would do (the kernels
-    # compute it three times: forward, and in each backward kernel)
+    # compute it three times: forward, and in each backward kernel); each
+    # three TF32 products (3xTF32), as the kernels take them
     moved = 4 * B * L * E * 8 + B * L
-    res["bound_ms"], res["bound_by"] = bound(moved, 6 * 2.0 * B * H * L * L * hd, "float32")
+    res["bound_ms"], res["bound_by"], res["bound_fp32_ms"] = attention_bound(
+        B, H, L, L, hd, moved, "float32", products=6)
 
     out = got[0]  # the forward's output, as the Function saves it
     bwd = abw.attention_backward(q, k, v, out, cot, H, mask)
@@ -1043,9 +1110,10 @@ def _pair_kernels():
 
 
 # the device kernel the pair and short-key wrappers launch, by dtype: bf16
-# on the mma tiles, float32 on the CUDA cores
+# on the mma tiles; float32 of the pair entry point on the 3xTF32 body, of
+# the short-key kernels on the CUDA cores
 PAIR_KERNEL_NAMES = {("attention_packed_pair", "bfloat16"): "attention_packed_pair_mma_kernel",
-                     ("attention_packed_pair", "float32"): "attention_packed_pair_kernel",
+                     ("attention_packed_pair", "float32"): "attention_packed_pair_3xtf32_kernel",
                      ("attention_shortkey", "bfloat16"): "attention_shortkey_mma_kernel",
                      ("attention_shortkey_onematmul", "bfloat16"):
                          "attention_shortkey_onematmul_mma_kernel"}
@@ -1093,7 +1161,11 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     )
     item = q.element_size()
     moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
-    res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
+    if name == "attention_packed_pair" or dtype_name != "float32":
+        # bf16 on its tensor cores, the fp32 pair entry point in 3xTF32
+        res["bound_ms"], res["bound_by"], _ = attention_bound(B, H, Lq, Lk, hd, moved, dtype_name)
+    else:  # the fp32 short-key kernels on the CUDA cores
+        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
     return res
 
 
@@ -1250,12 +1322,13 @@ def check_layout_anchor(strided: bool, summary=None) -> dict:
 
 
 # The head-dim phase: every attention kernel at the head dims of its
-# instances 16, 64 and 128 and at a padded 24 (run on the 32 instance with
-# zero columns), in both dtypes (the backward in fp32), against its plain
-# version within the kernel's own tolerance (TOL), by its device kernel's
-# name; each case with H = 4 heads (E = 4 hd) at a tile edge (70 queries,
-# keys not a multiple of 16) and a fully masked sample.
-HEAD_DIMS = (16, 24, 64, 128)
+# instances 16, 64 and 128, at a padded 24 (run on the 32 instance with zero
+# columns), and on the wide bodies at 256 and 512 (2 and 4 slices of 128)
+# and a padded 192 (run at 256), in both dtypes (the backward in fp32),
+# against its plain version within the kernel's own tolerance (TOL), by its
+# device kernel's name; each case with H = 4 heads (E = 4 hd) at a tile edge
+# (70 queries, keys not a multiple of 16) and a fully masked sample.
+HEAD_DIMS = (16, 24, 64, 128, 192, 256, 512)
 HEAD_DIM_H = 4
 # (B, Lq, Lk) of each route's cases: the encoder kernels past the registers'
 # resident keys at hd 128 (128) and beyond 256; the short-key kernels at
@@ -1275,6 +1348,23 @@ HEAD_DIM_TIMED = (("attention_packed", "bfloat16", 128, 195, 195),
                   ("attention_shortkey_onematmul", "bfloat16", 128, 194, 17),
                   ("attention_shortkey", "float32", 16, 600, 17),
                   ("attention_backward", "float32", 32, 601, 601))
+# keys past what a block once staged (H = 4): bf16 at hd 128 beyond 416 keys
+# and a smaller head_dim beyond its staging (padded to 128) on the wide
+# body; the wide bodies past one chunk of 704 keys (705: a last chunk of one
+# key); the fp32 pair entry point past the 215 keys its CUDA-core kernel
+# took at hd 128: (route, dtype, hd, B, Lq, Lk)
+HEAD_DIM_LONG_KEYS = (("attention_packed", "bfloat16", 128, 2, 70, 601),
+                      ("attention_packed", "bfloat16", 32, 2, 70, 1800),
+                      ("attention_per_head", "bfloat16", 64, 2, 70, 900),
+                      ("attention_all_heads", "bfloat16", 128, 2, 70, 500),
+                      ("attention_packed_pair", "bfloat16", 128, 2, 70, 601),
+                      ("attention_packed_pair", "float32", 128, 2, 70, 601),
+                      ("attention_packed_pair", "float32", 32, 2, 70, 1000),
+                      ("attention_packed", "bfloat16", 256, 2, 70, 704),
+                      ("attention_packed", "bfloat16", 256, 2, 70, 705),
+                      ("attention_batched", "bfloat16", 256, 2, 70, 1500),
+                      ("attention_packed_pair", "bfloat16", 256, 2, 70, 1000),
+                      ("attention_per_head", "bfloat16", 512, 2, 70, 760))
 
 
 def _hd_inputs(B: int, Lq: int, Lk: int, E: int, H: int, dtype_name: str, pair: bool, seed: int):
@@ -1351,45 +1441,55 @@ def _hd_backward_case(B: int, Lq: int, Lk: int, hd: int, seed: int) -> dict:
                       and case["vs_autograd_rel_to_max1"] <= tol
                       and case["function_vs_autograd_rel_to_max1"] <= tol
                       and case["masked_sample_dq_dk_max"] == 0.0
-                      and all(any(n in x for x in names) for n in BACKWARD_KERNELS))
+                      and all(any(n in x for x in names) for n in backward_kernels(hd)))
+    return case
+
+
+def _hd_case(routes: dict, name: str, dtype_name: str, hd: int, B: int, Lq: int, Lk: int,
+             pair: bool) -> dict:
+    """One route at head_dim hd (H = HEAD_DIM_H) against its plain version,
+    by its device kernel's name; each fully masked row must give the mean of
+    v."""
+    import torch
+
+    fn, ref, takes_pair, _, kernel_names = routes[name]
+    H = HEAD_DIM_H
+    seed = hd * 1000 + Lq + Lk + pair
+    q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, H * hd, H, dtype_name, pair, seed)
+    args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
+    got, names = launched_kernels(lambda: fn(*args))
+    want = ref(*args)
+    torch.cuda.synchronize()
+    tol = TOL[f"{name}_{dtype_name}"]
+    dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
+    kname = route_kernel_name(name, dtype_name, hd, kernel_names)
+    case = {"kernel": name, "dtype": dtype_name, "head_dim": hd,
+            "shape": [B, Lq, Lk, H * hd, H], "pair": pair, "launched": names,
+            "max_abs_err": float((got.float() - want.float()).abs().max()),
+            "max_err_rel_to_max1": _rel_err(got, want),
+            "finite": bool(torch.isfinite(got).all()),
+            "masked_rows_vs_mean_v": dead_err, "tol": tol}
+    case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
+                      and dead_rows > 0 and dead_err <= tol and any(kname in n for n in names))
     return case
 
 
 def check_head_dims() -> list:
     """Every route at HEAD_DIMS x both dtypes x its HEAD_DIM_SHAPES (with
-    and without pair factors where it takes them), and the backward, against
-    the plain versions; each fully masked row must give the mean of v."""
-    import torch
-
-    H, cases = HEAD_DIM_H, []
-    for name, (fn, ref, takes_pair, group, kernel_names) in _hd_routes().items():
+    and without pair factors where it takes them), the HEAD_DIM_LONG_KEYS
+    cases, and the backward, against the plain versions."""
+    routes, cases = _hd_routes(), []
+    for name, (_, _, takes_pair, group, _) in routes.items():
         for hd in HEAD_DIMS:
             for dtype_name in ("bfloat16", "float32"):
                 for B, Lq, Lk in HEAD_DIM_SHAPES[group]:
                     for pair in ((True, False) if takes_pair else (False,)):
                         if name == "attention_packed_pair" and not pair:
                             continue
-                        seed = hd * 1000 + Lq + Lk + pair
-                        q, k, v, mask, pf = _hd_inputs(B, Lq, Lk, H * hd, H, dtype_name, pair,
-                                                       seed)
-                        args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
-                        got, names = launched_kernels(lambda: fn(*args))
-                        want = ref(*args)
-                        torch.cuda.synchronize()
-                        tol = TOL[f"{name}_{dtype_name}"]
-                        dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
-                        kname = kernel_names[dtype_name]
-                        case = {"kernel": name, "dtype": dtype_name, "head_dim": hd,
-                                "shape": [B, Lq, Lk, H * hd, H], "pair": pair,
-                                "launched": names,
-                                "max_abs_err": float((got.float() - want.float()).abs().max()),
-                                "max_err_rel_to_max1": _rel_err(got, want),
-                                "finite": bool(torch.isfinite(got).all()),
-                                "masked_rows_vs_mean_v": dead_err, "tol": tol}
-                        case["ok"] = bool(case["finite"] and case["max_err_rel_to_max1"] <= tol
-                                          and dead_rows > 0 and dead_err <= tol
-                                          and any(kname in n for n in names))
-                        cases.append(case)
+                        cases.append(_hd_case(routes, name, dtype_name, hd, B, Lq, Lk, pair))
+    for name, dtype_name, hd, B, Lq, Lk in HEAD_DIM_LONG_KEYS:
+        cases.append(_hd_case(routes, name, dtype_name, hd, B, Lq, Lk,
+                              name == "attention_packed_pair"))
     for hd in HEAD_DIMS:
         for B, Lq, Lk in HEAD_DIM_SHAPES["backward"]:
             cases.append(_hd_backward_case(B, Lq, Lk, hd, seed=hd + Lq + Lk))
@@ -1434,14 +1534,15 @@ def _hd_timed_case(name: str, dtype_name: str, B: int, Lq: int, Lk: int, hd: int
                     vs_autograd_rel_to_max1=max(_rel_err(a, b) for a, b in zip(got, auto)),
                     finite=all(bool(torch.isfinite(a).all()) for a in got))
         ok = case["vs_autograd_rel_to_max1"] <= tol and all(
-            any(n in x for x in names) for n in BACKWARD_KERNELS)
+            any(n in x for x in names) for n in backward_kernels(hd))
         del auto
     else:
         f, ref, takes_pair, _, kernel_names = routes[name]
         args = (q, k, v, H, mask) + ((pf,) if takes_pair else ())
         fn = lambda: f(*args)  # noqa: E731
         plain = lambda: ref(*args)  # noqa: E731
-        key, tol = kernel_names[dtype_name], TOL[f"{name}_{dtype_name}"]
+        key = route_kernel_name(name, dtype_name, hd, kernel_names)
+        tol = TOL[f"{name}_{dtype_name}"]
         got, names = launched_kernels(fn)
         want = plain()
         torch.cuda.synchronize()
@@ -1470,7 +1571,14 @@ def _hd_timed_case(name: str, dtype_name: str, B: int, Lq: int, Lk: int, hd: int
     else:
         library = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)  # noqa: E731
         moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
-        bnd = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
+        # fp32 on the 3xTF32 body (the encoder kernels and the pair entry
+        # point) is bound at the TF32 rate, the CUDA-core kernels at the
+        # fp32 one
+        tf32 = name in ENCODER_KERNEL_NAMES or name == "attention_packed_pair"
+        if dtype_name == "float32" and not tf32:
+            bnd = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, "float32")
+        else:
+            bnd = attention_bound(B, H, Lq, Lk, hd, moved, dtype_name)
     case.update(ms=cuda_time_ms(fn, iters=10), kernel_ms=device_kernel_ms(fn, key, iters=10),
                 plain_ms=cuda_time_ms(plain, iters=5), library_ms=cuda_time_ms(library, iters=10),
                 bound_ms=bnd[0], bound_by=bnd[1])
@@ -1478,17 +1586,18 @@ def _hd_timed_case(name: str, dtype_name: str, B: int, Lq: int, Lk: int, hd: int
 
 
 def time_head_dims() -> list:
-    """_hd_timed_case at each HEAD_DIM_TIMED shape, at hd 16 (16 heads) and
-    128 (2 heads)."""
-    return [_hd_timed_case(*shape, hd) for shape in HEAD_DIM_TIMED for hd in (16, 128)]
+    """_hd_timed_case at each HEAD_DIM_TIMED shape, at hd 16 (16 heads), 128
+    (2 heads) and 256 (one head, on the wide bodies)."""
+    return [_hd_timed_case(*shape, hd) for shape in HEAD_DIM_TIMED for hd in (16, 128, 256)]
 
 
-def _nheads16_step_checks(card: str) -> dict:
-    """The charades bf16 eval step in "auto" at --nheads 16 (head_dim 16:
-    the packed kernel at the encoder) against kernels "off", and the
-    kernel-engaged TACoS fp32 train step at --nheads 16 (the batched kernel
-    and the backward kernel at head_dim 16) against its plain run, with the
-    train phase's tolerances."""
+def _nheads_step_checks(card: str, nheads: int) -> dict:
+    """The charades bf16 eval step in "auto" at --nheads `nheads` (16: head_dim
+    16; 1: head_dim 256, on the wide bodies: the packed kernel at the
+    encoder) against kernels "off", and the kernel-engaged TACoS fp32 train
+    step at --nheads `nheads` (the batched kernel and the backward kernel at
+    that head_dim) against its plain run, with the train phase's
+    tolerances."""
     import dataclasses
 
     import torch
@@ -1499,7 +1608,7 @@ def _nheads16_step_checks(card: str) -> dict:
     from mesm_tpu_torch.parallel.step import make_eval_step
 
     torch.manual_seed(0)
-    model = MESM(dataclasses.replace(_model_config(), nheads=16)).cuda().eval()
+    model = MESM(dataclasses.replace(_model_config(), nheads=nheads)).cuda().eval()
     step = make_eval_step(model, _encode_batch, torch.bfloat16)
     batch = make_eval_batch(0)
     reset_launches()
@@ -1515,7 +1624,7 @@ def _nheads16_step_checks(card: str) -> dict:
     ev["ok"] = bool(launches == want and ev["finite"] and max(ev["vs_off_bf16"].values()) <= MODEL_TOL)
     del model, step
 
-    cfg = dataclasses.replace(_tacos_config(dropout=0.0), nheads=16)
+    cfg = dataclasses.replace(_tacos_config(dropout=0.0), nheads=nheads)
     torch.manual_seed(0)
     init = MESM(cfg).state_dict()
     ccfg = CriterionConfig(**TACOS_CRITERION)
@@ -1541,19 +1650,25 @@ def _nheads16_step_checks(card: str) -> dict:
     tr["ok"] = bool(launches_a == want and tr["grads_same_params"]
                     and tr["first_loss_rel_err"] <= TRAIN_LOSS_TOL
                     and tr["grad_max_err_rel_to_max1"] <= TRAIN_GRAD_TOL)
-    return {"charades_eval_nheads16": ev, "tacos_train_nheads16": tr}
+    return {f"charades_eval_nheads{nheads}": ev, f"tacos_train_nheads{nheads}": tr}
+
+
+# the --nheads of the head-dim phase's model steps: head_dim 16 and 256
+STEP_NHEADS = (16, 1)
 
 
 def phase_head_dims(card: str) -> dict:
     """The head-dim domain on the card: check_head_dims, time_head_dims
-    (each timed case held against its plain version first) and the
-    --nheads 16 eval and train steps."""
+    (each timed case held against its plain version first) and the eval and
+    train steps at each STEP_NHEADS."""
     cases = check_head_dims()
     timed = time_head_dims()
     res = {"phase": "head_dims", "card": card, "cases": cases, "timed": timed}
-    res.update(_nheads16_step_checks(card))
-    res["ok"] = bool(all(c["ok"] for c in cases + timed) and res["charades_eval_nheads16"]["ok"]
-                     and res["tacos_train_nheads16"]["ok"])
+    for nheads in STEP_NHEADS:
+        res.update(_nheads_step_checks(card, nheads))
+    res["ok"] = bool(all(c["ok"] for c in cases + timed) and all(
+        res[f"{kind}_nheads{n}"]["ok"] for n in STEP_NHEADS
+        for kind in ("charades_eval", "tacos_train")))
     res["failed"] = [c for c in cases + timed if not c["ok"]]
     emit(res)
     if not res["ok"]:
@@ -1586,6 +1701,9 @@ def phase_kernels() -> dict:
         results.append(check_encoder_attention("attention_batched", "float32", B, L32,
                                                "attention_batched" if B == 2 * B32 else None))
     results.extend(check_attention_trainable())
+    # the fp32 body of kernels 2, 6, 7 and 8 at 16 and 32 rows and head_dim
+    # 16, 32, 128 and 256, beside the register tiles' times and SDPA's
+    results.extend(check_fp32_body())
     for name in ("attention_per_head", "attention_all_heads"):
         results.append(check_encoder_attention(name, "bfloat16", B16, L16, name))
         for B in (B32, 2 * B32):
@@ -3098,7 +3216,12 @@ def main() -> int:
     variants = phase_attn_variants(card)
     stream = phase_stream_layer(card)
     phase_processes()
-    # the head-dim timings again, short, where the end of the output keeps them
+    # the fp32 body's and the head-dim timings again, short, where the end of
+    # the output keeps them
+    emit({"phase": "fp32_body_timed", "card": card, "timed": [
+        {k: c.get(k) for k in ("shape", "head_dim", "max_err_rel_to_max1", "ms", "kernel_ms",
+                               "regtile_ms", "library_ms", "bound_ms", "bound_fp32_ms")}
+        for c in kernels["results"] if c.get("body") == "3xtf32"]})
     emit({"phase": "head_dims_timed", "card": card, "timed": [
         {k: c.get(k) for k in ("kernel", "dtype", "head_dim", "shape", "max_err_rel_to_max1", "ms",
                                "kernel_ms", "plain_ms", "library_ms", "bound_ms")}

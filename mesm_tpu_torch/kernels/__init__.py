@@ -80,11 +80,13 @@ INT8_FFN_MIN_ROWS = 4096
 # the (B, H, L, hd) attention layouts the JAX package reaches only through
 # this environment variable (attention_pallas.py:635-637), read per call
 ATTN_VARIANT_ENV = "MESM_ATTN_VARIANT"
-# the head dims every attention kernel has an instance for; the wrappers
-# zero-pad any other head_dim up to ATTN_MAX_HEAD_DIM to the next of them
-# (ops/attention_packed.kernel_head_dim), and a route is refused above it
+# the head dims every attention kernel has an instance for; above the last,
+# the wide bodies take any multiple of ATTN_WIDE_STEP in slices of that many
+# columns (one block per output chunk of that width). The wrappers zero-pad
+# any other head_dim to the next of them (ops/attention_packed.kernel_head_dim),
+# so every route takes every head_dim, as the Pallas kernels do
 ATTN_HEAD_DIMS = (16, 32, 64, 128)
-ATTN_MAX_HEAD_DIM = ATTN_HEAD_DIMS[-1]
+ATTN_WIDE_STEP = 128
 
 
 def _normalize_mode(enabled) -> str:
@@ -202,7 +204,7 @@ def use_shortkey_packed(B: int, Lq: int, Lk: int, device, training: bool = False
 
 
 def attention_kernel(B: int, Lq: int, Lk: int, dtype, device, pair: bool = False,
-                     training: bool = False, head_dim: Optional[int] = None) -> Optional[str]:
+                     training: bool = False) -> Optional[str]:
     """The kernel an attention site launches, or None for attention_core, for
     a call with no split_qk and no active dropout (the caller has excluded
     both: neither tier takes them). In the order of
@@ -211,21 +213,14 @@ def attention_kernel(B: int, Lq: int, Lk: int, dtype, device, pair: bool = False
     "all_heads", "per_head"; in training it runs as the trainable
     Function's forward), then, in eval,
     the short-key tier: "shortkey_onematmul" when SHORTKEY_VARIANT is
-    "kernel", else attention_core. Raises ValueError where it picks a kernel
-    for a head_dim above ATTN_MAX_HEAD_DIM, which no kernel takes (the
-    Pallas kernels take any; attention_core would round at other points
-    than the bf16 kernels)."""
-    route = None
+    "kernel", else attention_core. Every route takes every head_dim
+    (ATTN_HEAD_DIMS, and multiples of ATTN_WIDE_STEP above), as the Pallas
+    kernels do."""
     if use_pallas_attention(B, Lq, Lk, dtype, device):
-        route = fused_route(Lq, Lk, dtype, pair)
-    elif use_shortkey_packed(B, Lq, Lk, device, training) and SHORTKEY_VARIANT == "kernel":
-        route = "shortkey_onematmul"
-    if route is not None and head_dim is not None and head_dim > ATTN_MAX_HEAD_DIM:
-        raise ValueError(
-            f"attention route {route!r}: the attention kernels take head_dim <= "
-            f"{ATTN_MAX_HEAD_DIM}, got {head_dim}"
-        )
-    return route
+        return fused_route(Lq, Lk, dtype, pair)
+    if use_shortkey_packed(B, Lq, Lk, device, training) and SHORTKEY_VARIANT == "kernel":
+        return "shortkey_onematmul"
+    return None
 
 
 def refuse_autograd(name: str, *tensors) -> None:

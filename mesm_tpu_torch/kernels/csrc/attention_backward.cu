@@ -78,8 +78,14 @@
 // so that both fit 227 KB; and the products whose output is hd wide are
 // taken half the columns at a time, into 32 registers. The sums are the
 // same, in the same order.
+//
+// Head dims above 128 (padded by the wrapper to 128 n) take two more
+// kernels, attention_backward_{dq,dkdv}_wide_kernel, one block per 128
+// output columns: see "wide heads" below. The 3xTF32 helpers are shared with
+// the forward's float32 body (attention_tf32.cuh).
 
 #include "attention_grid.cuh"
+#include "attention_tf32.cuh"
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -87,13 +93,10 @@
 
 namespace {
 
+using namespace tf32x3;
+
 constexpr int THREADS = 128;  // 4 warps, 16 rows each
 constexpr int TILE = 64;      // a block's own query rows or keys
-constexpr float NEG_INF = -1e9f;
-
-// row stride (floats) of a staged tile: conflict-free fragment loads
-template <int HD>
-constexpr int RS = HD + 4;
 // keys (dq kernel) or queries (dk / dv kernel) of a tile taken in one step
 constexpr int STEP = 32;
 // rows of a tile of the other side: 64, or one step at hd 128
@@ -121,114 +124,6 @@ struct DkdvSmem {
   static constexpr size_t own = DqSmem<HD>::own;
   static constexpr size_t bytes = own + ((size_t)8 * KT<HD> * RS<HD> + 2 * KT<HD> * 3) * 4;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N groups of this thread's copies are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x as tf32, rounded to nearest with ties away from zero: cvt.rna.tf32.f32
-// for every finite x, in two integer instructions (half a tf32 ulp added to
-// the magnitude, the 13 low bits cleared); the cvt itself was slower
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = hi + lo to about 21 bits: hi = tf32(x), lo = tf32(x - hi) (exact
-// difference)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment (4 f32 values), split.
-struct SplitA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ SplitA(float a0, float a1, float a2, float a3) {
-    split(a0, hi[0], lo[0]);
-    split(a1, hi[1], lo[1]);
-    split(a2, hi[2], lo[2]);
-    split(a3, hi[3], lo[3]);
-  }
-};
-
-// A staged tile, split: hi = tf32(x), lo = tf32(x - hi) at the same offsets.
-struct SplitTile {
-  const float* hi;
-  const float* lo;
-};
-
-// c += a . b in 3xTF32, the small terms first: lo . hi, hi . lo, hi . hi;
-// b's two values at offsets o0, o1 of a split tile
-__device__ __forceinline__ void mma3(float (&c)[4], const SplitA& a, const SplitTile& T, int o0,
-                                     int o1) {
-  const uint32_t bh0 = __float_as_uint(T.hi[o0]), bh1 = __float_as_uint(T.hi[o1]);
-  const uint32_t bl0 = __float_as_uint(T.lo[o0]), bl1 = __float_as_uint(T.lo[o1]);
-  mma_tf32(c, a.lo, bh0, bh1);
-  mma_tf32(c, a.hi, bl0, bl1);
-  mma_tf32(c, a.hi, bh0, bh1);
-}
-
-// cp.async of rows [0, KT) of an f32 tile (row stride E in device memory;
-// `rows` of them read, zeros beyond) into dst at row stride RS: a thread
-// copies the 16-byte chunks i = tid + n THREADS.
-template <int HD>
-__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ src, int rows,
-                                           int E) {
-  constexpr int C4 = HD / 4;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < KT<HD> * C4; i += THREADS) {
-    const int r = i / C4, c = i % C4;
-    float* d = dst + r * RS<HD> + 4 * c;
-    if (r < rows)
-      cp_async16(d, src + (size_t)r * E + 4 * c);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
-// The chunks this thread staged into `hi` (its own copies, arrived), each
-// value times `mul`, split in place: hi keeps tf32(x * mul), lo gets the
-// rest. Visible to the block after the next barrier.
-template <int HD>
-__device__ __forceinline__ void split_tile(float* hi, float* lo, float mul) {
-  constexpr int C4 = HD / 4;
-  for (int i = threadIdx.x; i < KT<HD> * C4; i += THREADS) {
-    const int off = i / C4 * RS<HD> + 4 * (i % C4);
-    const float4 x = *reinterpret_cast<const float4*>(hi + off);
-    uint4 h, l;
-    split(x.x * mul, h.x, l.x);
-    split(x.y * mul, h.y, l.y);
-    split(x.z * mul, h.z, l.z);
-    split(x.w * mul, h.w, l.w);
-    *reinterpret_cast<uint4*>(hi + off) = h;
-    *reinterpret_cast<uint4*>(lo + off) = l;
-  }
-}
 
 // The A fragments of rows r0 .. r0 + 16 (row stride E, from device memory),
 // every k step of HD, each value times `mul`; rows at or past `rows` are 0.
@@ -258,9 +153,8 @@ struct OwnRows {
                                        int lane, float mul, float*) {
     load_a<HD>(a, src, r0, rows, E, lane, mul);
   }
-  __device__ __forceinline__ void frag(int ks, float (&f)[4]) const {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = a[ks][i];
+  __device__ __forceinline__ SplitA split(int ks) const {
+    return SplitA(a[ks][0], a[ks][1], a[ks][2], a[ks][3]);
   }
 };
 // ... or, at hd 128, in the warp's 16 rows of shared memory (row stride RS,
@@ -283,113 +177,10 @@ struct OwnRows<HD, true> {
     __syncwarp();
     w = dst + (lane >> 2) * RS<HD> + (lane & 3);
   }
-  __device__ __forceinline__ void frag(int ks, float (&f)[4]) const {
-    f[0] = w[8 * ks];
-    f[1] = w[8 * RS<HD> + 8 * ks];
-    f[2] = w[8 * ks + 4];
-    f[3] = w[8 * RS<HD> + 8 * ks + 4];
+  __device__ __forceinline__ SplitA split(int ks) const {
+    return SplitA(w[8 * ks], w[8 * RS<HD> + 8 * ks], w[8 * ks + 4], w[8 * RS<HD> + 8 * ks + 4]);
   }
 };
-
-// c[nt] = A . T^T over HD: the rows n0 + 8 nt + g of split tile T are the B
-// columns (S = qs . K^T with T = K).
-template <int HD, int NT, typename A>
-__device__ __forceinline__ void product_nt(float (&c)[NT][4], const A& a, const SplitTile& T,
-                                           int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[nt][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 8; ++ks) {
-    float f[4];
-    a.frag(ks, f);
-    const SplitA sa(f[0], f[1], f[2], f[3]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int off = (n0 + 8 * nt + g) * RS<HD> + 8 * ks + t;
-      mma3(c[nt], sa, T, off, off + 4);
-    }
-  }
-}
-
-// c = X . T over the K rows k0 .. k0 + K of split tile T, output columns
-// 8 (nd0 + nd) .. of T for nd < NC, with X the C tiles x[K / 8] of a
-// previous product (16 rows x K): tile ks's C values (row g: keys 2t,
-// 2t + 1; row g + 8: the same) are the A fragment of k step ks when k index
-// t stands for row 2t of T and t + 4 for row 2t + 1.
-template <int HD, int K, int NC>
-__device__ __forceinline__ void product_kt(float (&c)[NC][4], const float (&x)[K / 8][4],
-                                           const SplitTile& T, int k0, int lane, int nd0) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nd = 0; nd < NC; ++nd)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) c[nd][i] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < K / 8; ++ks) {
-    const SplitA sa(x[ks][0], x[ks][2], x[ks][1], x[ks][3]);
-    const int off = (k0 + 8 * ks + 2 * t) * RS<HD> + g + 8 * nd0;
-#pragma unroll
-    for (int nd = 0; nd < NC; ++nd) mma3(c[nd], sa, T, off + 8 * nd, off + RS<HD> + 8 * nd);
-  }
-}
-
-// a key's flag: 1 valid, 0 masked, 2 past Lk
-__device__ __forceinline__ uint8_t key_flag(const uint8_t* __restrict__ mask_b, int j, int Lk) {
-  return j < Lk ? (mask_b[j] ? 1 : 0) : 2;
-}
-
-// a logit under its key's flag: -1e9 masked, -inf past Lk
-__device__ __forceinline__ float masked_logit(float s, uint8_t f) {
-  return f == 2 ? -INFINITY : (f ? s : NEG_INF);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// The walk over the tiles of the other side, two buffers: tile it + 1's
-// copies land while tile it is computed, tile it + 2's are issued as soon
-// as every warp is done with tile it's buffer, and each thread splits its
-// own chunks of tile it + 1 before the barrier that opens it.
-//   stage(it, buf): issue (and commit) tile it's copies into buffer buf
-//   split(buf): split this thread's chunks of buffer buf
-//   compute(it, buf): the products of tile it
-//   between(it): work for tile it + 1 after the first barrier
-template <typename Stage, typename Split, typename Compute, typename Between>
-__device__ __forceinline__ void walk(int ntiles, Stage stage, Split split_own, Compute compute,
-                                     Between between) {
-  stage(0, 0);
-  if (ntiles > 1) stage(1, 1);
-  if (ntiles > 1)
-    cp_async_wait<1>();
-  else
-    cp_async_wait<0>();
-  split_own(0);
-  __syncthreads();
-  for (int it = 0; it < ntiles; ++it) {
-    compute(it, it & 1);
-    __syncthreads();  // every warp is done with buffer it & 1
-    if (it + 2 < ntiles) stage(it + 2, it & 1);
-    if (it + 1 < ntiles) {
-      if (it + 2 < ntiles)
-        cp_async_wait<1>();
-      else
-        cp_async_wait<0>();
-      split_own((it + 1) & 1);
-      between(it);
-    }
-    __syncthreads();  // tile it + 1 is split
-  }
-}
 
 // dQ of a query tile, and each of its rows' softmax statistics and D, in
 // scratch rows of 3 floats: m (the max logit), 1 / l (l = sum_j exp(S_ij -
@@ -451,13 +242,13 @@ attention_backward_dq_3xtf32_kernel(const float* __restrict__ q, const float* __
       [&](int it, int bi) {
         const int k0 = it * KTL;
         const size_t koff = ((size_t)b * Lk + k0) * E + h * HD;
-        stage_tile<HD>(tiles_of(bi), k + koff, min(KTL, Lk - k0), E);
-        stage_tile<HD>(tiles_of(bi) + 2 * T1, v + koff, min(KTL, Lk - k0), E);
+        stage_tile<HD, KT<HD>, THREADS>(tiles_of(bi), k + koff, min(KTL, Lk - k0), E);
+        stage_tile<HD, KT<HD>, THREADS>(tiles_of(bi) + 2 * T1, v + koff, min(KTL, Lk - k0), E);
         cp_async_commit();
       },
       [&](int bi) {
-        split_tile<HD>(tiles_of(bi), tiles_of(bi) + T1, 1.f);
-        split_tile<HD>(tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1, 1.f);
+        split_tile<HD, KT<HD>, THREADS>(tiles_of(bi), tiles_of(bi) + T1, 1.f);
+        split_tile<HD, KT<HD>, THREADS>(tiles_of(bi) + 2 * T1, tiles_of(bi) + 3 * T1, 1.f);
       },
       [&](int it, int bi) {
         if (tid < KTL) fnext = key_flag(mask_b, (it + 1) * KTL + tid, Lk);
@@ -586,8 +377,8 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
       [&](int it, int bi) {
         const int q0 = it * KTL, qn = min(KTL, Lq - q0);
         const size_t qoff = ((size_t)b * Lq + q0) * E + h * HD;
-        stage_tile<HD>(buf + bi * 4 * T1, q + qoff, qn, E);
-        stage_tile<HD>(buf + bi * 4 * T1 + 2 * T1, g + qoff, qn, E);
+        stage_tile<HD, KT<HD>, THREADS>(buf + bi * 4 * T1, q + qoff, qn, E);
+        stage_tile<HD, KT<HD>, THREADS>(buf + bi * 4 * T1 + 2 * T1, g + qoff, qn, E);
         // (m, 1/l, D) of each row; rows past Lq: q = 0 gives S = 0, and
         // 1/l = 0 gives P = 0
         float* sb = St + bi * KTL * 3;
@@ -601,8 +392,8 @@ attention_backward_dkdv_3xtf32_kernel(const float* __restrict__ q, const float* 
       },
       [&](int bi) {
         float* base = buf + bi * 4 * T1;
-        split_tile<HD>(base, base + T1, scale);  // qs = q * scale, split
-        split_tile<HD>(base + 2 * T1, base + 3 * T1, 1.f);
+        split_tile<HD, KT<HD>, THREADS>(base, base + T1, scale);  // qs = q * scale, split
+        split_tile<HD, KT<HD>, THREADS>(base + 2 * T1, base + 3 * T1, 1.f);
       },
       [&](int it, int bi) {
         const float* base = buf + bi * 4 * T1;
@@ -691,15 +482,335 @@ int launch(const float* q, const float* k, const float* v, const float* o, const
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// wide heads
+// ---------------------------------------------------------------------------
+//
+// A head_dim above 128 (the wrapper pads it to 128 n): one block per (b, tile
+// of 64 own rows, h) and output chunk c of 128 columns (grid dimension y),
+// which writes only chunk c of its gradients. S and dP need the whole head:
+// for each tile of 32 rows of the other side the block walks the head in
+// slices of 128 columns, slice 0 first in every chunk (so every chunk sees
+// the same S and dP), its own rows' slice staged unsplit in shared memory
+// (as at hd 128) and the other side's slice split, each slice's products a
+// partial sum added in f32; the slice of chunk c lands in a buffer of its
+// own, kept for the products that write the chunk (dQ += dS . K_c; dV +=
+// P^T . dO_c, dK += dS^T . qs_c). One buffer, taken in turn; a block reads
+// its own rows again for every tile of the other side, a cost only wide
+// heads pay. The dq kernel's chunk 0 writes the statistics.
+
+constexpr int WHD = attn_grid::SLICE;  // the head columns of a slice and of a chunk
+
+// Dynamic shared memory: the own rows of a slice (two arrays [TILE][RS]);
+// the dq kernel the hi and lo parts of K and V of a slice and of K's chunk
+// c [STEP][RS], and STEP key flags; the dk / dv kernel those of qs and dO of
+// a slice and of their chunk c, and STEP rows of statistics (3 floats).
+struct WideDqSmem {
+  static constexpr size_t bytes = ((size_t)2 * TILE + 6 * STEP) * RS<WHD> * 4 + STEP;
+};
+struct WideDkdvSmem {
+  static constexpr size_t bytes = (((size_t)2 * TILE + 8 * STEP) * RS<WHD> + STEP * 3) * 4;
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+attention_backward_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ o,
+                                  const float* __restrict__ g, const uint8_t* __restrict__ mask,
+                                  float* __restrict__ dq, float* __restrict__ stats, int H, int Lq,
+                                  int Lk, int E, float scale) {
+  constexpr int HD = WHD, R = RS<HD>, T1 = STEP * R, NT = STEP / 8, ND = HD / 8, NHW = ND / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* own = reinterpret_cast<float*>(smem);  // [qs, dO][TILE][R] of a slice
+  float* Kb = own + 2 * TILE * R;               // [hi, lo][T1]: K of a slice
+  float* Vb = Kb + 2 * T1;                      // V of a slice
+  float* Kc = Vb + 2 * T1;                      // K of chunk c
+  uint8_t* Fs = reinterpret_cast<uint8_t*>(Kc + 2 * T1);
+
+  int b, h, q0;
+  attn_grid::block_coords<TILE>(H, Lq, b, h, q0);
+  const int c = blockIdx.y, hdp = E / H, n = hdp / HD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rows = min(TILE, Lq - q0);
+  const size_t qoff = ((size_t)b * Lq + q0) * E + h * hdp;
+  const uint8_t* mask_b = mask + (size_t)b * Lk;
+  float D0 = 0.f, D1 = 0.f;  // rowsum(dO o O) over the whole head, four lanes a row
+  {
+    const int r0 = 16 * warp + gq;
+    for (int d = 0; d < hdp / 4; ++d) {
+      const int col = tq * (hdp / 4) + d;
+      if (r0 < rows) D0 = fmaf(g[qoff + (size_t)r0 * E + col], o[qoff + (size_t)r0 * E + col], D0);
+      if (r0 + 8 < rows)
+        D1 = fmaf(g[qoff + (size_t)(r0 + 8) * E + col], o[qoff + (size_t)(r0 + 8) * E + col], D1);
+    }
+    D0 = quad_sum(D0);
+    D1 = quad_sum(D1);
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nd][i] = 0.f;
+  OwnRows<HD, true> qa, ga;
+
+  for (int k0 = 0; k0 < Lk; k0 += STEP) {
+    const int kn = min(STEP, Lk - k0);
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+    for (int sl = 0; sl < n; ++sl) {
+      __syncthreads();  // every warp is done with the buffers
+      float* Kt = sl == c ? Kc : Kb;
+      const size_t koff = ((size_t)b * Lk + k0) * E + h * hdp + sl * HD;
+      stage_tile<HD, STEP, THREADS>(Kt, k + koff, kn, E);
+      stage_tile<HD, STEP, THREADS>(Vb, v + koff, kn, E);
+      if (sl == 0 && tid < STEP) Fs[tid] = key_flag(mask_b, k0 + tid, Lk);
+      cp_async_commit();
+      qa.load(q + qoff + sl * HD, 16 * warp, rows, E, lane, scale, own + 16 * warp * R);
+      ga.load(g + qoff + sl * HD, 16 * warp, rows, E, lane, 1.f, own + (TILE + 16 * warp) * R);
+      cp_async_wait<0>();
+      split_tile<HD, STEP, THREADS>(Kt, Kt + T1, 1.f);
+      split_tile<HD, STEP, THREADS>(Vb, Vb + T1, 1.f);
+      __syncthreads();
+      float ps[NT][4], pdp[NT][4];
+      product_nt<HD, NT>(ps, qa, SplitTile{Kt, Kt + T1}, 0, lane);
+      product_nt<HD, NT>(pdp, ga, SplitTile{Vb, Vb + T1}, 0, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[nt][i] += ps[nt][i];
+          dp[nt][i] += pdp[nt][i];
+        }
+    }
+    float tmax0 = -INFINITY, tmax1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint8_t f0 = Fs[8 * nt + 2 * tq], f1 = Fs[8 * nt + 2 * tq + 1];
+      s[nt][0] = masked_logit(s[nt][0], f0);
+      s[nt][1] = masked_logit(s[nt][1], f1);
+      s[nt][2] = masked_logit(s[nt][2], f0);
+      s[nt][3] = masked_logit(s[nt][3], f1);
+      tmax0 = fmaxf(tmax0, fmaxf(s[nt][0], s[nt][1]));
+      tmax1 = fmaxf(tmax1, fmaxf(s[nt][2], s[nt][3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(tmax0)), mn1 = fmaxf(m1, quad_max(tmax1));
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);  // 0 at the first tile
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint8_t f0 = Fs[8 * nt + 2 * tq], f1 = Fs[8 * nt + 2 * tq + 1];
+      const float e0 = expf(s[nt][0] - mn0), e1 = expf(s[nt][1] - mn0);
+      const float e2 = expf(s[nt][2] - mn1), e3 = expf(s[nt][3] - mn1);
+      rs0 += e0 + e1;
+      rs1 += e2 + e3;
+      s[nt][0] = f0 == 1 ? e0 * (dp[nt][0] - D0) : 0.f;  // e o (dP - D), 0 at masked keys
+      s[nt][1] = f1 == 1 ? e1 * (dp[nt][1] - D0) : 0.f;
+      s[nt][2] = f0 == 1 ? e2 * (dp[nt][2] - D1) : 0.f;
+      s[nt][3] = f1 == 1 ? e3 * (dp[nt][3] - D1) : 0.f;
+    }
+    l0 = l0 * alpha0 + quad_sum(rs0);
+    l1 = l1 * alpha1 + quad_sum(rs1);
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n0 = 0; n0 < ND; n0 += NHW) {
+      float part[NHW][4];
+      product_kt<HD, STEP, NHW>(part, s, SplitTile{Kc, Kc + T1}, 0, lane, n0);
+#pragma unroll
+      for (int nd = 0; nd < NHW; ++nd) {
+        acc[n0 + nd][0] = fmaf(acc[n0 + nd][0], alpha0, part[nd][0]);
+        acc[n0 + nd][1] = fmaf(acc[n0 + nd][1], alpha0, part[nd][1]);
+        acc[n0 + nd][2] = fmaf(acc[n0 + nd][2], alpha1, part[nd][2]);
+        acc[n0 + nd][3] = fmaf(acc[n0 + nd][3], alpha1, part[nd][3]);
+      }
+    }
+  }
+
+  const float rinv0 = 1.f / l0, rinv1 = 1.f / l1;  // l >= 1
+  const int qi0 = q0 + 16 * warp + gq, qi1 = qi0 + 8;
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    const int col = h * hdp + c * HD + 8 * nd + 2 * tq;
+    if (qi0 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * Lq + qi0) * E + col) =
+          make_float2(acc[nd][0] * rinv0 * scale, acc[nd][1] * rinv0 * scale);
+    if (qi1 < Lq)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * Lq + qi1) * E + col) =
+          make_float2(acc[nd][2] * rinv1 * scale, acc[nd][3] * rinv1 * scale);
+  }
+  if (c == 0 && tq == 0) {
+    float* st = stats + ((size_t)b * H + h) * Lq * 3;
+    if (qi0 < Lq) {
+      st[(size_t)qi0 * 3] = m0;
+      st[(size_t)qi0 * 3 + 1] = rinv0;
+      st[(size_t)qi0 * 3 + 2] = D0;
+    }
+    if (qi1 < Lq) {
+      st[(size_t)qi1 * 3] = m1;
+      st[(size_t)qi1 * 3 + 1] = rinv1;
+      st[(size_t)qi1 * 3 + 2] = D1;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+attention_backward_dkdv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ g,
+                                    const uint8_t* __restrict__ mask,
+                                    const float* __restrict__ stats, float* __restrict__ dk,
+                                    float* __restrict__ dv, int H, int Lq, int Lk, int E,
+                                    float scale) {
+  constexpr int HD = WHD, R = RS<HD>, T1 = STEP * R, NT = STEP / 8, ND = HD / 8, NHW = ND / 2;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* own = reinterpret_cast<float*>(smem);  // [K, V][TILE][R] of a slice
+  float* Qb = own + 2 * TILE * R;               // [hi, lo][T1]: qs of a slice
+  float* Gb = Qb + 2 * T1;                      // dO of a slice
+  float* Qc = Gb + 2 * T1;                      // qs of chunk c
+  float* Gc = Qc + 2 * T1;                      // dO of chunk c
+  float* St = Gc + 2 * T1;                      // [STEP * 3]
+
+  int b, h, k0;
+  attn_grid::block_coords<TILE>(H, Lk, b, h, k0);
+  const int c = blockIdx.y, hdp = E / H, n = hdp / HD;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gk = lane >> 2, tk = lane & 3;
+  const size_t koff = ((size_t)b * Lk + k0) * E + h * hdp;
+  const float* st = stats + ((size_t)b * H + h) * Lq * 3;
+  const int kj0 = k0 + 16 * warp + gk, kj1 = kj0 + 8;
+  const uint8_t f0 = key_flag(mask + (size_t)b * Lk, kj0, Lk);
+  const uint8_t f1 = key_flag(mask + (size_t)b * Lk, kj1, Lk);
+  float adv[ND][4], adk[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) adv[nd][i] = adk[nd][i] = 0.f;
+  OwnRows<HD, true> ka, va;
+
+  for (int q0 = 0; q0 < Lq; q0 += STEP) {
+    const int qn = min(STEP, Lq - q0);
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+    for (int sl = 0; sl < n; ++sl) {
+      __syncthreads();  // every warp is done with the buffers
+      float* Qt = sl == c ? Qc : Qb;
+      float* Gt = sl == c ? Gc : Gb;
+      const size_t qoff = ((size_t)b * Lq + q0) * E + h * hdp + sl * HD;
+      stage_tile<HD, STEP, THREADS>(Qt, q + qoff, qn, E);
+      stage_tile<HD, STEP, THREADS>(Gt, g + qoff, qn, E);
+      // (m, 1/l, D) of each row; rows past Lq: q = 0 gives S = 0, and 1/l =
+      // 0 gives P = 0
+      if (sl == 0)
+        for (int i = tid; i < STEP * 3; i += THREADS)
+          St[i] = i < qn * 3 ? st[(size_t)q0 * 3 + i] : 0.f;
+      cp_async_commit();
+      ka.load(k + koff + sl * HD, 16 * warp, Lk - k0, E, lane, 1.f, own + 16 * warp * R);
+      va.load(v + koff + sl * HD, 16 * warp, Lk - k0, E, lane, 1.f, own + (TILE + 16 * warp) * R);
+      cp_async_wait<0>();
+      split_tile<HD, STEP, THREADS>(Qt, Qt + T1, scale);  // qs = q * scale, split
+      split_tile<HD, STEP, THREADS>(Gt, Gt + T1, 1.f);
+      __syncthreads();
+      float ps[NT][4], pdp[NT][4];
+      product_nt<HD, NT>(ps, ka, SplitTile{Qt, Qt + T1}, 0, lane);
+      product_nt<HD, NT>(pdp, va, SplitTile{Gt, Gt + T1}, 0, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[nt][i] += ps[nt][i];
+          dp[nt][i] += pdp[nt][i];
+        }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float* sa = St + (8 * nt + 2 * tk) * 3;  // queries i, i + 1
+      const float p0 = expf(masked_logit(s[nt][0], f0) - sa[0]) * sa[1];
+      const float p1 = expf(masked_logit(s[nt][1], f0) - sa[3]) * sa[4];
+      const float p2 = expf(masked_logit(s[nt][2], f1) - sa[0]) * sa[1];
+      const float p3 = expf(masked_logit(s[nt][3], f1) - sa[3]) * sa[4];
+      dp[nt][0] = f0 == 1 ? p0 * (dp[nt][0] - sa[2]) : 0.f;
+      dp[nt][1] = f0 == 1 ? p1 * (dp[nt][1] - sa[5]) : 0.f;
+      dp[nt][2] = f1 == 1 ? p2 * (dp[nt][2] - sa[2]) : 0.f;
+      dp[nt][3] = f1 == 1 ? p3 * (dp[nt][3] - sa[5]) : 0.f;
+      s[nt][0] = p0;
+      s[nt][1] = p1;
+      s[nt][2] = p2;
+      s[nt][3] = p3;
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < ND; n0 += NHW) {
+      float part[NHW][4];
+      product_kt<HD, STEP, NHW>(part, s, SplitTile{Gc, Gc + T1}, 0, lane, n0);  // P^T . dO_c
+#pragma unroll
+      for (int nd = 0; nd < NHW; ++nd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) adv[n0 + nd][i] += part[nd][i];
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < ND; n0 += NHW) {
+      float part[NHW][4];
+      product_kt<HD, STEP, NHW>(part, dp, SplitTile{Qc, Qc + T1}, 0, lane, n0);  // dS^T . qs_c
+#pragma unroll
+      for (int nd = 0; nd < NHW; ++nd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) adk[n0 + nd][i] += part[nd][i];
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd) {
+    const int col = h * hdp + c * HD + 8 * nd + 2 * tk;
+    if (kj0 < Lk) {
+      const size_t off = ((size_t)b * Lk + kj0) * E + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(adk[nd][0], adk[nd][1]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(adv[nd][0], adv[nd][1]);
+    }
+    if (kj1 < Lk) {
+      const size_t off = ((size_t)b * Lk + kj1) * E + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(adk[nd][2], adk[nd][3]);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(adv[nd][2], adv[nd][3]);
+    }
+  }
+}
+
+int launch_wide(const float* q, const float* k, const float* v, const float* o, const float* g,
+                const uint8_t* mask, float* dq, float* dk, float* dv, float* stats, int B, int H,
+                int Lq, int Lk, int E, float scale, cudaStream_t stream) {
+  const size_t s1 = WideDqSmem::bytes, s2 = WideDkdvSmem::bytes;
+  cudaError_t err = cudaFuncSetAttribute(attention_backward_dq_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(attention_backward_dkdv_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+  if (err != cudaSuccess) return (int)err;
+  const long long bq = (long long)B * H * ((Lq + TILE - 1) / TILE);
+  const long long bk = (long long)B * H * ((Lk + TILE - 1) / TILE);
+  if (bq > 0x7fffffffLL || bk > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const unsigned chunks = (unsigned)attn_grid::chunks(E / H);
+  attention_backward_dq_wide_kernel<<<dim3((unsigned)bq, chunks), THREADS, s1, stream>>>(
+      q, k, v, o, g, mask, dq, stats, H, Lq, Lk, E, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_backward_dkdv_wide_kernel<<<dim3((unsigned)bk, chunks), THREADS, s2, stream>>>(
+      q, k, v, g, mask, stats, dk, dv, H, Lq, Lk, E, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes. q, o, g (= dO), dq: (B, Lq, E);
 // k, v, dk, dv: (B, Lk, E); all float32, contiguous, 16-byte aligned; mask:
 // (B, Lk) uint8, 1 = attendable; stats: (B, H, Lq, 3) float32 scratch. Head
-// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64
-// or 128;
-// scale is the f32 softmax scale. Launches the two kernels on `stream` and
-// returns the cudaError_t of the launches (0 = success).
+// h reads and writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64,
+// 128 or a multiple of 128 above; scale is the f32 softmax scale. Launches
+// the two kernels on `stream` and returns the cudaError_t of the launches
+// (0 = success).
 extern "C" int attention_backward_launch(const void* q, const void* k, const void* v,
                                          const void* o, const void* g, const void* mask, void* dq,
                                          void* dk, void* dv, void* stats, int B, int H, int Lq,
@@ -717,7 +828,10 @@ extern "C" int attention_backward_launch(const void* q, const void* k, const voi
   auto* fdv = static_cast<float*>(dv);
   auto* fst = static_cast<float*>(stats);
   return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
-    return launch<decltype(c)::value>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E,
-                                      scale, s);
+    constexpr int HD = decltype(c)::value;
+    if constexpr (HD == attn_grid::WIDE)
+      return launch_wide(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E, scale, s);
+    else
+      return launch<HD>(fq, fk, fv, fo, fg, m, fdq, fdk, fdv, fst, B, H, Lq, Lk, E, scale, s);
   });
 }

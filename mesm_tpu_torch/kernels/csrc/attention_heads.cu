@@ -45,12 +45,15 @@
 //     the bound is bytes (15 us against 5 us of tensor work), and the
 //     products are a small share of the time beside the staging and the
 //     exact softmax's exp and division.
-//   - float32 runs the register-tile body the batched kernel runs
-//     (attention_regtile.cuh: 256 threads per (b, h) and 64 query rows,
-//     64 x 64 tiles of f32 FMAs over key tiles of 64, float4 loads). No TF32:
-//     the fp32 path keeps f32 products. Its softmax is online (a running
-//     max and sum), which rounds a few f32 ulps away from the plain
-//     version's two-pass softmax, inside the 1e-5 the checks hold it to.
+//   - float32 runs the tensor-core body the batched kernel runs in float32
+//     (attention_fp32.cuh: 4 warps take 64 query rows of one (b, h), key
+//     tiles of 32 streamed into two buffers, both products in 3xTF32 on
+//     mma.sync m16n8k8, an online f32 softmax a few ulps from the plain
+//     version's two-pass one, inside the 1e-5 the checks hold it to).
+//   - a head_dim above 128 (padded to 128 n) takes the wide bodies of the
+//     same headers, one block per 128-column output chunk, any Lk; so does
+//     bf16 at hd 128 beyond 416 keys (the wrapper pads a smaller head_dim
+//     beyond its staging to 128).
 // Grid: one block per (sample, head, 64-row query tile), numbered (sample,
 // tile, head) so the blocks of every head of a query tile run together:
 // at charades bf16 4,096 blocks, at TACoS fp32 1,280 / 2,560 blocks, many
@@ -59,13 +62,14 @@
 // launch the same kernels on the same grid; the wrappers count their
 // launches apart.
 
+#include "attention_fp32.cuh"
 #include "attention_grid.cuh"
 #include "attention_mma.cuh"
-#include "attention_regtile.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
+constexpr int WIDE = attn_grid::WIDE;
 
 template <int HD, bool RESIDENT>
 __global__ void __launch_bounds__(mma_attn::THREADS)
@@ -75,35 +79,52 @@ attention_heads_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
   attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
-  mma_attn::block_attend<HD, RESIDENT>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+  if constexpr (HD == WIDE)
+    mma_attn::block_attend_wide<mma_attn::Chain::BATCHED, true, RESIDENT>(
+        q, k, v, mask, out, Lq, Lk, E, E / H, scale, b, h, q0, blockIdx.y, smem);
+  else
+    mma_attn::block_attend<HD, RESIDENT>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
 }
 
-// at least 4 blocks an SM: 64 registers, as the batched kernel gets (79
-// and 3 blocks without the bound: ~8 % slower at TACoS on the H100 above)
 template <int HD>
-__global__ void __launch_bounds__(regtile::THREADS, regtile::min_blocks<HD>())
-attention_heads_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                           float* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
+__global__ void __launch_bounds__(fp32_attn::THREADS, fp32_attn::min_blocks<HD>())
+attention_heads_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                              float* __restrict__ out, int H, int Lq, int Lk, int E,
+                              float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
-  attn_grid::block_coords<regtile::BM>(H, Lq, b, h, q0);
-  regtile::attend<float, HD>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
+  attn_grid::block_coords<fp32_attn::ROWS>(H, Lq, b, h, q0);
+  if constexpr (HD == WIDE)
+    fp32_attn::block_attend_wide<false>(q, k, v, mask, out, Lq, Lk, E, E / H, scale, b, h, q0,
+                                        blockIdx.y, smem);
+  else
+    fp32_attn::block_attend<HD>(q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem);
 }
 
 template <typename T, int HD>
 size_t smem_bytes(int Lk) {
-  if constexpr (sizeof(T) == 2)
-    return mma_attn::Smem<HD>::bytes(Lk);
-  else
-    return regtile::Smem<HD>::bytes;
+  if constexpr (sizeof(T) == 2) {
+    if (HD == WIDE || mma_attn::unstaged<HD>(Lk, attn_grid::MAX_SMEM))
+      return mma_attn::WideSmem::block(Lk);
+    else
+      return mma_attn::Smem<HD>::bytes(Lk);
+  } else if constexpr (HD == WIDE) {
+    return fp32_attn::WideSmem::bytes;
+  } else {
+    return fp32_attn::Smem<HD>::bytes;
+  }
 }
 
 template <int HD>
 int dispatch_bf16(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
                   int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  const auto kernel = Lk <= mma_attn::resident_keys<HD>() ? attention_heads_kernel_bf16<HD, true>
-                                                          : attention_heads_kernel_bf16<HD, false>;
+  if constexpr (HD != WIDE)  // at hd 128 beyond the staging of K_h and V_h: the wide body
+    if (mma_attn::unstaged<HD>(Lk, attn_grid::MAX_SMEM))
+      return dispatch_bf16<WIDE>(q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
+  auto kernel = attention_heads_kernel_bf16<HD, false>;
+  if (HD == WIDE ? mma_attn::one_chunk(Lk) : Lk <= mma_attn::resident_keys<HD>())
+    kernel = attention_heads_kernel_bf16<HD, true>;
   return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS,
                                                  smem_bytes<bf16, HD>(Lk), q, k, v, mask, out, B,
                                                  H, Lq, Lk, E, scale, s);
@@ -112,18 +133,19 @@ int dispatch_bf16(const void* q, const void* k, const void* v, const void* mask,
 template <int HD>
 int dispatch_f32(const void* q, const void* k, const void* v, const void* mask, void* out, int B,
                  int H, int Lq, int Lk, int E, float scale, cudaStream_t s) {
-  return attn_grid::launch<float, regtile::BM>(attention_heads_kernel_f32<HD>, regtile::THREADS,
-                                               smem_bytes<float, HD>(Lk), q, k, v, mask, out, B, H,
-                                               Lq, Lk, E, scale, s);
+  return attn_grid::launch<float, fp32_attn::ROWS>(attention_heads_3xtf32_kernel<HD>,
+                                                   fp32_attn::THREADS, smem_bytes<float, HD>(Lk),
+                                                   q, k, v, mask, out, B, H, Lq, Lk, E, scale, s);
 }
 
 }  // namespace
 
 // Shared memory a block needs for bf16 (is_bf16 = 1) or float32 operands,
-// head_dim `hd` (16, 32, 64 or 128) and `Lk` keys (0 for another hd), so
-// the wrapper can refuse before launching. bf16 stages every key of the
-// head (up to 3,536 keys at hd 16, 1,760 at 32, 864 at 64, 416 at 128);
-// float32 streams the keys in tiles and takes any Lk.
+// head_dim `hd` (16, 32, 64, 128 or a multiple of 128 above) and `Lk` keys
+// (0 for another hd), so the wrapper can pad or refuse before launching.
+// bf16 stages every key of the head (up to 3,536 keys at hd 16, 1,760 at
+// 32, 864 at 64; at hd 128 up to 416, beyond that and at a wide head the
+// wide body, any Lk); float32 streams the keys in tiles and takes any Lk.
 extern "C" long long attention_heads_smem_bytes(int is_bf16, int hd, int Lk) {
   return attn_grid::by_head_dim(hd, 0LL, [&](auto c) {
     constexpr int HD = decltype(c)::value;
@@ -134,9 +156,9 @@ extern "C" long long attention_heads_smem_bytes(int is_bf16, int hd, int Lk) {
 // Plain C entry point, bound with ctypes. q: (B, Lq, E), k, v: (B, Lk, E),
 // out: (B, Lq, E), all bf16 (is_bf16 = 1) or all float32, contiguous and
 // 16-byte aligned; mask: (B, Lk) uint8, 1 = attendable. Head h reads and
-// writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64 or 128. scale
-// is the softmax scale rounded to the operand dtype. Returns the
-// cudaError_t of the launch (0 = success).
+// writes columns [h*hd, (h+1)*hd) with hd = E / H, 16, 32, 64, 128 or a
+// multiple of 128 above. scale is the softmax scale rounded to the operand
+// dtype. Returns the cudaError_t of the launch (0 = success).
 extern "C" int attention_heads_launch(const void* q, const void* k, const void* v,
                                       const void* mask, void* out, int B, int H, int Lq, int Lk,
                                       int E, int is_bf16, float scale, void* stream) {

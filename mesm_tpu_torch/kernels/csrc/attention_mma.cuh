@@ -57,7 +57,9 @@
 // hd bf16 (32 to 256 bytes) with their 16-byte chunks XOR-swizzled by row,
 // so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups
 // without padding: up to 3,536 keys at hd 16, 1,760 at hd 32, 864 at hd 64
-// and 416 at hd 128 fit in a block's 227 KB.
+// and 416 at hd 128 fit in a block's 227 KB. Beyond, a head of head_dim 128
+// takes the wide body below (one 128-column slice, any Lk), and the
+// wrappers pad a smaller head_dim to 128.
 //
 // Head dims 16, 32, 64 and 128: at hd 16 the q . k^T of an n8 key tile is
 // one k step of 16 (an ldmatrix x2 of K), at hd 128 a row of a tile spans
@@ -109,6 +111,14 @@ struct Smem {
     return ((size_t)ROWS + 2 * kp) * HD * sizeof(bf16) + kp;
   }
 };
+
+// whether a head of head_dim HD with Lk keys takes the wide body
+// (block_attend_wide) rather than the staging above: at HD 128 where K_h
+// and V_h do not fit `max_smem`
+template <int HD>
+inline bool unstaged(int Lk, size_t max_smem) {
+  return HD == 128 && Smem<HD>::bytes(Lk) > max_smem;
+}
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
@@ -440,6 +450,328 @@ __device__ __forceinline__ void block_attend(const bf16* __restrict__ q, const b
       *reinterpret_cast<uint4*>(out + ((size_t)b * Lq + r0 + r) * E + h * HD + 8 * c) =
           *reinterpret_cast<const uint4*>(Qw + swz<HD>(r, c));
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// wide heads
+// ---------------------------------------------------------------------------
+//
+// A head_dim above 128 (the wrapper zero-pads it to 128 n) fits neither the
+// staging above (at hd 256 the charades encoder's 195 keys take 245,760
+// bytes) nor a warp's registers (Q's fragments and a 16 x 256 f32 output
+// beside the logits). The wide body keeps the logits in shared memory
+// instead, and takes the head in 128-column slices:
+//   - one block of 4 warps per (b, h, 64 query rows, output chunk c of 128
+//     columns: grid dimension y, attention_grid.cuh);
+//   - the logits S [64 rows][kpad] as f32 sums: for each slice, the block
+//     stages the Q slice and then K's slice 64 keys at a time, and each warp
+//     adds its rows' mma.sync m16n8k16 sums over the slice's 128 columns
+//     into S, slice 0 first, so every chunk sees the same logits;
+//   - the chain's exact two-pass softmax on each row, the lanes across the
+//     keys, leaving bf(p) in S;
+//   - P . V for chunk c: V's chunk staged 64 keys at a time, P's A
+//     fragments read from S, the output 16 x 128 f32 a warp in registers.
+// The products of a slice and the softmax round where the body above
+// rounds; the f32 sums over the slices and the row sums are taken in
+// another order. Shared memory: 64 x (kpad + 4) floats of logits, a Q slice
+// and a K or V piece (32 KB), the row statistics (8.5 KB), the flags. The
+// logits of up to WIDE_KEYS = 704 keys stay in S; more keys are taken in
+// chunks of 704 in three passes (each row's max, its sum of e, then P .
+// V), each pass computing the chunk's logits again: the same values in
+// the same order, so the result is the one-chunk result, for three times
+// the product work. Any Lk. The sources launch the one-chunk instance
+// (ONE_CHUNK, their kernels' RESIDENT one) where the keys fit a chunk: it
+// holds no output registers while it computes the logits.
+
+constexpr int SLICE = 128;  // head columns of a slice and of an output chunk
+constexpr int PIECE = 64;   // keys of K or V staged at a time
+// keys whose logits a wide block keeps at once: a multiple of PIECE (and of
+// the 32 lanes, so a lane's share of a row sum keeps its order across
+// chunks) whose WideSmem::block fits attn_grid::MAX_SMEM
+constexpr int WIDE_KEYS = 704;
+
+// Dynamic shared memory of a wide block whose rows hold `cols` logits (the
+// keys padded to 16, times the heads it takes): S [ROWS][cols + 4] f32, a Q
+// slice [ROWS][SLICE] (also the output's staging) and a K or V piece
+// [PIECE][SLICE] bf16, then `cols` key flags and `extra` bytes.
+struct WideSmem {
+  static size_t bytes(int cols, size_t extra = 0) {
+    return (size_t)ROWS * (cols + 4) * 4 + (size_t)(ROWS + PIECE) * SLICE * sizeof(bf16) +
+           cols + extra;
+  }
+  // a block of block_attend_wide over Lk keys: the logits of a chunk of at
+  // most WIDE_KEYS keys, and before the flags the row statistics: 32 lane
+  // sums, the max and the sum of each row (223,424 bytes at most)
+  static size_t block(int Lk) {
+    const int kp = pad16(Lk);
+    return bytes(kp < WIDE_KEYS ? kp : WIDE_KEYS, (size_t)ROWS * (32 + 2) * sizeof(float));
+  }
+};
+
+// whether a wide block over Lk keys keeps every key's logits in S (one
+// chunk): the instance of block_attend_wide with ONE_CHUNK, which holds no
+// output registers while it computes the logits
+inline bool one_chunk(int Lk) { return pad16(Lk) <= WIDE_KEYS; }
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Adds one head's logits into columns [col0, col0 + pad16(Lk)) of the
+// warp's rows of S (row stride ss): the f32 sums of qs . k_h^T over nsl
+// slices of 128 columns. qh: the block's first query row of the head (row
+// stride E, qrows real rows), kh: its key 0. With scale_q the A operand is
+// qs = bf(q * scale) (scale already bf16), else q itself. Every warp of the
+// block calls it (its barriers); `active` warps compute.
+__device__ __forceinline__ void wide_logits(float* S, int ss, int col0, const bf16* __restrict__ qh,
+                                            int qrows, const bf16* __restrict__ kh, int Lk, int E,
+                                            int nsl, bool scale_q, float scale, bf16* Qs,
+                                            bf16* Ks, int warp, int lane, bool active) {
+  const int kpad = pad16(Lk), g = lane >> 2, t = lane & 3;
+  float* S0 = S + (size_t)(16 * warp + g) * ss + col0 + 2 * t;  // row g
+  float* S1 = S0 + (size_t)8 * ss;                              // row g + 8
+  for (int sl = 0; sl < nsl; ++sl) {
+    __syncthreads();  // every warp is done with Qs and Ks
+    stage_rows<SLICE>(Qs, qh + sl * SLICE, qrows, ROWS, E);
+    cp_async_wait_all();
+    __syncthreads();
+    uint32_t qa[SLICE / 16][4];
+    if (active) {
+#pragma unroll
+      for (int ks = 0; ks < SLICE / 16; ++ks) {
+        ldmatrix_x4(qa[ks], Qs + 16 * warp * SLICE + swz<SLICE>(lane & 15, 2 * ks + (lane >> 4)));
+        if (scale_q) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) qa[ks][i] = scale_bf16x2(qa[ks][i], scale);
+        }
+      }
+    }
+    for (int p0 = 0; p0 < kpad; p0 += PIECE) {
+      const int pn = min(PIECE, kpad - p0);
+      __syncthreads();  // every warp is done with Ks
+      stage_rows<SLICE>(Ks, kh + (size_t)p0 * E + sl * SLICE, min(pn, Lk - p0), pn, E);
+      cp_async_wait_all();
+      __syncthreads();
+      if (!active) continue;
+      for (int n0 = 0; n0 < pn; n0 += 8) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int hx = 0; hx < SLICE / 32; ++hx) {
+          uint32_t kb[4];  // d chunks 4hx .. 4hx + 3 of keys n0 .. n0 + 7
+          ldmatrix_x4(kb, Ks + swz<SLICE>(n0 + (lane & 7), (lane >> 3) + 4 * hx));
+          mma_bf16(c, qa[2 * hx], kb[0], kb[1]);
+          mma_bf16(c, qa[2 * hx + 1], kb[2], kb[3]);
+        }
+        float* a0 = S0 + p0 + n0;
+        float* a1 = S1 + p0 + n0;
+        if (sl == 0) {
+          a0[0] = c[0];
+          a0[1] = c[1];
+          a1[0] = c[2];
+          a1[1] = c[3];
+        } else {
+          a0[0] += c[0];
+          a0[1] += c[1];
+          a1[0] += c[2];
+          a1[1] += c[3];
+        }
+      }
+    }
+  }
+}
+
+// The chain's logit of a key with flag f (KEY_PAIR set only under
+// Chain::PAIR with factors) in a row with pair flag qf, from its f32 sum s:
+// as warp_attend's.
+template <Chain C>
+__device__ __forceinline__ float wide_logit(float s, uint8_t f, bool qf, float scale) {
+  if constexpr (C == Chain::PAIR) return pair_logit(s, f, qf, scale);
+  const float x = f == 2 ? -INFINITY : (f ? s : NEG_INF);
+  return C == Chain::PACKED ? round_bf16(x) : x;
+}
+
+__device__ __forceinline__ void zero(float (&o)[SLICE / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < SLICE / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+}
+
+// o += P . V over columns [col0, col0 + pad16(Lk)) of the warp's rows of S
+// (bf16 values) and the 128 columns of V at vh (key 0 of the head's chunk,
+// row stride E), staged PIECE keys at a time into Vs. Every warp calls it.
+__device__ __forceinline__ void wide_pv(float (&o)[SLICE / 8][4], const float* S, int ss, int col0,
+                                        const bf16* __restrict__ vh, int Lk, int E, bf16* Vs,
+                                        int warp, int lane, bool active) {
+  const int kpad = pad16(Lk), g = lane >> 2, t = lane & 3;
+  const float* S0 = S + (size_t)(16 * warp + g) * ss + col0 + 2 * t;
+  const float* S1 = S0 + (size_t)8 * ss;
+  for (int p0 = 0; p0 < kpad; p0 += PIECE) {
+    const int pn = min(PIECE, kpad - p0);
+    __syncthreads();  // every warp is done with Vs
+    stage_rows<SLICE>(Vs, vh + (size_t)p0 * E, min(pn, Lk - p0), pn, E);
+    cp_async_wait_all();
+    __syncthreads();
+    if (!active) continue;
+    for (int kk = 0; kk < pn; kk += 16) {
+      const float* a0 = S0 + p0 + kk;
+      const float* a1 = S1 + p0 + kk;
+      const uint32_t pa[4] = {pack_bf16(a0[0], a0[1]), pack_bf16(a1[0], a1[1]),
+                              pack_bf16(a0[8], a0[9]), pack_bf16(a1[8], a1[9])};
+#pragma unroll
+      for (int dp = 0; dp < SLICE / 16; ++dp) {
+        uint32_t vb[4];  // keys kk .. kk + 15 of d chunks 2dp, 2dp + 1
+        ldmatrix_x4_trans(vb, Vs + swz<SLICE>(kk + (lane & 7) + (lane & 8), 2 * dp + (lane >> 4)));
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+}
+
+// out = bf(o) for the warp's rows below `rows`: dst is the block's first
+// row at the chunk's first column (row stride E); through the warp's rows
+// of Qs, then 16-byte stores.
+__device__ __forceinline__ void wide_store(const float (&o)[SLICE / 8][4], bf16* __restrict__ dst,
+                                           int rows, int E, bf16* Qs, int warp, int lane) {
+  constexpr int CH = SLICE / 8;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* Qw = Qs + 16 * warp * SLICE;
+  __syncwarp();
+#pragma unroll
+  for (int dt = 0; dt < CH; ++dt) {
+    *reinterpret_cast<uint32_t*>(Qw + swz<SLICE>(g, dt) + 2 * t) = pack_bf16(o[dt][0], o[dt][1]);
+    *reinterpret_cast<uint32_t*>(Qw + swz<SLICE>(g + 8, dt) + 2 * t) =
+        pack_bf16(o[dt][2], o[dt][3]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = i % CH;
+    if (16 * warp + r < rows)
+      *reinterpret_cast<uint4*>(dst + (size_t)(16 * warp + r) * E + 8 * c) =
+          *reinterpret_cast<const uint4*>(Qw + swz<SLICE>(r, c));
+  }
+  __syncwarp();
+}
+
+// The whole wide block: output columns [128 c, 128 c + 128) of head h
+// (hdp = E / H columns at h * hdp) for rows [q0, q0 + ROWS) of sample b, in
+// chain C, with WideSmem::block(Lk) of dynamic shared memory. Operands,
+// scale and pair factors as block_attend's. ONE_CHUNK: one_chunk(Lk) holds,
+// and the logits are computed once (an instance with fewer registers).
+template <Chain C, bool FACTORS = true, bool ONE_CHUNK = false>
+__device__ __forceinline__ void block_attend_wide(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const uint8_t* __restrict__ mask, bf16* __restrict__ out, int Lq, int Lk, int E, int hdp,
+    float scale, int b, int h, int q0, int c, unsigned char* smem,
+    const uint8_t* __restrict__ qf = nullptr, const uint8_t* __restrict__ kf = nullptr) {
+  constexpr bool PF = C == Chain::PAIR && FACTORS;
+  const int kpad = pad16(Lk), ss = (kpad < WIDE_KEYS ? kpad : WIDE_KEYS) + 4;
+  const int nch = ONE_CHUNK ? 1 : (kpad + WIDE_KEYS - 1) / WIDE_KEYS;
+  float* S = reinterpret_cast<float*>(smem);
+  bf16* Qs = reinterpret_cast<bf16*>(S + (size_t)ROWS * ss);
+  bf16* Ks = Qs + ROWS * SLICE;
+  float* part = reinterpret_cast<float*>(Ks + PIECE * SLICE);  // [ROWS][32] lane sums
+  float* M = part + ROWS * 32;                                 // each row's max
+  float* L = M + ROWS;                                         // each row's sum
+  uint8_t* flags = reinterpret_cast<uint8_t*>(L + ROWS);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rows = min(ROWS, Lq - q0), rend = min(16 * warp + 16, rows);
+  const bool active = 16 * warp < rows;  // a warp past Lq still meets the barriers
+  const bf16* qh = q + ((size_t)b * Lq + q0) * E + h * hdp;
+  const bf16* kh = k + (size_t)b * Lk * E + h * hdp;
+  const bf16* vh = v + (size_t)b * Lk * E + h * hdp + c * SLICE;
+  // the raw logits of chunk ch (keys [704 ch, 704 ch + 704)) into S, and
+  // its key flags; every warp calls it
+  auto chunk_logits = [&](int ch) {
+    const int k0 = ch * WIDE_KEYS, kn = min(WIDE_KEYS, Lk - k0), cn = pad16(kn);
+    __syncthreads();  // every warp is done with S and the flags
+    for (int j = threadIdx.x; j < cn; j += THREADS) {
+      uint8_t f = 2;
+      if (j < kn) {
+        f = mask[(size_t)b * Lk + k0 + j] ? 1 : 0;
+        if (PF && kf[k0 + j]) f |= KEY_PAIR;
+      }
+      flags[j] = f;
+    }
+    wide_logits(S, ss, 0, qh, rows, kh + (size_t)k0 * E, kn, E, hdp / SLICE, C != Chain::PAIR,
+                scale, Qs, Ks, warp, lane, active);
+  };
+  // pass 0: each row's max; 1: its sum of e. One chunk's logits stay in S
+  // between the passes; more are computed again in each.
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int ch = 0; ch < nch; ++ch) {
+      const bool fresh = pass == 0 || nch > 1;  // S holds the chunk's raw sums
+      const int cn = pad16(min(WIDE_KEYS, Lk - ch * WIDE_KEYS));
+      if (fresh) chunk_logits(ch);
+      if (!active) continue;
+      for (int r = 16 * warp; r < rend; ++r) {
+        float* Sr = S + (size_t)r * ss;
+        const bool qfr = PF && qf[q0 + r];
+        if (pass == 0) {
+          float m = -INFINITY;
+          for (int j = lane; j < cn; j += 32) {
+            const float x = wide_logit<C>(Sr[j], flags[j], qfr, scale);
+            Sr[j] = x;
+            m = fmaxf(m, x);
+          }
+          m = warp_max(m);  // finite: Lk >= 1 and a masked key is -1e9
+          if (lane == 0) M[r] = ch == 0 ? m : fmaxf(M[r], m);
+        } else {
+          const float m = M[r];
+          float l = ch == 0 ? 0.f : part[r * 32 + lane];
+          for (int j = lane; j < cn; j += 32) {
+            const float x = fresh ? wide_logit<C>(Sr[j], flags[j], qfr, scale) : Sr[j];
+            const float e = exp_shifted<C>(x, m);
+            Sr[j] = e;
+            l += e;
+          }
+          part[r * 32 + lane] = l;
+          if (ch == nch - 1) {
+            l = warp_sum(l);
+            if (C == Chain::PACKED) l = round_bf16(l);
+            if (lane == 0) L[r] = l;
+          }
+        }
+      }
+      __syncwarp();  // M, L and the rows of S are read across the warp
+    }
+  }
+  // pass 2: bf(p) and P . V for chunk c of the output
+  float o[SLICE / 8][4];
+  zero(o);
+  for (int ch = 0; ch < nch; ++ch) {
+    const bool fresh = nch > 1;
+    const int k0 = ch * WIDE_KEYS, kn = min(WIDE_KEYS, Lk - k0), cn = pad16(kn);
+    if (fresh) chunk_logits(ch);
+    if (active) {
+      for (int r = 16 * warp; r < rend; ++r) {
+        float* Sr = S + (size_t)r * ss;
+        const bool qfr = PF && qf[q0 + r];
+        const float m = M[r], l = L[r], rl = __frcp_rn(l);
+        for (int j = lane; j < cn; j += 32) {
+          const float e =
+              fresh ? exp_shifted<C>(wide_logit<C>(Sr[j], flags[j], qfr, scale), m) : Sr[j];
+          Sr[j] = round_bf16(div_rn(e, l, rl));
+        }
+      }
+      __syncwarp();
+    }
+    wide_pv(o, S, ss, 0, vh + (size_t)k0 * E, kn, E, Ks, warp, lane, active);
+  }
+  if (active)
+    wide_store(o, out + ((size_t)b * Lq + q0) * E + h * hdp + c * SLICE, rows, E, Qs, warp,
+               lane);
 }
 
 }  // namespace mma_attn

@@ -1,39 +1,34 @@
-// Device code shared by attention_batched.cu, attention_heads.cu and
-// attention_packed.cu: the register-tile body of multi-head attention over
-// (B, L, E) operands, for one (sample b, head h) and a tile of BM query
-// rows, on the CUDA cores.
+// Device code of attention_batched.cu: the register-tile body of bf16
+// multi-head attention over (B, L, E) operands, for one (sample b, head h)
+// and a tile of BM query rows, on the CUDA cores: the route of the bf16
+// batched kernel for keys past what its tensor-core body stages (more than
+// 3,536 keys at hd 16, 1,760 at 32, 864 at 64, 416 at 128).
 //
-// What it computes, per (sample b, head h), as attention_batched_reference:
-//   qs = round(q_h * round(scale))              (a product in the input dtype)
+// What it computes, per (sample b, head h), as attention_batched_reference
+// in bf16, with bf() the rounding to bf16:
+//   qs = bf(q_h * bf(scale))                    (a product in bf16)
 //   logits = qs . k_h^T                         (f32 sums over hd, in order)
 //   masked keys -> -1e9, a finite value
-//   p = round(softmax(logits))                  (f32 softmax)
-//   out_h = round(p . v_h)                      (f32 sums)
-// round() is to the input dtype: nothing in fp32, bf16 in bf16.
+//   p = bf(softmax(logits))                     (f32 softmax)
+//   out_h = bf(p . v_h)                         (f32 sums)
 // A row whose keys are all masked gets the uniform average of v, never NaN.
 // The head split is the column slice [h*hd, (h+1)*hd), read and written in
 // place.
 //
-// Design: the FMA pipes have to be kept busy, so the work is cut into many
-// small blocks with register tiles, flash-attention style. A block of 256
-// threads takes one (b, h) and a tile of BM = 64 query rows, and walks the
-// keys in tiles of BN = 64: the Q tile (scaled), each K tile (both stored
-// d-major) and V tile sit in 43 KB of shared memory as floats, so several
-// blocks share an SM. Thread (ty, tx) of a 16 x 16 grid computes a 4 x 4
-// tile of the logits, each pair of 16-byte loads feeding 16 FMAs. In fp32
-// the softmax is online (a running row max and sum, rescaling the output
-// when the max grows), with the row reductions across the 16 threads of a
-// half-warp by shuffles; the tile's probabilities go to shared memory
-// transposed, and each thread accumulates 4 rows x hd/16 columns of the
-// output, dividing by the row sum at the end. The online rescaling rounds
-// at other points than the plain version's two-pass softmax, a few f32
-// ulps. In bf16 each probability is rounded after it is normalised, which
-// an online softmax cannot do: a first walk over the key tiles takes each
-// row's max and sum, the second recomputes the logits and accumulates
-// round(p) . v. Keys past Lk are left out (probability 0); masked keys take
-// -1e9, as in the plain version. q, k, v and out start on 16-byte
-// boundaries (float4 / 8-byte loads). head_dim 16, 32, 64 or 128 (CT = hd /
-// 16 output columns a thread).
+// Design: a block of 256 threads takes one (b, h) and a tile of BM = 64
+// query rows, and walks the keys in tiles of BN = 64: the Q tile (scaled),
+// each K tile (both stored d-major) and V tile sit in shared memory as
+// floats. Thread (ty, tx) of a 16 x 16 grid computes a 4 x 4 tile of the
+// logits, each pair of 16-byte loads feeding 16 FMAs. Each probability is
+// rounded after it is normalised, which an online softmax cannot do: a
+// first walk over the key tiles takes each row's max and sum (online, with
+// the row reductions across the 16 threads of a half-warp by shuffles), the
+// second recomputes the logits and accumulates bf(p) . v, each thread 4
+// rows x hd/16 columns of the output. Keys past Lk are left out
+// (probability 0); masked keys take -1e9, as in the plain version. q, k, v
+// and out start on 16-byte boundaries (8-byte loads). head_dim 16, 32, 64
+// or 128 (CT = hd / 16 output columns a thread). The float32 kernels run on
+// the tensor cores (attention_fp32.cuh).
 
 #pragma once
 
@@ -52,19 +47,7 @@ constexpr int BN = 64;  // keys per tile
 constexpr float NEG_INF = -1e9f;
 constexpr int STRIDE = 68;  // row stride (floats) of the d-major and P tiles: 16-byte rows
 
-template <typename T>
-struct IO;
-template <>
-struct IO<float> {
-  static __device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ float rnd(float x) { return x; }
-  static __device__ __forceinline__ void st(float* p, float x) { *p = x; }
-  static constexpr bool TWO_PASS = false;
-};
-template <>
-struct IO<bf16> {
+struct IO {
   static __device__ __forceinline__ float4 ld4(const bf16* p) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
@@ -75,16 +58,7 @@ struct IO<bf16> {
     return __bfloat162float(__float2bfloat16(x));
   }
   static __device__ __forceinline__ void st(bf16* p, float x) { *p = __float2bfloat16(x); }
-  static constexpr bool TWO_PASS = true;
 };
-
-// the blocks an SM should hold (a __launch_bounds__ minimum): 4 up to hd
-// 64 (64 registers a thread), 1 at hd 128, whose 120 KB of tiles leave one
-// block an SM and whose 8 output columns a thread want more registers
-template <int HD>
-constexpr int min_blocks() {
-  return HD >= 128 ? 1 : 4;
-}
 
 template <int HD>
 struct Smem {
@@ -96,12 +70,12 @@ struct Smem {
 // The output rows [q0, q0 + BM) of head h of sample b, by the THREADS
 // threads of the block, with Smem<HD>::bytes of dynamic shared memory at
 // `smem`.
-template <typename T, int HD>
-__device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restrict__ k,
-                                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                                       T* __restrict__ out, int Lq, int Lk, int E, float scale,
-                                       int b, int h, int q0, unsigned char* smem) {
-  constexpr bool TWO_PASS = IO<T>::TWO_PASS;
+template <int HD>
+__device__ __forceinline__ void attend(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                       const bf16* __restrict__ v,
+                                       const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                                       int Lq, int Lk, int E, float scale, int b, int h, int q0,
+                                       unsigned char* smem) {
   constexpr int D4 = HD / 4;
   constexpr int CT = HD / 16;  // output columns per thread
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -117,11 +91,11 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
   for (int idx = tid; idx < BM * D4; idx += THREADS) {
     const int r = idx % BM, d4 = idx / BM;
     const int qi = min(q0 + r, Lq - 1);
-    const float4 x = IO<T>::ld4(q + ((size_t)b * Lq + qi) * E + h * HD + 4 * d4);
-    Qs[(4 * d4 + 0) * STRIDE + r] = IO<T>::rnd(x.x * scale);
-    Qs[(4 * d4 + 1) * STRIDE + r] = IO<T>::rnd(x.y * scale);
-    Qs[(4 * d4 + 2) * STRIDE + r] = IO<T>::rnd(x.z * scale);
-    Qs[(4 * d4 + 3) * STRIDE + r] = IO<T>::rnd(x.w * scale);
+    const float4 x = IO::ld4(q + ((size_t)b * Lq + qi) * E + h * HD + 4 * d4);
+    Qs[(4 * d4 + 0) * STRIDE + r] = IO::rnd(x.x * scale);
+    Qs[(4 * d4 + 1) * STRIDE + r] = IO::rnd(x.y * scale);
+    Qs[(4 * d4 + 2) * STRIDE + r] = IO::rnd(x.z * scale);
+    Qs[(4 * d4 + 3) * STRIDE + r] = IO::rnd(x.w * scale);
   }
 
   float o[4][CT], m[4], l[4];
@@ -133,15 +107,14 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
     for (int t = 0; t < CT; ++t) o[r][t] = 0.f;
   }
 
-  // fp32: one walk over the key tiles with an online softmax; bf16: pass 0
-  // takes each row's max and sum, pass 1 accumulates round(p) . v
-  for (int pass = TWO_PASS ? 0 : 1; pass < 2; ++pass) {
+  // pass 0 takes each row's max and sum, pass 1 accumulates bf(p) . v
+  for (int pass = 0; pass < 2; ++pass) {
     for (int k0 = 0; k0 < Lk; k0 += BN) {
       __syncthreads();  // the previous tile's K, V and P are read
       for (int idx = tid; idx < BN * D4; idx += THREADS) {
         const int j = idx % BN, d4 = idx / BN;
         const int kj = min(k0 + j, Lk - 1);
-        const float4 x = IO<T>::ld4(k + ((size_t)b * Lk + kj) * E + h * HD + 4 * d4);
+        const float4 x = IO::ld4(k + ((size_t)b * Lk + kj) * E + h * HD + 4 * d4);
         Ks[(4 * d4 + 0) * STRIDE + j] = x.x;
         Ks[(4 * d4 + 1) * STRIDE + j] = x.y;
         Ks[(4 * d4 + 2) * STRIDE + j] = x.z;
@@ -152,7 +125,7 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
           const int j = idx / D4, d4 = idx - (idx / D4) * D4;
           const int kj = min(k0 + j, Lk - 1);
           reinterpret_cast<float4*>(Vs + j * HD)[d4] =
-              IO<T>::ld4(v + ((size_t)b * Lk + kj) * E + h * HD + 4 * d4);
+              IO::ld4(v + ((size_t)b * Lk + kj) * E + h * HD + 4 * d4);
         }
       }
       for (int j = tid; j < BN; j += THREADS)
@@ -184,12 +157,12 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
           s[r][c] = f == 2 ? -INFINITY : (f ? s[r][c] : NEG_INF);
         }
 
-      if (TWO_PASS && pass == 1) {
-        // the row's max and sum are final: p = round(exp(s - m) / l)
+      if (pass == 1) {
+        // the row's max and sum are final: p = bf(exp(s - m) / l)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) s[r][c] = IO<T>::rnd(expf(s[r][c] - m[r]) / l[r]);
+          for (int c = 0; c < 4; ++c) s[r][c] = IO::rnd(expf(s[r][c] - m[r]) / l[r]);
       } else {
         // online softmax: the running max and sum of each row
 #pragma unroll
@@ -212,10 +185,6 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
           for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
           l[r] = l[r] * alpha + rs;
           m[r] = mn;
-          if (!TWO_PASS) {
-#pragma unroll
-            for (int t = 0; t < CT; ++t) o[r][t] *= alpha;
-          }
         }
       }
       if (pass == 0) continue;  // the statistics walk stops here
@@ -259,9 +228,9 @@ __device__ __forceinline__ void attend(const T* __restrict__ q, const T* __restr
   for (int r = 0; r < 4; ++r) {
     const int qi = q0 + 4 * ty + r;
     if (qi < Lq) {
-      T* dst = out + ((size_t)b * Lq + qi) * E + h * HD + CT * tx;
+      bf16* dst = out + ((size_t)b * Lq + qi) * E + h * HD + CT * tx;
 #pragma unroll
-      for (int t = 0; t < CT; ++t) IO<T>::st(dst + t, TWO_PASS ? o[r][t] : o[r][t] / l[r]);
+      for (int t = 0; t < CT; ++t) IO::st(dst + t, o[r][t]);
     }
   }
 }

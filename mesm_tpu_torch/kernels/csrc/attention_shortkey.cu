@@ -87,7 +87,16 @@
 // logits, which stay in a per-warp shared buffer of H x Lk floats; the
 // softmax is warp reductions; for P.V each lane owns the columns c, c +
 // 32, ... of the head (none at hd 16 for lanes 16-31). head_dim 16, 32, 64
-// or 128.
+// or 128, or any multiple of 128 above, read at run time (with K and V read
+// from device memory, through L2, rather than staged).
+//
+// A head_dim above 128 (the wrapper pads it to 128 n): the bf16 short-key
+// kernel takes the wide body of attention_mma.cuh (its pair chain; the
+// logits in shared memory, the head in 128-column slices, one block per
+// 128-column output chunk), and so does the bf16 one-matmul kernel, whose
+// wide block holds every head's logits (attention_shortkey_onematmul_wide_
+// kernel: the row's maximum over all of them, each head's segment softmax,
+// P . V head by head).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -118,13 +127,16 @@ struct IO<float> {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
+// Shared memory of the fp32 kernel: the sample's K and V (staged unless at
+// a wide head, where they are read from device memory), the key mask and
+// pair factors, each warp's query row and logits.
 template <typename T>
 struct Layout {
   size_t k, v, mask, kf, qrow, lg, total;
-  __host__ __device__ Layout(int H, int Lk, int E) {
+  __host__ __device__ Layout(int H, int Lk, int E, bool stage) {
     k = 0;
-    v = align16(k + (size_t)Lk * (E + IO<T>::KPAD) * sizeof(T));
-    mask = align16(v + (size_t)Lk * E * sizeof(T));
+    v = align16(k + (stage ? (size_t)Lk * (E + IO<T>::KPAD) * sizeof(T) : 0));
+    mask = align16(v + (stage ? (size_t)Lk * E * sizeof(T) : 0));
     kf = align16(mask + (size_t)Lk);
     qrow = align16(kf + (size_t)H * Lk);
     lg = align16(qrow + (size_t)WARPS * E * 4);
@@ -150,29 +162,36 @@ attention_shortkey_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const uint8_t* __restrict__ mask,
                           const uint8_t* __restrict__ qf, const uint8_t* __restrict__ kf,
                           T* __restrict__ out, int H, int Lq, int Lk, int E, float scale) {
-  const Layout<T> lay(H, Lk, E);
-  const int KS = E + IO<T>::KPAD;
+  // a wide head: the head_dim read at run time, K and V from device memory
+  // (L2), so that shared memory does not grow with E
+  constexpr bool STAGE = HD != attn_grid::WIDE;
+  const Layout<T> lay(H, Lk, E, STAGE);
+  const int KS = STAGE ? E + IO<T>::KPAD : E;
+  const int hd = STAGE ? HD : E / H;
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * ROWS;
   const int q1 = min(q0 + ROWS, Lq);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem + lay.k);
-  T* vs = reinterpret_cast<T*>(smem + lay.v);
+  const T* kb = k + (size_t)b * Lk * E;
+  const T* vb = v + (size_t)b * Lk * E;
+  T* ksm = reinterpret_cast<T*>(smem + lay.k);
+  T* vsm = reinterpret_cast<T*>(smem + lay.v);
+  const T* ks = STAGE ? ksm : kb;
+  const T* vs = STAGE ? vsm : vb;
   uint8_t* ms = smem + lay.mask;
   uint8_t* kfs = smem + lay.kf;
   float* qrow = reinterpret_cast<float*>(smem + lay.qrow) + (size_t)warp * E;
   float* lg = reinterpret_cast<float*>(smem + lay.lg) + (size_t)warp * H * Lk;
 
   // stage the sample's K, V, key mask and key pair factors
-  const T* kb = k + (size_t)b * Lk * E;
-  const T* vb = v + (size_t)b * Lk * E;
-  for (int idx = threadIdx.x; idx < Lk * E; idx += THREADS) {
-    const int j = idx / E, c = idx - (idx / E) * E;
-    ks[(size_t)j * KS + c] = kb[idx];
-    vs[idx] = vb[idx];
-  }
+  if (STAGE)
+    for (int idx = threadIdx.x; idx < Lk * E; idx += THREADS) {
+      const int j = idx / E, c = idx - (idx / E) * E;
+      ksm[(size_t)j * KS + c] = kb[idx];
+      vsm[idx] = vb[idx];
+    }
   for (int j = threadIdx.x; j < Lk; j += THREADS) ms[j] = mask[(size_t)b * Lk + j];
   if (PAIR)
     for (int idx = threadIdx.x; idx < H * Lk; idx += THREADS) kfs[idx] = kf[(size_t)b * H * Lk + idx];
@@ -190,14 +209,14 @@ attention_shortkey_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float gmax = -INFINITY;
     for (int h = 0; h < H; ++h) {
       const bool qflag = PAIR && qf[((size_t)b * H + h) * Lq + qi] != 0;
-      const float* qh = qrow + h * HD;
+      const float* qh = qrow + h * hd;
       float* lh = lg + (size_t)h * Lk;
       float hmax = -INFINITY;
       for (int j = lane; j < Lk; j += 32) {
-        const T* kr = ks + (size_t)j * KS + h * HD;
+        const T* kr = ks + (size_t)j * KS + h * hd;
         float acc = 0.f;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) acc = fmaf(qh[d], IO<T>::ld(kr + d), acc);
+        for (int d = 0; d < hd; ++d) acc = fmaf(qh[d], IO<T>::ld(kr + d), acc);
         if (PAIR && qflag && kfs[h * Lk + j]) acc = NEG_INF;
         if (!ms[j]) acc = NEG_INF;
         lh[j] = acc;
@@ -239,11 +258,11 @@ attention_shortkey_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dst = out + ((size_t)b * Lq + qi) * E;
     for (int h = 0; h < H; ++h) {
       const float* lh = lg + (size_t)h * Lk;
-      for (int c = lane; c < HD; c += 32) {
-        const T* vc = vs + h * HD + c;
+      for (int c = lane; c < hd; c += 32) {
+        const T* vc = vs + h * hd + c;
         float acc = 0.f;
         for (int j = 0; j < Lk; ++j) acc = fmaf(lh[j], IO<T>::ld(vc + (size_t)j * E), acc);
-        IO<T>::st(dst + h * HD + c, acc);
+        IO<T>::st(dst + h * hd + c, acc);
       }
     }
     __syncwarp();  // qrow and lg are rewritten by the next row
@@ -254,7 +273,7 @@ template <typename T, int HD, bool ONEMATMUL, bool PAIR>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* qf,
            const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
            cudaStream_t stream) {
-  const size_t smem = Layout<T>(H, Lk, E).total;
+  const size_t smem = Layout<T>(H, Lk, E, HD != attn_grid::WIDE).total;
   auto kernel = attention_shortkey_kernel<T, HD, ONEMATMUL, PAIR>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -284,7 +303,8 @@ int dispatch_pair(const void* q, const void* k, const void* v, const void* mask,
 constexpr int SHORT_KEYS = 64;
 
 // scale: the f32 softmax scale; qf (B, H, Lq) and kf (B, H, Lk) the pair
-// factors as uint8 (PAIR), or unused. RESIDENT: pad16(Lk) <= SHORT_KEYS
+// factors as uint8 (PAIR), or unused. RESIDENT: pad16(Lk) <= SHORT_KEYS (at
+// a wide head: mma_attn::one_chunk(Lk))
 template <int HD, bool RESIDENT, bool PAIR>
 __global__ void __launch_bounds__(mma_attn::THREADS)
 attention_shortkey_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -294,8 +314,16 @@ attention_shortkey_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict
   extern __shared__ __align__(16) unsigned char smem[];
   int b, h, q0;
   attn_grid::block_coords<mma_attn::ROWS>(H, Lq, b, h, q0);
-  if constexpr (PAIR) {
-    const size_t bh = (size_t)b * H + h;
+  const size_t bh = (size_t)b * H + h;
+  if constexpr (HD == attn_grid::WIDE) {
+    if constexpr (PAIR)
+      mma_attn::block_attend_wide<mma_attn::Chain::PAIR, true, RESIDENT>(
+          q, k, v, mask, out, Lq, Lk, E, E / H, scale, b, h, q0, blockIdx.y, smem, qf + bh * Lq,
+          kf + bh * Lk);
+    else
+      mma_attn::block_attend_wide<mma_attn::Chain::PAIR, false, RESIDENT>(
+          q, k, v, mask, out, Lq, Lk, E, E / H, scale, b, h, q0, blockIdx.y, smem);
+  } else if constexpr (PAIR) {
     mma_attn::block_attend<HD, RESIDENT, mma_attn::Chain::PAIR, SHORT_KEYS>(
         q, k, v, mask, out, Lq, Lk, E, scale, b, h, q0, smem, qf + bh * Lq, kf + bh * Lk);
   } else {
@@ -308,10 +336,15 @@ template <int HD, bool PAIR>
 int launch_mma(const void* q, const void* k, const void* v, const void* mask, const void* qf,
                const void* kf, void* out, int B, int H, int Lq, int Lk, int E, float scale,
                cudaStream_t s) {
-  const size_t smem = mma_attn::Smem<HD>::bytes(Lk);
-  const auto kernel = mma_attn::pad16(Lk) <= SHORT_KEYS
-                          ? attention_shortkey_mma_kernel<HD, true, PAIR>
-                          : attention_shortkey_mma_kernel<HD, false, PAIR>;
+  auto kernel = attention_shortkey_mma_kernel<HD, false, PAIR>;
+  size_t smem = 0;
+  if constexpr (HD == attn_grid::WIDE) {
+    smem = mma_attn::WideSmem::block(Lk);
+    if (mma_attn::one_chunk(Lk)) kernel = attention_shortkey_mma_kernel<HD, true, PAIR>;
+  } else {
+    smem = mma_attn::Smem<HD>::bytes(Lk);
+    if (mma_attn::pad16(Lk) <= SHORT_KEYS) kernel = attention_shortkey_mma_kernel<HD, true, PAIR>;
+  }
   return attn_grid::launch<bf16, mma_attn::ROWS>(kernel, mma_attn::THREADS, smem, q, k, v, mask,
                                                  out, B, H, Lq, Lk, E, scale, s,
                                                  static_cast<const uint8_t*>(qf),
@@ -626,22 +659,150 @@ int dispatch_onematmul_mma(const void* q, const void* k, const void* v, const vo
   return launch_onematmul_mma<HD, false>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 one-matmul kernel at a wide head
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a wide one-matmul block: the wide body's, its
+// rows holding every head's logits, and ROWS row pair flags a head.
+__host__ __device__ inline size_t onematmul_wide_cols(int H, int Lk) {
+  return (size_t)H * mma_attn::pad16(Lk);
+}
+inline size_t onematmul_wide_smem(int H, int Lk) {
+  return mma_attn::WideSmem::bytes((int)onematmul_wide_cols(H, Lk), (size_t)H * mma_attn::ROWS);
+}
+
+// One block of 4 warps per (sample, 64 query rows, output chunk c of 128
+// columns: grid dimension y), every head: each head's logits go to its own
+// columns of the wide body's logits in shared memory (qs = bf(q *
+// bf(scale)) into the mma, f32 sums over the 128-column slices), then each
+// row takes the maximum over all heads' logits, each head's segment softmax
+// (SegmentDivide; 1/Lk on the real keys of an empty segment) and, head by
+// head, P . V for chunk c. scale: the softmax scale rounded to bf16; qf, kf
+// as the kernel above's. pad16(Lk) <= ONEMATMUL_KEYS.
+template <bool PAIR>
+__global__ void __launch_bounds__(mma_attn::THREADS)
+attention_shortkey_onematmul_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                         const bf16* __restrict__ v,
+                                         const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                                         int H, int Lq, int Lk, int E, float scale,
+                                         const uint8_t* __restrict__ qf,
+                                         const uint8_t* __restrict__ kf) {
+  constexpr int QROWS = mma_attn::ROWS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int kpad = mma_attn::pad16(Lk), cols = (int)onematmul_wide_cols(H, Lk), ss = cols + 4;
+  const int hdp = E / H, c = blockIdx.y;
+  const int tiles = (Lq + QROWS - 1) / QROWS;
+  const int b = blockIdx.x / tiles, q0 = blockIdx.x % tiles * QROWS;
+  float* S = reinterpret_cast<float*>(smem);
+  bf16* Qs = reinterpret_cast<bf16*>(S + (size_t)QROWS * ss);
+  bf16* Ks = Qs + QROWS * mma_attn::SLICE;
+  uint8_t* flags = reinterpret_cast<uint8_t*>(Ks + mma_attn::PIECE * mma_attn::SLICE);
+  uint8_t* rowflags = flags + cols;
+
+  const int rows = min(QROWS, Lq - q0);
+  for (int i = threadIdx.x; i < cols; i += mma_attn::THREADS) {
+    const int h = i / kpad, j = i - h * kpad;
+    uint8_t f = 2;
+    if (j < Lk) {
+      f = mask[(size_t)b * Lk + j] ? 1 : 0;
+      if (PAIR && kf[((size_t)b * H + h) * Lk + j]) f |= mma_attn::KEY_PAIR;
+    }
+    flags[i] = f;
+  }
+  for (int i = threadIdx.x; i < H * QROWS; i += mma_attn::THREADS) {
+    const int h = i / QROWS, r = i % QROWS;
+    rowflags[i] = PAIR && r < rows && qf[((size_t)b * H + h) * Lq + q0 + r];
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool active = 16 * warp < rows;  // a warp past Lq still meets the barriers
+  for (int h = 0; h < H; ++h)
+    mma_attn::wide_logits(S, ss, h * kpad, q + ((size_t)b * Lq + q0) * E + h * hdp, rows,
+                          k + (size_t)b * Lk * E + h * hdp, Lk, E, hdp / mma_attn::SLICE, true,
+                          scale, Qs, Ks, warp, lane, active);
+  if (active) {
+    const float uniform = mma_attn::round_bf16(__fdiv_rn(1.f, (float)Lk));
+    for (int r = 16 * warp; r < min(16 * warp + 16, rows); ++r) {
+      float* Sr = S + (size_t)r * ss;
+      // the masks as the pair chain's (the scale already in qs), the
+      // maximum over every head's logits
+      float m = -INFINITY;
+      for (int i = lane; i < cols; i += 32) {
+        const float x = mma_attn::pair_logit(Sr[i], flags[i], rowflags[i / kpad * QROWS + r], 1.f);
+        Sr[i] = x;
+        m = fmaxf(m, x);
+      }
+      m = mma_attn::warp_max(m);  // finite: Lk >= 1 and a masked key is -1e9
+      for (int h = 0; h < H; ++h) {
+        float* Sh = Sr + h * kpad;
+        float l = 0.f;
+        for (int j = lane; j < kpad; j += 32) {
+          const float e = expf(Sh[j] - m);
+          Sh[j] = e;
+          l += e;
+        }
+        l = mma_attn::warp_sum(l);
+        const bool empty = !(l > 0.f);  // every e underflowed: 1/Lk on each real key
+        const SegmentDivide div(l);
+        for (int j = lane; j < kpad; j += 32)
+          Sh[j] = mma_attn::round_bf16(empty ? (j < Lk ? uniform : 0.f) : div(Sh[j]));
+      }
+    }
+    __syncwarp();
+  }
+  for (int h = 0; h < H; ++h) {
+    float o[mma_attn::SLICE / 8][4];
+    mma_attn::zero(o);
+    mma_attn::wide_pv(o, S, ss, h * kpad, v + (size_t)b * Lk * E + h * hdp + c * mma_attn::SLICE,
+                      Lk, E, Ks, warp, lane, active);
+    if (active)
+      mma_attn::wide_store(o, out + ((size_t)b * Lq + q0) * E + h * hdp + c * mma_attn::SLICE,
+                           rows, E, Qs, warp, lane);
+  }
+}
+
+template <bool PAIR>
+int launch_onematmul_wide(const void* q, const void* k, const void* v, const void* mask,
+                          const void* qf, const void* kf, void* out, int B, int H, int Lq, int Lk,
+                          int E, float scale, cudaStream_t s) {
+  const size_t smem = onematmul_wide_smem(H, Lk);
+  const auto kernel = attention_shortkey_onematmul_wide_kernel<PAIR>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)B * ((Lq + mma_attn::ROWS - 1) / mma_attn::ROWS);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)blocks, (unsigned)attn_grid::chunks(E / H));
+  kernel<<<grid, mma_attn::THREADS, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), H, Lq, Lk, E, scale,
+      static_cast<const uint8_t*>(qf), static_cast<const uint8_t*>(kf));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Shared memory the kernel needs (bytes), so the wrapper can refuse before
 // launching (0 for a head_dim E / H with no instance). is_bf16: 1 for bf16
 // operands, 0 for fp32; onematmul as for the launch. The bf16 short-key
 // kernel stages one head (up to 3,536 keys at head_dim 16, 1,760 at 32, 864
-// at 64, 416 at 128), the bf16 one-matmul kernel every head of a 64-row
-// query tile and of the sample's keys, the fp32 kernels a sample's K and V.
+// at 64, 416 at 128; at a wide head the logits of its keys), the bf16
+// one-matmul kernel every head of a 64-row query tile and of the sample's
+// keys (at a wide head every head's logits), the fp32 kernels a sample's K
+// and V (at a wide head only their per-warp rows: K and V stay in device
+// memory).
 extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, int H, int Lk,
                                                    int E) {
   if (H <= 0 || E % H) return 0;
   return attn_grid::by_head_dim(E / H, 0LL, [&](auto c) {
     constexpr int HD = decltype(c)::value;
-    if (!is_bf16) return (long long)Layout<float>(H, Lk, E).total;
-    return onematmul ? (long long)OneMatmulSmem<HD>::bytes(H, Lk)
-                     : (long long)mma_attn::Smem<HD>::bytes(Lk);
+    if (!is_bf16) return (long long)Layout<float>(H, Lk, E, HD != attn_grid::WIDE).total;
+    if constexpr (HD == attn_grid::WIDE)
+      return onematmul ? (long long)onematmul_wide_smem(H, Lk)
+                       : (long long)mma_attn::WideSmem::block(Lk);
+    else
+      return onematmul ? (long long)OneMatmulSmem<HD>::bytes(H, Lk)
+                       : (long long)mma_attn::Smem<HD>::bytes(Lk);
   });
 }
 
@@ -650,10 +811,10 @@ extern "C" long long attention_shortkey_smem_bytes(int is_bf16, int onematmul, i
 // uint8, 1 = attendable. qf (B, H, Lq) and kf (B, H, Lk) uint8 pair factors,
 // or both null for no pair mask. onematmul: 0 = the packed short-key kernel
 // (scale in f32), 1 = the one-matmul segment-softmax kernel (scale already
-// rounded to the operand dtype). head_dim E / H is 16, 32, 64 or 128. bf16
-// runs on the tensor cores and takes q, k, v, out on 16-byte boundaries;
-// fp32 runs on the CUDA cores. Returns the cudaError_t of the launch (0 =
-// success).
+// rounded to the operand dtype). head_dim E / H is 16, 32, 64, 128 or a
+// multiple of 128 above. bf16 runs on the tensor cores and takes q, k, v,
+// out on 16-byte boundaries; fp32 runs on the CUDA cores. Returns the
+// cudaError_t of the launch (0 = success).
 extern "C" int attention_shortkey_launch(const void* q, const void* k, const void* v,
                                          const void* mask, const void* qf, const void* kf,
                                          void* out, int B, int H, int Lq, int Lk, int E,
@@ -665,8 +826,15 @@ extern "C" int attention_shortkey_launch(const void* q, const void* k, const voi
   return attn_grid::by_head_dim(E / H, (int)cudaErrorInvalidValue, [&](auto c) {
     constexpr int HD = decltype(c)::value;
     if (is_bf16) {  // the route by dtype: the tensor-core kernels
-      if (onematmul)
+      if constexpr (HD == attn_grid::WIDE) {
+        if (onematmul)
+          return qf != nullptr ? launch_onematmul_wide<true>(q, k, v, mask, qf, kf, out, B, H, Lq,
+                                                             Lk, E, scale, s)
+                               : launch_onematmul_wide<false>(q, k, v, mask, qf, kf, out, B, H,
+                                                              Lq, Lk, E, scale, s);
+      } else if (onematmul) {
         return dispatch_onematmul_mma<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
+      }
       return dispatch_mma<HD>(q, k, v, mask, qf, kf, out, B, H, Lq, Lk, E, scale, s);
     }
     if (onematmul)

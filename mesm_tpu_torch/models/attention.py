@@ -97,7 +97,6 @@ def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_f
         route = kernels.attention_kernel(
             q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device,
             pair=pair_factors is not None, training=training,
-            head_dim=q.shape[-1] // num_heads,
         )
     if route == "shortkey_onematmul":
         return attention_shortkey_onematmul(q, k, v, num_heads, key_valid_mask, pair_factors)

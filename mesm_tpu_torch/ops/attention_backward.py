@@ -75,7 +75,7 @@ def attention_backward(q, k, v, out, grad_out, num_heads: int,
     """dq, dk, dv of attention_core at (q, k, v) for the output gradient
     grad_out, given the forward's output `out`. CPU tensors take the plain
     version (which does not read `out`); CUDA tensors launch the kernels
-    (float32, contiguous, 16-byte aligned, head_dim up to 128, Ev == E) or
+    (float32, contiguous, 16-byte aligned, any head_dim, Ev == E) or
     raise. Raises for an input that requires grad in grad mode (no graph:
     no double backward)."""
     global backward_launches

@@ -11,9 +11,11 @@ f32, the probabilities rounded to v's dtype, and P.V with f32 sums. In fp32
 that is models/attention.attention_core's arithmetic too. A fully masked row
 averages v uniformly. The same function is that of the per-head and
 all-heads kernels (ops/attention_heads.py), whose plain version this is too.
-The kernel runs float32 on register tiles, and bf16 on tensor-core mma
-tiles where a head's K_h and V_h fit a block's shared memory (up to 1,760
-keys at head_dim 32, 864 at 64), on the register tiles beyond.
+The kernel runs float32 on the tensor cores in 3xTF32 (both products on
+split operands, any Lk), and bf16 on tensor-core mma tiles where a head's
+K_h and V_h fit a block's shared memory (up to 1,760 keys at head_dim 32,
+864 at 64), on the register tiles beyond. A head_dim above 128 runs on the
+wide bodies, padded to a multiple of 128, any Lk.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from typing import Optional
 import torch
 
 from ..kernels import refuse_autograd
-from .attention_packed import (MAX_SMEM, NEG_INF, check_operands, kernel_head_dim, mask_u8,
-                               pad_heads, unpad_heads)
+from .attention_packed import (NEG_INF, check_operands, fitted_head_dim, mask_u8, pad_heads,
+                               unpad_heads)
 
 # kernel launches since import (or since the caller last set it to 0)
 launches = 0
@@ -57,17 +59,14 @@ def attention_batched_reference(q, k, v, num_heads: int, key_valid_mask: Optiona
 def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the batched
     kernel's numerics. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (float32 or bf16, head_dim up to 128, Ev == E) or
-    raise. Raises for an input that requires grad in grad mode (no graph)."""
+    launch the kernel (float32 or bf16, any head_dim, Ev == E) or raise.
+    Raises for an input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("attention_batched", q, k, v)
     if q.device.type == "cpu":
         return attention_batched_reference(q, k, v, num_heads, key_valid_mask)
     B, Lq, Lk, _, hd = check_operands("attention_batched", q, k, v, num_heads, key_valid_mask,
                                       (torch.float32, torch.bfloat16), aligned=True)
-    hdp = kernel_head_dim(hd)
-    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
-    E = num_heads * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -75,10 +74,9 @@ def attention_batched(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Te
     smem_bytes = lib.attention_batched_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hdp, Lk)
-    if need > MAX_SMEM:
-        raise ValueError(f"attention_batched: {Lk} keys at head_dim {hdp} need {need} bytes of "
-                         "shared memory")
+    hdp = fitted_head_dim("attention_batched", smem_bytes, is_bf16, hd, Lk)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=v.dtype, device=q.device)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype

@@ -5,7 +5,8 @@ attention dispatch takes under MESM_ATTN_VARIANT=per_head / all_heads.
 kernels/csrc/attention_heads.cu (the ports of
 mesm_tpu/ops/attention_pallas.py::_mha_kernel and _mha_kernel_allheads) on
 CUDA tensors: bf16 on tensor-core mma tiles, float32 on the batched
-kernel's register tiles, one block per (sample, head, 64 query rows). On
+kernel's 3xTF32 tensor-core body, one block per (sample, head, 64 query
+rows; and 128 output columns at a head_dim above 128). On
 the GPU one grid serves both layouts, so both launch the same kernels and
 count their launches apart. The two TPU kernels compute one function, that
 of the batched kernel, so their plain version is ops/attention_batched
@@ -21,8 +22,7 @@ import torch
 
 from ..kernels import refuse_autograd
 from .attention_batched import attention_batched_reference
-from .attention_packed import (MAX_SMEM, check_operands, kernel_head_dim, mask_u8, pad_heads,
-                               unpad_heads)
+from .attention_packed import check_operands, fitted_head_dim, mask_u8, pad_heads, unpad_heads
 
 # kernel launches since import (or since the caller last set them to 0)
 per_head_launches = 0
@@ -34,9 +34,6 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     returns out."""
     B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
                                       (torch.bfloat16, torch.float32), aligned=True)
-    hdp = kernel_head_dim(hd)
-    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
-    E = num_heads * hdp
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
@@ -44,9 +41,9 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
     smem_bytes = lib.attention_heads_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hdp, Lk)
-    if need > MAX_SMEM:
-        raise ValueError(f"{name}: {Lk} keys at head_dim {hdp} need {need} bytes of shared memory")
+    hdp = fitted_head_dim(name, smem_bytes, is_bf16, hd, Lk)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=q.dtype, device=q.device)
     scale = float(torch.tensor(hd**-0.5, dtype=q.dtype))  # q * scale is a product in q's dtype
@@ -64,7 +61,7 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask):
 def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
     """The per-head layout (MESM_ATTN_VARIANT=per_head). CPU tensors take
     the plain version; CUDA tensors launch the kernel (bf16 or float32,
-    head_dim up to 128, Ev == E) or raise. Raises for an input that requires
+    any head_dim, Ev == E) or raise. Raises for an input that requires
     grad in grad mode (no graph)."""
     global per_head_launches
     refuse_autograd("attention_per_head", q, k, v)
@@ -78,7 +75,7 @@ def attention_per_head(q, k, v, num_heads: int, key_valid_mask=None):
 def attention_all_heads(q, k, v, num_heads: int, key_valid_mask=None):
     """The all-heads layout (MESM_ATTN_VARIANT=all_heads). CPU tensors take
     the plain version; CUDA tensors launch the kernel (bf16 or float32,
-    head_dim up to 128, Ev == E) or raise. Raises for an input that requires
+    any head_dim, Ev == E) or raise. Raises for an input that requires
     grad in grad mode (no graph)."""
     global all_heads_launches
     refuse_autograd("attention_all_heads", q, k, v)

@@ -13,8 +13,9 @@ softmax to f32). In fp32 every rounding is to f32 and the two agree.
 Both kernels take bf16 (the default packed variant) and float32 (what
 MESM_ATTN_VARIANT=packed sends an fp32 model to). The packed kernel runs
 bf16 on tensor-core mma tiles at the rounding points above and float32 on
-the register tiles of the batched kernel: in float32 every rounding point
-is f32, so the function is attention_batched_reference's.
+the batched kernel's body, its products in 3xTF32 on the tensor cores: in
+float32 every rounding point is f32, so the function is
+attention_batched_reference's.
 
 `attention_packed_pair` launches the same source's pair-masked entry point
 (the port of `_mha_kernel_packed_pair`, attention_pallas.py:170-210) and
@@ -23,8 +24,10 @@ kernel above with a mask added: q is scaled in f32, the logits stay f32, the
 softmax runs in f32, and only the probabilities are rounded to bf16 before
 the f32-accumulated product with v. A pair (q, k) of head (b, h) is masked
 where both pair factors, (B, H, Lq) and (B, H, Lk), flag it. bf16 operands
-(on 16-byte boundaries) run on the tensor-core mma body (its pair chain),
-float32 on a CUDA-core kernel: a route by dtype, chosen before the launch.
+run on the tensor-core mma body (its pair chain), float32 on the packed
+kernel's 3xTF32 body with the pair flags (in float32 the pair chain is the
+batched function with the pair mask): a route by dtype, chosen before the
+launch. Both take operands on 16-byte boundaries.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ..kernels import ATTN_HEAD_DIMS, ATTN_MAX_HEAD_DIM, refuse_autograd
+from ..kernels import ATTN_HEAD_DIMS, ATTN_WIDE_STEP, refuse_autograd
 
 NEG_INF = -1e9
 MAX_SMEM = 232448  # bytes a block may use on sm_90
@@ -78,8 +81,8 @@ def attention_packed_reference(q, k, v, num_heads: int, key_valid_mask: Optional
 def attention_packed(q, k, v, num_heads: int, key_valid_mask: Optional[torch.Tensor] = None):
     """Multi-head attention over (B, L, E) operands with the packed kernel's
     numerics. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (bf16 or float32, head_dim up to 128, Ev == E) or raise. Raises
-    for an input that requires grad in grad mode (no graph)."""
+    kernel (bf16 or float32, any head_dim, Ev == E) or raise. Raises for an
+    input that requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("attention_packed", q, k, v)
     if q.device.type == "cpu":
@@ -116,12 +119,28 @@ def attention_packed_pair_reference(q, k, v, num_heads: int, key_valid_mask=None
 
 def kernel_head_dim(hd: int) -> int:
     """The head_dim of the kernel instance a head_dim runs on: the smallest
-    of kernels.ATTN_HEAD_DIMS (16, 32, 64, 128) that holds it. Raises
-    ValueError above ATTN_MAX_HEAD_DIM, naming the limit."""
+    of kernels.ATTN_HEAD_DIMS (16, 32, 64, 128) that holds it; above 128 the
+    next multiple of ATTN_WIDE_STEP (128), which the wide bodies take in
+    128-column slices."""
     for d in ATTN_HEAD_DIMS:
         if hd <= d:
             return d
-    raise ValueError(f"the attention kernels take head_dim <= {ATTN_MAX_HEAD_DIM}, got {hd}")
+    return -(-hd // ATTN_WIDE_STEP) * ATTN_WIDE_STEP
+
+
+def fitted_head_dim(name: str, smem_bytes, is_bf16: int, hd: int, Lk: int) -> int:
+    """The head_dim of the instance a wrapper launches for head_dim hd and Lk
+    keys: kernel_head_dim(hd), or 128 where that instance's block needs more
+    than MAX_SMEM (the bf16 mma body stages K_h and V_h whole; at 128 a head
+    beyond that staging takes the wide body, any Lk). smem_bytes is the
+    source's (is_bf16, head_dim, Lk) -> bytes. Raises where none fits."""
+    hdp = kernel_head_dim(hd)
+    if hdp < ATTN_HEAD_DIMS[-1] and smem_bytes(is_bf16, hdp, Lk) > MAX_SMEM:
+        hdp = ATTN_HEAD_DIMS[-1]
+    need = smem_bytes(is_bf16, hdp, Lk)
+    if need > MAX_SMEM:
+        raise ValueError(f"{name}: {Lk} keys at head_dim {hdp} need {need} bytes of shared memory")
+    return hdp
 
 
 def pad_heads(t, num_heads: int, hdp: int):
@@ -150,11 +169,11 @@ def unpad_heads(t, num_heads: int, hd: int):
 def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
                    dtypes=(torch.bfloat16,), aligned: bool = False):
     """The checks every (B, L, E) attention wrapper makes before it
-    launches: one dtype of `dtypes`, contiguous, on one CUDA device, Ev == E,
-    a head_dim of at most ATTN_MAX_HEAD_DIM (any other than 16, 32, 64 or
-    128 is padded by the wrapper: `kernel_head_dim`, `pad_heads`), a (B, Lk)
-    mask, and with `aligned` q, k, v on 16-byte boundaries (for cp.async and
-    16-byte loads). Returns (B, Lq, Lk, E, head_dim)."""
+    launches: one dtype of `dtypes`, contiguous, on one CUDA device, Ev == E
+    (any head_dim: one without an instance is padded by the wrapper,
+    `kernel_head_dim`, `pad_heads`), a (B, Lk) mask, and with `aligned` q, k,
+    v on 16-byte boundaries (for cp.async and 16-byte loads). Returns (B, Lq,
+    Lk, E, head_dim)."""
     for t in (q, k, v):
         if t.dtype not in dtypes or t.dtype != q.dtype:
             names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
@@ -169,8 +188,6 @@ def check_operands(name: str, q, k, v, num_heads: int, key_valid_mask,
             f"v {tuple(v.shape)} with {num_heads} heads"
         )
     hd = E // num_heads
-    if hd > ATTN_MAX_HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim <= {ATTN_MAX_HEAD_DIM}, got {hd}")
     if key_valid_mask is not None and key_valid_mask.shape != (B, Lk):
         raise ValueError(f"{name}: mask {tuple(key_valid_mask.shape)} != {(B, Lk)}")
     if q.device.type != "cuda":
@@ -205,27 +222,23 @@ def factors_u8(pair_factors, B: int, H: int, Lq: int, Lk: int, device):
 
 
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors):
-    """Checks the operands and launches kernels/csrc/attention_packed.cu: its
+    """Checks the operands (16-byte aligned: both entry points copy them 16
+    bytes at a time) and launches kernels/csrc/attention_packed.cu: its
     pair-masked entry point when pair_factors is given, else the packed one.
-    The packed one takes 16-byte aligned operands, the pair one in bf16 (on
-    the mma body, which loads them 16 bytes at a time). Returns out."""
+    Returns out."""
     pair = pair_factors is not None
     B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                      (torch.bfloat16, torch.float32),
-                                      aligned=not pair or q.dtype == torch.bfloat16)
-    hdp = kernel_head_dim(hd)
-    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
-    E = num_heads * hdp
+                                      (torch.bfloat16, torch.float32), aligned=True)
     from ..kernels.build import load
 
     is_bf16 = int(q.dtype == torch.bfloat16)
     lib = load("attention_packed")
-    smem_bytes = lib.attention_packed_smem_bytes if pair else lib.attention_packed_nopair_smem_bytes
+    smem_bytes = lib.attention_packed_smem_bytes
     smem_bytes.restype = ctypes.c_longlong
     smem_bytes.argtypes = [ctypes.c_int] * 3
-    need = smem_bytes(is_bf16, hdp, Lk)
-    if need > MAX_SMEM:
-        raise ValueError(f"{name}: {Lk} keys at head_dim {hdp} need {need} bytes of shared memory")
+    hdp = fitted_head_dim(name, smem_bytes, is_bf16, hd, Lk)
+    q, k, v = (pad_heads(t, num_heads, hdp) for t in (q, k, v))
+    E = num_heads * hdp
     mask = mask_u8(key_valid_mask, B, Lk, q.device)
     out = torch.empty(B, Lq, E, dtype=v.dtype, device=q.device)
     if not pair:
@@ -251,8 +264,8 @@ def attention_packed_pair(q, k, v, num_heads: int, key_valid_mask, pair_factors)
     """Multi-head attention over (B, L, E) operands under the factored pair
     mask, with the pair kernel's numerics (f32 softmax, probabilities rounded
     to the operand dtype). CPU tensors take the plain version; CUDA tensors
-    launch a kernel (bf16 on 16-byte boundaries, on the mma body, or
-    float32; head_dim up to 128, Ev == E) or raise. Raises for an input that
+    launch a kernel (bf16 on the mma body or float32 on the 3xTF32 body, on
+    16-byte boundaries; any head_dim, Ev == E) or raise. Raises for an input that
     requires grad in grad mode (no graph)."""
     global pair_launches
     refuse_autograd("attention_packed_pair", q, k, v)

@@ -25,8 +25,9 @@ kernels/csrc/attention_shortkey.cu:
   Plain version: `attention_shortkey_onematmul_reference`.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or raise:
-bf16 or fp32, Ev == E, head_dim up to 128 (16, 32, 64 and 128 native, any
-other zero-padded to the next of them). bf16 runs on the tensor cores (q,
+bf16 or fp32, Ev == E, any head_dim (16, 32, 64 and 128 native, multiples
+of 128 above on the wide bodies, any other zero-padded to the next of
+them). bf16 runs on the tensor cores (q,
 k and v on 16-byte boundaries): `attention_shortkey` on the body of the pair
 kernel (kernels/csrc/attention_mma.cuh, its pair chain), one block per
 sample, query tile and head; `attention_shortkey_onematmul` on the same mma
@@ -102,7 +103,8 @@ def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: Pa
     returns out. Both kernels run bf16 on the tensor cores (operands on
     16-byte boundaries; the one-matmul kernel at most ONEMATMUL_MAX_LK keys)
     and fp32 on the CUDA cores: a route by dtype, taken before the launch.
-    head_dim up to 128, padded to the next instance (16, 32, 64, 128)."""
+    Any head_dim, padded to the next instance (16, 32, 64, 128, or a
+    multiple of 128 above)."""
     mma = q.dtype == torch.bfloat16
     if mma and onematmul and k.ndim == 3 and k.shape[1] > ONEMATMUL_MAX_LK:
         raise ValueError(f"{name}: the bf16 kernel takes at most {ONEMATMUL_MAX_LK} keys, "

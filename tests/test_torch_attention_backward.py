@@ -33,8 +33,10 @@ from chip_smoke import HEADS_EDGE_SHAPES
 REPO = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 H = 2
-# (B, Lq, Lk, E) with H = 2: head_dim 32 at E = 64, 64 at E = 128; Lq != Lk
-CASES = [(2, 17, 17, 64), (3, 40, 72, 64), (2, 72, 33, 128), (3, 64, 64, 128)]
+# (B, Lq, Lk, E) with H = 2: head_dim 32 at E = 64, 64 at E = 128, 256 (a
+# wide head) at E = 512; Lq != Lk
+CASES = [(2, 17, 17, 64), (3, 40, 72, 64), (2, 72, 33, 128), (3, 64, 64, 128),
+         (2, 40, 33, 512)]
 
 
 @pytest.fixture(autouse=True)
@@ -128,9 +130,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = abw.backward_launches
     with pytest.raises(TypeError):
         abw.attention_backward(*(t.to(torch.bfloat16) for t in meta), H)  # float32 only
-    with pytest.raises(ValueError, match="head_dim <= 128"):
+    with pytest.raises(ValueError, match="unsupported device"):
         abw.attention_backward(*(torch.empty(B, L, 1024, device="meta") for _ in range(5)),
-                               4)  # head_dim 256
+                               4)  # head_dim 256: the wide kernels
     with pytest.raises(ValueError, match="unsupported device"):
         abw.attention_backward(*meta, 4)  # head_dim 16: an instance
     with pytest.raises(ValueError, match="unsupported device"):
@@ -210,8 +212,16 @@ def test_backward_kernels_run_their_products_as_3xtf32():
     terms first: S and dP in each kernel (product_nt), dQ in the dq kernel
     and dV and dK in the dk / dv kernel (product_kt); the staged operands
     are split once a block (split_tile), the A fragments at each step
-    (SplitA); no CUDA-core product is left."""
-    source = (CSRC / "attention_backward.cu").read_text()
+    (SplitA); no CUDA-core product is left. The helpers live in the header
+    it shares with the forward's float32 body (attention_tf32.cuh), with no
+    copy left in the source; the wide-head kernels take the same products
+    on 128-column slices."""
+    own = (CSRC / "attention_backward.cu").read_text()
+    assert '#include "attention_tf32.cuh"' in own and "void mma3(" not in own
+    assert "uint32_t tf32(float x)" not in own and "void walk(" not in own
+    wide = own[own.index("attention_backward_dq_wide_kernel(const"):]
+    own = own[:own.index("// wide heads\n")]
+    source = own + (CSRC / "attention_tf32.cuh").read_text()
     assert "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;" in source
     assert "hi = tf32(x);\n  lo = tf32(x - __uint_as_float(hi));" in source
     assert source.count('asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "') == 1
@@ -232,6 +242,15 @@ def test_backward_kernels_run_their_products_as_3xtf32():
     assert (dkdv.count("product_nt<HD, NT>(") == 2
             and dkdv.count("product_kt<HD, STEP, NH<HD>>(") == 2)
     assert "fmaf(av[" not in source and "tile_dot" not in source
+    # the wide-head kernels: S and dP a slice at a time, then chunk c's
+    # products, in half the columns at a time
+    dq_wide = wide[:wide.index("attention_backward_dkdv_wide_kernel(const")]
+    dkdv_wide = wide[wide.index("attention_backward_dkdv_wide_kernel(const"):]
+    assert (dq_wide.count("product_nt<HD, NT>(") == 2
+            and dq_wide.count("product_kt<HD, STEP, NHW>(") == 1)
+    assert (dkdv_wide.count("product_nt<HD, NT>(") == 2
+            and dkdv_wide.count("product_kt<HD, STEP, NHW>(") == 2)
+    assert "fmaf(av[" not in wide
 
 
 def test_tf32_rounding_is_cvt_rna():

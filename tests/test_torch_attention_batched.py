@@ -14,6 +14,8 @@ kernel against its plain version on the card and skip here.
 """
 from __future__ import annotations
 
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,8 @@ from mesm_tpu_torch.ops import attention_batched as ab
 from mesm_tpu_torch.ops import attention_packed as ap
 from mesm_tpu_torch.ops import attention_trainable as at
 from mesm_tpu_torch.ops import ln_dense as ld
+
+from test_torch_attention_backward import _mm_3xtf32
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -199,6 +203,87 @@ def test_ln_dense_refuses_inputs_that_need_grad():
         ld.ln_dense(x, gamma, beta, w, b, True)
     with torch.no_grad():
         assert ld.ln_dense(x, gamma, beta, w, b, True).shape == (5, 48)
+
+
+# the float32 body on the tensor cores in 3xTF32
+# ---------------------------------------------------------------------------
+
+CSRC = Path(__file__).resolve().parents[1] / "mesm_tpu_torch" / "kernels" / "csrc"
+
+
+def test_fp32_kernels_run_the_3xtf32_body():
+    """The float32 instances of kernels 6 (batched), 7 and 8 (the heads
+    layouts), 2 (packed) and 3 (its pair entry point, with the pair flags)
+    run the tensor-core body of attention_fp32.cuh: S = qs . K^T and each
+    key tile's P . V through the shared 3xTF32 products (attention_tf32.cuh:
+    product_nt, product_kt, three mma.sync a step), at every head_dim (the
+    fast body up to 128, the wide one above); the register tiles keep only
+    their bf16 body, and no CUDA-core pair kernel is left."""
+    body = (CSRC / "attention_fp32.cuh").read_text()
+    assert '#include "attention_tf32.cuh"' in body
+    assert body.count("tf32x3::product_nt<HD, NT>(") == 2  # the body and the wide body
+    assert body.count("tf32x3::product_kt<HD, KN, NH>(") == 1  # Online::accumulate
+    assert "fmaf(av[" not in body and "mma_tf32(" not in body
+    for name in ("attention_batched", "attention_heads", "attention_packed"):
+        source = (CSRC / f"{name}.cu").read_text()
+        assert '#include "attention_fp32.cuh"' in source, name
+        assert "fp32_attn::block_attend<HD>(q, k, v, mask, out, Lq, Lk, E, scale" in source, name
+        assert "fp32_attn::block_attend_wide<false>(" in source, name
+    packed = (CSRC / "attention_packed.cu").read_text()
+    assert "fp32_attn::block_attend<HD, true>(q, k, v, mask, out, Lq, Lk, E, scale" in packed
+    assert "fp32_attn::block_attend_wide<true>(" in packed
+    assert "PairSmem" not in packed and "attention_packed_pair_kernel" not in packed
+    regtile = (CSRC / "attention_regtile.cuh").read_text()
+    assert "IO<float>" not in regtile and "const float* __restrict__ q" not in regtile
+
+
+def _forward_3xtf32(q, k, v, mask, heads: int, terms: str = "3x"):
+    """attention_batched_reference in float32 as the 3xTF32 body takes it,
+    per 32-key tile: S = qs . K^T as one tensor-core sum over head_dim
+    (_mm_3xtf32: split operands, three mma terms a step of 8, truncated
+    sums), the masks, the online softmax in f32 (running max m and sum l,
+    the output rescaled by exp(m_old - m_new)), the tile's e . V a 3xTF32
+    sum from zero over its keys added to the f32 running output; then o /
+    l. terms="1x" takes one TF32 product."""
+    B, Lq, E = q.shape
+    Lk, hd, KT = k.shape[1], E // heads, 32
+    scale = torch.tensor(hd**-0.5)
+    out = torch.zeros_like(q)
+    for b in range(B):
+        for h in range(heads):
+            cols = slice(h * hd, (h + 1) * hd)
+            qs, kh, vh = q[b, :, cols] * scale, k[b, :, cols], v[b, :, cols]
+            m = torch.full((Lq, 1), -float("inf"))
+            l, o = torch.zeros(Lq, 1), torch.zeros(Lq, hd)
+            for k0 in range(0, Lk, KT):
+                keys = slice(k0, min(k0 + KT, Lk))
+                s = _mm_3xtf32(qs, kh[keys].T, hd, terms)
+                s = torch.where(mask[b, keys][None], s, torch.tensor(-1e9))
+                mn = torch.maximum(m, s.amax(1, keepdim=True))
+                alpha, e = torch.exp(m - mn), torch.exp(s - mn)
+                l = l * alpha + e.sum(1, keepdim=True)
+                o = o * alpha + _mm_3xtf32(e, vh[keys], KT, terms)
+                m = mn
+            out[b, :, cols] = o / l
+    return out
+
+
+def test_3xtf32_forward_holds_the_fp32_tolerance_at_the_tacos_sizes():
+    """An emulation of the float32 body's 3xTF32 split and summation order
+    (attention_fp32.cuh) on the TACoS encoder's sums: logits over head_dim
+    32, 601 keys in 19 tiles of 32 (the last short), padded keys. It stays
+    within a quarter of the kernels' 1e-5 of the f32 plain version (in units
+    of max(1, max |reference|)); one TF32 product a step does not hold
+    1e-5."""
+    B, L, E, heads = 1, 601, 64, 2  # head_dim 32
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, L, E)).astype(np.float32)) for _ in range(3))
+    mask = torch.arange(L)[None] < 560
+    want = ab.attention_batched_reference(q, k, v, heads, mask)
+    got = _forward_3xtf32(q, k, v, mask, heads)
+    one = _forward_3xtf32(q, k, v, mask, heads, terms="1x")
+    assert _err(got.numpy(), want.numpy()) <= TOL["float32"] / 4
+    assert _err(one.numpy(), want.numpy()) > TOL["float32"]
 
 
 @pytest.fixture

@@ -346,8 +346,8 @@ def test_short_key_wrappers_refuse_what_the_kernel_does_not_take():
     for fn in (sk.attention_shortkey, sk.attention_shortkey_onematmul):
         with pytest.raises(TypeError):
             fn(q.half(), k.half(), k.half(), 2)
-        with pytest.raises(ValueError, match="head_dim <= 128"):
-            fn(qw, kw, kw, 2)  # head_dim 256
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(qw, kw, kw, 2)  # head_dim 256: the wide bodies
         with pytest.raises(ValueError, match="unsupported device"):
             fn(q, k, k, 4)  # head_dim 16: an instance
         with pytest.raises(ValueError, match="shapes"):
@@ -396,15 +396,16 @@ def test_bf16_short_key_kernel_runs_the_mma_body():
     (torch.bfloat16, False, 48, True), (torch.float32, False, 32, True),
     (torch.float32, False, 64, True), (torch.bfloat16, True, 64, True),
     (torch.bfloat16, True, 32, True), (torch.float32, True, 64, True),
-    (torch.bfloat16, False, 256, False), (torch.float32, False, 256, False),
-    (torch.bfloat16, True, 256, False), (torch.float32, True, 256, False),
+    (torch.bfloat16, False, 256, True), (torch.float32, False, 256, True),
+    (torch.bfloat16, True, 256, True), (torch.float32, True, 256, True),
+    (torch.bfloat16, False, 192, True), (torch.bfloat16, True, 512, True),
 ])
 def test_short_key_wrappers_accept_the_head_dims_of_their_route(dtype, onematmul, hd, accepted):
-    """Before any launch: both short-key kernels take head_dim up to 128
-    in both dtypes (16, 32, 64 and 128 native, any other padded to the next)
-    and refuse more. On a device that is neither the CPU nor CUDA an
-    accepted operand set reaches the device check, a refused one stops at
-    the head_dim check; no launch is counted."""
+    """Before any launch: both short-key kernels take every head_dim in
+    both dtypes (16, 32, 64, 128 and multiples of 128 above native, any
+    other padded to the next). On a device that is neither the CPU nor CUDA
+    an accepted operand set reaches the device check; no launch is
+    counted."""
     H, B, Lq, Lk = 4, 2, 5, 7
     q = torch.empty(B, Lq, H * hd, dtype=dtype, device="meta")
     k = torch.empty(B, Lk, H * hd, dtype=dtype, device="meta")

@@ -136,7 +136,7 @@ def test_packed_plain_version_is_batched_in_fp32(B, lq, lk, E, H):
     """In float32 every rounding point of the packed chain is to f32, so
     `attention_packed_reference` computes `attention_batched_reference`'s
     function (the ground for running fp32 packed on the batched kernel's
-    register tiles), and both match the Pallas packed kernel in interpret
+    3xTF32 body), and both match the Pallas packed kernel in interpret
     mode: head_dim 32 and 64, Lq != Lk, sample 1 with every key masked."""
     from mesm_tpu_torch.ops.attention_batched import attention_batched_reference
 

@@ -146,7 +146,8 @@ def test_new_modules_are_covered():
     assert {"ln_dense.cu", "attention_packed.cu", "attention_batched.cu",
             "attention_shortkey.cu", "attention_heads.cu", "ffn_int8.cu", "stream_layer.cu",
             "anchor.cu", "attention_backward.cu", "attention_mma.cuh",
-            "attention_regtile.cuh", "attention_grid.cuh"} <= sources
+            "attention_regtile.cuh", "attention_grid.cuh", "attention_tf32.cuh",
+            "attention_fp32.cuh"} <= sources
     wrappers = {p.name for p in _kernel_wrapper_modules()}
     assert {"attention_heads.py", "ffn_int8.py", "stream_layer.py", "anchor.py",
             "attention_backward.py"} <= wrappers
@@ -280,8 +281,8 @@ def test_batched_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
         ab.attention_batched(*_attn_args(torch.float16, "meta"), 2)  # the kernel is fp32 or bf16
     with pytest.raises(ValueError, match="unsupported device"):
         ab.attention_batched(*_attn_args(torch.float32, "meta"), 4)  # head_dim 16: an instance
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        ab.attention_batched(*_attn_args(torch.float32, "meta", E=512), 2)  # head_dim 256
+    with pytest.raises(ValueError, match="unsupported device"):  # head_dim 256: a wide head
+        ab.attention_batched(*_attn_args(torch.float32, "meta", E=512), 2)
     q, k, v = _attn_args(torch.float32, "meta")
     with pytest.raises(ValueError, match="shapes"):
         ab.attention_batched(q, k, v[..., :32].contiguous(), 2)
@@ -329,8 +330,8 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         ap.attention_packed(*_attn_args(torch.float16, "meta"), 2)  # the kernel is bf16 or fp32
     with pytest.raises(ValueError, match="unsupported device"):
         ap.attention_packed(*_attn_args(torch.bfloat16, "meta"), 4)  # head_dim 16: an instance
-    with pytest.raises(ValueError, match="head_dim <= 128"):
-        ap.attention_packed(*_attn_args(torch.bfloat16, "meta", E=512), 2)  # head_dim 256
+    with pytest.raises(ValueError, match="unsupported device"):  # head_dim 256: a wide head
+        ap.attention_packed(*_attn_args(torch.bfloat16, "meta", E=512), 2)
     q, k, v = _attn_args(torch.bfloat16, "meta")
     with pytest.raises(ValueError, match="shapes"):
         ap.attention_packed(q, k, v[..., :32].contiguous(), 2)
