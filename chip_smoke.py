@@ -1169,27 +1169,57 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     return res
 
 
+# (rows, K, N1, K2) of the int8 FFN at widths off its tiles, held against
+# the plain version beside each site: widths that are no multiple of 32,
+# N1 2048 (the model's --dim_feedforward 2048), and N1 2048 on inputs
+# whose integer sums pass 2**24 (`big`: every h and w2 positive)
+FFN_WIDTHS = ((1000, 48, 80, 48, False), (4096, 256, 2048, 256, False),
+              (600, 256, 2048, 256, True))
+
+
+def _ffn_args(N: int, K: int, N1: int, K2: int, dt, seed: int = 5, big: bool = False):
+    """x (N, K) in dt and the FFN's f32 weights (torch layout), from a seed;
+    with `big`, positive inputs and weights, so that linear2's sums pass
+    2**24."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(N, K, generator=g, device="cuda")
+    w1 = torch.randn(N1, K, generator=g, device="cuda") / K**0.5
+    b1 = 0.1 * torch.randn(N1, generator=g, device="cuda")
+    alpha = torch.full((1,), 0.25, device="cuda")
+    w2 = torch.randn(K2, N1, generator=g, device="cuda") / N1**0.5
+    b2 = 0.1 * torch.randn(K2, generator=g, device="cuda")
+    if big:
+        x, w1, b1, w2 = x.abs() + 1, w1.abs(), b1.abs(), w2.abs() + 1
+    return x.to(dt), w1, b1, alpha, w2, b2
+
+
 def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 256,
                    N1: int = 1024) -> dict:
     """The fused int8 FFN at an FFN site (N rows of width K, hidden N1)
     against its plain version, its distance to the exact fp32 FFN, then its
     time, its plain version's, and as context the FFN it replaces in the
     site's dtype (F.linear -> prelu -> F.linear, cuBLAS) and torch._int_mm
-    for each of its two products."""
+    for each of its two products; untimed, the kernel at FFN_WIDTHS against
+    its plain version."""
     import torch
     import torch.nn.functional as Fn
 
     from mesm_tpu_torch.ops import ffn_int8 as fi
 
     dt = getattr(torch, dtype_name)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn(N, K, generator=g, device="cuda").to(dt)
-    w1 = torch.randn(N1, K, generator=g, device="cuda") / K**0.5
-    b1 = 0.1 * torch.randn(N1, generator=g, device="cuda")
-    alpha = torch.full((1,), 0.25, device="cuda")
-    w2 = torch.randn(K, N1, generator=g, device="cuda") / N1**0.5
-    b2 = 0.1 * torch.randn(K, generator=g, device="cuda")
-    args = (x, w1, b1, alpha, w2, b2)
+    widths = []
+    for rows, k, n1, k2, big in FFN_WIDTHS:
+        wargs = _ffn_args(rows, k, n1, k2, dt, seed=6, big=big)
+        wgot, wwant = fi.ffn_int8(*wargs), fi.ffn_int8_reference(*wargs)
+        torch.cuda.synchronize()
+        widths.append({"shape": [rows, k, n1, k2], "big_sums": big,
+                       "max_err_rel_to_max1": _rel_err(wgot, wwant),
+                       "bit_equal_share": float((wgot == wwant).float().mean()),
+                       "finite": bool(torch.isfinite(wgot).all())})
+    args = _ffn_args(N, K, N1, K, dt)
+    x, w1, b1, alpha, w2, b2 = args
     quantized = fi.weight_quantizations
     got = fi.ffn_int8(*args)
     want = fi.ffn_int8_reference(*args)
@@ -1203,7 +1233,10 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
         "tol": TOL["ffn_int8"], "finite": bool(torch.isfinite(got).all()),
         "vs_exact_fp32_mean_rel": float((got.float() - exact).abs().mean() / exact.abs().mean()),
     }
-    if not (err <= TOL["ffn_int8"] and res["finite"]):
+    res["widths"] = widths
+    if not (err <= TOL["ffn_int8"] and res["finite"]
+            and all(c["finite"] and c["max_err_rel_to_max1"] <= TOL["ffn_int8"]
+                    for c in res["widths"])):
         emit(dict(res, phase="kernels", ok=False))
         raise SystemExit(f"ffn_int8 at {site}: {res}")
     # the cached weights: 20 timed calls and the profiler's 21 quantize none
@@ -1225,6 +1258,7 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
     res["library_ms"] = cuda_time_ms(lambda: Fn.linear(Fn.prelu(Fn.linear(x, w1d, b1d), ad), w2d, b2d))
     w1q, _ = fi.quantize_weight(w1)
     w2q, _ = fi.quantize_weight(w2)
+    g = torch.Generator(device="cuda").manual_seed(7)
     xq = torch.randint(-127, 128, (N, K), generator=g, device="cuda", dtype=torch.int8)
     hq = torch.randint(-127, 128, (N, N1), generator=g, device="cuda", dtype=torch.int8)
     try:  # context only: a library call that may not take these shapes on every build
@@ -1240,12 +1274,61 @@ def check_ffn_int8(site: str, dtype_name: str, N: int, summary: str, K: int = 25
     return res
 
 
+# (Lq, Lk) of the stream layer at D 48 (head_dim 12, padded to 16 in the
+# kernel), 4 heads, F 80, per flavour, with a sample whose keys are all
+# masked, each with and without pair factors
+STREAM_EDGE = dict(D=48, H=4, F=80, B=3, cases={"encoder": ((70, 70),), "t2v": ((70, 1), (70, 17))})
+
+
+def _stream_edge_cases(flavor: str, dtype_name: str) -> list:
+    """The stream layer at STREAM_EDGE against its plain version, untimed."""
+    import torch
+
+    from mesm_tpu_torch.ops import stream_layer as sl
+
+    dt, e, out = getattr(torch, dtype_name), STREAM_EDGE, []
+    D, H, F, B = e["D"], e["H"], e["F"], e["B"]
+    for Lq, Lk in e["cases"][flavor]:
+        for pair in (False, True):
+            g = torch.Generator(device="cuda").manual_seed(Lk + 10 * pair)
+            rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+            x, pos = rn(B, Lq, D).to(dt), rn(B, Lq, D).to(dt)
+            k_in = v_in = None
+            if flavor == "t2v":
+                k_in, v_in = rn(B, Lk, D).to(dt), rn(B, Lk, D).to(dt)
+            shapes = {"w1": (F, D), "b1": (F,), "w2": (D, F), "alpha": (1,)}
+            params = {n: rn(*shapes.get(n, (D, D) if n in ("wq", "wk", "wv", "wo") else (D,)))
+                      * (1 / D**0.5 if n in ("wq", "wk", "wv", "wo", "w1") else
+                         1 / F**0.5 if n == "w2" else 0.3) for n in sl.WEIGHT_NAMES}
+            mask = torch.rand(B, Lk, generator=g, device="cuda") < 0.7
+            mask[:, 0] = True
+            mask[1] = False  # every key of sample 1 masked
+            pf = None
+            if pair:
+                pf = (torch.rand(B, H, Lq, generator=g, device="cuda") < 0.3,
+                      torch.rand(B, H, Lk, generator=g, device="cuda") < 0.3)
+            with torch.no_grad():
+                got = sl.fused_stream_layer(x, pos, k_in, v_in, mask, pf, params, H, flavor == "encoder")
+                want = sl.stream_layer_reference(x, pos, k_in, v_in, mask, pf, params, H,
+                                                 flavor == "encoder")
+            torch.cuda.synchronize()
+            out.append({"shape": [B, Lq, Lk, D, H, F], "pair": pair,
+                        "max_err_rel_to_max1": _rel_err(got, want),
+                        "finite": bool(torch.isfinite(got).all())})
+    return out
+
+
+STREAM_KERNEL = "stream_layer_kernel"
+
+
 def check_stream_layer(flavor: str, dtype_name: str, summary: str) -> dict:
     """The fused stream layer on the bench entry point's inputs at the
     charades widths (STREAM), sample 1 with every key masked, against its
-    plain version; then its time (CUDA events, and the kernel alone), the
-    plain version's, and as the library column the port's module layer in
-    eval on the same inputs (no single PyTorch call computes the layer)."""
+    plain version, on the device kernel STREAM_KERNEL (the profiler's
+    names); untimed, the layer at STREAM_EDGE; then its time (CUDA events,
+    and the kernel alone), the plain version's, and as the library column
+    the port's module layer in eval on the same inputs (no single PyTorch
+    call computes the layer)."""
     import torch
 
     from mesm_tpu_torch.ops import stream_layer as sl
@@ -1259,7 +1342,7 @@ def check_stream_layer(flavor: str, dtype_name: str, summary: str) -> dict:
         args[3] = args[3].clone()
         args[3][1] = False
         Lk = args[3].shape[1]
-        got = sl.fused_stream_layer(x, *args)
+        got, names = launched_kernels(lambda: sl.fused_stream_layer(x, *args))
         want = sl.stream_layer_reference(x, *args)
         torch.cuda.synchronize()
         err, tol = _rel_err(got, want), TOL[f"stream_layer_{dtype_name}"]
@@ -1268,8 +1351,11 @@ def check_stream_layer(flavor: str, dtype_name: str, summary: str) -> dict:
             "shape": [B, Lq, Lk, D, H, F], "pair": args[4] is not None, "summary_name": summary,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "max_err_rel_to_max1": err, "tol": tol, "finite": bool(torch.isfinite(got).all()),
+            "device_kernel": STREAM_KERNEL, "launched": names,
+            "edges": _stream_edge_cases(flavor, dtype_name),
         }
-        if not (err <= tol and res["finite"]):
+        if not (err <= tol and res["finite"] and any(STREAM_KERNEL in n for n in names)
+                and all(c["finite"] and c["max_err_rel_to_max1"] <= tol for c in res["edges"])):
             emit(dict(res, phase="kernels", ok=False))
             raise SystemExit(f"stream_layer {flavor} {dtype_name}: {res}")
         res["ms"] = cuda_time_ms(lambda: sl.fused_stream_layer(x, *args))
@@ -1278,45 +1364,78 @@ def check_stream_layer(flavor: str, dtype_name: str, summary: str) -> dict:
         res["plain_ms"] = cuda_time_ms(lambda: sl.stream_layer_reference(x, *args))
         res["library_ms"] = cuda_time_ms(lambda: case["module"](x))
     # x, pos and out (and the text's keys and values) once, the masks, the
-    # f32 weights; the operations of layer_pallas.py:236-237
+    # f32 weights; the operations of layer_pallas.py:236-237, in fp32 as
+    # three TF32 products each (3xTF32) at the TF32 rate
     item = x.element_size()
     moved = (3 * B * Lq * D + (0 if flavor == "encoder" else 2 * B * Lk * D)) * item + B * Lk \
         + (B * H * (Lq + Lk) if args[4] is not None else 0) + 4 * (4 * D * D + 2 * D * F + 8 * D + F + 1)
     ops = 2.0 * B * (Lq * D * D * 2 + Lk * D * D * 2 + Lq * Lk * D * 2 + Lq * D * F * 2)
-    res["bound_ms"], res["bound_by"] = bound(moved, ops, dtype_name)
+    if dtype_name == "float32":
+        res["bound_ms"], res["bound_by"] = bound(moved, 3 * ops, "tf32")
+    else:
+        res["bound_ms"], res["bound_by"] = bound(moved, ops, dtype_name)
     return res
 
 
-def check_layout_anchor(strided: bool, summary=None) -> dict:
-    """layout_anchor at the stream's shape (128 x 194 x 256 bf16), on a
-    row-major input and on a (B, D, L) tensor viewed as (B, L, D): a fresh
-    row-major tensor bit-equal to its plain version (a contiguous clone);
-    then its time, the plain version's and, on the strided view,
+# the anchor's layouts of a (B, L, D) stream, and the device kernel each
+# takes: row-major, a (B, D, L) tensor viewed as (B, L, D), and the [:, 1:]
+# slice of a row-major (B, L + 1, D) stream (the encoder memory without its
+# global token, the layout of phase stream_layer)
+ANCHOR_LAYOUTS = {"row": "anchor_rows_kernel", "transposed": "anchor_transpose_kernel",
+                  "slice": "anchor_rows_kernel"}
+ANCHOR_TARGET_MS = 0.0152  # the copy's aim at this shape: twice its byte bound
+
+
+def _anchor_input(layout: str, dt, seed: int = 8):
+    """A (128, 194, 256) stream of dtype dt in the given layout (ANCHOR_LAYOUTS)."""
+    import torch
+
+    B, L, D = MAIN_PATH["B"], MAIN_PATH["L"] - 1, MAIN_PATH["E"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    base = torch.randint(-100, 100, (B, D, L + 1), generator=g, device="cuda").to(dt)
+    if dt.is_floating_point:
+        base = base + torch.rand(B, D, L + 1, generator=g, device="cuda").to(dt)
+    if layout == "row":
+        return base[..., 1:].transpose(1, 2).contiguous()
+    if layout == "transposed":
+        return base[..., 1:].contiguous().transpose(1, 2)
+    return base.transpose(1, 2).contiguous()[:, 1:]
+
+
+def check_layout_anchor(layout: str, summary=None) -> dict:
+    """layout_anchor at the stream's shape (128 x 194 x 256) in one of
+    ANCHOR_LAYOUTS: in bf16, float32 (4 bytes) and uint8 (1 byte) a fresh
+    row-major tensor bit-equal to its plain version (a contiguous clone), on
+    the layout's device kernel; then, in bf16, its time against
+    ANCHOR_TARGET_MS, the plain version's and, where x is not row-major,
     x.contiguous()'s."""
     import torch
 
     from mesm_tpu_torch.ops import anchor
 
-    B, L, D = MAIN_PATH["B"], MAIN_PATH["L"] - 1, MAIN_PATH["E"]
-    g = torch.Generator(device="cuda").manual_seed(8)
-    base = torch.randn(B, D, L, generator=g, device="cuda").to(torch.bfloat16)
-    x = base.transpose(1, 2) if strided else base.transpose(1, 2).contiguous()
-    got = anchor.layout_anchor(x)
-    want = anchor.layout_anchor_reference(x)
-    torch.cuda.synchronize()
-    res = {
-        "kernel": "layout_anchor", "dtype": "bfloat16", "shape": [B, L, D], "strided": strided,
-        "summary_name": summary, "max_abs_err": float((got.float() - want.float()).abs().max()),
-        "bit_equal": bool(torch.equal(got.view(torch.int16), want.view(torch.int16))),
-        "row_major": got.is_contiguous(), "tol": TOL["layout_anchor"],
-    }
-    if not (res["bit_equal"] and res["row_major"] and got.data_ptr() != x.data_ptr()):
+    res = {"kernel": "layout_anchor", "layout": layout, "summary_name": summary,
+           "tol": TOL["layout_anchor"], "device_kernel": ANCHOR_LAYOUTS[layout], "dtypes": {}}
+    for dt in (torch.float32, torch.uint8, torch.bfloat16):
+        x = _anchor_input(layout, dt)
+        got, names = launched_kernels(lambda: anchor.layout_anchor(x))
+        want = anchor.layout_anchor_reference(x)
+        torch.cuda.synchronize()
+        res["dtypes"][str(dt)] = {
+            "bit_equal": bool(torch.equal(got.view(torch.uint8), want.view(torch.uint8))),
+            "row_major": got.is_contiguous() and got.data_ptr() != x.data_ptr(),
+            "launched": names}
+    res["shape"] = list(x.shape)
+    res["max_abs_err"] = float((got.float() - want.float()).abs().max())
+    if not all(c["bit_equal"] and c["row_major"]
+               and any(ANCHOR_LAYOUTS[layout] in n for n in c["launched"])
+               for c in res["dtypes"].values()):
         emit(dict(res, phase="kernels", ok=False))
-        raise SystemExit(f"layout_anchor strided={strided}: {res}")
+        raise SystemExit(f"layout_anchor {layout}: {res}")
     res["ms"] = cuda_time_ms(lambda: anchor.layout_anchor(x))
-    res["kernel_ms"] = device_kernel_ms(lambda: anchor.layout_anchor(x), "anchor_kernel")
+    res["kernel_ms"] = device_kernel_ms(lambda: anchor.layout_anchor(x), "anchor_")
+    res["target_ms"] = ANCHOR_TARGET_MS
     res["plain_ms"] = cuda_time_ms(lambda: anchor.layout_anchor_reference(x))
-    res["library_ms"] = cuda_time_ms(lambda: x.contiguous()) if strided else None
+    res["library_ms"] = None if x.is_contiguous() else cuda_time_ms(lambda: x.contiguous())
     res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * x.element_size(), 0.0, "bfloat16")
     return res
 
@@ -1738,12 +1857,13 @@ def phase_kernels() -> dict:
     results.append(check_ffn_int8("charades", "bfloat16", B16 * L16, "ffn_int8"))
     results.append(check_ffn_int8("tacos", "float32", B32 * TACOS["Lv"], "ffn_int8_float32"))
     # the fused stream layer on the bench entry point's inputs, both flavours
-    # and dtypes; the layout anchor on a row-major and a transposed stream
+    # and dtypes; the layout anchor in each of its layouts, the summary on
+    # the slice the stream_layer phase copies
     for flavor in ("encoder", "t2v"):
         for dtype_name, suffix in (("bfloat16", ""), ("float32", "_float32")):
             results.append(check_stream_layer(flavor, dtype_name, f"stream_layer_{flavor}{suffix}"))
-    results.append(check_layout_anchor(False))
-    results.append(check_layout_anchor(True, "layout_anchor"))
+    for layout in ANCHOR_LAYOUTS:
+        results.append(check_layout_anchor(layout, "layout_anchor" if layout == "slice" else None))
     out = {"phase": "kernels", "ok": True, "results": results}
     emit(out)
     return out

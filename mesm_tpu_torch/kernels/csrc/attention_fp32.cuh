@@ -199,6 +199,24 @@ struct Online {
 template <int HD>
 constexpr int NH = HD >= 128 ? HD / 16 : HD / 8;
 
+// One tile of KT keys for a warp's 16 rows: S = qs . K^T, the masks and the
+// online softmax update, then o = o * alpha + e . V. Kt, Vt: the tile's
+// split K and V rows (KT rows of RS<HD>); flags: its KT key flags; qf0, qf1:
+// the pair flags of rows g and g + 8. The step of block_attend below, and
+// of the fused stream layer (stream_layer.cu), whose K and V tiles are its
+// own projections.
+template <int HD>
+__device__ __forceinline__ void attend_tile(Online<HD / 8>& st, const SplitRows<HD>& qa,
+                                            const SplitTile& Kt, const SplitTile& Vt,
+                                            const uint8_t* flags, int lane, bool qf0, bool qf1) {
+  constexpr int NT = KT / 8;
+  float s[NT][4];
+  tf32x3::product_nt<HD, NT>(s, qa, Kt, 0, lane);
+  float alpha0, alpha1;
+  st.template update<NT>(s, flags, lane & 3, qf0, qf1, alpha0, alpha1);
+  st.template accumulate<HD, KT, NH<HD>>(s, Vt, lane, alpha0, alpha1);
+}
+
 // The output rows [q0, q0 + ROWS) of head h of sample b, head_dim HD (16,
 // 32, 64 or 128), by the THREADS threads of the block, with Smem<HD>::bytes
 // of dynamic shared memory at `smem`. q, k, v, out: (B, Lq or Lk, E) f32 on
@@ -268,12 +286,8 @@ __device__ __forceinline__ void block_attend(const float* __restrict__ q,
       [&](int, int bi) {
         if (!active) return;
         const float* base = buf + bi * 4 * T1;
-        float s[NT][4];
-        tf32x3::product_nt<HD, NT>(s, qa, SplitTile{base, base + T1}, 0, lane);
-        float alpha0, alpha1;
-        st.template update<NT>(s, Fs + bi * KT, t, qf0, qf1, alpha0, alpha1);
-        st.template accumulate<HD, KT, NH<HD>>(s, SplitTile{base + 2 * T1, base + 3 * T1}, lane,
-                                               alpha0, alpha1);
+        attend_tile<HD>(st, qa, SplitTile{base, base + T1}, SplitTile{base + 2 * T1, base + 3 * T1},
+                        Fs + bi * KT, lane, qf0, qf1);
       },
       [](int) {});
   if (active) st.store(out + h * HD, (size_t)b * Lq, r0, Lq, E, t);

@@ -21,8 +21,10 @@
 // output channel (w1q (N1, K), w2q (K2, N1) int8, torch's (out, in) layout;
 // s1, s2, b1, b2, alpha as bf16), made by the wrapper once per weight
 // version, as the TPU version makes them in XLA outside its pallas_call. The
-// integer sums are exact, and below 2**24 for K, N1 <= 1040, so int -> f32
-// -> bf16 rounds once, as the plain version's. The bf16 chain runs as
+// integer sums are exact (int32: depths up to 132,104), and bf(sum) is the
+// TPU kernel's acc.astype(bfloat16), which XLA computes as int -> f32 ->
+// bf16 (two roundings past 2**24; the plain version does the same on exact
+// sums). The bf16 chain runs as
 // bf16x2 instructions with round-to-nearest (mul.rn / add.rn, never fused):
 // each is the correctly rounded result of the f32 operation on bf16
 // operands, which is what the plain version's bf16 tensor ops compute.
@@ -73,8 +75,10 @@
 //   - A row's hidden columns all lie in the four lanes of one quad of one
 //     warp (the wgmma accumulator layout), so the row amax is two shuffles,
 //     with no shared atomics.
-//   - Scales and biases of linear1 sit in shared memory, loaded once per
-//     block; those of linear2 once per block of 256 output columns. x is
+//   - Scales and biases of linear1 are read through the L1 cache, a chunk
+//     at a time, their loads issued while the chunk's products run; those
+//     of linear2 sit in shared memory, loaded once per block of 256 output
+//     columns. x is
 //     quantized with 16-byte loads, 8 rows of a warp in flight at once
 //     (element loads where x is not on a 16-byte boundary).
 //   - Shared-memory operands use wgmma's canonical K-major layout without
@@ -84,11 +88,17 @@
 //   - Widths the main instance (WG = 2, NC = 64, 4 stages) cannot stage in
 //     a block's 227 KB (K above 384) take a second instance of the same
 //     kernel with a 64-row tile, 32-column chunks and 3 stages (WG = 1,
-//     NC = 32), chosen by shape before the launch; it holds K = N1 = 1024.
+//     NC = 32), chosen by shape before the launch; it holds K up to 1,248.
 //     More than 256 outputs repeat pass B per block of 256 output columns
-//     (the model has 256); output columns past K2 and hidden columns past N1
-//     are zero weights and zero scales in the stages, so they add nothing
-//     and are not stored.
+//     (the model has 256). Any K, N1 and K2: the wrapper pads the staged
+//     weights with zeros to K rounded up to 32, N1 to its chunks and K2 to
+//     blocks of 256 (and the scales and biases, zero, to 64 and 256), x's
+//     columns past K are quantized as zeros (element loads where a row is
+//     not on a 16-byte boundary), and the outputs are stored column by
+//     column where K2 is odd. Padded hidden columns are h = 0 (zero weights,
+//     scale and bias), outside every row's amax; padded outputs are not
+//     stored. linear1's scales and biases are read from the L1 cache, a
+//     chunk at a time, so no table grows with N1.
 // Not done: a persistent grid (one tile's x loads under the previous
 // tile's epilogue), warp-specialised producers, swizzled layouts.
 
@@ -341,25 +351,23 @@ __device__ __forceinline__ void wgmma_wait() {
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory of a block of WG warpgroups with NC-column hidden
-// chunks and S weight stages: the tile's xq, the stages (a w1 chunk and a
-// w2 chunk each), an hq chunk a warpgroup, linear1's scales and biases
-// (bf16 pairs), linear2's per warpgroup, each row's bf(xs), the stages'
-// mbarriers and release counters.
+// chunks and S weight stages, for Kp = K rounded up to 32: the tile's xq,
+// the stages (a w1 chunk and a w2 chunk each), an hq chunk a warpgroup,
+// linear2's scales and biases per warpgroup (bf16 pairs), each row's
+// bf(xs), the stages' mbarriers and release counters.
 template <int WG, int NC, int S>
 struct Layout {
   int J;  // hidden chunks
-  size_t w1_stage, w2_stage, xq, w1, w2, hq, s1, b1, s2, xs, bars, cnt, total;
-  __host__ __device__ Layout(int K, int N1) {
+  size_t w1_stage, w2_stage, xq, w1, w2, hq, s2, xs, bars, cnt, total;
+  __host__ __device__ Layout(int Kp, int N1) {
     J = (N1 + NC - 1) / NC;
-    w1_stage = (size_t)NC * K;
+    w1_stage = (size_t)NC * Kp;
     w2_stage = (size_t)KO * NC;
     xq = 0;
-    w1 = xq + (size_t)64 * WG * K;
+    w1 = xq + (size_t)64 * WG * Kp;
     w2 = w1 + S * w1_stage;
     hq = w2 + S * w2_stage;
-    s1 = hq + (size_t)WG * 64 * NC;
-    b1 = s1 + (size_t)J * NC * 2;
-    s2 = b1 + (size_t)J * NC * 2;  // per warpgroup: KO scales, then KO biases
+    s2 = hq + (size_t)WG * 64 * NC;  // per warpgroup: KO scales, then KO biases
     xs = s2 + (size_t)WG * 2 * KO * 2;
     bars = xs + (size_t)64 * WG * 4;
     cnt = bars + (size_t)S * 8;
@@ -367,13 +375,14 @@ struct Layout {
   }
 };
 
-// the 8 values x[0..8) as floats: one 16-byte load of bf16, two of float
-// (element loads where x is not on a 16-byte boundary)
+// the 8 values x[0..8) as floats, zeros from x[n] on: one 16-byte load of
+// bf16, two of float (element loads where the row is not on a 16-byte
+// boundary, or where n < 8)
 template <typename T>
-__device__ __forceinline__ void load8(const T* p, bool aligned, float (&f)[8]);
+__device__ __forceinline__ void load8(const T* p, bool aligned, int n, float (&f)[8]);
 template <>
-__device__ __forceinline__ void load8<bf16>(const bf16* p, bool aligned, float (&f)[8]) {
-  if (aligned) {
+__device__ __forceinline__ void load8<bf16>(const bf16* p, bool aligned, int n, float (&f)[8]) {
+  if (aligned && n >= 8) {
     const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
     const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
@@ -383,38 +392,49 @@ __device__ __forceinline__ void load8<bf16>(const bf16* p, bool aligned, float (
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(p[i]);
+    for (int i = 0; i < 8; ++i) f[i] = i < n ? __bfloat162float(p[i]) : 0.f;
   }
 }
 template <>
-__device__ __forceinline__ void load8<float>(const float* p, bool aligned, float (&f)[8]) {
-  if (aligned) {
+__device__ __forceinline__ void load8<float>(const float* p, bool aligned, int n, float (&f)[8]) {
+  if (aligned && n >= 8) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(p));
     const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
     f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
     f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
   } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = p[i];
+    for (int i = 0; i < 8; ++i) f[i] = i < n ? p[i] : 0.f;
   }
 }
 
-// with pred: two adjacent outputs from a bf16x2 word (predicated PTX)
+// two adjacent outputs from a bf16x2 word (predicated PTX): as one store
+// where `pair` (K2 even: the pair is aligned) and both p0 and p1, else
+// each half where its own predicate holds
 template <typename T>
-__device__ __forceinline__ void store2(bool pred, T* p, uint32_t v);
+__device__ __forceinline__ void store2(bool p0, bool p1, bool pair, T* p, uint32_t v);
 template <>
-__device__ __forceinline__ void store2<bf16>(bool pred, bf16* p, uint32_t v) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n@p st.global.b32 [%1], %2;\n}\n" ::"r"(
-                   (uint32_t)pred),
-               "l"(p), "r"(v)
-               : "memory");
+__device__ __forceinline__ void store2<bf16>(bool p0, bool p1, bool pair, bf16* p, uint32_t v) {
+  asm volatile(
+      "{\n.reg .pred w, a, b;\n"
+      "setp.ne.u32 w, %0, 0;\nsetp.ne.u32 a, %1, 0;\nsetp.ne.u32 b, %2, 0;\n"
+      "@w st.global.b32 [%3], %4;\n"
+      "@a st.global.b16 [%3], %5;\n@b st.global.b16 [%6], %7;\n}\n" ::"r"(
+          (uint32_t)(p0 && p1 && pair)),
+      "r"((uint32_t)(p0 && !pair)), "r"((uint32_t)(p1 && !pair)), "l"(p), "r"(v),
+      "h"((unsigned short)(v & 0xffffu)), "l"(p + 1), "h"((unsigned short)(v >> 16))
+      : "memory");
 }
 template <>
-__device__ __forceinline__ void store2<float>(bool pred, float* p, uint32_t v) {
+__device__ __forceinline__ void store2<float>(bool p0, bool p1, bool pair, float* p, uint32_t v) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.u32 p, %0, 0;\n@p st.global.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
-          (uint32_t)pred),
-      "l"(p), "f"(lo_f(v)), "f"(hi_f(v))
+      "{\n.reg .pred w, a, b;\n"
+      "setp.ne.u32 w, %0, 0;\nsetp.ne.u32 a, %1, 0;\nsetp.ne.u32 b, %2, 0;\n"
+      "@w st.global.v2.f32 [%3], {%4, %5};\n"
+      "@a st.global.f32 [%3], %4;\n@b st.global.f32 [%6], %5;\n}\n" ::"r"(
+          (uint32_t)(p0 && p1 && pair)),
+      "r"((uint32_t)(p0 && !pair)), "r"((uint32_t)(p1 && !pair)), "l"(p), "f"(lo_f(v)),
+      "f"(hi_f(v)), "l"(p + 1)
       : "memory");
 }
 
@@ -448,16 +468,30 @@ __device__ __forceinline__ void linear2_ops(int (&acc2)[KO / 2], uint64_t dh, ui
     wgmma_n256(acc2, dh + kk * DESC_K_STEP, dw + kk * DESC_K_STEP, 1);
 }
 
-// pass A's epilogue of one chunk: fold |h| of rows lr (A) and lr + 8 (B)
-// into mxA, mxB. s1t, b1t: the chunk's columns, as bf16 pairs
+// linear1's scales and biases of a thread's columns of one chunk (bf16
+// pairs: columns 8 nt + 2t, + 1 of n8 tile nt), read from device memory
+// through the L1 cache, issued while the chunk's products run
 template <int NC>
-__device__ __forceinline__ void amax_chunk(const int (&acc)[NC / 2], const uint32_t* s1t,
-                                           const uint32_t* b1t, int t, uint32_t xsA, uint32_t xsB,
-                                           uint32_t al2, uint32_t& mxA, uint32_t& mxB) {
+struct ChunkScales {
+  uint32_t s[NC / 8], b[NC / 8];
+  __device__ __forceinline__ void load(const uint32_t* s1t, const uint32_t* b1t, int t) {
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt) {
+      s[nt] = __ldg(s1t + 4 * nt + t);
+      b[nt] = __ldg(b1t + 4 * nt + t);
+    }
+  }
+};
+
+// pass A's epilogue of one chunk: fold |h| of rows lr (A) and lr + 8 (B)
+// into mxA, mxB
+template <int NC>
+__device__ __forceinline__ void amax_chunk(const int (&acc)[NC / 2], const ChunkScales<NC>& sc,
+                                           uint32_t xsA, uint32_t xsB, uint32_t al2,
+                                           uint32_t& mxA, uint32_t& mxB) {
 #pragma unroll
   for (int nt = 0; nt < NC / 8; ++nt) {
-    const int cw = (nt * 8 + 2 * t) >> 1;
-    const uint32_t s = s1t[cw], b = b1t[cw];
+    const uint32_t s = sc.s[nt], b = sc.b[nt];
     const uint32_t hA = prelu2(dequant(acc[4 * nt], acc[4 * nt + 1], s, xsA, b), al2);
     const uint32_t hB = prelu2(dequant(acc[4 * nt + 2], acc[4 * nt + 3], s, xsB, b), al2);
     mxA = max2(mxA, hA & 0x7fff7fffu);  // |h|, exact
@@ -470,14 +504,12 @@ __device__ __forceinline__ void amax_chunk(const int (&acc)[NC / 2], const uint3
 // n8 tiles at a time, each lane pair swapping halves so that every lane
 // stores 4 bytes (4 columns of one tile)
 template <int NC>
-__device__ __forceinline__ void hq_chunk(const int (&acc)[NC / 2], const uint32_t* s1t,
-                                         const uint32_t* b1t, int t, int lr, uint32_t xsA,
-                                         uint32_t xsB, uint32_t hrA, uint32_t hrB, uint32_t al2,
-                                         int8_t* hq, int sbo_h) {
+__device__ __forceinline__ void hq_chunk(const int (&acc)[NC / 2], const ChunkScales<NC>& sc,
+                                         int t, int lr, uint32_t xsA, uint32_t xsB, uint32_t hrA,
+                                         uint32_t hrB, uint32_t al2, int8_t* hq, int sbo_h) {
 #pragma unroll
   for (int n0 = 0; n0 < NC / 8; n0 += 2) {
-    const int cw = (n0 * 8 + 2 * t) >> 1;
-    const uint32_t sa = s1t[cw], ba = b1t[cw], sb = s1t[cw + 4], bb = b1t[cw + 4];
+    const uint32_t sa = sc.s[n0], ba = sc.b[n0], sb = sc.s[n0 + 1], bb = sc.b[n0 + 1];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const uint32_t xs = half ? xsB : xsA, hr = half ? hrB : hrA;
@@ -496,9 +528,10 @@ __device__ __forceinline__ void hq_chunk(const int (&acc)[NC / 2], const uint32_
 
 // The weights come staged (ops/ffn_int8.stage_weights): w1s holds, chunk
 // after chunk, the NC rows of w1q of each hidden chunk in the canonical
-// layout (NC x K bytes; zero rows past N1); w2s, for each block of KO
+// layout (NC x Kp bytes; zeros past K and N1); w2s, for each block of KO
 // output rows and each chunk, those rows' NC columns (KO x NC bytes; zeros
-// past K2 and N1). A stage is then two contiguous bulk copies.
+// past K2 and N1). A stage is then two contiguous bulk copies. s1, b1 are
+// zero-padded to a multiple of 64 columns, s2, b2 to one of KO.
 template <typename T, int WG, int NC, int S, int KS>
 __global__ void __launch_bounds__(128 * WG, 1)
 ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
@@ -507,22 +540,23 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
                 const bf16* __restrict__ s2, const bf16* __restrict__ b2, T* __restrict__ out,
                 int N, int K, int N1, int K2) {
   constexpr int THREADS = 128 * WG, R = 64 * WG;
-  const Layout<WG, NC, S> lay(K, N1);
+  const int Kp = (K + 31) & ~31;
+  const Layout<WG, NC, S> lay(Kp, N1);
   const int J = lay.J, NOB = (K2 + KO - 1) / KO, items = J * (1 + NOB);
   const int r0 = blockIdx.x * R;
   const int tid = threadIdx.x, wg = tid / 128, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int sbo_x = K * 8;   // xq and a w1 stage: K / 16 core matrices per 8-row group
+  const int sbo_x = Kp * 8;  // xq and a w1 stage: Kp / 16 core matrices per 8-row group
   const int sbo_h = NC * 8;  // an hq chunk and a w2 stage: NC / 16
-  const int ksteps = K / 32;
+  const int ksteps = Kp / 32;
 
   extern __shared__ __align__(128) unsigned char smem[];
   int8_t* xq = reinterpret_cast<int8_t*>(smem + lay.xq);
   int8_t* st1 = reinterpret_cast<int8_t*>(smem + lay.w1);
   int8_t* st2 = reinterpret_cast<int8_t*>(smem + lay.w2);
   int8_t* hq = reinterpret_cast<int8_t*>(smem + lay.hq) + wg * 64 * NC;
-  uint32_t* s1t = reinterpret_cast<uint32_t*>(smem + lay.s1);  // bf16 pairs
-  uint32_t* b1t = reinterpret_cast<uint32_t*>(smem + lay.b1);
+  const uint32_t* s1t = reinterpret_cast<const uint32_t*>(s1);  // bf16 pairs
+  const uint32_t* b1t = reinterpret_cast<const uint32_t*>(b1);
   uint32_t* s2t = reinterpret_cast<uint32_t*>(smem + lay.s2) + wg * KO;  // KO / 2 scales, KO / 2 biases
   uint32_t* b2t = s2t + KO / 2;
   uint32_t* xs_row = reinterpret_cast<uint32_t*>(smem + lay.xs);  // bf(xs), both halves
@@ -560,40 +594,31 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
   __syncthreads();
   for (int i = 0; i < S && i < items; ++i) issue(tid == 0, i);
 
-  // linear1's scales and biases, zero past N1 (so a padded hidden column is
-  // h = 0, outside every row's amax); linear2's of the first output block
-  for (int c0 = 0; c0 < J * NC / 2; c0 += THREADS) {
-    const int c = min(c0 + tid, J * NC / 2 - 1);  // past the end: a repeat of the last word
-    const int cin = min(c, N1 / 2 - 1);
-    const uint32_t sv = __ldg(reinterpret_cast<const unsigned int*>(s1) + cin);
-    const uint32_t bv = __ldg(reinterpret_cast<const unsigned int*>(b1) + cin);
-    s1t[c] = 2 * c < N1 ? sv : 0u;
-    b1t[c] = 2 * c < N1 ? bv : 0u;
-  }
+  // linear2's scales and biases of the first output block (zero past K2:
+  // the padding)
   static_assert(KO / 2 == 128, "one word of linear2's scales and biases per thread of a warpgroup");
   auto load_s2 = [&](int ob) {
-    const int c = tid % 128, cin = min(ob * KO / 2 + c, K2 / 2 - 1);
-    const uint32_t sv = __ldg(reinterpret_cast<const unsigned int*>(s2) + cin);
-    const uint32_t bv = __ldg(reinterpret_cast<const unsigned int*>(b2) + cin);
-    s2t[c] = ob * KO + 2 * c < K2 ? sv : 0u;
-    b2t[c] = ob * KO + 2 * c < K2 ? bv : 0u;
+    const int c = tid % 128;
+    s2t[c] = __ldg(reinterpret_cast<const unsigned int*>(s2) + ob * KO / 2 + c);
+    b2t[c] = __ldg(reinterpret_cast<const unsigned int*>(b2) + ob * KO / 2 + c);
   };
   load_s2(0);
   const uint32_t al2 = bcast2(__bfloat162float(alpha[0]));
 
   // quantize the tile's rows of x, 8 rows of a warp at a time; rows past N
-  // repeat row N - 1 and are not stored
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // repeat row N - 1 and are not stored; columns past K are zeros
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && (K * sizeof(T)) % 16 == 0;
   constexpr int RB = 8;
   for (int rb = warp * 16; rb < warp * 16 + 16; rb += RB) {
     float ax[RB];
 #pragma unroll
     for (int u = 0; u < RB; ++u) ax[u] = 0.f;
-    for (int c0 = 0; c0 < K / 8; c0 += 32) {
-      const int c = min(c0 + lane, K / 8 - 1);  // past the row: a repeat of its last chunk
+    for (int c0 = 0; c0 < Kp / 8; c0 += 32) {
+      const int c = min(c0 + lane, Kp / 8 - 1);  // past the row: a repeat of its last chunk
       float f[RB][8];
 #pragma unroll
-      for (int u = 0; u < RB; ++u) load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, f[u]);
+      for (int u = 0; u < RB; ++u)
+        load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, K - 8 * c, f[u]);
 #pragma unroll
       for (int u = 0; u < RB; ++u)
 #pragma unroll
@@ -608,12 +633,12 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
       inv2[u] = bcast2(1.0f / xs);
       xs_row[rb + u] = bcast2(xs);  // the same word from every lane
     }
-    for (int c0 = 0; c0 < K / 8; c0 += 32) {
-      const int c = min(c0 + lane, K / 8 - 1);
+    for (int c0 = 0; c0 < Kp / 8; c0 += 32) {
+      const int c = min(c0 + lane, Kp / 8 - 1);
 #pragma unroll
       for (int u = 0; u < RB; ++u) {
         float f[8];
-        load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, f);
+        load8(x + (size_t)min(r0 + rb + u, N - 1) * K + 8 * c, aligned, K - 8 * c, f);
         uint32_t qb[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) qb[e] = i8pair(mul2(pack2(f[2 * e], f[2 * e + 1]), inv2[u]));
@@ -641,10 +666,12 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
     wait_full(j);
     linear1_ops<NC, KS>(acc1, dx, dw1(j), ksteps);
     wgmma_commit();
+    ChunkScales<NC> sc;
+    sc.load(s1t + j * NC / 2, b1t + j * NC / 2, t);
     wgmma_wait<0>();
     fence_regs(acc1);
     release(j);
-    amax_chunk<NC>(acc1, s1t + j * NC / 2, b1t + j * NC / 2, t, xsA, xsB, al2, mxA, mxB);
+    amax_chunk<NC>(acc1, sc, xsA, xsB, al2, mxA, mxB);
   }
   float ahA = fmaxf(lo_f(mxA), hi_f(mxA)), ahB = fmaxf(lo_f(mxB), hi_f(mxB));
 #pragma unroll
@@ -673,10 +700,11 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
       wait_full(i);
       linear1_ops<NC, KS>(acc1, dx, dw1(i), ksteps);
       wgmma_commit();
+      ChunkScales<NC> sc;
+      sc.load(s1t + j * NC / 2, b1t + j * NC / 2, t);
       wgmma_wait<0>();
       fence_regs(acc1);
-      hq_chunk<NC>(acc1, s1t + j * NC / 2, b1t + j * NC / 2, t, lr, xsA, xsB, hrA, hrB, al2, hq,
-                   sbo_h);
+      hq_chunk<NC>(acc1, sc, t, lr, xsA, xsB, hrA, hrB, al2, hq, sbo_h);
       fence_async_smem();
       warpgroup_sync(wg);
       linear2_ops<NC>(acc2, dh, dw2(i));
@@ -685,15 +713,19 @@ ffn_int8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w1s,
       fence_regs(acc2);
       release(i);
     }
-    // out = ((bf(acc2) * s2) * bf(hs)) + b2 for the rows below N
+    // out = ((bf(acc2) * s2) * bf(hs)) + b2 for the rows below N and the
+    // columns below K2 (pairs where K2 is even, else column by column)
+    const bool pair = (K2 & 1) == 0;
 #pragma unroll
     for (int nt = 0; nt < KO / 8; ++nt) {
-      if (ob * KO + nt * 8 >= K2) break;  // K2 is a multiple of 32
+      if (ob * KO + nt * 8 >= K2) break;
       const int c = nt * 8 + 2 * t, col = ob * KO + c;
       const uint32_t s = s2t[c >> 1], b = b2t[c >> 1];
-      store2(r0 + rA < N, out + (size_t)(r0 + rA) * K2 + col,
+      const bool in0 = col < K2, in1 = col + 1 < K2;
+      store2(r0 + rA < N && in0, r0 + rA < N && in1, pair, out + (size_t)(r0 + rA) * K2 + col,
              dequant(acc2[4 * nt], acc2[4 * nt + 1], s, hsA, b));
-      store2(r0 + rA + 8 < N, out + (size_t)(r0 + rA + 8) * K2 + col,
+      store2(r0 + rA + 8 < N && in0, r0 + rA + 8 < N && in1, pair,
+             out + (size_t)(r0 + rA + 8) * K2 + col,
              dequant(acc2[4 * nt + 2], acc2[4 * nt + 3], s, hsB, b));
     }
   }
@@ -703,16 +735,20 @@ constexpr size_t MAX_SMEM = 232448;  // bytes a block may use on sm_90
 
 // the instances: 128-row tiles with 64-column chunks and 4 stages, with the
 // k steps of the model's K = 256 unrolled, or any K; 64-row tiles with
-// 32-column chunks and 3 stages where the 128-row tile does not fit
+// 32-column chunks and 3 stages where the 128-row tile does not fit. Kp is
+// K rounded up to 32.
 typedef Layout<2, 64, 4> MainLayout;
 typedef Layout<1, 32, 3> SmallLayout;
-bool main_fits(int K, int N1) { return MainLayout(K, N1).total <= MAX_SMEM; }
+int padded(int K) { return (K + 31) & ~31; }
+bool main_fits(int K, int N1) { return MainLayout(padded(K), N1).total <= MAX_SMEM; }
+// the int32 sums stay exact: 128 * 127 * depth < 2**31
+constexpr int MAX_DEPTH = 132104;
 
 template <typename T, int WG, int NC, int S, int KS>
 int launch(const void* x, const void* w1s, const void* s1, const void* b1, const void* alpha,
            const void* w2s, const void* s2, const void* b2, void* out, int N, int K, int N1,
            int K2, cudaStream_t stream) {
-  const size_t smem = Layout<WG, NC, S>(K, N1).total;
+  const size_t smem = Layout<WG, NC, S>(padded(K), N1).total;
   const auto kernel = ffn_int8_kernel<T, WG, NC, S, KS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -729,7 +765,7 @@ template <typename T>
 int route(const void* x, const void* w1s, const void* s1, const void* b1, const void* alpha,
           const void* w2s, const void* s2, const void* b2, void* out, int N, int K, int N1,
           int K2, cudaStream_t s) {
-  if (K == 256 && main_fits(K, N1))
+  if (padded(K) == 256 && main_fits(K, N1))
     return launch<T, 2, 64, 4, 8>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
   if (main_fits(K, N1))
     return launch<T, 2, 64, 4, 0>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
@@ -742,8 +778,8 @@ int route(const void* x, const void* w1s, const void* s1, const void* b1, const 
 // main instance's where it fits, else the 64-row instance's, so the wrapper
 // can refuse before launching.
 extern "C" long long ffn_int8_smem_bytes(int K, int N1) {
-  return main_fits(K, N1) ? (long long)MainLayout(K, N1).total
-                          : (long long)SmallLayout(K, N1).total;
+  return main_fits(K, N1) ? (long long)MainLayout(padded(K), N1).total
+                          : (long long)SmallLayout(padded(K), N1).total;
 }
 
 // Hidden columns per chunk of the instance the launch for K, N1 takes (64 or
@@ -753,16 +789,17 @@ extern "C" int ffn_int8_chunk_cols(int K, int N1) { return main_fits(K, N1) ? 64
 // Plain C entry point, bound with ctypes. x: (N, K) and out: (N, K2), both
 // bf16 (is_bf16 = 1) or both float32, contiguous; w1s and w2s the int8
 // weights staged for ffn_int8_chunk_cols(K, N1) columns a chunk, on 16-byte
-// boundaries; s1, b1: (N1,), s2, b2: (K2,) and alpha: (1,) bf16, on 4-byte
-// boundaries. K, N1 and K2 are multiples of 32, K and N1 at most 1040.
-// Returns the cudaError_t of the launch (0 = success).
+// boundaries; s1, b1: N1 zero-padded to a multiple of 64, s2, b2: K2
+// zero-padded to a multiple of 256, and alpha: (1,), bf16 on 4-byte
+// boundaries. Any K, N1 and K2 up to MAX_DEPTH whose tile fits
+// (ffn_int8_smem_bytes). Returns the cudaError_t of the launch (0 = success).
 extern "C" int ffn_int8_launch(const void* x, const void* w1s, const void* s1, const void* b1,
                                const void* alpha, const void* w2s, const void* s2, const void* b2,
                                void* out, int N, int K, int N1, int K2, int is_bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || K <= 0 || N1 <= 0 || K2 <= 0 || K % 32 || N1 % 32 || K2 % 32 || K > 1040 ||
-      N1 > 1040)
+  if (N <= 0 || K <= 0 || N1 <= 0 || K2 <= 0 || K > MAX_DEPTH || N1 > MAX_DEPTH ||
+      ffn_int8_smem_bytes(K, N1) > (long long)MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   if (is_bf16) return route<bf16>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);
   return route<float>(x, w1s, s1, b1, alpha, w2s, s2, b2, out, N, K, N1, K2, s);

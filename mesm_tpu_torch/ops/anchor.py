@@ -4,8 +4,10 @@ row-major memory.
 Counterpart of mesm_tpu/ops/anchor.py::layout_anchor, with "on the TPU"
 read as "on CUDA". It returns x itself on the CPU, for x.ndim != 3 and in
 kernel mode "off" (which keeps every call site free of custom kernels);
-otherwise it launches kernels/csrc/anchor.cu, a copy with a grid over B that
-reads x through its strides and writes a fresh row-major (B, L, D) tensor.
+otherwise it launches kernels/csrc/anchor.cu, a tiled copy over (B, L, D)
+that reads x through its strides (16-byte accesses along D where D has the
+unit stride, a shared-memory transpose where L has it, element copies for
+other strides) and writes a fresh row-major (B, L, D) tensor.
 A strided view (a slice or a transpose of the stream) is the case it is
 for. Its plain version, `layout_anchor_reference`, is
 x.clone(memory_format=torch.contiguous_format): the same bits. The JAX

@@ -19,14 +19,19 @@ on CPU tensors. Both take the kernel's stages:
   hs = max(ah, 1e-8) * (1/127), returned in x's dtype.
 
 Every round to int8 saturates to [-128, 127], as XLA's float -> int8
-conversion does. The integer products are exact: their sums stay below 2**24
-for K and N1 up to 1040, so the plain version takes them as f32 matrix products (there
-is no integer matmul on CUDA) and int -> f32 -> bf16 rounds once.
+conversion does. The integer products are exact at any depth: the plain
+version sums them as f64 matrix products (there is no integer matmul on
+CUDA; f64 holds every sum below 2**53) and the kernel in int32 (exact up to
+MAX_DEPTH). bf(sum) is the JAX kernel's acc.astype(bfloat16), which XLA
+computes as int32 -> f32 -> bf16: two roundings once a sum passes 2**24,
+and both versions round the same way.
 
 Weights come in torch Linear layout, (out, in); wq rows, whose k run is
 contiguous, are the K-major B operands of the kernel's int8 wgmma, which
-the wrapper keeps in the order the kernel's stages hold them
-(`stage_weights`).
+the wrapper keeps in the order the kernel's stages hold them, zero-padded
+to the kernel's tiles (`stage_weights`, `stage_vectors`): any K, N1 and K2
+take the kernel, up to what a block's shared memory holds of x's 64-row
+tile (K up to 1,248).
 
 The kernel's wrapper takes the quantized weights from `quantized_weights`,
 which computes them once per weight version: its cache
@@ -50,10 +55,9 @@ from ..kernels import refuse_autograd
 from ._weight_cache import Entry, derived
 
 MAX_SMEM = 232448  # bytes a block may use on sm_90
-# an int8 product's sums, <= 127 * 127 * depth, stay below 2**24 (so int ->
-# f32 -> bf16 rounds once) for depths up to 1040: K = 256 and N1 = 1024 at
-# the model's widths
-MAX_DEPTH = 1040
+# the kernel's int32 sums, |sum| <= 128 * 127 * depth, stay exact for depths
+# (K, N1) up to this
+MAX_DEPTH = 132104
 
 # kernel launches since import (or since the caller last set it to 0)
 launches = 0
@@ -112,30 +116,44 @@ KO = 256
 def stage_weights(w1q: torch.Tensor, w2q: torch.Tensor, nc: int):
     """The int8 weights in the order the kernel's stages hold them, for
     hidden chunks of `nc` columns: (w1s, w2s), flat int8. w1s holds, chunk
-    after chunk, the chunk's nc rows of w1q (N1, K); w2s, for each block of
-    KO output rows and each chunk, those rows' nc columns of w2q (K2, N1);
-    zeros past N1 and K2. Each (rows x cols) piece is in wgmma's K-major
-    layout without swizzle: byte (r, k) at (r // 8) * (cols // 16) * 128 +
-    (k // 16) * 128 + (r % 8) * 16 + k % 16."""
+    after chunk, the chunk's nc rows of w1q (N1, K), each row K rounded up
+    to 32 wide; w2s, for each block of KO output rows and each chunk, those
+    rows' nc columns of w2q (K2, N1); zeros past K, N1 and K2. Each (rows x
+    cols) piece is in wgmma's K-major layout without swizzle: byte (r, k) at
+    (r // 8) * (cols // 16) * 128 + (k // 16) * 128 + (r % 8) * 16 + k % 16."""
     N1, K = w1q.shape
     K2 = w2q.shape[0]
+    Kp = -(-K // 32) * 32
     J, nob = -(-N1 // nc), -(-K2 // KO)
-    w1p = w1q.new_zeros(J * nc, K)
-    w1p[:N1] = w1q
-    w1s = w1p.view(J, nc // 8, 8, K // 16, 16).permute(0, 1, 3, 2, 4).reshape(-1)
+    w1p = w1q.new_zeros(J * nc, Kp)
+    w1p[:N1, :K] = w1q
+    w1s = w1p.view(J, nc // 8, 8, Kp // 16, 16).permute(0, 1, 3, 2, 4).reshape(-1)
     w2p = w2q.new_zeros(nob * KO, J * nc)
     w2p[:K2, :N1] = w2q
     w2s = w2p.view(nob, KO // 8, 8, J, nc // 16, 16).permute(0, 3, 1, 4, 2, 5).reshape(-1)
     return w1s, w2s
 
 
+def stage_vectors(s1, b1, s2, b2):
+    """The bf16 scales and biases as the kernel reads them: s1, b1
+    zero-padded to a multiple of 64 hidden columns, s2, b2 to one of KO
+    outputs (zero scale and bias: a padded hidden column is h = 0, a padded
+    output is not stored)."""
+    def pad(v, m):
+        out = v.new_zeros(-(-v.numel() // m) * m)
+        out[:v.numel()] = v
+        return out
+    return pad(s1, 64), pad(b1, 64), pad(s2, KO), pad(b2, KO)
+
+
 def staged_weights(w1, b1, alpha, w2, b2, nc: int):
-    """stage_weights of quantized_weights' int8 weights, kept in the same
+    """stage_weights of quantized_weights' int8 weights and stage_vectors of
+    its scales and biases, (w1s, w2s, s1, b1, s2, b2), kept in the same
     cache entry (computed once per weight version and chunk width)."""
-    w1q, _, _, _, w2q, _, _ = quantized_weights(w1, b1, alpha, w2, b2)
+    w1q, s1, b1b, _, w2q, s2, b2b = quantized_weights(w1, b1, alpha, w2, b2)
     values = derived(_weight_cache, (w1, b1, alpha, w2, b2))
     if ("staged", nc) not in values:
-        values["staged", nc] = stage_weights(w1q, w2q, nc)
+        values["staged", nc] = stage_weights(w1q, w2q, nc) + stage_vectors(s1, b1b, s2, b2b)
     return values["staged", nc]
 
 
@@ -161,25 +179,25 @@ def ffn_int8_reference(x, w1, b1, alpha, w2, b2):
     ax = x2.float().abs().amax(dim=-1, keepdim=True)
     xs = _row_scale(ax)
     xq = _to_i8(x2.to(bf) * _div(1.0, xs).to(bf))
-    acc1 = torch.matmul(xq, w1q.float().t())  # exact integer sums
-    h = acc1.to(bf) * s1.to(bf) * xs.to(bf) + b1.to(bf)
+    acc1 = torch.matmul(xq.double(), w1q.double().t())  # exact integer sums
+    h = acc1.float().to(bf) * s1.to(bf) * xs.to(bf) + b1.to(bf)
     a = alpha.to(bf).reshape(())
     h = torch.clamp(h, min=0) + a * torch.clamp(h, max=0)
     ah = h.float().abs().amax(dim=-1, keepdim=True)
     hr = _div(127.0, torch.clamp(ah, min=1e-8)).to(bf)
     hq = _to_i8(h * hr)
-    acc2 = torch.matmul(hq, w2q.float().t())
-    out = acc2.to(bf) * s2.to(bf) * _row_scale(ah).to(bf) + b2.to(bf)
+    acc2 = torch.matmul(hq.double(), w2q.double().t())
+    out = acc2.float().to(bf) * s2.to(bf) * _row_scale(ah).to(bf) + b2.to(bf)
     return out.to(x.dtype).reshape(*shape[:-1], w2.shape[0])
 
 
 def ffn_int8(x, w1, b1, alpha, w2, b2):
     """linear2(prelu(linear1(x))) with the int8 kernel's numerics. CPU
     tensors take the plain version; CUDA tensors launch the kernel (x bf16
-    or fp32; K, N1 and K2 multiples of 32, K and N1 at most MAX_DEPTH) or
-    raise, with the weights quantized once per version
-    (`quantized_weights`). Raises for an input that requires grad in grad
-    mode (no graph)."""
+    or fp32; any K2, K and N1 up to MAX_DEPTH, K as far as its 64-row tile
+    fits a block's shared memory) or raise, with the weights quantized once
+    per version (`quantized_weights`). Raises for an input that requires
+    grad in grad mode (no graph)."""
     global launches
     refuse_autograd("ffn_int8", x, w1, b1, alpha, w2, b2)
     if x.device.type == "cpu":
@@ -194,9 +212,9 @@ def ffn_int8(x, w1, b1, alpha, w2, b2):
             f"ffn_int8: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
             f"alpha {tuple(alpha.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}"
         )
-    if K % 32 or N1 % 32 or K2 % 32 or max(K, N1) > MAX_DEPTH:
-        raise ValueError(f"ffn_int8: the kernel takes K, N1, K2 multiples of 32 and K, N1 <= "
-                         f"{MAX_DEPTH}, got {K}, {N1}, {K2}")
+    if max(K, N1) > MAX_DEPTH:
+        raise ValueError(f"ffn_int8: the kernel's int32 sums are exact up to a depth of "
+                         f"{MAX_DEPTH}, got K {K}, N1 {N1}")
     if not x.is_contiguous():
         raise ValueError("ffn_int8: x must be contiguous")
     if any(t.device != x.device for t in (w1, b1, alpha, w2, b2)):
@@ -216,8 +234,8 @@ def ffn_int8(x, w1, b1, alpha, w2, b2):
     chunk_cols = lib.ffn_int8_chunk_cols
     chunk_cols.restype = ctypes.c_int
     chunk_cols.argtypes = [ctypes.c_int, ctypes.c_int]
-    _, s1, b1b, alpha_b, _, s2, b2b = quantized_weights(w1, b1, alpha, w2, b2)
-    w1s, w2s = staged_weights(w1, b1, alpha, w2, b2, chunk_cols(K, N1))
+    alpha_b = quantized_weights(w1, b1, alpha, w2, b2)[3]
+    w1s, w2s, s1, b1b, s2, b2b = staged_weights(w1, b1, alpha, w2, b2, chunk_cols(K, N1))
     N = x.numel() // K
     out = torch.empty(*x.shape[:-1], K2, dtype=x.dtype, device=x.device)
     operands = (x, w1s, s1, b1b, alpha_b, w2s, s2, b2b, out)

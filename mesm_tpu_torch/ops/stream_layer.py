@@ -42,6 +42,17 @@ scales and biases as vectors; alpha the PReLU slope (1,). Masks come in the
 port's forms: the (B, Lk) bool valid mask (True = attendable) and the
 model's (B, H, Lq) / (B, H, Lk) pair factors (models/t2v.py
 scrambled_pair_factors), which either flavour takes, as the TPU kernel does.
+
+The kernel reads its weights as tiles in the order it walks them
+(`kernel_weights`, kept once per weight version in the cache of
+ops/_weight_cache.py): each head's Wk, Wv, Wq rows padded to the head_dim
+of an attention instance (`padded_head_dim`: 16, 32, 64 or 128), then one
+stream of Wo, W1 and W2 tiles; every width padded with zeros (D and the
+attention width H * hdp to 64, F to 64), bf16 tiles of 64 columns with
+their 16-byte chunks swizzled, fp32 tiles of 32 columns split into hi and
+lo (3xTF32). So the kernel takes any D whose head_dim is at most 128, any
+F, Lq and Lk: bf16 as many keys as fit a block's shared memory, fp32 any
+(`stream_layer_config` says).
 """
 from __future__ import annotations
 
@@ -52,17 +63,24 @@ import torch
 
 from ..kernels import refuse_autograd
 from ..models.layers import PReLU
+from ._weight_cache import Entry, derived
 from .attention_packed import factors_u8, mask_u8
 
 NEG_INF = -1e9
 LN_EPS = 1e-5
-# the dense products step through the depth in whole tiles of 32
-K_STEP = 32
+# the head dims of the kernel's attention instances; a smaller head_dim is
+# zero-padded to the next of them
+HEAD_DIMS = (16, 32, 64, 128)
+# rows of a weight tile of the kernel's second phase, hidden columns of an
+# FFN chunk; D, F and the attention width are padded to a multiple of it
+TILE = 64
 WEIGHT_NAMES = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ln1s", "ln1b",
                 "w1", "b1", "alpha", "w2", "b2", "ln2s", "ln2b")
 
 # kernel launches since import (or since the caller last set it to 0)
 launches = 0
+# weight layouts computed by kernel_weights (cache misses), counted alike
+weight_layouts = 0
 
 
 def _dot2(x, w, b):
@@ -170,9 +188,9 @@ def _check(x, pos, k_in, v_in, valid_mask, params, heads: int, self_attn: bool):
             f"k_in {None if k_in is None else tuple(k_in.shape)}, heads {heads}, "
             f"mask {None if valid_mask is None else tuple(valid_mask.shape)}, params {bad}"
         )
-    if D % K_STEP or F % K_STEP:
-        raise ValueError(f"fused_stream_layer: the kernel takes D and F multiples of {K_STEP}, "
-                         f"got D {D}, F {F}")
+    if padded_head_dim(D // heads) is None:
+        raise ValueError(f"fused_stream_layer: the kernel takes a head_dim up to {HEAD_DIMS[-1]}, "
+                         f"got D {D} / {heads} heads")
     if x.device.type != "cuda":
         raise ValueError(f"fused_stream_layer: unsupported device {x.device}")
     if any(t.device != x.device for t in params.values()):
@@ -180,13 +198,142 @@ def _check(x, pos, k_in, v_in, valid_mask, params, heads: int, self_attn: bool):
     return B, Lq, Lk, D, F
 
 
+def padded_head_dim(hd: int) -> Optional[int]:
+    """The head_dim of the kernel instance a head of hd columns runs on (the
+    smallest of HEAD_DIMS at least hd), or None above them."""
+    return next((p for p in HEAD_DIMS if p >= hd), None)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to tf32 as the kernels round (half a tf32 ulp added to the
+    magnitude, the 13 low bits cleared: attention_tf32.cuh tf32())."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def weight_tiles(w: torch.Tensor, rows: int, bf16: bool) -> torch.Tensor:
+    """The tiles of a padded weight w (N, K) (N a multiple of rows; K of 64
+    in bf16, of 32 in fp32), (N // rows, K // depth, tile elements), tile
+    (n0, k0) holding rows n0 * rows.. and depth k0 * depth..:
+    bf16: rows x 64, element (n, k) at n * 64 + ((k // 8) ^ (n % 8)) * 8 +
+    k % 8 (the 16-byte chunks of a row swizzled by the row);
+    fp32: rows x 36 of hi = tf32(w), then rows x 36 of lo = tf32(w - hi),
+    columns 32-35 zero."""
+    N, K = w.shape
+    nb = N // rows
+    if bf16:
+        t = w.to(torch.bfloat16).reshape(nb, rows, K // 64, 8, 8).permute(0, 2, 1, 3, 4)
+        n = torch.arange(rows, device=w.device)[:, None]
+        chunk = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
+        return t[:, :, n, chunk].reshape(nb, K // 64, rows * 64)
+    t = w.float().reshape(nb, rows, K // 32, 32).permute(0, 2, 1, 3)
+    hi = _tf32(t)
+    lo = _tf32(t - hi)
+    out = t.new_zeros(nb, K // 32, 2, rows, 36)
+    out[:, :, 0, :, :32] = hi
+    out[:, :, 1, :, :32] = lo
+    return out.reshape(nb, K // 32, 2 * rows * 36)
+
+
+def _pad(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    out = t.new_zeros(*shape, dtype=torch.float32)
+    out[tuple(slice(0, n) for n in t.shape)] = t.float()
+    return out
+
+
+def layout_weights(params: Dict[str, torch.Tensor], heads: int, bf16: bool,
+                   group: int = 1) -> Dict[str, torch.Tensor]:
+    """The kernel's weight operands (stream_layer.cu stream_layer_launch),
+    computed from the parameters, for phase-1 items of `group` heads:
+
+    - w1s: phase 1's tiles, (Hp / group, 3, Dq // depth) tiles of group hdp
+      rows: the group's rows of wk, wv, wq (k, v, q), each head's hd rows
+      padded to hdp, the heads padded with zeros to Hp = heads rounded up
+      to `group`;
+    - bqkv: (3, Hp, hdp) f32, bk, bv, bq the same way;
+    - w2s: phase 2's stream of 64-row tiles, in the order the kernel takes
+      them: Wo (Dq, Ka) by (row tile, depth tile), with the head columns at
+      h * hdp; then for each chunk j of 64 hidden columns W1's rows of the
+      chunk (depth D), and W2's columns of the chunk by (row tile, depth
+      tile);
+    - bo, b2 (Dq), b1 (Fp) f32 zero-padded; ln1s, ln1b, ln2s, ln2b (D) and
+      alpha (1,) f32.
+
+    hdp = padded_head_dim(D // heads), Dq = D and Ka = H * hdp rounded up to
+    64, Fp = F rounded up to 64; the weights are rounded to the stream dtype
+    (bf16), or split into tf32 hi and lo (fp32). Flat tensors, contiguous."""
+    p = params
+    D, F = p["w1"].shape[1], p["w1"].shape[0]
+    hd = D // heads
+    hdp = padded_head_dim(hd)
+    Dq, Ka, Fp = _round_up(D, TILE), _round_up(heads * hdp, TILE), _round_up(F, TILE)
+    Hp = _round_up(heads, group)
+    depth = 64 if bf16 else 32
+    qkv = []
+    for name in ("wk", "wv", "wq"):
+        w = p[name].float().reshape(heads, hd, D)
+        wp = w.new_zeros(Hp, hdp, Dq)
+        wp[:heads, :hd, :D] = w
+        wp = wp.reshape(Hp // group, group * hdp, Dq)
+        qkv.append(torch.stack([weight_tiles(wg, group * hdp, bf16)[0] for wg in wp]))
+    w1s = torch.stack(qkv, 1).reshape(-1)
+    bqkv = torch.zeros(3, Hp, hdp, device=p["bq"].device)
+    for i, name in enumerate(("bk", "bv", "bq")):
+        bqkv[i, :heads, :hd] = p[name].float().reshape(heads, hd)
+    wo = torch.zeros(Dq, Ka, device=p["wo"].device)
+    wo[:D, :heads * hdp].view(D, heads, hdp)[:, :, :hd] = p["wo"].float().reshape(D, heads, hd)
+    wo_t = weight_tiles(wo, TILE, bf16)
+    w1_t = weight_tiles(_pad(p["w1"], Fp, Dq), TILE, bf16)
+    w2_t = weight_tiles(_pad(p["w2"], Dq, Fp), TILE, bf16)
+    per = TILE // depth  # depth tiles of a hidden chunk
+    stream = [wo_t.reshape(-1)]
+    for j in range(Fp // TILE):
+        stream += [w1_t[j].reshape(-1), w2_t[:, j * per:(j + 1) * per].reshape(-1)]
+    vec = lambda n: p[n].detach().float().contiguous().clone()  # noqa: E731
+    return dict(
+        w1s=w1s.contiguous(), bqkv=bqkv.reshape(-1), w2s=torch.cat(stream).contiguous(),
+        bo=_pad(p["bo"], Dq), b1=_pad(p["b1"], Fp), b2=_pad(p["b2"], Dq),
+        ln1s=vec("ln1s"), ln1b=vec("ln1b"), ln2s=vec("ln2s"), ln2b=vec("ln2b"),
+        alpha=vec("alpha").reshape(1),
+    )
+
+
+# id(wq) -> _weight_cache.Entry; an entry goes when its wq is freed
+_weight_cache: Dict[int, Entry] = {}
+
+
+def kernel_weights(params: Dict[str, torch.Tensor], heads: int, dtype: torch.dtype,
+                   group: int = 1):
+    """layout_weights of this version of the 17 parameters for the stream
+    dtype, computed once per version, dtype, head count and head group (the
+    cache of ops/_weight_cache.py: keyed on the tensors' identity, refreshed
+    after an in-place update, holding them by weak reference only)."""
+    global weight_layouts
+    values = derived(_weight_cache, [params[n] for n in WEIGHT_NAMES])
+    key = (dtype, heads, group)
+    if key not in values:
+        with torch.no_grad():
+            values[key] = layout_weights({n: params[n].detach() for n in WEIGHT_NAMES}, heads,
+                                         dtype == torch.bfloat16, group)
+        weight_layouts += 1
+    return values[key]
+
+
 def fused_stream_layer(x, pos, k_in, v_in, valid_mask: Optional[torch.Tensor],
                        pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]],
                        params: Dict[str, torch.Tensor], heads: int, self_attn: bool):
     """One post-norm layer (the encoder flavour when self_attn, else T2V) with
     the TPU kernel's numerics. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (float32 or bf16; D and F multiples of 32) or
-    raise. Raises for an input that requires grad in grad mode (no graph)."""
+    tensors launch the kernel (float32 or bf16; a head_dim up to 128; bf16
+    keys as many as fit a block's shared memory) or raise, with the weights
+    laid out once per version (`kernel_weights`). Raises for an input that
+    requires grad in grad mode (no graph)."""
     global launches
     refuse_autograd("fused_stream_layer", x, pos, k_in, v_in, *params.values())
     if x.device.type == "cpu":
@@ -196,28 +343,34 @@ def fused_stream_layer(x, pos, k_in, v_in, valid_mask: Optional[torch.Tensor],
     from ..kernels.build import load
 
     lib = load("stream_layer")
-    scratch_elems = lib.stream_layer_scratch_elems
-    scratch_elems.restype = ctypes.c_longlong
-    scratch_elems.argtypes = [ctypes.c_int] * 4
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    hdp = padded_head_dim(D // heads)
+    cfg = (ctypes.c_int * 7)()  # smem, R, keys, stages 1 and 2, query rows, heads an item
+    config = lib.stream_layer_config
+    config.restype = ctypes.c_int
+    config.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    if config(is_bf16, hdp, Lk, D, heads, F, ctypes.addressof(cfg)) != 0:
+        raise ValueError(f"fused_stream_layer: {Lk} keys of head_dim {hdp} at D {D} do not fit a "
+                         f"block's shared memory in {x.dtype}")
     dev = x.device
     mask = mask_u8(valid_mask, B, Lk, dev)
     qf = kf = None
     if pair_factors is not None:
         qf, kf = factors_u8(pair_factors, B, heads, Lq, Lk, dev)
-    weights = [params[n].float().contiguous() for n in WEIGHT_NAMES]
+    w = kernel_weights(params, heads, x.dtype, cfg[6])
     out = torch.empty_like(x)
-    scratch = torch.empty(B * scratch_elems(Lq, Lk, D, F), dtype=x.dtype, device=dev)
-    logits = torch.empty(B, Lq, Lk, dtype=torch.float32, device=dev)
+    att = torch.empty(B, Lq, _round_up(heads * hdp, TILE), dtype=x.dtype, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     operands = [x, pos, None if self_attn else k_in, None if self_attn else v_in, mask, qf, kf,
-                *weights, out, scratch, logits]
+                w["w1s"], w["bqkv"], w["w2s"], w["bo"], w["b1"], w["b2"], w["ln1s"], w["ln1b"],
+                w["ln2s"], w["ln2b"], w["alpha"], att, out]
     fn = lib.stream_layer_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(operands) + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * len(operands) + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
-    err = fn(*(ptr(t) for t in operands), B, Lq, Lk, D, heads, F,
-             int(x.dtype == torch.bfloat16), int(bool(self_attn)), float((D // heads) ** -0.5),
+    err = fn(*(ptr(t) for t in operands), B, Lq, Lk, D, heads, F, hdp, is_bf16,
+             int(bool(self_attn)), float((D // heads) ** -0.5),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_stream_layer kernel launch failed: cudaError {err}")

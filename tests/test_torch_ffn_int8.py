@@ -93,6 +93,70 @@ def test_plain_version_matches_pallas_and_oracle(K, N1, dtype):
     np.testing.assert_allclose(got, oracle, atol=5e-2, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_matches_pallas_at_widths_off_the_tiles(dtype):
+    """K 48 / N1 80 / K2 48, no multiple of 32 (the kernel pads them in its
+    staged weights), against the Pallas kernel in interpret mode and the
+    XLA oracle, as above."""
+    x, w1, b1, alpha, w2, b2 = _mk(7, 51, 48, 80)
+    jx = jnp.asarray(x, JAX_DT[dtype])
+    kern = np.asarray(ffn_pallas.ffn_int8(jx, w1, b1, alpha, w2, b2, interpret=True)
+                      .astype(jnp.float32))
+    oracle = np.asarray(ffn_pallas.ffn_int8_reference(jx, w1, b1, alpha, w2, b2)
+                        .astype(jnp.float32))
+    got = fi.ffn_int8(*_torch_args(x, w1, b1, alpha, w2, b2, dtype)).float().numpy()
+    print(f"bit-equal share: vs the interpret-mode kernel {np.mean(got == kern):.4f}")
+    np.testing.assert_allclose(got, kern, atol=5e-2, rtol=0)
+    np.testing.assert_allclose(got, oracle, atol=5e-2, rtol=0)
+
+
+def _big_sums(seed: int, N: int, K: int, N1: int):
+    """Inputs whose linear2 sums pass 2**24: positive x, and weights near a
+    positive constant, so that every h is positive and near the row's amax
+    (hq ~ 127) and every w2q near 127: sums ~ 127 * 127 * N1."""
+    rng = np.random.default_rng(seed)
+    x = (1.0 + rng.random((N, K))).astype(np.float32)
+    w1 = (1.0 + 0.05 * rng.random((K, N1))).astype(np.float32) / K
+    b1 = (0.01 * rng.random(N1)).astype(np.float32)
+    w2 = (1.0 + 0.05 * rng.random((N1, K))).astype(np.float32) / N1
+    b2 = (0.01 * rng.random(K)).astype(np.float32)
+    return x, w1, b1, np.array([0.25], np.float32), w2, b2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_version_sums_exactly_past_2_24(dtype):
+    """N1 2048 (the model's --dim_feedforward 2048) on inputs whose integer
+    sums pass 2**24, where f32 sums are no longer exact: the plain version
+    (f64 sums, int -> f32 -> bf16 as XLA converts s32 to bf16) against the
+    Pallas kernel in interpret mode and the XLA oracle within the bound
+    above, bit for bit against the oracle (its int32 sums are exact and it
+    rounds as torch does; the jitted kernel keeps its bf16 chain in f32),
+    and those sums do pass 2**24."""
+    x, w1, b1, alpha, w2, b2 = _big_sums(8, 40, 256, 2048)
+    jx = jnp.asarray(x, JAX_DT[dtype])
+    kern = np.asarray(ffn_pallas.ffn_int8(jx, w1, b1, alpha, w2, b2, interpret=True)
+                      .astype(jnp.float32))
+    oracle = np.asarray(ffn_pallas.ffn_int8_reference(jx, w1, b1, alpha, w2, b2)
+                        .astype(jnp.float32))
+    args = _torch_args(x, w1, b1, alpha, w2, b2, dtype)
+    got = fi.ffn_int8(*args).float().numpy()
+    print(f"bit-equal share: vs the interpret-mode kernel {np.mean(got == kern):.4f}")
+    np.testing.assert_allclose(got, kern, atol=5e-2, rtol=0)
+    np.testing.assert_array_equal(got, oracle)
+    # the largest of linear2's integer sums, from the plain version's stages
+    bf = torch.bfloat16
+    xt, w1t, b1t, at, w2t, _ = args
+    w1q, s1 = fi.quantize_weight(w1t)
+    w2q, _ = fi.quantize_weight(w2t)
+    xs = fi._row_scale(xt.float().abs().amax(-1, keepdim=True))
+    xq = fi._to_i8(xt.to(bf) * fi._div(1.0, xs).to(bf))
+    h = (torch.matmul(xq.double(), w1q.double().t()).float().to(bf) * s1.to(bf) * xs.to(bf)
+         + b1t.to(bf))
+    hr = fi._div(127.0, torch.clamp(h.float().abs().amax(-1, keepdim=True), min=1e-8)).to(bf)
+    acc2 = torch.matmul(fi._to_i8(h * hr).double(), w2q.double().t())
+    assert float(acc2.abs().max()) > 2**24
+
+
 def test_quantization_error_vs_exact():
     """The int8 FFN stays within 2 % (mean relative) of the exact FFN."""
     x, w1, b1, alpha, w2, b2 = _mk(2, 256, 64, 128)
@@ -355,23 +419,26 @@ def _canonical(r, k, cols):
 
 
 @pytest.mark.parametrize("N1,K,K2,nc", [(96, 64, 288, 64), (1024, 256, 256, 64), (32, 32, 32, 32),
-                                        (64, 1024, 256, 32)])
+                                        (64, 1024, 256, 32), (80, 48, 48, 64), (2048, 256, 256, 64),
+                                        (70, 33, 45, 32)])
 def test_stage_weights_puts_each_byte_where_the_kernel_reads_it(N1, K, K2, nc):
-    """stage_weights against the kernel's addressing written out: w1 chunk
-    j at j * nc * K, byte (n, k) of it at the canonical offset; w2 block
-    (ob, j) at (ob * J + j) * 256 * nc; zeros past N1 and K2."""
+    """stage_weights against the kernel's addressing written out, for Kp = K
+    rounded up to 32: w1 chunk j at j * nc * Kp, byte (n, k) of it at the
+    canonical offset; w2 block (ob, j) at (ob * J + j) * 256 * nc; zeros
+    past K, N1 and K2."""
     g = torch.Generator().manual_seed(N1 + K)
     w1q = torch.randint(-127, 128, (N1, K), generator=g, dtype=torch.int8)
     w2q = torch.randint(-127, 128, (K2, N1), generator=g, dtype=torch.int8)
     w1s, w2s = fi.stage_weights(w1q, w2q, nc)
     J = -(-N1 // nc)
     nob = -(-K2 // fi.KO)
-    assert w1s.numel() == J * nc * K and w2s.numel() == nob * J * fi.KO * nc
+    Kp = -(-K // 32) * 32
+    assert w1s.numel() == J * nc * Kp and w2s.numel() == nob * J * fi.KO * nc
     n = torch.arange(J * nc)[:, None]
-    k = torch.arange(K)[None, :]
-    idx = (n // nc) * nc * K + _canonical(n % nc, k, K)
-    want = torch.zeros(J * nc, K, dtype=torch.int8)
-    want[:N1] = w1q
+    k = torch.arange(Kp)[None, :]
+    idx = (n // nc) * nc * Kp + _canonical(n % nc, k, Kp)
+    want = torch.zeros(J * nc, Kp, dtype=torch.int8)
+    want[:N1, :K] = w1q
     assert torch.equal(w1s[idx], want)
     o = torch.arange(nob * fi.KO)[:, None]
     h = torch.arange(J * nc)[None, :]
@@ -379,6 +446,25 @@ def test_stage_weights_puts_each_byte_where_the_kernel_reads_it(N1, K, K2, nc):
     want = torch.zeros(nob * fi.KO, J * nc, dtype=torch.int8)
     want[:K2, :N1] = w2q
     assert torch.equal(w2s[idx], want)
+
+
+def test_stage_vectors_pad_with_zeros():
+    """The bf16 scales and biases as the kernel reads them: linear1's to a
+    multiple of 64 hidden columns, linear2's to one of 256 outputs, zeros
+    beyond; and staged_weights keeps them with the int8 weights, per weight
+    version and chunk width."""
+    bf = torch.bfloat16
+    s1, b1, s2, b2 = (torch.arange(1, n + 1, dtype=bf) for n in (70, 70, 45, 45))
+    ps1, pb1, ps2, pb2 = fi.stage_vectors(s1, b1, s2, b2)
+    for got, v, width in ((ps1, s1, 128), (pb1, b1, 128), (ps2, s2, 256), (pb2, b2, 256)):
+        assert got.dtype == bf and got.shape == (width,)
+        assert torch.equal(got[:v.numel()], v) and not got[v.numel():].any()
+    m = _ffn_module(K=48, N1=80)
+    staged = fi.staged_weights(*_params(m), 64)
+    assert fi.staged_weights(*_params(m), 64) is staged and len(staged) == 6
+    _, s1q, b1q, _, _, s2q, b2q = fi.quantized_weights(*_params(m))
+    for got, want in zip(staged[2:], fi.stage_vectors(s1q, b1q, s2q, b2q)):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -398,11 +484,16 @@ def cuda():
     ("bfloat16", 24960, 256, 1024), ("float32", 9616, 256, 1024), ("bfloat16", 51, 256, 1024),
 ] + [(dtype, N, K, N1)  # the tile edges, at the model's widths and the smallest
      for dtype, N, (K, N1) in itertools.product(("bfloat16", "float32"), FFN_EDGE_N,
-                                                ((1024, 1024), (32, 32)))])
+                                                ((1024, 1024), (32, 32)))
+] + [(dtype, N, K, N1)  # widths off the tiles, and the model's FFN 2048
+     for dtype, N, (K, N1) in itertools.product(("bfloat16", "float32"), (1, 129, 4096),
+                                                ((48, 80), (33, 70), (256, 2048), (1248, 100)))])
 def test_ffn_int8_kernel_matches_plain(cuda, dtype, N, K, N1):
     """The charades site (bf16) and the TACoS site (fp32) at width 256 and
     FFN 1024, a ragged tail, and rows around the kernel's 64- and 128-row
-    tiles at K = N1 = 1024 and 32, with a row of zeros (the 1e-8 floor) and
+    tiles at K = N1 = 1024 and 32, widths that are no multiple of 32 (K 48,
+    N1 80; K 33, N1 70), FFN 2048, and the widest K the 64-row tile holds
+    (1,248), with a row of zeros (the 1e-8 floor) and
     a row of +-1000 (every element at +-127): the integer sums are exact and
     the rounding points the plain version's, so within one bf16 step of the
     output."""
@@ -420,6 +511,24 @@ def test_ffn_int8_kernel_matches_plain(cuda, dtype, N, K, N1):
     err = float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp(min=1))
     print(f"max err {err:.3e}, bit-equal share {float((got == want).float().mean()):.6f}")
     assert err <= 2.0**-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ffn_int8_kernel_sums_exactly_past_2_24(cuda, dtype):
+    """N1 2048 on inputs whose integer sums pass 2**24 (and K2 45, odd: the
+    outputs stored column by column): the kernel's int32 sums and the plain
+    version's f64 sums are exact, both round int -> f32 -> bf16, so the two
+    agree within one bf16 step."""
+    x, w1, b1, alpha, w2, b2 = _big_sums(9, 300, 256, 2048)
+    args = [a.to(cuda) for a in _torch_args(x, w1, b1, alpha, w2, b2, dtype)]
+    for w2c, b2c in ((args[4], args[5]), (args[4][:45].contiguous(), args[5][:45].contiguous())):
+        a = args[:4] + [w2c, b2c]
+        got, want = fi.ffn_int8(*a), fi.ffn_int8_reference(*a)
+        torch.cuda.synchronize()
+        err = float(((got.float() - want.float()).abs() / want.float().abs().clamp(min=1)).max())
+        print(f"max err {err:.3e}, bit-equal share {float((got == want).float().mean()):.6f}")
+        assert torch.isfinite(got).all() and err <= 2.0**-7
 
 
 @pytest.mark.cuda

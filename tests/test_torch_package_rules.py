@@ -158,7 +158,7 @@ def test_new_modules_are_covered():
 
 # the headers a kernel source may include: the CUDA toolkit's and C's own
 CUDA_HEADERS = {"cuda.h", "cuda_runtime.h", "cuda_bf16.h", "cuda_fp16.h", "mma.h", "math.h",
-                "stdint.h"}
+                "stdint.h", "cooperative_groups.h"}
 
 
 CSRC = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
@@ -299,9 +299,15 @@ def test_ffn_int8_wrapper_runs_plain_version_on_cpu_and_refuses_the_rest():
     meta = [a.to("meta") for a in args]
     with pytest.raises(TypeError):
         fi.ffn_int8(meta[0].half(), *meta[1:])
-    with pytest.raises(ValueError, match="multiples of 32"):
+    # widths that are no multiple of 32 reach the device check: the kernel
+    # takes any K, N1, K2; a depth past its exact int32 sums does not
+    with pytest.raises(ValueError, match="unsupported device"):
         fi.ffn_int8(meta[0][:, :16].contiguous(), meta[1][:, :16].contiguous(), *meta[2:4],
                     meta[4][:16].contiguous(), meta[5][:16].contiguous())
+    deep = fi.MAX_DEPTH + 1
+    with pytest.raises(ValueError, match="depth"):
+        fi.ffn_int8(torch.empty(5, deep, device="meta"), torch.empty(64, deep, device="meta"),
+                    *meta[2:])
     with pytest.raises(ValueError, match="shapes"):
         fi.ffn_int8(meta[0], meta[1][:, :31], *meta[2:])
     with pytest.raises(ValueError, match="unsupported device"):
@@ -379,11 +385,14 @@ def test_stream_layer_and_anchor_wrappers_run_plain_version_on_cpu_and_refuse_th
     with pytest.raises(TypeError):
         sl.fused_stream_layer(*_layer_args(torch.float16, "meta")[:4], None, None,
                               _layer_args(torch.float16, "meta")[5], 4, False)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", D=48, F=96)
-        sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", F=80)
+    # D 48 (head_dim 12) and F 80 reach the device check: the kernel pads
+    # them; a head_dim above its largest instance (516 / 4 = 129) does not
+    for D, F in ((48, 96), (64, 80)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", D=D, F=F)
+            sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
+    with pytest.raises(ValueError, match="head_dim"):
+        x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta", D=516, F=96)
         sl.fused_stream_layer(x, pos, k_in, v_in, mask, None, params, 4, False)
     x, pos, k_in, v_in, mask, params = _layer_args(torch.bfloat16, "meta")
     with pytest.raises(ValueError, match="shapes"):

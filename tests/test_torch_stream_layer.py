@@ -10,10 +10,14 @@ mesm_tpu_torch.ops.anchor) against the JAX package.
   bound: f32 sums in another order); bf16 within 0.05 in units of max(1,
   |ref|), since XLA keeps the interpret-mode kernel's chain in f32 between
   some of the rounding points the plain version takes.
+  The same at D 48 (head_dim 12) and F 80, widths the kernel pads.
 - The plain version against the port's own TransformerEncoderLayer /
   T2VLayer in eval, fp32, within 2e-5 (their LayerNorm takes the two-pass
   variance, their softmax torch's).
 - The bench entry point on the CPU, and layout_anchor's no-op cases.
+- The kernel's weight layout (stream_layer.layout_weights) read back
+  through the kernel's own addressing, written out here, and its cache
+  (kernel_weights): one layout per weight version, dtype and head count.
 
 flax and mesm_tpu.models are imported inside the tests: the GPU machine,
 where the tests marked `cuda` run (they skip here), has no flax.
@@ -42,20 +46,21 @@ JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 FP32_TOL, BF16_TOL = 2e-5, 0.05
 
 
-def _case(flavor: str, pair: bool, seed: int):
-    """numpy inputs of one flavour: the encoder at B 4, L 48 (sample 3 with
-    every key masked); T2V at Lv 40 against Lt 9. Pair factors (B, H, Lq),
-    (B, H, Lk): random for the encoder, the model's scrambled factors for
-    T2V, each with one sample whose every pair is masked."""
+def _case(flavor: str, pair: bool, seed: int, d: int = D):
+    """numpy inputs of one flavour, width d: the encoder at B 4, L 48
+    (sample 3 with every key masked); T2V at Lv 40 against Lt 9. Pair
+    factors (B, H, Lq), (B, H, Lk): random for the encoder, the model's
+    scrambled factors for T2V, each with one sample whose every pair is
+    masked."""
     rng = np.random.default_rng(seed)
     B = 4
     Lq, Lk = (48, 48) if flavor == "encoder" else (40, 9)
-    c = {"x": rng.normal(size=(B, Lq, D)), "pos": rng.normal(size=(B, Lq, D))}
+    c = {"x": rng.normal(size=(B, Lq, d)), "pos": rng.normal(size=(B, Lq, d))}
     if flavor == "encoder":
         c["mask"] = np.arange(Lk)[None] < rng.integers(Lk // 2, Lk + 1, B)[:, None]
         c["mask"][3] = False
     else:
-        c["txt"], c["pos_t"] = rng.normal(size=(B, Lk, D)), rng.normal(size=(B, Lk, D))
+        c["txt"], c["pos_t"] = rng.normal(size=(B, Lk, d)), rng.normal(size=(B, Lk, d))
         c["mask"] = np.arange(Lk)[None] < rng.integers(3, Lk + 1, B)[:, None]
         c["vmask"] = np.arange(Lq)[None] < rng.integers(Lq // 2, Lq + 1, B)[:, None]
     c = {k: (v.astype(np.float32) if v.dtype == np.float64 else v) for k, v in c.items()}
@@ -79,17 +84,17 @@ def _perturbed(params, seed: int):
         params)
 
 
-def _jax_layer(flavor: str, c: dict, seed: int):
+def _jax_layer(flavor: str, c: dict, seed: int, d: int = D, f: int = F):
     """(flax parameters, perturbed) of a fresh flax layer of the flavour."""
     from mesm_tpu.models.detr import TransformerEncoderLayer as JaxEncoderLayer
     from mesm_tpu.models.t2v import T2VLayer as JaxT2VLayer
 
     key = jax.random.PRNGKey(seed)
     if flavor == "encoder":
-        layer = JaxEncoderLayer(D, H, F, dropout=0.0)
+        layer = JaxEncoderLayer(d, H, f, dropout=0.0)
         params = layer.init(key, c["x"], c["mask"], c["pos"])["params"]
     else:
-        layer = JaxT2VLayer(D, H, F, dropout=0.0)
+        layer = JaxT2VLayer(d, H, f, dropout=0.0)
         params = layer.init(key, c["txt"], c["x"], c["mask"], c["pos_t"], c["pos"],
                             c["vmask"])["params"]
     return _perturbed(params, seed + 100)
@@ -107,9 +112,9 @@ def _torch_inputs(flavor: str, c: dict, dtype: str):
     return t("x"), t("pos"), k_in, v_in, torch.from_numpy(c["mask"]), pf
 
 
-def _port_layer(flavor: str, state=None):
-    layer = (TransformerEncoderLayer(D, H, F, dropout=0.0) if flavor == "encoder"
-             else T2VLayer(D, H, F, dropout=0.0)).eval()
+def _port_layer(flavor: str, state=None, d: int = D, f: int = F):
+    layer = (TransformerEncoderLayer(d, H, f, dropout=0.0) if flavor == "encoder"
+             else T2VLayer(d, H, f, dropout=0.0)).eval()
     if state is not None:
         layer.load_state_dict(state, strict=True)
     return layer
@@ -124,10 +129,23 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("pair", [False, True], ids=["nopair", "pair"])
 @pytest.mark.parametrize("flavor", ["encoder", "t2v"])
 def test_plain_version_matches_pallas_kernel(flavor, pair, dtype):
+    _check_against_pallas(flavor, pair, dtype, D, F, seed=3 + pair)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flavor", ["encoder", "t2v"])
+def test_plain_version_matches_pallas_kernel_at_odd_widths(flavor, dtype):
+    """D 48 (head_dim 12: the CUDA kernel pads each head to 16) and F 80,
+    neither a multiple of 32, with the pair mask: the plain version, which
+    the kernel is held to on the card, is the Pallas function there too."""
+    _check_against_pallas(flavor, True, dtype, 48, 80, seed=21)
+
+
+def _check_against_pallas(flavor: str, pair: bool, dtype: str, d: int, f: int, seed: int):
     from test_layer_kernel import map_params
 
-    c = _case(flavor, pair, seed=3 + pair)
-    params = _jax_layer(flavor, c, seed=5)
+    c = _case(flavor, pair, seed=seed, d=d)
+    params = _jax_layer(flavor, c, seed=5, d=d, f=f)
     jdt = JAX_DT[dtype]
     j = lambda k: jnp.asarray(c[k], jdt)  # noqa: E731
     qf = kf = None
@@ -144,7 +162,7 @@ def test_plain_version_matches_pallas_kernel(flavor, pair, dtype):
         )
         want = np.asarray(want.astype(jnp.float32))
 
-    layer = _port_layer(flavor, layer_state_dict_from_jax_params(params, flavor))
+    layer = _port_layer(flavor, layer_state_dict_from_jax_params(params, flavor), d=d, f=f)
     with torch.no_grad():
         got = sl.stream_layer_reference(*_torch_inputs(flavor, c, dtype),
                                         sl.stream_layer_params(layer), H, self_attn)
@@ -237,6 +255,129 @@ def test_layout_anchor_is_the_identity_where_the_jax_one_is():
     assert ref.is_contiguous() and torch.equal(ref, tx)
 
 
+def test_padded_head_dim_is_the_next_instance():
+    """Every head_dim up to 128 runs on the smallest instance at least its
+    width (16, 32, 64, 128); wider heads have none."""
+    for hd in range(1, 130):
+        want = next((p for p in (16, 32, 64, 128) if p >= hd), None)
+        assert sl.padded_head_dim(hd) == want
+
+
+def _params(d: int, f: int, seed: int = 0):
+    g = torch.Generator().manual_seed(seed)
+    shapes = {"w1": (f, d), "b1": (f,), "w2": (d, f), "alpha": (1,)}
+    return {n: torch.randn(*shapes.get(n, (d, d) if n in ("wq", "wk", "wv", "wo") else (d,)),
+                           generator=g) for n in sl.WEIGHT_NAMES}
+
+
+def _tile(flat: torch.Tensor, index: int, rows: int, bf16: bool):
+    """Tile `index` of a flat tile array as the kernel addresses it
+    (stream_layer.cu): bf16 (rows x 64), element (n, k) at n * 64 +
+    ((k >> 3) ^ (n & 7)) * 8 + (k & 7); fp32 (hi, lo), each (rows x 32) at
+    a row stride of 36, lo after rows x 36 floats of hi."""
+    n = torch.arange(rows)[:, None]
+    if bf16:
+        t = flat[index * rows * 64:(index + 1) * rows * 64]
+        k = torch.arange(64)[None, :]
+        return t[n * 64 + (((k >> 3) ^ (n & 7)) << 3) + (k & 7)]
+    t = flat[index * rows * 72:(index + 1) * rows * 72]
+    k = torch.arange(32)[None, :]
+    return t[n * 36 + k], t[rows * 36 + n * 36 + k]
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("d,heads,f,group", [(48, 4, 80, 1), (96, 3, 160, 2), (256, 8, 1024, 4),
+                                             (256, 8, 1024, 1)])
+def test_layout_weights_put_each_weight_where_the_kernel_reads_it(d, heads, f, group, bf16):
+    """layout_weights read back through the kernel's addressing: phase 1's
+    tile (head group, k / v / q, depth tile) holds the group's heads' rows
+    of wk, wv, wq (hd rows padded to hdp, D to Dq, the heads to a multiple
+    of the group, with zeros); phase 2's stream, tile by tile
+    in the order the kernel takes them, Wo with head h's columns at h * hdp,
+    then per 64 hidden columns W1's rows and W2's columns; the biases
+    padded alike. bf16 tiles hold the weights rounded to bf16, fp32 tiles
+    hi = tf32(w) and lo = tf32(w - hi)."""
+    p = _params(d, f)
+    w = sl.layout_weights(p, heads, bf16, group)
+    hd = d // heads
+    hdp = sl.padded_head_dim(hd)
+    Hp = -(-heads // group) * group
+    Dq, Ka, Fp = -(-d // 64) * 64, -(-(heads * hdp) // 64) * 64, -(-f // 64) * 64
+    depth = 64 if bf16 else 32
+    nk = Dq // depth
+
+    def check(tile, want):
+        if bf16:
+            assert torch.equal(tile.float(), want.to(torch.bfloat16).float())
+        else:
+            hi, lo = tile
+            assert torch.equal(hi, sl._tf32(want)) and torch.equal(lo, sl._tf32(want - hi))
+            assert ((hi + lo - want).abs() <= 2.0**-20 * want.abs()).all()
+
+    for which, name in enumerate(("wk", "wv", "wq")):
+        wp = torch.zeros(Hp, hdp, Dq)
+        wp[:heads, :hd, :d] = p[name].reshape(heads, hd, d)
+        for grp in range(Hp // group):
+            for kc in range(nk):
+                check(_tile(w["w1s"], (grp * 3 + which) * nk + kc, group * hdp, bf16),
+                      wp[grp * group:(grp + 1) * group, :, kc * depth:(kc + 1) * depth]
+                      .reshape(group * hdp, depth))
+    bqkv = w["bqkv"].reshape(3, Hp, hdp)
+    for which, name in enumerate(("bk", "bv", "bq")):
+        assert torch.equal(bqkv[which, :heads, :hd], p[name].reshape(heads, hd))
+        assert not bqkv[which, :, hd:].any() and not bqkv[which, heads:].any()
+    wo = torch.zeros(Dq, Ka)
+    wo[:d, :heads * hdp].reshape(d, heads, hdp)[:, :, :hd] = p["wo"].reshape(d, heads, hd)
+    w1 = torch.zeros(Fp, Dq)
+    w1[:f, :d] = p["w1"]
+    w2 = torch.zeros(Dq, Fp)
+    w2[:d, :f] = p["w2"]
+    expect = [wo[nb * 64:nb * 64 + 64, kc * depth:kc * depth + depth]
+              for nb in range(Dq // 64) for kc in range(Ka // depth)]
+    for j in range(Fp // 64):
+        expect += [w1[j * 64:j * 64 + 64, kc * depth:kc * depth + depth] for kc in range(nk)]
+        expect += [w2[nb * 64:nb * 64 + 64, j * 64 + kc * depth:j * 64 + kc * depth + depth]
+                   for nb in range(Dq // 64) for kc in range(64 // depth)]
+    assert w["w2s"].numel() == len(expect) * 64 * (64 if bf16 else 72)
+    for i, want in enumerate(expect):
+        check(_tile(w["w2s"], i, 64, bf16), want)
+    for name, width in (("bo", Dq), ("b1", Fp), ("b2", Dq)):
+        n = p[name].numel()
+        assert w[name].shape == (width,) and torch.equal(w[name][:n], p[name])
+        assert not w[name][n:].any()
+    for name in ("ln1s", "ln1b", "ln2s", "ln2b", "alpha"):
+        assert torch.equal(w[name], p[name]) and w[name].data_ptr() != p[name].data_ptr()
+
+
+def test_kernel_weights_are_laid_out_once_per_weight_version():
+    """kernel_weights keeps one layout per version of the 17 parameters,
+    dtype, head count and head group (ops/_weight_cache.derived): unchanged parameters
+    reuse it, an in-place update lays them out again, and a freed set of
+    parameters leaves no entry."""
+    import gc
+    import weakref
+
+    p = _params(48, 80, seed=1)
+    before = sl.weight_layouts
+    a = sl.kernel_weights(p, 4, torch.bfloat16)
+    assert sl.kernel_weights(p, 4, torch.bfloat16) is a and sl.weight_layouts == before + 1
+    sl.kernel_weights(p, 4, torch.float32)
+    sl.kernel_weights(p, 2, torch.bfloat16)
+    sl.kernel_weights(p, 4, torch.bfloat16, 2)
+    assert sl.weight_layouts == before + 4
+    with torch.no_grad():
+        p["w2"].add_(1.0)
+    b = sl.kernel_weights(p, 4, torch.bfloat16)
+    assert b is not a and sl.weight_layouts == before + 5
+    assert torch.equal(b["w2s"], sl.layout_weights(p, 4, True)["w2s"])
+    assert not torch.equal(a["w2s"], b["w2s"])
+    key, alive = id(p["wq"]), weakref.ref(b["w2s"])
+    assert key in sl._weight_cache
+    del p, a, b
+    gc.collect()
+    assert key not in sl._weight_cache and alive() is None
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -251,8 +392,9 @@ def cuda():
 
 def _card_case(flavor: str, dtype: str, B: int, Lq: int, Lk: int, d: int, heads: int, f: int,
                device, pair: bool):
-    """Inputs and weights on the card: padded keys, sample 1 with every key
-    masked; with `pair`, pair factors and sample 2 with every pair masked."""
+    """Inputs and weights on the card: padded keys, sample 1 (where B > 1)
+    with every key masked; with `pair`, pair factors and sample 2 (where B
+    > 2) with every pair masked."""
     g = torch.Generator(device=device).manual_seed(7)
     dt = TORCH_DT[dtype]
     rn = lambda *s: torch.randn(*s, generator=g, device=device)  # noqa: E731
@@ -263,11 +405,13 @@ def _card_case(flavor: str, dtype: str, B: int, Lq: int, Lk: int, d: int, heads:
         k_in = (v_in.float() + rn(B, Lk, d)).to(dt)
     if pair:
         qf, kf = rn(B, heads, Lq) > 0.5, rn(B, heads, Lk) > 0.5
-        qf[2], kf[2] = True, True
+        if B > 2:
+            qf[2], kf[2] = True, True
         pf = (qf, kf)
     mask = torch.arange(Lk, device=device)[None] < torch.randint(1, Lk + 1, (B,), generator=g,
                                                                   device=device)[:, None]
-    mask[1] = False
+    if B > 1:
+        mask[1] = False
     params = {}
     for name in sl.WEIGHT_NAMES:
         shape = {"w1": (f, d), "b1": (f,), "w2": (d, f), "alpha": (1,)}.get(
@@ -282,13 +426,18 @@ def _card_case(flavor: str, dtype: str, B: int, Lq: int, Lk: int, d: int, heads:
 @pytest.mark.parametrize("flavor,shape,pair", [
     ("encoder", (16, 195, 195, 256, 8, 1024), False), ("t2v", (16, 194, 17, 256, 8, 1024), True),
     ("t2v", (3, 37, 5, 96, 3, 160), True), ("encoder", (4, 70, 70, 64, 2, 96), True),
-], ids=["encoder", "t2v", "t2v-ragged", "encoder-pair"])
+    ("encoder", (3, 70, 70, 48, 4, 80), True), ("t2v", (3, 70, 1, 48, 4, 80), True),
+    ("t2v", (3, 70, 17, 48, 4, 80), False), ("encoder", (1, 33, 33, 256, 8, 1024), True),
+    ("encoder", (2, 70, 70, 256, 2, 96), True), ("encoder", (2, 601, 601, 256, 8, 64), False),
+], ids=["encoder", "t2v", "t2v-ragged", "encoder-pair", "encoder-d48", "t2v-d48-lk1",
+        "t2v-d48-lk17", "encoder-b1", "encoder-hd128", "encoder-601-keys"])
 def test_stream_layer_kernel_matches_plain(cuda, flavor, shape, pair, dtype):
     """The charades widths (16 samples), a ragged T2V shape (tails in every
-    product) and the encoder under a pair mask: fp32 within 1e-4 (1024-term
-    sums in another order, through two LayerNorms), bf16 within 0.05 (one
-    flipped bf16 step of the hidden propagates through LN2), in units of
-    max(1, |plain|)."""
+    product), the encoder under a pair mask, D 48 (head_dim 12, padded to
+    16) with F 80 at one and 17 keys, one sample, head_dim 128, and 601 keys
+    (fp32 takes them in chunks): fp32 within 1e-4 (1024-term sums in another
+    order, through two LayerNorms), bf16 within 0.05 (one flipped bf16 step
+    of the hidden propagates through LN2), in units of max(1, |plain|)."""
     B, Lq, Lk, d, heads, f = shape
     x, pos, k_in, v_in, mask, pf, params = _card_case(flavor, dtype, B, Lq, Lk, d, heads, f, cuda,
                                                       pair)
@@ -305,16 +454,22 @@ def test_stream_layer_kernel_matches_plain(cuda, flavor, shape, pair, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "uint8", "float64"])
 def test_layout_anchor_kernel_is_bit_equal(cuda, dtype):
-    """A contiguous input and a (B, D, L) tensor viewed as (B, L, D): a
-    fresh row-major tensor with the same bits, one launch each."""
+    """A contiguous input, a (B, D, L) tensor viewed as (B, L, D) (L 37 and
+    40: columns off and on 16-byte boundaries), the [:, 1:] slice of a
+    stream, and a view with no unit stride: a fresh row-major tensor with
+    the same bits, one launch each, for 2, 4, 1 and 8-byte elements."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    base = torch.randn(8, 64, 37, generator=g, device=cuda).to(TORCH_DT[dtype])
-    for x in (base.transpose(1, 2).contiguous(), base.transpose(1, 2)):
+    dt = getattr(torch, dtype)
+    base = torch.randint(-100, 100, (8, 64, 41), generator=g, device=cuda).to(dt)
+    views = (base.transpose(1, 2).contiguous(), base[..., :37].contiguous().transpose(1, 2),
+             base[..., :40].contiguous().transpose(1, 2), base.transpose(1, 2).contiguous()[:, 1:],
+             base[:, ::2].transpose(1, 2))
+    for x in views:
         before = anchor.launches
         got = anchor.layout_anchor(x)
         torch.cuda.synchronize()
         assert anchor.launches == before + 1
         assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
-        assert torch.equal(got, anchor.layout_anchor_reference(x))
+        assert torch.equal(got.view(torch.uint8), anchor.layout_anchor_reference(x).view(torch.uint8))
