@@ -22,9 +22,13 @@ step, QVHighlights C+SF_C bf16 inference in every dispatch mode, the
 charades model with 64-80-word queries (the pair-masked kernel), the
 kernel-engaged TACoS fp32 train step (attention dropout 0: the trainable
 attention's forward and backward kernels) with the kernels on and off,
-the charades C+SF_C fp32 train step as shipped, `python -m
-mesm_tpu_torch.train` on a synthetic root whose checkpoint the evaluate
-entry point then scores, the QVHighlights fp32 train step and
+the same TACoS step with --grad_accum 2 and in bf16, the trainer's TACoS
+eval step with its loss, the charades C+SF_C fp32 train step as shipped,
+the CLIP text tower at the ViT-B/32 text widths (fabricated weights) and
+both entry points on a synthetic CLIP charades root, evaluate on a
+mesm_tpu.v1 checkpoint, `python -m mesm_tpu_torch.train` on a synthetic
+root whose checkpoint the evaluate entry point then scores (its eval loss
+logged, tensorboard's import blocked), the QVHighlights fp32 train step and
 both entry points on a synthetic QVHighlights root, the charades bf16 and
 TACoS fp32 eval steps (and the evaluate entry point) with the fused int8
 FFN switched on, the eval steps, one train step and the evaluate entry
@@ -42,6 +46,7 @@ a host with no GPU. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -49,6 +54,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -168,6 +174,10 @@ FP32_MODEL_TOL = 1e-4
 # the input features moves the input projection's gradients by ~6e-4 of
 # their own scale on an H100, so the phase reports that floor too.
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# a grad_accum = 2 update against the update on the mean microbatch gradient
+# (parameters, abs); a bf16 train step's first loss against fp32's (relative,
+# tests/test_bf16_train.py:85)
+GRAD_ACCUM_TOL, BF16_TRAIN_TOL = 1e-5, 5e-2
 
 
 def emit(obj) -> None:
@@ -2500,6 +2510,148 @@ def _grad_err(g, ref) -> float:
     return max(float((g[n] - ref[n]).abs().max()) for n in ref) / scale
 
 
+def _params_max_diff(a, b) -> float:
+    pb = dict(b.named_parameters())
+    return max(float((p.detach() - pb[n].detach()).abs().max()) for n, p in a.named_parameters())
+
+
+def check_grad_accum(fresh, ccfg, batch, per_step_k1: dict, steps: int) -> dict:
+    """One grad_accum = 2 train step (two microbatches of B/2 rows, one
+    update) against the update on the mean of two single-microbatch
+    gradients taken with the same draws from the same parameters; its
+    launches against twice the grad_accum = 1 step's; ms/step."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.parallel.step import (apply_update, build_optimizer, make_micro_grads,
+                                              make_train_step, split_micro, step_draws)
+
+    model = fresh()
+    optimizer = build_optimizer(model, 2e-4, 1e-4)
+    step = make_train_step(model, ccfg, _encode_batch, optimizer, 0.1, TRAIN_SEED, grad_accum=2)
+    ref = fresh()
+    ref_opt = build_optimizer(ref, 2e-4, 1e-4)
+    micro = make_micro_grads(ref, ccfg, _encode_batch)
+    with kernels.pallas_scope("auto"):
+        reset_launches()
+        metrics = step(batch, 0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        acc = {n: torch.zeros_like(p) for n, p in ref.named_parameters()}
+        for i, mb in enumerate(split_micro(batch, 2)):
+            ref_opt.zero_grad(set_to_none=True)
+            micro(mb, *step_draws(TRAIN_SEED, 0, batch["video_mask"].device, micro=i))
+            for n, p in ref.named_parameters():
+                if p.grad is not None:
+                    acc[n] += p.grad
+        for n, p in ref.named_parameters():
+            p.grad = acc[n] / 2
+        apply_update(ref_opt, 0.1)
+        err = _params_max_diff(model, ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            step(batch, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+    want = {name: 2 * per_step_k1[name] for name in ("attention_batched", "attention_trainable",
+                                                      "attention_backward")}
+    res = {"micro_rows": batch["video_mask"].shape[0] // 2, "launches": launches,
+           "launches_expected_twice_k1": want, "params_max_abs_diff_vs_mean_grad_update": err,
+           "tol": GRAD_ACCUM_TOL, "loss": float(metrics["loss_overall"]), "ms_per_step": ms}
+    res["ok"] = bool(all(launches[n] == w for n, w in want.items()) and err <= GRAD_ACCUM_TOL
+                     and math.isfinite(res["loss"]))
+    return res
+
+
+def check_bf16_train(fresh, ccfg, batch, steps: int) -> dict:
+    """bf16 training at the kernel-engaged TACoS geometry: `steps` train
+    steps with float32 parameters and AdamW state, the DETR encoder's
+    self-attention on kernel 2 through attention_trainable (its backward
+    recomputed), finite losses; the step-0 loss against the fp32 step's
+    from the same init and draws (tests/test_bf16_train.py:85's bound);
+    ms/step. `fresh` gives models without dropout: torch draws other
+    dropout masks for bf16 tensors than for fp32 ones (JAX draws the
+    same), which would move the two losses apart by more than rounding."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.parallel.step import (build_optimizer, make_micro_grads, make_train_step,
+                                              step_draws)
+
+    ref = fresh()
+    with kernels.pallas_scope("auto"):
+        fp32_first_loss = float(make_micro_grads(ref, ccfg, _encode_batch)(
+            batch, *step_draws(TRAIN_SEED, 0, batch["video_mask"].device))[0])
+    del ref
+    model = fresh()
+    optimizer = build_optimizer(model, 2e-4, 1e-4)
+    step = make_train_step(model, ccfg, _encode_batch, optimizer, 0.1, TRAIN_SEED,
+                           compute_dtype=torch.bfloat16)
+    with kernels.pallas_scope("auto"):
+        reset_launches()
+        losses = [float(step(batch, i)["loss_overall"]) for i in range(steps)]
+        torch.cuda.synchronize()
+        launches = read_launches()
+        t0 = time.perf_counter()
+        for i in range(steps, 2 * steps):
+            step(batch, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        taken = [2 * steps]
+
+        def one(b):
+            taken[0] += 1
+            return step(b, taken[0])
+
+        prof = profile_step(one, [batch], iters=steps, top=8)
+    want = expected_launches({"attention_packed": 2, "attention_trainable": 2}, steps)
+    state_dtypes = sorted({str(t.dtype) for st in optimizer.state.values()
+                           for t in (st["exp_avg"], st["exp_avg_sq"])})
+    res = {"steps": steps, "losses": losses, "launches": launches, "launches_expected": want,
+           "param_dtypes": sorted({str(p.dtype) for p in model.parameters()}),
+           "adamw_state_dtypes": state_dtypes, "fp32_first_loss": fp32_first_loss,
+           "first_loss_rel_err_vs_fp32": abs(losses[0] - fp32_first_loss) / abs(fp32_first_loss),
+           "tol": BF16_TRAIN_TOL, "ms_per_step": ms, "profile": prof}
+    res["ok"] = bool(launches == want and res["param_dtypes"] == ["torch.float32"]
+                     and state_dtypes == ["torch.float32"]
+                     and all(math.isfinite(x) for x in losses)
+                     and res["first_loss_rel_err_vs_fp32"] <= BF16_TRAIN_TOL)
+    return res
+
+
+def check_eval_loss(fresh, ccfg, batch) -> dict:
+    """The trainer's eval step (with the loss: the negative pass and every
+    loss term) at the TACoS geometry in fp32, kernels "auto" against "off":
+    the 4098-wide ln_dense and the fp32 batched attention kernel."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    model = fresh().eval()
+    step = make_eval_step(model, _encode_batch, torch.float32, ccfg, with_loss=True,
+                          seed=TRAIN_SEED)
+    with kernels.pallas_scope("auto"):
+        reset_launches()
+        preds, losses = step(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    with kernels.pallas_scope("off"):
+        preds_off, losses_off = step(batch)
+    want = expected_launches({"ln_dense": 1, "attention_batched": 2}, 1)
+    loss_err = max(abs(float(losses[k]) - float(losses_off[k])) / max(1.0, abs(float(losses_off[k])))
+                   for k in losses_off)
+    res = {"launches_per_batch": launches, "launches_expected": want,
+           "loss_overall": float(losses["loss_overall"]), "n_loss_terms": len(losses),
+           "loss_max_err_vs_off": loss_err, "preds_vs_off": _pred_err(preds, preds_off),
+           "tol": FP32_MODEL_TOL}
+    res["ok"] = bool(launches == want and loss_err <= FP32_MODEL_TOL
+                     and max(res["preds_vs_off"].values()) <= FP32_MODEL_TOL
+                     and all(math.isfinite(float(v)) for v in losses.values()))
+    return res
+
+
 def phase_train(card: str, steps: int = 4) -> dict:
     """The train step: the kernel-engaged TACoS fp32 step (bench.py:780-795:
     B = 16, attention dropout 0, input dropout 0.5 as shipped) with the
@@ -2559,13 +2711,23 @@ def phase_train(card: str, steps: int = 4) -> dict:
     t["ms_per_step_kernels_auto"] = [ms for m, ms, _ in turns if m == "auto"]
     t["ms_per_step_kernels_off"] = [ms for m, ms, _ in turns if m == "off"]
     t["last_loss"] = [loss for _, _, loss in turns]
-    want = expected_launches({"attention_batched": 2, "attention_trainable": 2,
-                              "attention_backward": 2}, steps)
+    per_step = {"attention_batched": 2, "attention_trainable": 2, "attention_backward": 2}
+    want = expected_launches(per_step, steps)
     t["launches_expected"] = want
     ok_tacos = (t["launches"] == want and t["grads_same_params"]
                 and t["first_loss_rel_err"] <= TRAIN_LOSS_TOL
                 and t["grad_max_err_rel_to_max1"] <= TRAIN_GRAD_TOL
                 and all(math.isfinite(x) for x in t["last_loss"]))
+    res["tacos_grad_accum"] = check_grad_accum(fresh, ccfg, batch, per_step, steps)
+    def fresh_without_dropout():
+        model = MESM(dataclasses.replace(cfg, input_dropout=0.0))
+        model.load_state_dict(init)
+        return model.cuda()
+
+    res["tacos_bf16"] = check_bf16_train(fresh_without_dropout, ccfg, batch, steps)
+    res["tacos_eval_loss"] = check_eval_loss(fresh, ccfg, batch)
+    ok_tacos = ok_tacos and all(res[k]["ok"] for k in ("tacos_grad_accum", "tacos_bf16",
+                                                       "tacos_eval_loss"))
 
     # charades C+SF_C as shipped: dropout 0.1, so no attention kernel
     torch.manual_seed(0)
@@ -2585,11 +2747,56 @@ def phase_train(card: str, steps: int = 4) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def _captured_warnings(logger_name: str):
+    """The messages of WARNING and above that `logger_name` logs meanwhile."""
+    import logging
+
+    got = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            got.append(record.getMessage())
+
+    handler = Keep(level=logging.WARNING)
+    log = logging.getLogger(logger_name)
+    log.addHandler(handler)
+    try:
+        yield got
+    finally:
+        log.removeHandler(handler)
+
+
+@contextlib.contextmanager
+def _without_tensorboard():
+    """`from torch.utils.tensorboard import ...` raises ImportError meanwhile,
+    as on a machine without the tensorboard package."""
+    name = "torch.utils.tensorboard"
+    saved = sys.modules.get(name, False)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is False:
+            sys.modules.pop(name, None)
+        else:
+            sys.modules[name] = saved
+
+
+def _eval_log_losses(line: str) -> dict:
+    """{term: value} of an eval log line's [Loss] field."""
+    if "[Loss]" not in line:
+        return {}
+    toks = line.split("[Loss]")[1].split("[Metrics]")[0].split()
+    return dict(zip(toks[::2], map(float, toks[1::2])))
+
+
 def phase_train_cli() -> dict:
     """`python -m mesm_tpu_torch.train` through its train() entry on the
     synthetic charades root at full width (fp32 on the card, one epoch and
-    its eval), then `mesm_tpu_torch.evaluate` scoring the run's best
-    checkpoint."""
+    its eval with the loss terms), then `mesm_tpu_torch.evaluate` scoring
+    the run's best checkpoint. The run must log its eval loss; it runs with
+    torch.utils.tensorboard unimportable, and must warn and go on."""
     import torch
 
     from mesm_tpu_torch.evaluate import inference
@@ -2605,13 +2812,21 @@ def phase_train_cli() -> dict:
             json.dump(cfg, f)
         reset_launches()
         t0 = time.perf_counter()
-        run = train(["--config_file", cfg_path, "--device", "cuda"])
+        # torch.utils.tensorboard made unimportable: the run must warn and go on
+        with _captured_warnings("mesm_tpu_torch.train") as warnings, _without_tensorboard():
+            run = train(["--config_file", cfg_path, "--device", "cuda"])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = read_launches()
+        warned = any("tensorboard unavailable" in w for w in warnings)
+        tb = {"import_blocked": True, "warned": warned,
+              "log_dir_written": os.path.exists(run["opt"].tensorboard_log_dir),
+              "ok": warned and not os.path.exists(run["opt"].tensorboard_log_dir)}
         opt = run["opt"]
         with open(opt.train_log_filepath) as f:
             train_log = f.read().strip().splitlines()
+        with open(opt.eval_log_filepath) as f:
+            eval_log = f.read().strip().splitlines()
         eval_cfg = os.path.join(root, "eval.json")
         with open(eval_cfg, "w") as f:
             json.dump({
@@ -2622,15 +2837,339 @@ def phase_train_cli() -> dict:
             }, f)
         t0 = time.perf_counter()
         metrics, _ = inference(["--config_file", eval_cfg, "--device", "cuda"])
+        loss_terms = _eval_log_losses(eval_log[-1]) if eval_log else {}
         res = {"phase": "train_cli", "train_s": train_s, "steps": run["step"],
                "launches": launches, "train_log_last": train_log[-1] if train_log else None,
+               "eval_loss": loss_terms, "tensorboard": tb,
                "best_ckpt": os.path.exists(os.path.join(opt.result_dir, "model_test_best.ckpt")),
                "evaluate_s": time.perf_counter() - t0, "brief": metrics["brief"]}
         res["ok"] = bool(run["step"] > 0 and res["best_ckpt"] and res["brief"]
-                         and res["brief"].get("MR-full-miou") is not None)
+                         and res["brief"].get("MR-full-miou") is not None
+                         and math.isfinite(loss_terms.get("loss_overall", math.nan))
+                         and tb["ok"])
         emit(res)
         if not res["ok"]:
             raise SystemExit("train_cli phase failed")
+    return res
+
+
+# the public CLIP ViT-B/32 text tower (heads = width // 64, as both
+# packages' build_clip_text_encoder infer them); Charades-STA's test split holds 3,720 sentences
+CLIP_TEXT = dict(width=512, layers=12, context=77, vocab=49408, embed=512)
+CHARADES_TEST_SENTENCES = 3720
+CLIP_CHUNK = 256
+CLIP_FP32_TOL, CLIP_BF16_TOL = 1e-4, 3e-2
+
+
+def write_clip_tower(path: str, seed: int = 0) -> None:
+    """A fabricated fp16 CLIP text tower at CLIP_TEXT's widths, in the
+    upstream key layout of clip_text_encoder.pth (with its three int
+    entries), from a seed."""
+    import torch
+
+    W, L, E, V = CLIP_TEXT["width"], CLIP_TEXT["context"], CLIP_TEXT["embed"], CLIP_TEXT["vocab"]
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).half()
+
+    sd = {"token_embedding.weight": rnd(V, W, std=0.02), "positional_embedding": rnd(L, W, std=0.01),
+          "text_projection": rnd(W, E, std=W**-0.5), "ln_final.weight": rnd(W, std=0.05, mean=1.0),
+          "ln_final.bias": rnd(W, std=0.02)}
+    for i in range(CLIP_TEXT["layers"]):
+        p = f"transformer.resblocks.{i}."
+        sd.update({
+            p + "ln_1.weight": rnd(W, std=0.05, mean=1.0), p + "ln_1.bias": rnd(W, std=0.02),
+            p + "ln_2.weight": rnd(W, std=0.05, mean=1.0), p + "ln_2.bias": rnd(W, std=0.02),
+            p + "attn.in_proj_weight": rnd(3 * W, W, std=W**-0.5),
+            p + "attn.in_proj_bias": rnd(3 * W, std=0.02),
+            p + "attn.out_proj.weight": rnd(W, W, std=W**-0.5),
+            p + "attn.out_proj.bias": rnd(W, std=0.02),
+            p + "mlp.c_fc.weight": rnd(4 * W, W, std=W**-0.5), p + "mlp.c_fc.bias": rnd(4 * W, std=0.02),
+            p + "mlp.c_proj.weight": rnd(W, 4 * W, std=(4 * W)**-0.5),
+            p + "mlp.c_proj.bias": rnd(W, std=0.02),
+        })
+    sd.update(input_resolution=224, context_length=L, vocab_size=V)
+    torch.save(sd, path)
+
+
+def clip_token_ids(n: int, seed: int = 0):
+    """n token rows as CLIP's tokenizer lays them out: <|startoftext|>
+    (49406), 3-20 word pieces, <|endoftext|> (49407, the largest id: the
+    argmax pools it), zeros to the context length."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((n, CLIP_TEXT["context"]), np.int64)
+    for i in range(n):
+        k = int(rng.integers(3, 21))
+        ids[i, 0] = 49406
+        ids[i, 1:k + 1] = rng.integers(1, 49406, k)
+        ids[i, k + 1] = 49407
+    return ids
+
+
+def _clip_opt(tower_path: str, max_words_l: int = 32):
+    import types
+
+    return types.SimpleNamespace(tokenizer_type="CLIP", text_model_path=tower_path,
+                                 max_words_l=max_words_l, normalize_txt=True)
+
+
+def phase_clip(card: str, tower_path: str) -> dict:
+    """The CLIP text tower at the ViT-B/32 text widths, built by the
+    runner's build_clip_text_encoder from a fabricated fp16 file: fp32 on the card (TF32
+    off) against the same tower on the CPU, bf16 against fp32, one
+    CLIP_CHUNK-sentence chunk timed (CUDA events) and a cache pass over
+    CHARADES_TEST_SENTENCES sentences through runner.cache_text_features
+    (host clock). The tower reaches no kernel, as the JAX one."""
+    import types
+
+    import torch
+
+    from mesm_tpu_torch import runner as R
+    from mesm_tpu_torch.models.text_encoder import clip_encode_text
+
+    t0 = time.perf_counter()
+    cpu = R.build_clip_text_encoder(tower_path, "cpu")
+    gpu = R.build_clip_text_encoder(tower_path, "cuda")
+    build_s = time.perf_counter() - t0
+    ids = torch.from_numpy(clip_token_ids(32, seed=1))
+    reset_launches()
+    with torch.no_grad():
+        want = cpu(ids, torch.float32)
+        got = gpu(ids.cuda(), torch.float32)
+        got_bf16 = gpu(ids.cuda(), torch.bfloat16)
+    torch.cuda.synchronize()
+    errs = {}
+    for key in ("last_hidden_state", "pooler_output"):
+        scale = float(want[key].abs().max())
+        errs[f"{key}_fp32_vs_cpu"] = float((got[key].cpu() - want[key]).abs().max()) / scale
+        ref = got[key].float()
+        errs[f"{key}_bf16_vs_fp32"] = float((got_bf16[key].float() - ref).abs().max() / ref.abs().max())
+    chunk = torch.from_numpy(clip_token_ids(CLIP_CHUNK, seed=2)).cuda()
+    res = {"phase": "clip", "card": card, "arch": dict(CLIP_TEXT, heads=CLIP_TEXT["width"] // 64),
+           "parameters": sum(p.numel() for p in gpu.parameters()), "build_s": build_s,
+           "errs_rel_to_max": errs, "tol": {"fp32": CLIP_FP32_TOL, "bf16": CLIP_BF16_TOL}}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: clip_encode_text(gpu, chunk, chunk != 0, 32, True, dt),
+                              iters=10)
+        res[f"chunk_ms_{name}"] = ms
+        res[f"sentences_per_s_{name}"] = CLIP_CHUNK / ms * 1e3
+        with torch.no_grad():
+            res[f"profile_{name}"] = profile_step(
+                lambda ids: clip_encode_text(gpu, ids, ids != 0, 32, True, dt), [chunk], top=8)
+        encode = R.build_text_encoder(_clip_opt(tower_path), None, "cuda", dt)
+        flat = clip_token_ids(CHARADES_TEST_SENTENCES, seed=3)
+        ds = types.SimpleNamespace(merged_data=[{"words_id": [row]} for row in flat])
+        R.cache_text_features(types.SimpleNamespace(merged_data=ds.merged_data[:CLIP_CHUNK]),
+                              encode, "cuda")  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R.cache_text_features(ds, encode, "cuda")
+        torch.cuda.synchronize()
+        res[f"cache_pass_{CHARADES_TEST_SENTENCES}_s_{name}"] = time.perf_counter() - t0
+        cached = ds.merged_data[0]["cached_words_feat"][0]
+        res[f"cache_shape_{name}"] = list(cached.shape)
+    res["launches"] = read_launches()
+    res["ok"] = bool(
+        errs["last_hidden_state_fp32_vs_cpu"] <= CLIP_FP32_TOL
+        and errs["pooler_output_fp32_vs_cpu"] <= CLIP_FP32_TOL
+        and errs["last_hidden_state_bf16_vs_fp32"] <= CLIP_BF16_TOL
+        and errs["pooler_output_bf16_vs_fp32"] <= CLIP_BF16_TOL
+        and res["cache_shape_bf16"] == [32, CLIP_TEXT["width"]]
+        and not any(res["launches"].values()))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("clip phase failed")
+    return res
+
+
+def write_bpe(path: str) -> None:
+    """A fabricated BPE merge table (gzip, CLIP's file format) that merges
+    every word of SENTS whole; other text falls back to characters."""
+    import gzip
+
+    merges = []
+    for w in sorted({w for s in SENTS for w in s.split()}):
+        parts = list(w[:-1]) + [w[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = f"{parts[0]} {parts[1]}"
+            if pair not in merges:
+                merges.append(pair)
+            parts = [parts[0] + parts[1]] + parts[2:]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: fabricated"] + merges) + "\n")
+
+
+def to_clip_root(cfg_path: str, tower_path: str) -> None:
+    """The synthetic charades root of write_charades_root on CLIP text, as
+    config/charades/C+SF_C.json ships it: the fabricated BPE file and tower,
+    512-d text, the MLM keep-vocab counted over the root's sentences."""
+    from collections import Counter
+
+    from mesm_tpu_torch.data.tokenizers import ClipBPETokenizer
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    root = os.path.dirname(cfg_path)
+    bpe = os.path.join(root, "bpe_fabricated.txt.gz")
+    write_bpe(bpe)
+    tok = ClipBPETokenizer(False, None, bpe)
+    counts = Counter(i for s in SENTS for i in tok.encode(s)[0])
+    with open(os.path.join(cfg["ann_path"], "CLIP_tokenized_count.txt"), "w") as f:
+        f.writelines(f"{i} {c}\n" for i, c in counts.most_common())
+    with open(os.path.join(HERE, "config", "charades", "C+SF_C.json")) as f:
+        shipped = json.load(f)
+    cfg.update(tokenizer_type="CLIP", bpe_path=bpe, text_model_path=tower_path,
+               t_feat_dim=shipped["t_feat_dim"], vocab_size=shipped["vocab_size"])
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f, indent=1)
+
+
+@contextlib.contextmanager
+def counted_eval_batches():
+    """The number of eval batches decoded meanwhile (one _decode_batch each)."""
+    from mesm_tpu_torch import evaluate
+
+    orig, n = evaluate._decode_batch, [0]
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return orig(*args, **kwargs)
+
+    evaluate._decode_batch = counted
+    try:
+        yield n
+    finally:
+        evaluate._decode_batch = orig
+
+
+def phase_clip_cli(tower_path: str) -> dict:
+    """Both entry points from raw text on CLIP: the synthetic charades root
+    with tokenizer_type CLIP, the fabricated BPE file and tower.
+    `evaluate` in fp32 (TF32 off) with the text cache on and off (brief
+    metrics equal; the largest difference between the encodings of the
+    cache's chunks of CLIP_CHUNK and the eval batches' 128 rows), then bf16
+    "auto" with the cache on (the launches of kernels 1 and 2 per batch),
+    then one `train` epoch."""
+    import torch
+
+    from mesm_tpu_torch import runner as R
+    from mesm_tpu_torch.config import TestOptions
+    from mesm_tpu_torch.data.tokenizers import ClipBPETokenizer
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.train import train
+
+    res = {"phase": "clip_cli"}
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_clip_") as root:
+        eval_cfg = write_cli_eval(root, clip_tower=tower_path)
+        with open(eval_cfg) as f:
+            base = json.load(f)
+
+        def run(name, *args):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(dict(base, inference_id=name), f)
+            with counted_eval_batches() as n:
+                reset_launches()
+                t0 = time.perf_counter()
+                metrics, _ = inference(["--config_file", path, "--device", "cuda", *args])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            return metrics["brief"], read_launches(), n[0], secs
+
+        on, _, _, on_s = run("clip_fp32_on", "--compute_dtype", "float32", "--cache_text", "on")
+        off, _, _, off_s = run("clip_fp32_off", "--compute_dtype", "float32", "--cache_text", "off")
+        bf16, launches, n_batches, bf16_s = run("clip_bf16_on", "--compute_dtype", "bfloat16",
+                                                "--cache_text", "on")
+        opt = TestOptions().parse(["--config_file", os.path.join(root, "clip_fp32_on.json")])
+        with open(os.path.join(opt.ann_path, "charades_sta_test.txt")) as f:
+            sents = [line.split("##")[1].strip() for line in f if line.strip()]
+        ids = torch.from_numpy(ClipBPETokenizer(False, None, opt.bpe_path).tokenize(sents)[0]).cuda()
+        encode = R.build_text_encoder(opt, None, "cuda", torch.float32)
+        whole = [torch.cat(x) for x in zip(*(encode({"words_id": ids[i:i + CLIP_CHUNK]})
+                                             for i in range(0, len(ids), CLIP_CHUNK)))]
+        rows = [torch.cat(x) for x in zip(*(encode({"words_id": ids[i:i + 128]})
+                                            for i in range(0, len(ids), 128)))]
+        enc_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(whole, rows))
+        res.update(sentences=len(sents), brief_fp32_cache_on=on, brief_fp32_cache_off=off,
+                   brief_bf16=bf16, cache_on_equals_off=on == off,
+                   encodings_max_abs_diff_chunk256_vs_rows128=enc_diff,
+                   evaluate_s={"fp32_on": on_s, "fp32_off": off_s, "bf16_on": bf16_s},
+                   bf16_eval_batches=n_batches, bf16_launches=launches,
+                   bf16_launches_per_batch={k: launches[k] / max(n_batches, 1)
+                                            for k in ("ln_dense", "attention_packed")},
+                   eval_rows_per_s_bf16=len(sents) / bf16_s)
+
+        train_path = os.path.join(root, "config.json")  # the root's train config, on CLIP
+        with open(train_path) as f:
+            train_cfg = json.load(f)
+        train_cfg.update(n_epoch=1, stop_score="miou", exp_id="chip_smoke_clip_train")
+        with open(train_path, "w") as f:
+            json.dump(train_cfg, f)
+        t0 = time.perf_counter()
+        out = train(["--config_file", train_path, "--device", "cuda"])
+        torch.cuda.synchronize()
+        with open(out["opt"].train_log_filepath) as f:
+            last = f.read().strip().splitlines()[-1]
+        toks = last.split()
+        res["train"] = {"steps": out["step"], "s": time.perf_counter() - t0,
+                        "loss_overall": float(toks[toks.index("loss_overall") + 1])}
+    res["ok"] = bool(on and res["cache_on_equals_off"] and bf16
+                     and all(v > 0 for v in res["bf16_launches_per_batch"].values())
+                     and res["train"]["steps"] > 0
+                     and math.isfinite(res["train"]["loss_overall"]))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("clip_cli phase failed")
+    return res
+
+
+def phase_resume_v1() -> dict:
+    """`evaluate` on a mesm_tpu.v1 checkpoint: the phase-cli model written
+    as the JAX package writes its own (convert.jax_params_from_state_dict,
+    no optimizer state), scored on the card in bf16 "auto" beside the
+    torch-layout checkpoint of the same weights: equal brief metrics."""
+    import shutil
+
+    import torch
+
+    from mesm_tpu_torch import runner as R
+    from mesm_tpu_torch.config import BaseOptions
+    from mesm_tpu_torch.convert import jax_params_from_state_dict
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.utils.checkpoint import is_torch_checkpoint, save_v1_checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_v1_") as root:
+        eval_cfg = write_cli_eval(root)
+        with open(eval_cfg) as f:
+            base = json.load(f)
+        run_dir = base["trained_result_dir"]
+        v1_dir = os.path.join(root, "v1_run")
+        os.makedirs(v1_dir)
+        shutil.copy(os.path.join(run_dir, "opt.json"), v1_dir)
+        opt = BaseOptions().parse(["--config_file", os.path.join(root, "config.json")])
+        state = torch.load(os.path.join(run_dir, "model_test_best.ckpt"), weights_only=False)["model"]
+        v1_path = os.path.join(v1_dir, "model_test_best.ckpt")
+        save_v1_checkpoint(v1_path, jax_params_from_state_dict(state, R.build_model_config(opt)),
+                           epoch=0)
+        briefs = {}
+        for name, trained in (("torch_layout", run_dir), ("mesm_tpu_v1", v1_dir)):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(dict(base, inference_id=name, trained_result_dir=trained), f)
+            metrics, _ = inference(["--config_file", path, "--compute_dtype", "bfloat16",
+                                    "--device", "cuda"])
+            briefs[name] = metrics["brief"]
+        res = {"phase": "resume_v1", "v1_is_torch": is_torch_checkpoint(v1_path),
+               "brief_torch_layout": briefs["torch_layout"], "brief_v1": briefs["mesm_tpu_v1"]}
+    res["ok"] = bool(briefs["torch_layout"] and briefs["torch_layout"] == briefs["mesm_tpu_v1"]
+                     and not res["v1_is_torch"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("resume_v1 phase failed")
     return res
 
 
@@ -2866,16 +3405,19 @@ def write_qvh_root(root: str, n_videos: int = 48, seed: int = 0) -> str:
     return cfg_path
 
 
-def write_cli_eval(root: str) -> str:
-    """The synthetic charades root, a torch-layout checkpoint from seeded
-    weights and an eval config that scores it in one length bucket of 128
-    rows. Returns the eval config's path."""
+def write_cli_eval(root: str, clip_tower: Optional[str] = None) -> str:
+    """The synthetic charades root (on CLIP text with `clip_tower`, see
+    to_clip_root), a torch-layout checkpoint from seeded weights and an eval
+    config that scores it in one length bucket of 128 rows. Returns the eval
+    config's path."""
     import torch
 
     from mesm_tpu_torch import runner
     from mesm_tpu_torch.config import BaseOptions
 
     cfg_path = write_charades_root(root)
+    if clip_tower is not None:
+        to_clip_root(cfg_path, clip_tower)
     opt = BaseOptions().parse(["--config_file", cfg_path])  # writes the run's opt.json
     torch.manual_seed(1)
     model = runner.build_model(opt)
@@ -2885,7 +3427,7 @@ def write_cli_eval(root: str) -> str:
     with open(eval_cfg, "w") as f:
         json.dump({
             "ann_path": opt.ann_path, "feat_files": opt.feat_files,
-            "text_model_path": opt.text_model_path, "bpe_path": "",
+            "text_model_path": opt.text_model_path, "bpe_path": opt.bpe_path,
             "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
             "inference_result_dir": os.path.join(root, "inference"),
             "row_capacity": 128, "eval_len_buckets": 1, "num_workers": 4,
@@ -3329,6 +3871,12 @@ def main() -> int:
     phase_tacos_eval(card)
     qvh = phase_qvh_eval(card)
     long_query = phase_long_query(card)
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_clip_tower_") as tower_dir:
+        tower_path = os.path.join(tower_dir, "clip_text_encoder.pth")
+        write_clip_tower(tower_path)
+        phase_clip(card, tower_path)
+        phase_clip_cli(tower_path)
+    phase_resume_v1()
     trained = phase_train(card)
     phase_train_cli()
     phase_qvh_train(card)

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .models.mesm import MESMConfig
+from .utils.checkpoint import V1_FORMAT, find_state, load_checkpoint
 
 # entry: (torch_key, flax_path, transpose)
 MapEntry = Tuple[str, Tuple[str, ...], bool]
@@ -258,6 +259,27 @@ def layer_state_dict_from_jax_params(params_np: Dict, flavour: str) -> Dict[str,
     return {key[len("L."):]: value for key, value in out.items()}
 
 
+def clip_state_dict_from_jax_params(params_np: Dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's CLIP tower parameters (mesm_tpu/models/
+    text_encoder.py CLIPTextEncoder, numpy) -> the port's tower state dict,
+    the inverse of mesm_tpu/runner.py:178 convert_clip_torch_weights."""
+    n_layers = sum(1 for k in params_np if k.startswith("resblock"))
+    mapping: List[MapEntry] = [
+        ("token_embedding.weight", ("token_embedding",), False),
+        ("positional_embedding", ("positional_embedding",), False),
+        ("text_projection", ("text_projection",), False),
+    ] + _norm("ln_final", ("ln_final",))
+    for i in range(n_layers):
+        tp, fp = f"transformer.resblocks.{i}", (f"resblock{i}",)
+        mapping += _norm(tp + ".ln_1", fp + ("ln_1",)) + _norm(tp + ".ln_2", fp + ("ln_2",))
+        mapping += [(tp + ".attn.in_proj_weight", fp + ("attn_in_proj_kernel",), True),
+                    (tp + ".attn.in_proj_bias", fp + ("attn_in_proj_bias",), False)]
+        mapping += _linear(tp + ".attn.out_proj", fp + ("attn_out_proj",))
+        mapping += _linear(tp + ".mlp.c_fc", fp + ("mlp_c_fc",))
+        mapping += _linear(tp + ".mlp.c_proj", fp + ("mlp_c_proj",))
+    return _convert(_copy_tree(params_np), mapping)
+
+
 def model_state_from_checkpoint(state_dict: Dict, cfg: MESMConfig) -> Dict[str, torch.Tensor]:
     """An upstream model state dict -> the keys the port's MESM has for `cfg`:
     drops the modules the upstream model constructs but this config never
@@ -277,9 +299,59 @@ def model_state_from_checkpoint(state_dict: Dict, cfg: MESMConfig) -> Dict[str, 
     }
 
 
-def load_mesm_checkpoint(path: str, cfg: MESMConfig):
-    """An upstream-layout torch checkpoint -> (model state dict, epoch)."""
-    payload = torch.load(path, map_location="cpu", weights_only=False)
+def jax_params_from_state_dict(state_dict: Dict, cfg: MESMConfig) -> Dict:
+    """The port's state dict -> the JAX package's MESM parameter tree
+    (nested dicts of float32 numpy), per-layer (no scan layout): the inverse
+    of state_dict_from_jax_params, as mesm_tpu/convert.py:240
+    torch_state_dict_to_params. The TwoMLP layers' one PReLU slope fills
+    both of the JAX package's."""
+    params: Dict = {}
+    for tkey, fpath, transpose in build_mapping(cfg):
+        arr = torch.as_tensor(state_dict[tkey]).detach().float().cpu().numpy()
+        node = params
+        for p in fpath[:-1]:
+            node = node.setdefault(p, {})
+        node[fpath[-1]] = np.array(arr.T if transpose else arr, order="C")
+    return params
+
+
+def model_state_from_payload(payload, cfg: MESMConfig) -> Dict[str, torch.Tensor]:
+    """A checkpoint's model state in the port's keys, from either format
+    (utils/checkpoint.load_checkpoint): a `mesm_tpu.v1` tree goes through
+    state_dict_from_jax_params (scan layouts unstacked), an upstream state
+    dict as it is."""
+    if isinstance(payload, dict) and payload.get("format") == V1_FORMAT:
+        return model_state_from_checkpoint(state_dict_from_jax_params(payload["model"], cfg), cfg)
     state = payload["model"] if isinstance(payload, dict) and "model" in payload else payload
+    return model_state_from_checkpoint(state, cfg)
+
+
+def adamw_state_from_optax(opt_state, cfg: MESMConfig):
+    """The optax chain state of a v1 checkpoint (clip_by_global_norm, then
+    inject_hyperparams(adamw): mesm_tpu/parallel/step.py:33-55) -> ({port
+    parameter name: torch AdamW state}, learning rate): mu -> exp_avg and
+    nu -> exp_avg_sq through the parameters' mapping and transposes, the
+    Adam count -> step. The TwoMLP layers' shared PReLU slope takes the
+    moments of the JAX package's first one."""
+    adam = find_state(opt_state, "ScaleByAdamState")
+    if adam is None:
+        raise ValueError("no ScaleByAdamState in the checkpoint's optimizer state")
+    hyper = None
+    for name in ("InjectStatefulHyperparamsState", "InjectHyperparamsState"):
+        node = find_state(opt_state, name)
+        if node is not None:
+            hyper = node.hyperparams
+            break
+    lr = None if hyper is None else float(np.asarray(hyper["learning_rate"]))
+    mu = state_dict_from_jax_params(adam.mu, cfg)
+    nu = state_dict_from_jax_params(adam.nu, cfg)
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    return {k: {"step": step.clone(), "exp_avg": mu[k], "exp_avg_sq": nu[k]} for k in mu}, lr
+
+
+def load_mesm_checkpoint(path: str, cfg: MESMConfig):
+    """A checkpoint of either format (upstream torch layout or the JAX
+    package's mesm_tpu.v1) -> (model state dict, epoch)."""
+    payload = load_checkpoint(path)
     epoch = payload.get("epoch", -1) if isinstance(payload, dict) else -1
-    return model_state_from_checkpoint(state, cfg), epoch
+    return model_state_from_payload(payload, cfg), epoch

@@ -6,7 +6,11 @@
 Parity targets: mesm_tpu/evaluate.py:36-464 and the reference eval.py
 (eval_epoch :34, compute_mr_results :52, inference :488). One staged batch
 per eval step, one device-to-host copy of the predictions per batch; the
-post-processing and metrics run on the host.
+post-processing and metrics run on the host. `--resume` takes the upstream
+torch layout or the JAX package's mesm_tpu.v1 pickle
+(convert.load_mesm_checkpoint). Inference runs without the eval loss, as
+the JAX package's does (mesm_tpu/evaluate.py:439); the trainer's eval
+takes it (compute_mr_results' loss meters).
 """
 from __future__ import annotations
 
@@ -67,12 +71,20 @@ def _to_host(preds):
     return {k: v.float().cpu().numpy() for k, v in preds.items()}
 
 
-def compute_mr_results(eval_step, loader, opt, device):
-    """Run the eval step over a loader and decode the submission on the host."""
+def compute_mr_results(eval_step, loader, opt, device, loss_meters=None):
+    """Run the eval step over a loader and decode the submission on the host.
+    A step built with_loss returns (predictions, losses); each loss term then
+    goes into loss_meters[term] (mesm_tpu/evaluate.py:212-235)."""
     mr_res = []
     cast = R.compute_dtype_from_opt(opt) == torch.bfloat16
     for jb, batch, meta in device_feed(loader, device, cast):
-        _decode_batch(_to_host(eval_step(jb)), batch, meta, opt, mr_res)
+        preds = eval_step(jb)
+        if isinstance(preds, tuple):
+            preds, losses = preds
+            if loss_meters is not None:
+                for k, v in losses.items():
+                    loss_meters[k].update(float(v))
+        _decode_batch(_to_host(preds), batch, meta, opt, mr_res)
     post = SpanPostProcessor(
         clip_length=opt.clip_len,
         min_ts_val=0,
@@ -87,10 +99,12 @@ def compute_mr_results(eval_step, loader, opt, device):
     return post(mr_res)
 
 
-def eval_epoch(eval_step, loader, opt, save_submission_filename: str, gt_data, device):
+def eval_epoch(eval_step, loader, opt, save_submission_filename: str, gt_data, device,
+               loss_meters=None):
     """Writes the submission and its metrics under opt.result_dir; returns
-    (metrics_no_nms, metrics_nms)."""
-    submission = compute_mr_results(eval_step, loader, opt, device)
+    (metrics_no_nms, metrics_nms). With a step built with_loss the loss
+    terms are averaged into `loss_meters` (name -> AverageMeter)."""
+    submission = compute_mr_results(eval_step, loader, opt, device, loss_meters)
     if not opt.sort_results:
         save_submission_filename = save_submission_filename.replace(".jsonl", "_unsorted.jsonl")
     submission_path = os.path.join(opt.result_dir, save_submission_filename)
@@ -133,7 +147,7 @@ def _inference_body(opt, device):
     model = model.to(device).eval()
     logger.info(f"Loaded model saved at epoch {epoch}")
 
-    encode_text = R.build_text_encoder(opt, vocab, device)
+    encode_text = R.build_text_encoder(opt, vocab, device, compute_dtype)
     if getattr(opt, "cache_text", "on") == "on" and not (
         opt.tokenizer_type == "GloVeNLTK" and opt.load_vocab_pkl
     ):

@@ -44,15 +44,17 @@ def attention_core(
     split_qk: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B,Lq,E2), (B,Lk,E2)
     dropout_rate: float = 0.0,
     training: bool = False,
+    logit_bias: Optional[torch.Tensor] = None,  # additive, broadcastable to (B,H,Lq,Lk)
 ) -> torch.Tensor:
     """Multi-head attention core, (B, Lq, Ev) before the out-projection.
 
     The scale uses the head dim of the query embedding (the concat width
     (E + E2) / H when split_qk is given, since <cat(qc, qp), cat(kc, kp)> is
     <qc, kc> + <qp, kp> per head). A pair (q, k) of head (b, h) is masked when
-    both pair factors flag it. In bf16 the logits are stored in bf16 and the
-    softmax runs in f32, as mesm_tpu's attention_core; in fp32 everything is
-    f32."""
+    both pair factors flag it. `logit_bias` (the CLIP tower's causal bias) is
+    added to the logits in their dtype, after the split-qk term and before
+    the masks. In bf16 the logits are stored in bf16 and the softmax runs in
+    f32, as mesm_tpu's attention_core; in fp32 everything is f32."""
     B, Lq, E = q.shape
     Lk, Ev = k.shape[1], v.shape[-1]
     H = num_heads
@@ -69,6 +71,8 @@ def attention_core(
         q2h = q2.reshape(B, Lq, H, E2 // H).transpose(1, 2)
         k2h = k2.reshape(B, Lk, H, E2 // H).transpose(1, 2)
         logits = logits + torch.matmul(q2h * scale, k2h.transpose(-1, -2))
+    if logit_bias is not None:
+        logits = logits + logit_bias
     neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
     if pair_factors is not None:
         qf, kf = pair_factors

@@ -2,10 +2,11 @@
 AdamW) and the eval step (text encode -> MESM forward -> the predictions the
 host decodes).
 
-Parity target: mesm_tpu/parallel/step.py: the train step of :33-187 at
-grad_accum = 1, and make_eval_step (:233-320) at coalesce=1 and
-with_loss=False (no negative pass, deterministic). PyTorch runs eagerly, so
-each step is a plain function over one staged batch. Multi-clip
+Parity target: mesm_tpu/parallel/step.py: the train step of :33-230 (also
+with grad_accum k > 1: k microbatches, one update), and make_eval_step
+(:233-320) at coalesce=1, with_loss False (inference: no negative pass) or
+True (the trainer's eval: the negative pass and the loss terms). PyTorch
+runs eagerly, so each step is a plain function over one staged batch. Multi-clip
 (QVHighlights) batches pass their rows' SS video (`ss_video_feat`,
 `ss_video_mask`, expanded by data/pipeline.stage_batch) to the model, as
 _model_kwargs does (:81-104).
@@ -92,11 +93,15 @@ def sample_out_of_group(generator: torch.Generator, group_id: torch.Tensor,
     return torch.where(cand.any(dim=1), idx, fallback)
 
 
-def step_draws(seed: int, step: int, device) -> Tuple[torch.Generator, torch.Generator]:
+def step_draws(seed: int, step: int, device,
+               micro: Optional[int] = None) -> Tuple[torch.Generator, torch.Generator]:
     """The random draws of train step `step`: (negatives generator, MLM
     mask generator) on `device`, and the default generators reseeded for
-    the step's dropout masks. All three follow from (seed, step) alone."""
+    the step's dropout masks. All three follow from (seed, step) alone, and
+    microbatch `micro` of a grad_accum step folds its index in."""
     base = ((int(seed) * 1_000_003 + int(step)) * 3) % (2**62)
+    if micro is not None:
+        base = ((base * 1_000_003 + int(micro) + 1) * 3) % (2**62)
     neg = torch.Generator(device=device).manual_seed(base)
     mask = torch.Generator(device=device).manual_seed(base + 1)
     torch.manual_seed(base + 2)
@@ -139,36 +144,102 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
     return micro_grads
 
 
+def split_micro(batch: Dict[str, torch.Tensor], k: int):
+    """The k microbatches of a batch: every leaf's leading axis cut into k
+    consecutive slices of B/k rows, as mesm_tpu/parallel/step.py:194-200
+    reshapes it (a leading axis not divisible by k raises the same
+    ValueError). The reference leaves `ss_sent_idx` (rows of the whole
+    batch) as it is, and its gather clamps an index past a microbatch's rows
+    to the last row (jnp indexing); torch's raises, so the indices are
+    clamped here to read what the reference reads (ROADMAP.md section 3)."""
+    for key, x in batch.items():
+        if x.shape[0] % k != 0:
+            raise ValueError(
+                f"grad_accum={k} needs batch leading axis divisible by {k}, got shape "
+                f"{tuple(x.shape)} ({key})"
+            )
+    micro = [{key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i] for key, x in batch.items()}
+             for i in range(k)]
+    for mb in micro:
+        if "ss_sent_idx" in mb:
+            mb["ss_sent_idx"] = mb["ss_sent_idx"].clamp(max=mb["ss_sent_idx"].shape[0] - 1)
+    return micro
+
+
 def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimizer,
-                    grad_clip: float, seed: int, compute_dtype: torch.dtype = torch.float32):
+                    grad_clip: float, seed: int, compute_dtype: torch.dtype = torch.float32,
+                    grad_accum: int = 1):
     """train_step(batch, step, neg_idx_rows=None, masked_words_loc=None) ->
     metrics (device scalars: every loss term, loss_overall, grad_norm).
-    One optimizer update per batch (grad_accum = 1)."""
+
+    One optimizer update per batch. With grad_accum = k > 1
+    (mesm_tpu/parallel/step.py:141-230) the batch is cut into k microbatches
+    of B/k rows (split_micro); each takes its own negatives, matching and
+    loss normalisation, with the draws of step_draws(seed, step, micro=i);
+    the gradients are summed in f32 and divided by k, then one clip + AdamW
+    update; the metrics are the means of the k microbatches' terms.
+    neg_idx_rows / masked_words_loc, when given with k > 1, hold one entry
+    per microbatch (a sequence, or a leading axis of k)."""
     micro_grads = make_micro_grads(model, ccfg, encode_text, compute_dtype)
+    k = int(grad_accum)
 
     def train_step(batch: Dict[str, torch.Tensor], step: int, neg_idx_rows=None,
                    masked_words_loc=None) -> Dict[str, torch.Tensor]:
-        neg_gen, mask_gen = step_draws(seed, step, batch["video_mask"].device)
+        device = batch["video_mask"].device
         optimizer.zero_grad(set_to_none=True)
-        total, losses = micro_grads(batch, neg_gen, mask_gen, neg_idx_rows, masked_words_loc)
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss_overall"] = total.detach()
+        if k <= 1:
+            neg_gen, mask_gen = step_draws(seed, step, device)
+            total, losses = micro_grads(batch, neg_gen, mask_gen, neg_idx_rows, masked_words_loc)
+            metrics = {key: v.detach() for key, v in losses.items()}
+            metrics["loss_overall"] = total.detach()
+        else:
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+            totals, terms = [], []
+            for i, mb in enumerate(split_micro(batch, k)):
+                neg_gen, mask_gen = step_draws(seed, step, device, micro=i)
+                total, losses = micro_grads(
+                    mb, neg_gen, mask_gen,
+                    None if neg_idx_rows is None else neg_idx_rows[i],
+                    None if masked_words_loc is None else masked_words_loc[i])
+                for a, p in zip(acc, params):
+                    if p.grad is not None:
+                        a.add_(p.grad.float())
+                        p.grad = None
+                totals.append(total.detach().float())
+                terms.append({key: v.detach().float() for key, v in losses.items()})
+            for a, p in zip(acc, params):
+                p.grad = (a / k).to(p.dtype)
+            metrics = {key: torch.stack([t[key] for t in terms]).mean() for key in terms[0]}
+            metrics["loss_overall"] = torch.stack(totals).mean()
         metrics["grad_norm"] = apply_update(optimizer, grad_clip)
         return metrics
 
     return train_step
 
 
-def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype):
+def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype,
+                   ccfg: Optional[CriterionConfig] = None, with_loss: bool = False,
+                   seed: int = 0):
     """Returns eval_step(batch) -> {"scores", "pred_spans", "saliency_scores"}
     for a batch of device tensors (data/pipeline.stage_batch). Under bf16
     compute the saliency scores come back in bf16, as the JAX step ships
-    them (step.py:302-309); the decode upcasts."""
+    them (step.py:302-309); the decode upcasts.
+
+    with_loss (the trainer's eval, mesm_tpu/parallel/step.py:233-320):
+    eval_step(batch, neg_idx_rows=None) -> (predictions, losses): the
+    negative pass runs (out-of-group rows drawn by sample_out_of_group from
+    a generator seeded with `seed` at every call, as the JAX step draws from
+    one key at every batch, or injected), and `losses` holds every term of
+    compute_losses(..., is_training=False) and loss_overall."""
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Dict[str, torch.Tensor], neg_idx_rows=None):
         model.eval()
         words_feat, words_mask, sentence_feat = encode_text(batch)
+        if with_loss and neg_idx_rows is None:
+            gen = torch.Generator(device=batch["video_mask"].device).manual_seed(seed)
+            neg_idx_rows = sample_out_of_group(gen, batch["group_id"], batch.get("row_mask"))
         out = model(
             batch["video_mask"],
             words_feat.to(compute_dtype),
@@ -183,11 +254,18 @@ def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype):
             ss_own_pos=batch.get("ss_own_pos"),
             ss_video_feat=_cast(batch.get("ss_video_feat"), compute_dtype),
             ss_video_mask=batch.get("ss_video_mask"),
+            neg_idx_rows=neg_idx_rows if with_loss else None,
         )
         prob = torch.softmax(out["pred_logits"], dim=-1)
         sal = out["saliency_scores"]
         if compute_dtype == torch.bfloat16:
             sal = sal.to(torch.bfloat16)
-        return {"scores": prob[..., 0], "pred_spans": out["pred_spans"], "saliency_scores": sal}
+        preds = {"scores": prob[..., 0], "pred_spans": out["pred_spans"], "saliency_scores": sal}
+        if not with_loss:
+            return preds
+        losses, total = compute_losses(out, batch, ccfg, is_training=False)
+        losses = dict(losses)
+        losses["loss_overall"] = total
+        return preds, losses
 
     return eval_step

@@ -10,7 +10,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -22,8 +22,10 @@ from .data.sampler import GroupAwareBatcher, RowBudgetBatcher
 from .losses import CriterionConfig
 from .models.mesm import MESM, MESMConfig
 from .models.text_encoder import (
+    CLIPTextEncoder,
     GloVeTextEncoder,
     build_glove_embedding_matrix,
+    clip_encode_text,
     glove_encode_text,
     post_process_precomputed_text,
 )
@@ -158,11 +160,49 @@ def load_glove_vectors(path: str) -> Dict[str, np.ndarray]:
     return vectors
 
 
-def build_text_encoder(opt, vocab=None, device="cpu"):
+def convert_clip_torch_weights(state_dict) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """An upstream CLIP text state dict (fp16 or fp32) -> (the port's tower
+    state dict in float32, arch). The architecture is inferred from the
+    shapes, as mesm_tpu/runner.py:178 and the reference (runner.py:167-187)
+    do: heads = width // 64. Keys the tower does not have are left out."""
+    arch = dict(
+        embed_dim=state_dict["text_projection"].shape[1],
+        context_length=state_dict["positional_embedding"].shape[0],
+        vocab_size=state_dict["token_embedding.weight"].shape[0],
+        width=state_dict["ln_final.weight"].shape[0],
+    )
+    arch["heads"] = max(arch["width"] // 64, 1)
+    arch["layers"] = len(
+        {k.split(".")[2] for k in state_dict if k.startswith("transformer.resblocks")}
+    )
+    with torch.device("meta"):
+        keys = CLIPTextEncoder(**arch).state_dict().keys()
+    return {k: torch.as_tensor(state_dict[k]).detach().float() for k in keys}, arch
+
+
+def build_clip_text_encoder(path: str, device="cpu") -> CLIPTextEncoder:
+    """The frozen CLIP tower of an upstream `clip_text_encoder.pth`
+    (mesm_tpu/runner.py:235): float32 parameters on `device`, eval mode, no
+    gradients."""
+    state_dict = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(state_dict, "state_dict"):
+        state_dict = state_dict.state_dict()
+    state_dict = dict(state_dict)
+    for key in ("input_resolution", "context_length", "vocab_size"):
+        state_dict.pop(key, None)
+    weights, arch = convert_clip_torch_weights(state_dict)
+    with torch.device("meta"):
+        clip = CLIPTextEncoder(**arch)
+    clip.load_state_dict(weights, strict=True, assign=True)
+    return clip.to(device).eval().requires_grad_(False)
+
+
+def build_text_encoder(opt, vocab=None, device="cpu", compute_dtype=torch.float32):
     """encode(batch) -> (words_feat, words_mask, sentence_feat) on `device`,
     batch fields as tensors. Cached features in the batch (see
     cache_text_features) are returned as they are: the encoders are frozen,
-    so per-query encodings are run constants."""
+    so per-query encodings are run constants. The CLIP tower runs in
+    `compute_dtype` and returns float32 features."""
     normalize_txt = opt.normalize_txt
 
     def cached(batch):
@@ -171,9 +211,20 @@ def build_text_encoder(opt, vocab=None, device="cpu"):
         return None
 
     if opt.tokenizer_type == "CLIP":
-        raise NotImplementedError(
-            "the CLIP text tower is not ported yet; use a GloVe tokenizer_type"
-        )
+        clip = build_clip_text_encoder(opt.text_model_path, device)
+
+        @torch.no_grad()
+        def encode(batch):
+            hit = cached(batch)
+            if hit is not None:
+                return hit
+            ids = batch["words_id"]
+            wf, sf, _, mask = clip_encode_text(clip, ids, ids != 0, opt.max_words_l,
+                                               normalize_txt, compute_dtype)
+            return wf, mask, sf
+
+        return encode
+
     if opt.tokenizer_type == "GloVeSimple" or (
         opt.tokenizer_type == "GloVeNLTK" and not opt.load_vocab_pkl
     ):

@@ -1,26 +1,32 @@
 """Training entry point and loop.
 
     python -m mesm_tpu_torch.train --config_file <train.json> [--device cuda|cpu] \\
-        [--resume <model_latest.ckpt> --resume_all]
+        [--compute_dtype bfloat16] [--grad_accum K] [--resume <ckpt> --resume_all]
 
 Parity target: mesm_tpu/train.py:54-427 without mesh or sharding (one
 card), and the reference train.py (set_seed :32, train_epoch :42, train
 :99): the epoch loop with the StepLR learning rate set per epoch, eval over
 the val splits every `eval_epoch_interval` epochs through the port's
-evaluate, the best checkpoint per split keyed on MR-full-{stop_score}, early
-stop after `max_es_cnt` evaluations without a gain, the latest and periodic
-(`save_interval`) checkpoints, --resume / --resume_all, and a SIGTERM that
-finishes the step in flight, saves model_latest.ckpt with the last completed
-epoch and returns. Checkpoints are in the upstream torch layout
+evaluate with the criterion's losses beside the metrics (the eval log's
+[Loss] field), the best checkpoint per split keyed on MR-full-{stop_score},
+early stop after `max_es_cnt` evaluations without a gain, the latest and
+periodic (`save_interval`) checkpoints, --resume / --resume_all (from the
+port's own checkpoints or the JAX package's mesm_tpu.v1 pickles, whose
+optax state is mapped onto AdamW), the optional TensorBoard writer (skipped
+with a warning when torch.utils.tensorboard does not import), and a SIGTERM
+that finishes the step in flight, saves model_latest.ckpt with the last
+completed epoch and returns. Checkpoints are in the upstream torch layout
 (utils/checkpoint.py), so `python -m mesm_tpu_torch.evaluate` scores them.
 
 Every config family trains: the single-target ones (charades, TACoS) and
 QVHighlights, whose multi-clip batches carry each row's SS-MESM group video
 (expanded by data/pipeline.stage_batch, as mesm_tpu/train.py:102-104 does)
-and are matched by the batched Hungarian solver. Runs on CUDA unless
---device cpu; cuda without a GPU raises. Left for later slices:
-grad_accum > 1, bf16 training, and the eval loss the JAX trainer logs
-beside the metrics.
+and are matched by the batched Hungarian solver. Text comes from GloVe or
+the CLIP tower (runner.build_text_encoder). `--compute_dtype bfloat16`
+trains with float32 parameters and AdamW state and bf16 activations (the
+eval runs in the same dtype); `--grad_accum K` takes one update per batch
+from K microbatches (parallel/step.make_train_step). Runs on CUDA unless
+--device cpu; cuda without a GPU raises.
 """
 from __future__ import annotations
 
@@ -41,11 +47,12 @@ import torch
 from . import kernels
 from . import runner as R
 from .config import BaseOptions
-from .convert import model_state_from_checkpoint
+from .convert import adamw_state_from_optax, model_state_from_payload
 from .data.pipeline import stage_batch
 from .evaluate import eval_epoch
 from .parallel.step import current_learning_rate, make_eval_step, make_train_step, set_learning_rate
-from .utils import AverageMeter, count_parameters, load_checkpoint, save_checkpoint
+from .utils import AverageMeter, count_parameters, dict_to_markdown, load_checkpoint, save_checkpoint
+from .utils.checkpoint import V1_FORMAT
 
 logger = logging.getLogger(__name__)
 logging.basicConfig(
@@ -55,7 +62,10 @@ logging.basicConfig(
 )
 
 TRAIN_LOG_FMT = "{time_str} [Epoch] {epoch:03d} [Loss] {loss_str}\n"
-EVAL_LOG_FMT = "{time_str} [Epoch] {epoch:03d} [Split] {split} [Metrics] {eval_metrics_str}\n"
+EVAL_LOG_FMT = (
+    "{time_str} [Epoch] {epoch:03d} [Split] {split} [Loss] {loss_str} "
+    "[Metrics] {eval_metrics_str}\n"
+)
 
 # set by SIGTERM: the loop finishes the step in flight, checkpoints, returns
 _PREEMPT = threading.Event()
@@ -150,6 +160,21 @@ def train(args=None):
         restore_sigterm()
 
 
+def load_optax_state(optimizer, model, opt_state) -> int:
+    """A v1 checkpoint's optax state into the port's AdamW
+    (convert.adamw_state_from_optax): each parameter's moments and step on
+    its device, and the learning rate. Returns the steps taken (the Adam
+    count), which seed the draws of the next step."""
+    states, lr = adamw_state_from_optax(opt_state, model.cfg)
+    for name, p in model.named_parameters():
+        st = states[name]
+        optimizer.state[p] = {"step": st["step"], "exp_avg": st["exp_avg"].to(p.device),
+                              "exp_avg_sq": st["exp_avg_sq"].to(p.device)}
+    if lr is not None:
+        set_learning_rate(optimizer, lr)
+    return int(next(iter(states.values()))["step"]) if states else 0
+
+
 def _checkpoint(opt, name: str, model, optimizer, epoch: int, step: int) -> None:
     save_checkpoint(
         opt.ckpt_filepath.replace(".ckpt", name), model, optimizer, epoch, dict(vars(opt)),
@@ -157,18 +182,28 @@ def _checkpoint(opt, name: str, model, optimizer, epoch: int, step: int) -> None
     )
 
 
+def _tensorboard_writer(opt):
+    """The optional SummaryWriter of mesm_tpu/train.py:281-288: None, with a
+    warning, when torch.utils.tensorboard does not import."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:  # tensorboard is optional
+        logger.warning(f"tensorboard unavailable: {e}")
+        return None
+    writer = SummaryWriter(opt.tensorboard_log_dir)
+    writer.add_text("hyperparameters", dict_to_markdown(vars(opt), max_str_len=None))
+    return writer
+
+
 def _train_body(opt, device):
-    if R.compute_dtype_from_opt(opt) != torch.float32:
-        raise NotImplementedError("bf16 training is not ported yet; train with --compute_dtype float32")
-    if getattr(opt, "grad_accum", 1) != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet")
+    compute_dtype = R.compute_dtype_from_opt(opt)
     vocab = R.get_vocab(opt)
     train_loader, _ = R.build_train_loader(opt, vocab)
     val_loaders, _ = R.build_loaders(opt, vocab)
     model = R.build_model(opt).to(device)
     count_parameters(model)
     optimizer = R.build_optimizer(opt, model)
-    encode_text = R.build_text_encoder(opt, vocab, device)
+    encode_text = R.build_text_encoder(opt, vocab, device, compute_dtype)
     if getattr(opt, "cache_text", "on") == "on" and not (
         opt.tokenizer_type == "GloVeNLTK" and opt.load_vocab_pkl
     ):
@@ -180,11 +215,14 @@ def _train_body(opt, device):
     if opt.resume is not None:
         logger.info(f"Load checkpoint from {opt.resume}")
         payload = load_checkpoint(opt.resume)
-        model.load_state_dict(model_state_from_checkpoint(payload["model"], model.cfg), strict=True)
+        model.load_state_dict(model_state_from_payload(payload, model.cfg), strict=True)
         if opt.resume_all and payload.get("optimizer") is not None:
-            optimizer.load_state_dict(payload["optimizer"])
+            if payload.get("format") == V1_FORMAT:
+                step = load_optax_state(optimizer, model, payload["optimizer"])
+            else:
+                optimizer.load_state_dict(payload["optimizer"])
+                step = int(payload.get("step", 0))
             start_epoch = payload["epoch"] + 1
-            step = int(payload.get("step", 0))
     if opt.start_epoch is not None:
         start_epoch = opt.start_epoch
     elif opt.eval_untrained:
@@ -195,17 +233,37 @@ def _train_body(opt, device):
         train_loader.batcher._epoch = start_epoch
         train_loader.dataset._epoch_offset = start_epoch
 
+    ccfg = R.build_criterion_config(opt)
     train_step = make_train_step(
-        model, R.build_criterion_config(opt), encode_text, optimizer, opt.grad_clip, opt.seed
+        model, ccfg, encode_text, optimizer, opt.grad_clip, opt.seed, compute_dtype,
+        grad_accum=getattr(opt, "grad_accum", 1),
     )
-    eval_step = make_eval_step(model, encode_text, torch.float32)
+    # the eval during training reports the criterion's losses too
+    # (mesm_tpu/train.py:270-288, reference train.py:156 -> eval.py:101-105)
+    eval_step = make_eval_step(model, encode_text, compute_dtype, ccfg, with_loss=True,
+                               seed=opt.seed)
+    tb_writer = _tensorboard_writer(opt)
+    try:
+        return _train_loop(opt, device, model, optimizer, train_step, eval_step, train_loader,
+                           val_loaders, start_epoch, step, tb_writer)
+    finally:
+        if tb_writer is not None:
+            tb_writer.close()
+
+
+def _train_loop(opt, device, model, optimizer, train_step, eval_step, train_loader, val_loaders,
+                start_epoch, step, tb_writer):
     prev_best = {k: 0.0 for k in val_loaders}
     es_cnt = 0
     epoch_i = start_epoch
     for epoch_i in range(start_epoch, opt.n_epoch):
         if epoch_i > -1:
             set_learning_rate(optimizer, R.step_lr(opt.lr, epoch_i, opt.lr_drop, opt.gamma))
-            step, _ = train_epoch(train_step, train_loader, opt, epoch_i, step, device)
+            step, loss_meters = train_epoch(train_step, train_loader, opt, epoch_i, step, device)
+            if tb_writer is not None:
+                tb_writer.add_scalar("Train/lr", current_learning_rate(optimizer), epoch_i + 1)
+                for k, v in loss_meters.items():
+                    tb_writer.add_scalar(f"Train/{k}", v.avg, epoch_i + 1)
 
         if _PREEMPT.is_set():
             # epoch_i may be incomplete: record the last completed epoch so
@@ -222,14 +280,24 @@ def _train_body(opt, device):
             for key, val_loader in val_loaders.items():
                 logger.info(f"Evaluating {key} split")
                 fname = f"{key}_latest_{opt.dataset_name}_val_preds.jsonl"
+                eval_loss_meters = defaultdict(AverageMeter)
                 metrics, _ = eval_epoch(eval_step, val_loader, opt, fname,
-                                        val_loader.dataset.data, device)
+                                        val_loader.dataset.data, device, eval_loss_meters)
+                weight_map = _weight_map(opt)
+                eval_losses = {k: v.avg * weight_map.get(k, 1.0) for k, v in eval_loss_meters.items()}
                 with open(opt.eval_log_filepath, "a") as f:
                     f.write(EVAL_LOG_FMT.format(
                         time_str=time.strftime("%Y_%m_%d_%H_%M_%S"), epoch=epoch_i, split=key,
+                        loss_str=" ".join(f"{k} {v:.4f}" for k, v in eval_losses.items()),
                         eval_metrics_str=json.dumps(metrics),
                     ))
                 logger.info("{} metrics_no_nms {}".format(key, pprint.pformat(metrics["brief"], indent=4)))
+                if tb_writer is not None:
+                    for k, v in eval_losses.items():
+                        tb_writer.add_scalar(f"Eval/{k}", v, epoch_i + 1)
+                    for k, v in metrics["brief"].items():
+                        if v is not None:
+                            tb_writer.add_scalar(f"Eval/{key}-{k}", float(v), epoch_i + 1)
                 stop_score = metrics["brief"].get(f"MR-full-{opt.stop_score}") or 0.0
                 if stop_score > prev_best[key]:
                     es_cnt = 0

@@ -36,20 +36,26 @@ def small_batch(seed: int = 0):
 
 
 def jax_init(cfg: JaxConfig, batch) -> dict:
+    """The JAX package's init of `cfg`, jitted: the same parameters as the
+    eager init (the draws follow the keys alone) in a fraction of its time."""
     model = JaxMESM(cfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     neg = jnp.asarray(sample_neg_rows(np.random.default_rng(1), batch["group_id"]))
-    variables = model.init(
-        {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
-         "mask_words": jax.random.PRNGKey(2)},
-        jb["video_feat"], jb["video_mask"], jb["words_feat"], jb["words_mask"],
-        jb["sentence_feat"], neg,
-        is_training=True, deterministic=True,
-        clip_mask=jb["clip_mask"], words_weight=jb["words_weight"],
-        unknown_mask=jb["unknown_mask"], ss_sent_idx=jb["ss_sent_idx"],
-        ss_sent_mask=jb["ss_sent_mask"], ss_own_pos=jb["ss_own_pos"],
-    )
-    return jax.tree.map(np.asarray, variables["params"])
+
+    @jax.jit
+    def init(jb, neg):
+        return model.init(
+            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
+             "mask_words": jax.random.PRNGKey(2)},
+            jb["video_feat"], jb["video_mask"], jb["words_feat"], jb["words_mask"],
+            jb["sentence_feat"], neg,
+            is_training=True, deterministic=True,
+            clip_mask=jb["clip_mask"], words_weight=jb["words_weight"],
+            unknown_mask=jb["unknown_mask"], ss_sent_idx=jb["ss_sent_idx"],
+            ss_sent_mask=jb["ss_sent_mask"], ss_own_pos=jb["ss_own_pos"],
+        )["params"]
+
+    return jax.tree.map(np.asarray, init(jb, neg))
 
 
 def build_pair(seed: int = 0, **overrides):
