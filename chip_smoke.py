@@ -35,7 +35,17 @@ FFN switched on, the eval steps, one train step and the evaluate entry
 point under each MESM_ATTN_VARIANT layout, and the fused stream-layer
 kernel through the port of the layer-kernel bench entry point and on the
 real charades model's layers (with the layout anchor on its encoder
-memory), and checks that each path went through its kernels. Each phase prints one JSON line; the line
+memory), and checks that each path went through its kernels. Then the JAX
+package's last modules: the charades bf16 eval step with the dot-stats
+LayerNorm on and off (every site in range named), the charades fp32 train
+step with the attention core rematerialised and not (equal losses and
+gradients, peak memory) and the TACoS kernel step untouched by it, four
+eval steps traced by utils/profiling.maybe_trace and read back by
+utils/trace_report (kernels 1 and 2 counted and put in their modules), the
+native host module built and held against the numpy paths on the evaluate
+entry point's predictions, ops/quant.int8_dense on torch._int_mm against
+its plain version, and `torchrun --nproc_per_node 1 -m
+mesm_tpu_torch.train` on NCCL against the single-process entry point. Each phase prints one JSON line; the line
 before the last is the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -1880,71 +1890,24 @@ def phase_kernels() -> dict:
 
 
 def _model_config():
-    from mesm_tpu_torch.models.mesm import MESMConfig
+    """charades C+SF_C at full width and depth (scripts/synthetic.charades_config)."""
+    from mesm_tpu_torch.scripts import synthetic
 
-    # charades C+SF_C (config/charades/C+SF_C.json) at full width and depth,
-    # cached 512-d text features as in the bench geometry (bench.py:740-742)
-    return MESMConfig(
-        hidden_dim=256, v_feat_dim=2818, t_feat_dim=512, nheads=8, dim_feedforward=1024,
-        num_recfw_layers=2, t2v_layers=2, enc_layers=2, dec_layers=2, num_recss_layers=4,
-        num_queries=10, max_words_l=16, max_video_l=194, num_classes=1114,
-    )
+    return synthetic.charades_config()
 
 
 def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512, min_words=3):
-    """A collated eval batch (deduplicated videos, cached text) on the card:
-    NG unique videos (~2.4 sentences each, as real charades eval batches),
-    one row per sentence, features from a seed."""
-    import numpy as np
-    import torch
+    """A collated eval batch on the card (scripts/synthetic.make_eval_batch)."""
+    from mesm_tpu_torch.scripts import synthetic
 
-    rng = np.random.default_rng(seed)
-    counts = 1 + rng.multinomial(B - NG, np.full(NG, 1.0 / NG))
-    group_id = np.repeat(np.arange(NG), counts)
-    g_len = rng.integers(Lv // 4, Lv + 1, NG)
-    g_len[0] = Lv
-    mask_g = np.arange(Lv)[None] < g_len[:, None]
-    w_len = rng.integers(min_words, Lw + 1, B)
-    words_mask = np.arange(Lw)[None] < w_len[:, None]
-    G = int(counts.max())
-    ss_idx = np.zeros((B, G), np.int64)
-    ss_mask = np.zeros((B, G), bool)
-    own = np.zeros(B, np.int64)
-    for i in range(B):
-        rows = np.flatnonzero(group_id == group_id[i])
-        ss_idx[i, : len(rows)] = rows
-        ss_idx[i, len(rows):] = i
-        ss_mask[i, : len(rows)] = True
-        own[i] = int(np.flatnonzero(rows == i)[0])
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    mg, wm = t(mask_g), t(words_mask)
-    return {
-        "video_feat_g": torch.randn(NG, Lv, Dv, generator=g, device=dev) * mg[..., None],
-        "video_mask_g": mg,
-        "video_slot": t(group_id.astype(np.int64)),
-        "video_mask": mg[t(group_id)],
-        "cached_words_feat": 0.1 * torch.randn(B, Lw, Dt, generator=g, device=dev) * wm[..., None],
-        "cached_words_mask": wm,
-        "cached_sentence_feat": 0.1 * torch.randn(B, Dt, generator=g, device=dev),
-        "ss_sent_idx": t(ss_idx), "ss_sent_mask": t(ss_mask), "ss_own_pos": t(own),
-        "group_id": t(group_id),
-    }
+    return synthetic.make_eval_batch(seed, B, NG, Lv, Dv, Lw, Dt, min_words, device="cuda")
 
 
 def _tacos_config(dropout: float = 0.1):
-    from mesm_tpu_torch.models.mesm import MESMConfig
+    """TACoS C3D_GloVe at full width and depth (scripts/synthetic.tacos_config)."""
+    from mesm_tpu_torch.scripts import synthetic
 
-    # TACoS C3D_GloVe (config/TACoS/C3D_GloVe.json) at full width and depth:
-    # the TwoMLP enhance encoder (share_MLP false), 4096 + 2 TEF video
-    # channels, 300-d GloVe text, 1111 + 1 MLM classes
-    return MESMConfig(
-        hidden_dim=256, v_feat_dim=TACOS["Dv"], t_feat_dim=TACOS["Dt"], nheads=8,
-        dim_feedforward=1024, num_recfw_layers=2, t2v_layers=2, enc_layers=2, dec_layers=2,
-        num_recss_layers=4, num_queries=10, max_words_l=TACOS["Lw"], max_video_l=TACOS["Lv"],
-        num_classes=1112, share_mlp=False, dropout=dropout,
-    )
+    return synthetic.tacos_config(dropout=dropout)
 
 
 # criterion weights (config/TACoS/C3D_GloVe.json, config/charades/C+SF_C.json)
@@ -1959,56 +1922,10 @@ TRAIN_SEED = 2019
 
 def make_train_batch(seed: int, B: int, Lv: int, Dv: int, Lw: int, Dt: int, num_classes: int,
                      G: int = 3) -> dict:
-    """A collated train batch on the card: ~2.4 sentences per video (the
-    groups the out-of-group negatives need), each row's video replicated as
-    the train collate does, GT spans inside the video, MLM labels and word
-    weights, the saliency triplet's clip indices, features from a seed."""
-    import numpy as np
-    import torch
+    """A collated train batch on the card (scripts/synthetic.make_train_batch)."""
+    from mesm_tpu_torch.scripts import synthetic
 
-    rng = np.random.default_rng(seed)
-    n_groups = max(2, int(B / 2.4))
-    group_id = np.sort(rng.integers(0, n_groups, B))
-    group_id[0], group_id[-1] = 0, n_groups - 1
-    g_len = rng.integers(Lv // 2, Lv + 1, n_groups)
-    vid_len = g_len[group_id]
-    video_mask = np.arange(Lv)[None] < vid_len[:, None]
-    w_len = rng.integers(3, Lw + 1, B)
-    words_mask = np.arange(Lw)[None] < w_len[:, None]
-    st = rng.integers(1, np.maximum(vid_len // 2, 2))
-    ed = np.minimum(st + rng.integers(1, np.maximum(vid_len // 2, 2)), vid_len - 1)
-    clip_mask = (np.arange(Lv)[None] >= st[:, None]) & (np.arange(Lv)[None] <= ed[:, None])
-    norm_moment = np.stack([st / vid_len, (ed + 1) / vid_len], -1).astype(np.float32)
-    norm_span = np.stack([norm_moment.mean(-1), norm_moment[:, 1] - norm_moment[:, 0]], -1)
-    ss_idx, ss_mask, own = np.zeros((B, G), np.int64), np.zeros((B, G), bool), np.zeros(B, np.int64)
-    for i in range(B):
-        rows = np.flatnonzero(group_id == group_id[i])
-        if len(rows) > G:  # a window of G rows of the group holding row i
-            pos = int(np.flatnonzero(rows == i)[0])
-            start = min(max(pos - G + 1, 0), len(rows) - G)
-            rows = rows[start:start + G]
-        ss_idx[i, : len(rows)], ss_idx[i, len(rows):] = rows, i
-        ss_mask[i, : len(rows)] = True
-        own[i] = int(np.flatnonzero(rows == i)[0])
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    vm, wm = t(video_mask), t(words_mask)
-    feat_g = torch.randn(n_groups, Lv, Dv, generator=g, device=dev)
-    return {
-        "video_feat": feat_g[t(group_id)] * vm[..., None],
-        "video_mask": vm,
-        "words_feat": 0.1 * torch.randn(B, Lw, Dt, generator=g, device=dev) * wm[..., None],
-        "words_mask": wm,
-        "sentence_feat": 0.1 * torch.randn(B, Dt, generator=g, device=dev),
-        "words_weight": t(rng.integers(1, 3, (B, Lw)).astype(np.float32) * words_mask),
-        "unknown_mask": t((rng.random((B, Lw)) < 0.1) & words_mask),
-        "words_label": t(rng.integers(0, num_classes, (B, Lw)) * words_mask),
-        "clip_mask": t(clip_mask), "group_id": t(group_id), "row_mask": t(np.ones(B, bool)),
-        "norm_moment": t(norm_moment), "norm_span": t(norm_span.astype(np.float32)),
-        "pos_idx": t(np.stack([st, ed], -1)), "neg_idx": t(np.stack([st - 1, ed], -1)),
-        "ss_sent_idx": t(ss_idx), "ss_sent_mask": t(ss_mask), "ss_own_pos": t(own),
-    }
+    return synthetic.make_train_batch(seed, B, Lv, Dv, Lw, Dt, num_classes, G, device="cuda")
 
 
 def _pred_err(a, b):
@@ -3778,6 +3695,564 @@ def phase_stream_layer(card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's last modules: its eval / train switches, profiling, the
+# native host module, int8_dense and data-parallel training
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def dot_stats_ln(enabled: bool):
+    """kernels.set_dot_stats_ln for the run, restored after."""
+    from mesm_tpu_torch import kernels
+
+    old = kernels.DOT_STATS_LN
+    kernels.set_dot_stats_ln(enabled)
+    try:
+        yield
+    finally:
+        kernels.set_dot_stats_ln(old)
+
+
+@contextlib.contextmanager
+def attn_remat(enabled: bool):
+    """kernels.ATTN_REMAT for the run, restored after."""
+    from mesm_tpu_torch import kernels
+
+    old = kernels.ATTN_REMAT
+    kernels.ATTN_REMAT = enabled
+    try:
+        yield
+    finally:
+        kernels.ATTN_REMAT = old
+
+
+def _layer_norm_sites_in_range(model, step, batch) -> dict:
+    """The LayerNorm calls of one eval step that models/layers.apply_ln
+    routes (the switch off) with at least DOT_STATS_MIN_ROWS rows of at most
+    DOT_STATS_MAX_D features: {module name: [calls, rows, d]}. The gate
+    apply_ln asks is wrapped to note each call's shape, and the LayerNorm
+    module that apply_ln then calls takes it."""
+    import torch
+
+    from mesm_tpu_torch import kernels
+    from mesm_tpu_torch.models.layers import LayerNorm
+
+    pending, seen, handles = [], {}, []
+    gate = kernels.use_dot_stats_ln
+
+    def noted(n_rows, d, device):
+        pending[:] = [(n_rows, d)]
+        return gate(n_rows, d, device)
+
+    for name, m in model.named_modules():
+        if isinstance(m, LayerNorm):
+            def hook(mod, args, name=name):
+                if pending:
+                    rows, d = pending.pop()
+                    if rows >= kernels.DOT_STATS_MIN_ROWS and d <= kernels.DOT_STATS_MAX_D:
+                        calls = seen.get(name, [0, rows, d])[0]
+                        seen[name] = [calls + 1, rows, d]
+            handles.append(m.register_forward_pre_hook(hook))
+    kernels.use_dot_stats_ln = noted
+    try:
+        with dot_stats_ln(False):
+            step(batch)
+        torch.cuda.synchronize()
+    finally:
+        kernels.use_dot_stats_ln = gate
+        for h in handles:
+            h.remove()
+    return seen
+
+
+@contextlib.contextmanager
+def dot_stats_sites(model):
+    """Counts, by LayerNorm module name, the calls that take ln_dot_stats
+    (the function apply_ln calls, wrapped for the run)."""
+    from collections import Counter
+
+    from mesm_tpu_torch.models import layers
+
+    names = {id(m.weight): n for n, m in model.named_modules() if isinstance(m, layers.LayerNorm)}
+    taken = Counter()
+    orig = layers.ln_dot_stats
+
+    def counted(x, weight, bias, eps):
+        taken[names.get(id(weight), "<other>")] += 1
+        return orig(x, weight, bias, eps)
+
+    layers.ln_dot_stats = counted
+    try:
+        yield taken
+    finally:
+        layers.ln_dot_stats = orig
+
+
+def phase_dot_stats(card: str, n_batches: int = 4) -> dict:
+    """The dot-stats LayerNorm (kernels.set_dot_stats_ln) in the charades
+    C+SF_C bf16 eval step at full width under "auto", on and then off: every
+    LayerNorm site in range (counted from the model with the switch off)
+    takes the path once a batch and no other does, kernels 1 and 2 launch as
+    without it, predictions within MODEL_TOL of "off", device ms per batch
+    both ways."""
+    import torch
+
+    from mesm_tpu_torch.models import layers
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda().eval()
+    step16 = make_eval_step(model, _encode_batch, torch.bfloat16)
+    batches = [make_eval_batch(s) for s in range(2)]
+    with dispatch_mode("auto"):
+        in_range = _layer_norm_sites_in_range(model, step16, batches[0])
+    res = {"phase": "dot_stats", "card": card, "batches": n_batches, "sites_in_range": in_range}
+    outs, ok = {}, bool(in_range)
+    for enabled in (True, False):
+        with dot_stats_ln(enabled), dispatch_mode("auto"):
+            with dot_stats_sites(model) as taken:
+                reset_launches()
+                before = layers.dot_stats_calls
+                outs[enabled] = [step16(batches[i % 2]) for i in range(n_batches)]
+                torch.cuda.synchronize()
+                launches = read_launches()
+                calls = layers.dot_stats_calls - before
+            prof = profile_step(step16, batches)
+        want_sites = {n: c * n_batches for n, (c, _, _) in in_range.items()} if enabled else {}
+        r = {"launches": launches,
+             "launches_expected": expected_launches(CHARADES_LAUNCHES["auto"], n_batches),
+             "sites_taken": dict(taken), "calls": calls,
+             "device_ms_per_batch": prof["device_ms_per_step"],
+             "wall_ms_per_batch": prof["wall_ms_per_step"]}
+        r["ok"] = bool(r["launches"] == r["launches_expected"] and dict(taken) == want_sites
+                       and calls == sum(want_sites.values()))
+        res["on" if enabled else "off"] = r
+        ok = ok and r["ok"]
+    res["on_vs_off"] = _pred_err(outs[True][0], outs[False][0])
+    res["finite"] = all(bool(torch.isfinite(v.float()).all()) for o in outs[True] for v in o.values())
+    res["tol"] = MODEL_TOL
+    res["ok"] = bool(ok and res["finite"] and max(res["on_vs_off"].values()) <= MODEL_TOL)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("dot_stats phase failed")
+    return res
+
+
+@contextlib.contextmanager
+def remat_sites(model):
+    """Counts, by attention module name, the calls whose core ran under
+    torch.utils.checkpoint (models/attention.remat_calls around each
+    module's forward)."""
+    from collections import Counter
+
+    from mesm_tpu_torch.models import attention
+
+    taken, marks, handles = Counter(), {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, (attention.ProjAttention, attention.CoreAttention)):
+            def pre(mod, args, name=name):
+                marks[name] = attention.remat_calls
+
+            def post(mod, args, out, name=name):
+                if attention.remat_calls > marks[name]:
+                    taken[name] += attention.remat_calls - marks[name]
+            handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        yield taken
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def phase_remat(card: str, steps: int = 3) -> dict:
+    """The training attention core under torch.utils.checkpoint
+    (kernels.ATTN_REMAT) in the charades C+SF_C fp32 train step as shipped
+    (B = 32, dropout 0.1), on and off from one init and the same draws: the
+    first step's loss and gradients equal (1e-6; the checkpoint replays the
+    dropout masks), the sites that took it named, peak memory and ms per
+    step both ways. Then the kernel-engaged TACoS step with the switch on:
+    the kernel tier wins before remat, so kernels 6 and 9 launch 2 + 2 a
+    step and no core is rematerialised."""
+    import torch
+
+    from mesm_tpu_torch.losses import CriterionConfig
+    from mesm_tpu_torch.models import attention
+    from mesm_tpu_torch.models.mesm import MESM
+
+    cfg = _model_config()
+    torch.manual_seed(0)
+    init = MESM(cfg).state_dict()
+    ccfg = CriterionConfig(**CHARADES_CRITERION)
+    batch = make_train_batch(1, 32, 194, 2818, 16, 512, cfg.num_classes)
+
+    def fresh():
+        model = MESM(cfg)
+        model.load_state_dict(init)
+        return model.cuda()
+
+    res, first = {"phase": "remat", "card": card, "rows": 32, "dropout": cfg.dropout}, {}
+    for enabled in (True, False):
+        with attn_remat(enabled):
+            model = fresh()
+            with remat_sites(model) as taken:
+                first[enabled] = _first_grads(model, ccfg, batch, "auto")
+            del model
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = attention.remat_calls
+            ms, _, loss, _ = _train_ms_per_step(fresh(), ccfg, batch, "auto", steps, count=False)
+            res["on" if enabled else "off"] = {
+                "sites_first_step": dict(taken), "remat_calls": attention.remat_calls - before,
+                "ms_per_step": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "last_loss": loss}
+    (loss_on, g_on), (loss_off, g_off) = first[True], first[False]
+    res["first_loss_on"], res["first_loss_off"] = loss_on, loss_off
+    res["loss_abs_err"] = abs(loss_on - loss_off)
+    res["grad_max_err_rel_to_max1"] = _grad_err(g_on, g_off)
+    res["tol"] = 1e-6
+    ok = (sorted(g_on) == sorted(g_off) and res["loss_abs_err"] <= 1e-6 * max(1.0, abs(loss_off))
+          and res["grad_max_err_rel_to_max1"] <= 1e-6 and bool(res["on"]["sites_first_step"])
+          and res["off"]["remat_calls"] == 0 and not res["off"]["sites_first_step"])
+    del first, g_on, g_off
+
+    tcfg = _tacos_config(dropout=0.0)
+    torch.manual_seed(0)
+    tmodel = MESM(tcfg).cuda()
+    tbatch = make_train_batch(0, TACOS["B"], TACOS["Lv"], TACOS["Dv"], TACOS["Lw"], TACOS["Dt"],
+                              tcfg.num_classes)
+    with attn_remat(True):
+        before = attention.remat_calls
+        ms, launches, loss, _ = _train_ms_per_step(tmodel, CriterionConfig(**TACOS_CRITERION),
+                                                   tbatch, "auto", 2, count=True)
+    want = expected_launches({"attention_batched": 2, "attention_trainable": 2,
+                              "attention_backward": 2}, 2)
+    res["tacos_kernels_first"] = {"launches": launches, "launches_expected": want,
+                                  "remat_calls": attention.remat_calls - before, "ms_per_step": ms,
+                                  "last_loss": loss}
+    ok = ok and launches == want and res["tacos_kernels_first"]["remat_calls"] == 0
+    res["ok"] = bool(ok)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("remat phase failed")
+    return res
+
+
+def _kernel_counts(counts: dict, key: str) -> int:
+    return sum(n for name, n in counts.items() if key in name)
+
+
+def phase_profile(card: str, iters: int = 4) -> dict:
+    """utils/profiling.maybe_trace (with the model's module ranges) around
+    `iters` charades bf16 "auto" eval steps: utils/trace_report.report must
+    count ln_dense's two kernels `iters` times and attention_packed's
+    2 * `iters` times, and kernel_modules must put them in the input
+    projection's first block and the DETR encoder. The top-10 table and the
+    module table are printed before the phase's line."""
+    import torch
+
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel.step import make_eval_step
+    from mesm_tpu_torch.utils import trace_report
+    from mesm_tpu_torch.utils.profiling import maybe_trace
+
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda().eval()
+    step16 = make_eval_step(model, _encode_batch, torch.bfloat16)
+    batches = [make_eval_batch(s) for s in range(2)]
+    packed = ENCODER_KERNEL_NAMES["attention_packed"]["bfloat16"]
+    want_counts = {LN_DENSE_KERNELS[0]: iters, LN_DENSE_KERNELS[1]: iters, packed: 2 * iters}
+    want_modules = {LN_DENSE_KERNELS[0]: "MESM/input_vid_proj/0",
+                    LN_DENSE_KERNELS[1]: "MESM/input_vid_proj/0", packed: "MESM/transformer/encoder"}
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_trace_") as trace_dir:
+        with dispatch_mode("auto"):
+            step16(batches[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with maybe_trace(trace_dir, model=model):
+                for i in range(iters):
+                    step16(batches[i % 2])
+            traced_s = time.perf_counter() - t0
+        totals, counts, busy_ms, what = trace_report.device_op_totals(trace_dir)
+        modules = trace_report.kernel_modules(trace_dir, depth=3)
+        print(trace_report.report(trace_dir, top=10), flush=True)
+        print(trace_report.module_report(trace_dir, depth=3), flush=True)
+        mod_totals, _ = trace_report.module_totals(trace_dir, depth=3)
+    got_counts = {k: _kernel_counts(counts, k) for k in want_counts}
+    got_modules = {k: {m: n for name, mods in modules.items() if k in name for m, n in mods.items()}
+                   for k in want_modules}
+    res = {"phase": "profile", "card": card, "steps": iters, "read": what,
+           "busy_ms_per_step": busy_ms / iters, "traced_wall_s": traced_s,
+           "launches_per_step": sum(counts.values()) / iters,
+           "kernel_counts": got_counts, "kernel_counts_expected": want_counts,
+           "kernel_modules": got_modules,
+           "module_ms_per_step": {m: ms / iters for m, ms in sorted(mod_totals.items(),
+                                                                    key=lambda kv: -kv[1])[:12]}}
+    res["ok"] = bool(got_counts == want_counts and all(
+        got_modules[k] == {m: want_counts[k]} for k, m in want_modules.items()))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("profile phase failed")
+    return res
+
+
+@contextlib.contextmanager
+def native_off():
+    """The native host module reported absent: its callers take their numpy
+    / Python paths."""
+    from mesm_tpu_torch import native
+
+    orig = native.get_native
+    native.get_native = lambda: None
+    try:
+        yield
+    finally:
+        native.get_native = orig
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_native() -> dict:
+    """The port's native host module (mesm_tpu_torch/native) built by g++ on
+    this machine and loaded, then on the predictions of the evaluate entry
+    point (bf16, the synthetic charades root): temporal NMS of every query's
+    windows equal with the module and on the Python path, every query's AP
+    at the ten IoU thresholds (metrics.average_precision_detection, as
+    compute_mr_ap calls it) within 1e-9, the mean-pool of every video's
+    features to half its length within 1e-5; host ms both ways."""
+    import glob
+
+    import numpy as np
+
+    from mesm_tpu_torch import native
+    from mesm_tpu_torch import runner as R
+    from mesm_tpu_torch.config import TestOptions
+    from mesm_tpu_torch.data.datasets import mean_pool_downsample
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.metrics import average_precision_detection
+    from mesm_tpu_torch.postprocess import temporal_nms
+    from mesm_tpu_torch.utils import load_jsonl
+
+    t0 = time.perf_counter()
+    built = native.get_native() is not None
+    res = {"phase": "native", "built": built, "so_path": os.path.relpath(native.SO_PATH, HERE),
+           "so_exists": os.path.exists(native.SO_PATH), "build_and_load_s": time.perf_counter() - t0}
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_native_") as root:
+        eval_cfg = write_cli_eval(root)
+        inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16", "--device", "cuda"])
+        sub_path = [p for p in glob.glob(os.path.join(root, "inference", "**", "*submission*.jsonl"),
+                                         recursive=True) if "nms" not in p][0]
+        submission = load_jsonl(sub_path)
+        opt = TestOptions().parse(["--config_file", eval_cfg, "--device", "cuda"])
+        gt = next(iter(R.build_loaders(opt, R.get_vocab(opt))[0].values())).dataset.data
+        feats = [np.load(p) for p in sorted(glob.glob(os.path.join(root, "**", "*.npy"),
+                                                      recursive=True))][:64]
+
+    def nms():
+        return [temporal_nms(e["pred_relevant_windows"], 0.5, 10) for e in submission]
+
+    thds = np.linspace(0.5, 0.95, 10)
+    gts = {d["qid"]: [{"video-id": d["qid"], "t-start": w[0], "t-end": w[1]}
+                      for w in d["relevant_windows"]] for d in gt}
+
+    def ap():
+        return np.array([average_precision_detection(
+            gts[e["qid"]], [{"video-id": e["qid"], "t-start": w[0], "t-end": w[1], "score": w[2]}
+                            for w in e["pred_relevant_windows"][:10]], thds) for e in submission])
+
+    def pool():
+        return [mean_pool_downsample(f, max(f.shape[0] // 2, 1)) for f in feats if f.shape[0] > 1]
+
+    got = {"nms": nms(), "ap": ap(), "pool": pool()}
+    ms = {k: _host_ms(fn) for k, fn in (("nms", nms), ("ap", ap), ("pool", pool))}
+    with native_off():
+        want = {"nms": nms(), "ap": ap(), "pool": pool()}
+        ms_numpy = {k: _host_ms(fn) for k, fn in (("nms", nms), ("ap", ap), ("pool", pool))}
+    pool_err = max(float(np.abs(a - b).max()) for a, b in zip(got["pool"], want["pool"]))
+    ap_err = float(np.abs(got["ap"] - want["ap"]).max())
+    res.update({"queries": len(submission), "videos_pooled": len(got["pool"]),
+                "nms_equal": got["nms"] == want["nms"], "ap_max_abs_err": ap_err,
+                "pool_max_abs_err": pool_err, "host_ms_native": ms, "host_ms_numpy": ms_numpy})
+    res["ok"] = bool(built and res["so_exists"] and res["nms_equal"] and ap_err <= 1e-9
+                     and pool_err <= 1e-5 and submission and got["pool"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("native phase failed")
+    return res
+
+
+INT8_DENSE_SHAPE = dict(N=24960, K=256, F=1024)  # the charades encoder FFN's linear1
+
+
+def phase_int8_dense(card: str) -> dict:
+    """ops/quant.int8_dense at the charades FFN shape (24,960 x 256 -> 1024,
+    bf16) on the card (torch._int_mm) against its plain version computed on
+    the card: the int32 sums equal, the outputs within one bf16 ulp; timed
+    beside F.linear in bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from mesm_tpu_torch.ops import quant
+
+    N, K, Fo = INT8_DENSE_SHAPE["N"], INT8_DENSE_SHAPE["K"], INT8_DENSE_SHAPE["F"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(N, K, generator=g, device="cuda").to(torch.bfloat16)
+    w = torch.randn(Fo, K, generator=g, device="cuda") * 0.05
+    b = torch.randn(Fo, generator=g, device="cuda")
+    got = quant.int8_dense(x, w, b)
+    want = quant.int8_dense_reference(x, w, b)
+    xq, _ = quant._quantize(x, -1)
+    wq, _ = quant._quantize(w, 1)
+    sums_equal = bool(torch.equal(quant._padded_int_mm(xq, wq),
+                                  (xq.double() @ wq.double().t()).to(torch.int32)))
+    diff = (got.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.float().abs().clamp(min=2.0**-126))) - 7)
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    ms = cuda_time_ms(lambda: quant.int8_dense(x, w, b))
+    library_ms = cuda_time_ms(lambda: F.linear(x, wb, bb))
+    bound_ms, bound_by = bound(N * K * 2 + Fo * K * 4 + Fo * 4 + N * Fo * 2, 2 * N * K * Fo, "int8")
+    res = {"phase": "int8_dense", "card": card, "shape": [N, K, Fo], "dtype": "bfloat16",
+           "int32_sums_equal": sums_equal, "max_abs_err": float(diff.max()),
+           "max_err_in_ulps": float((diff / ulp).max()), "ms": ms, "linear_bf16_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    res["ok"] = bool(sums_equal and bool((diff <= ulp).all()) and got.dtype == torch.bfloat16)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("int8_dense phase failed")
+    return res
+
+
+def _epoch_losses(lines) -> dict:
+    """The unrounded epoch losses the train entry point logs."""
+    for line in lines:
+        if "Epoch 1 losses " in line:
+            return json.loads(line.split("Epoch 1 losses ", 1)[1])
+    return {}
+
+
+def _step_ms(lines):
+    """ms per train step (max, min, avg over the epoch) from the entry
+    point's time stats line."""
+    import ast
+
+    for line in lines:
+        if "train_step_time ==> " in line:
+            return {k: float(v) * 1e3 for k, v in ast.literal_eval(line.split("==> ", 1)[1]).items()}
+    return None
+
+
+def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
+    """`torchrun --standalone --nproc_per_node <nproc> -m
+    mesm_tpu_torch.train` on the synthetic charades root of phase train_cli
+    (one epoch) against the single-process entry point with the same seed
+    (and `--n_devices <nproc>`, so both batch the same rows): the process
+    group is NCCL on every rank, ms per step both ways (max, min and mean
+    over the epoch: the children's first step also starts CUDA, NCCL and
+    the kernels' libraries, which this process has warm), and no process is
+    left running. With one process the epoch's losses (the loss terms and
+    the gradient norm, 1e-6 of max(1, |loss|)) and the two checkpoints
+    (1e-6) are equal. With several (one card each; dropout 0 in both runs,
+    since each rank draws its own dropout masks) each rank multiplies other
+    shapes, so cuBLAS sums in another order and AdamW carries the rounding
+    into every later step: the losses' and parameters' largest differences
+    are reported, and the ratio diagnostics (class_error*, rec_fw_acc:
+    shares of argmaxes) must be equal, which they are only if both runs saw
+    the same batches. The algorithm's equality over ranks is held at 1e-6
+    on the CPU (tests/test_torch_distributed.py)."""
+    import glob
+    import logging
+    import signal
+
+    import torch
+
+    from mesm_tpu_torch.train import train
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_dist_") as root:
+        cfg_path = write_charades_root(root)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+
+        if nproc > 1:  # the config's n_devices overrides the command line's
+            cfg.update(dropout=0.0, input_dropout=0.0, n_devices=nproc)
+
+        def config(name):
+            path = os.path.join(root, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(dict(cfg, n_epoch=1, stop_score="miou", exp_id=name), f)
+            return path
+
+        lines = []
+
+        class Keep(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+
+        handler = Keep(level=logging.INFO)
+        logging.getLogger("mesm_tpu_torch.train").addHandler(handler)
+        try:
+            one = train(["--config_file", config("single"), "--device", "cuda"])
+        finally:
+            logging.getLogger("mesm_tpu_torch.train").removeHandler(handler)
+        torch.cuda.synchronize()
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+               str(nproc), "-m", "mesm_tpu_torch.train", "--config_file", config("torchrun"),
+               "--device", "cuda"]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                env=dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="4"))
+        try:
+            out = proc.communicate(timeout=timeout_s)[0].decode(errors="replace")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall_s = time.perf_counter() - t0
+        child = out.splitlines()
+        dirs = glob.glob(os.path.join(os.path.dirname(one["opt"].result_dir), "*-torchrun-*"))
+        params_err = None
+        if proc.returncode == 0 and len(dirs) == 1:
+            two = torch.load(os.path.join(dirs[0], "model_latest.ckpt"), map_location="cpu",
+                             weights_only=False)["model"]
+            params_err = max(float((two[k] - v.detach().cpu()).abs().max())
+                             for k, v in one["model"].state_dict().items())
+    single, dist_losses = _epoch_losses(lines), _epoch_losses(child)
+    same_keys = bool(single) and set(single) == set(dist_losses)
+    loss_err = (max(abs(single[k] - dist_losses[k]) / max(1.0, abs(single[k]))
+                    for k in single if k.startswith("loss") or k == "grad_norm")
+                if same_keys else None)
+    ratios = ({k: [single[k], dist_losses[k]] for k in single
+               if not (k.startswith("loss") or k == "grad_norm")} if same_keys else None)
+    left = live_descendants()
+    res = {"phase": "distributed", "nproc": nproc, "returncode": proc.returncode,
+           "torchrun_wall_s": wall_s,
+           "nccl": sum(f"backend nccl, world {nproc}," in line for line in child) == nproc,
+           "gloo": any("backend gloo" in line for line in child),
+           "steps": one["step"], "loss_max_err_rel_to_max1": loss_err,
+           "ratio_terms_single_torchrun": ratios, "params_max_abs_err": params_err,
+           "ms_per_step_single": _step_ms(lines), "ms_per_step_torchrun": _step_ms(child),
+           "left_running": left, "tol": 1e-6}
+    if nproc == 1:
+        same = loss_err is not None and loss_err <= 1e-6 and params_err is not None \
+            and params_err <= 1e-6
+    else:
+        same = bool(ratios) and all(a == b for a, b in ratios.values()) \
+            and params_err is not None and math.isfinite(params_err)
+    res["ok"] = bool(proc.returncode == 0 and res["nccl"] and not res["gloo"] and same and not left)
+    if not res["ok"]:
+        res["child_tail"] = child[-30:]
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("distributed phase failed")
+    return res
+
+
 def live_descendants() -> list:
     """Processes started by this one (or by its children) that still run,
     as (pid, command line), read from /proc. Zombies are left out: they end
@@ -3867,7 +4342,10 @@ def main() -> int:
     kernels = phase_kernels()
     head_dims = phase_head_dims(card)
     phase_model(card)
+    phase_dot_stats(card)
+    phase_profile(card)
     cli = phase_cli()
+    phase_native()
     phase_tacos_eval(card)
     qvh = phase_qvh_eval(card)
     long_query = phase_long_query(card)
@@ -3878,9 +4356,12 @@ def main() -> int:
         phase_clip_cli(tower_path)
     phase_resume_v1()
     trained = phase_train(card)
+    phase_remat(card)
     phase_train_cli()
+    phase_distributed()
     phase_qvh_train(card)
     int8 = phase_int8_eval(card)
+    phase_int8_dense(card)
     variants = phase_attn_variants(card)
     stream = phase_stream_layer(card)
     phase_processes()

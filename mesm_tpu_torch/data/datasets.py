@@ -73,10 +73,16 @@ def load_glove_pkl_keep_vocab(vocab: Dict, vocab_size: int) -> Dict:
 
 def mean_pool_downsample(feat: np.ndarray, max_len: int) -> np.ndarray:
     """Mean-pool a (L, D) feature sequence down to max_len segments
-    (reference dataset/base.py:100-114), vectorized via cumsum."""
+    (reference dataset/base.py:100-114): in C++ where the native module
+    builds (native/__init__.py), else vectorized via cumsum."""
     L = feat.shape[0]
     if L <= max_len:
         return feat
+    from ..native import mean_pool_native
+
+    pooled = mean_pool_native(feat, max_len)
+    if pooled is not None:
+        return pooled
     idxs = np.round(np.arange(0, max_len + 1) / max_len * L).clip(max=L - 1).astype(int)
     s, e = idxs[:-1], idxs[1:]
     cs = np.concatenate([np.zeros((1, feat.shape[1]), feat.dtype), np.cumsum(feat, 0)])

@@ -32,6 +32,13 @@ MESM_ATTN_VARIANT picks the kernel layout as it does in the JAX package
 The fused int8 FFN (ops/ffn_int8.py) is off unless `set_int8_ffn(True)`;
 then every eval PReLU FFN of at least INT8_FFN_MIN_ROWS rows on CUDA
 launches it (`use_int8_ffn`, models/layers.ffn).
+
+Two more switches of the JAX package are off by default and launch no
+kernel: the dot-stats LayerNorm (`set_dot_stats_ln`, `use_dot_stats_ln`:
+the eval LayerNorm statistics as f32 sums of x and of its squares in the
+input dtype, models/layers.apply_ln) and the training attention core
+recomputed in the backward (`ATTN_REMAT`, `use_attn_remat`:
+torch.utils.checkpoint in models/attention.dispatch_attention_core).
 """
 from __future__ import annotations
 
@@ -77,6 +84,15 @@ SHORTKEY_VARIANT = "segmm"
 # decoder's and SS-recon's small FFNs stay plain)
 INT8_FFN = False
 INT8_FFN_MIN_ROWS = 4096
+# the dot-stats LayerNorm (kernels.py:125-146): off by default, eval only,
+# the sites of many rows and narrow features
+DOT_STATS_LN = False
+DOT_STATS_MIN_ROWS = 4096
+DOT_STATS_MAX_D = 512
+# the training attention core under torch.utils.checkpoint (kernels.py:
+# 216-243): off by default, the sites whose both sides reach ATTN_REMAT_MIN_L
+ATTN_REMAT = False
+ATTN_REMAT_MIN_L = 128
 # the (B, H, L, hd) attention layouts the JAX package reaches only through
 # this environment variable (attention_pallas.py:635-637), read per call
 ATTN_VARIANT_ENV = "MESM_ATTN_VARIANT"
@@ -188,6 +204,36 @@ def use_int8_ffn(device) -> bool:
     """kernels.py:167-174 with "on the TPU" read as "on CUDA": false under
     "off", and false on the CPU even under "on"."""
     return pallas_mode() != "off" and INT8_FFN and _on_cuda(device)
+
+
+def set_dot_stats_ln(enabled: bool) -> None:
+    """Turn the dot-stats LayerNorm on or off for the process (kernels.py:143)."""
+    global DOT_STATS_LN
+    DOT_STATS_LN = bool(enabled)
+
+
+def use_dot_stats_ln(n_rows: int, d: int, device) -> bool:
+    """kernels.py:148-159 with "on the TPU" read as "on CUDA": never under
+    "off" or while the switch is off; under "on" wherever the call is in
+    range (at least DOT_STATS_MIN_ROWS rows, at most DOT_STATS_MAX_D
+    features); under "auto" only on CUDA tensors in range."""
+    mode = pallas_mode()
+    if mode == "off" or not DOT_STATS_LN:
+        return False
+    in_range = n_rows >= DOT_STATS_MIN_ROWS and d <= DOT_STATS_MAX_D
+    if mode == "on":
+        return in_range
+    return _on_cuda(device) and in_range
+
+
+def use_attn_remat(Lq: int, Lk: int, training: bool) -> bool:
+    """kernels.py:246-254: recompute the attention core in the backward of a
+    training call whose sides both reach ATTN_REMAT_MIN_L. Not a kernel
+    tier, so no device gate and no mode: the JAX package reads the switch
+    alone."""
+    if not training or not ATTN_REMAT:
+        return False
+    return Lq >= ATTN_REMAT_MIN_L and Lk >= ATTN_REMAT_MIN_L
 
 
 def use_shortkey_packed(B: int, Lq: int, Lk: int, device, training: bool = False) -> bool:

@@ -14,6 +14,13 @@ Both regimes are ported: single-target (one moment per row, matched by the
 cost argmin) and multi-clip (QVHighlights: up to max_windows moments per
 row, `tgt_mask` marking the real ones, matched by the Hungarian solver;
 mesm_tpu/losses/criterion.py:87-99, 172-178, 228-250, 265-277).
+
+In a data-parallel train step (parallel/rows.py) the batch holds this
+rank's rows: every normaliser and batch-wide count is summed over the ranks
+(`all_sum`) and the SS InfoNCE reads the whole batch's text (`gather`), so
+each term is this rank's part of the single-process term and the terms sum
+over the ranks to it. The diagnostics `class_error*` and `rec_fw_acc` are
+ratios of batch-wide sums, the same on every rank (`RATIO_TERMS`).
 """
 from __future__ import annotations
 
@@ -26,6 +33,12 @@ import torch.nn.functional as F
 from ..ops.masking import l2_normalize
 from ..ops.matcher import hungarian_match, single_target_match
 from ..ops.span import generalized_temporal_iou, pairwise_generalized_temporal_iou, span_cxw_to_xx
+from ..parallel.rows import all_sum, gather
+
+
+# terms that are ratios of batch-wide sums: on every rank of a data-parallel
+# step already the whole batch's value, never summed over the ranks
+RATIO_TERMS = ("class_error", "rec_fw_acc")
 
 
 @dataclass(frozen=True)
@@ -62,7 +75,7 @@ def _row_mask(batch, like: torch.Tensor) -> torch.Tensor:
 def _span_losses_single(pred_spans, src_idx, tgt_span, tgt_moment, rm):
     """One target per sample. pred_spans (B, nq, 2), src_idx (B,), rm (B,)."""
     src = torch.take_along_dim(pred_spans, src_idx[:, None, None], dim=1)[:, 0]
-    n = rm.sum().clamp(min=1.0)
+    n = all_sum(rm.sum()).clamp(min=1.0)
     loss_span = ((src - tgt_span).abs().sum(-1) * rm).sum() / (n * 2.0)
     giou = pairwise_generalized_temporal_iou(span_cxw_to_xx(src), tgt_moment)
     loss_giou = ((1.0 - giou) * rm).sum() / n
@@ -74,7 +87,7 @@ def _span_losses_multi(pred_spans, src_idx, tgt_spans, tgt_moments, tgt_mask, rm
     src = torch.take_along_dim(pred_spans, src_idx[..., None], dim=1)  # (B, T, 2)
     tm = tgt_mask.bool()
     m = tm.float() * rm[:, None]
-    n = m.sum().clamp(min=1.0)
+    n = all_sum(m.sum()).clamp(min=1.0)
     loss_span = ((src - tgt_spans).abs().sum(-1) * m).sum() / (n * 2.0)
     # padded targets are (0, 0): a benign span keeps a degenerate prediction
     # from a 0/0 gIoU that would poison the masked sum
@@ -96,19 +109,19 @@ def _label_loss(pred_logits, src_idx, tgt_mask, eos_coef, rm):
     logp = torch.log_softmax(pred_logits, dim=-1)
     nll = -(fg * logp[..., 0] + (1.0 - fg) * logp[..., 1])
     w = fg + (1.0 - fg) * eos_coef
-    n = rm.sum().clamp(min=1.0) * nq
+    n = all_sum(rm.sum()).clamp(min=1.0) * nq
     loss = (nll * w * rm[:, None]).sum() / n
     # diagnostic: % of matched queries predicted foreground
     pred_cls = torch.argmax(pred_logits, dim=-1)
     fg_real = fg * rm[:, None]
-    correct = ((pred_cls == 0).float() * fg_real).sum()
-    class_error = 100.0 * (1.0 - correct / fg_real.sum().clamp(min=1.0))
+    correct = all_sum(((pred_cls == 0).float() * fg_real).sum())
+    class_error = 100.0 * (1.0 - correct / all_sum(fg_real.sum()).clamp(min=1.0))
     return loss, class_error
 
 
 def _saliency_loss(outputs, batch, cfg: CriterionConfig, rm):
     vid_mask = batch["video_mask"].float()  # (B, L)
-    n_rows = rm.sum().clamp(min=1.0)
+    n_rows = all_sum(rm.sum()).clamp(min=1.0)
     neg_scores = outputs["neg_saliency_scores"]
     # -log(1 - sigmoid(x)) == softplus(x)
     loss_neg_pair = ((F.softplus(neg_scores) * vid_mask).sum(1) * rm).sum() / n_rows
@@ -131,7 +144,7 @@ def _saliency_loss(outputs, batch, cfg: CriterionConfig, rm):
     loss_rank = torch.zeros((), dtype=scores2.dtype, device=scores2.device)
     for thd in range(1, 12):
         pos_mask = (label2 >= thd).float()
-        any_pos = pos_mask.sum() > 0
+        any_pos = all_sum(pos_mask.sum()) > 0
         row_has_pos = (pos_mask.sum(1) > 0).float()
         mean_log_prob_pos = (pos_mask * log_prob * mask2).sum(1) / (pos_mask.sum(1) + 1e-6)
         term = (-mean_log_prob_pos * row_has_pos * rm).sum() / n_rows
@@ -162,9 +175,11 @@ def _rec_ss_loss(outputs, batch, cfg: CriterionConfig, rm):
         moment = torch.stack([mmin, mmax], dim=-1)  # (B, 2)
     else:
         moment = batch["norm_moment"]  # (B, 2)
-    valid_pair = (rm[:, None] * rm[None, :]) > 0
-    same_group = (group_id[:, None] == group_id[None, :]) & valid_pair
-    giou = generalized_temporal_iou(moment, moment)
+    # rows: this rank's; columns: the whole batch (parallel/rows.py)
+    rm_all = gather(rm)
+    valid_pair = (rm[:, None] * rm_all[None, :]) > 0
+    same_group = (group_id[:, None] == gather(group_id)[None, :]) & valid_pair
+    giou = generalized_temporal_iou(moment, gather(moment))
     pos_mask = (same_group & (giou >= cfg.iou_gamma)).float()
 
     clip_mask = batch["clip_mask"].float()[..., None]  # (B, L, 1)
@@ -172,13 +187,13 @@ def _rec_ss_loss(outputs, batch, cfg: CriterionConfig, rm):
     words_mask = outputs["expanded_words_mask"].float()[..., None]
     words_feat = (outputs["expanded_words_feat"] * words_mask).sum(1) / words_mask.sum(1)
 
-    cos = l2_normalize(clip_feat) @ l2_normalize(words_feat).T / cfg.recss_tau
+    cos = l2_normalize(clip_feat) @ l2_normalize(gather(words_feat)).T / cfg.recss_tau
     # padded columns are left out of the denominator (they do not exist upstream)
-    cos = torch.where(rm[None, :] > 0, cos, torch.full_like(cos, -1e3))
+    cos = torch.where(rm_all[None, :] > 0, cos, torch.full_like(cos, -1e3))
     logits = cos - cos.amax(dim=1, keepdim=True)
     log_prob = logits - torch.log(torch.exp(logits).sum(1, keepdim=True) + 1e-6)
     mean_log_prob_pos = (pos_mask * log_prob).sum(1) / (pos_mask.sum(1) + 1e-6)
-    return (-mean_log_prob_pos * rm).sum() / rm.sum().clamp(min=1.0)
+    return (-mean_log_prob_pos * rm).sum() / all_sum(rm.sum()).clamp(min=1.0)
 
 
 def _rec_fw_loss(outputs, batch, rm):
@@ -187,10 +202,11 @@ def _rec_fw_loss(outputs, batch, rm):
     logit = outputs["recfw_words_logit"]  # (B, Lw, C)
     label = batch["words_label"].long()  # (B, Lw)
     mask = outputs["words_mask"].float()
-    n_rows = rm.sum().clamp(min=1.0)
+    n_rows = all_sum(rm.sum()).clamp(min=1.0)
 
     acc = (torch.argmax(logit, -1) == label).float()
-    mean_acc = (acc * mask * rm[:, None]).sum() / (mask * rm[:, None]).sum().clamp(min=1.0)
+    mean_acc = (all_sum((acc * mask * rm[:, None]).sum())
+                / all_sum((mask * rm[:, None]).sum()).clamp(min=1.0))
 
     eps = 0.1
     logp = torch.log_softmax(logit, dim=-1)

@@ -38,7 +38,19 @@ def average_precision_detection(
     ground_truth: List[Dict], prediction: List[Dict], tiou_thresholds: np.ndarray
 ) -> np.ndarray:
     """Greedy TP assignment at each IoU threshold, then interpolated AP
-    (reference eval.py:326-409)."""
+    (reference eval.py:326-409). In C++ where the native module builds
+    (native/__init__.py) and every entry has one video id, the per-query
+    layout compute_mr_ap passes (mesm_tpu/metrics.py:44-55)."""
+    if prediction and ground_truth:
+        vids = {p["video-id"] for p in prediction} | {g["video-id"] for g in ground_truth}
+        if len(vids) == 1:
+            from .native import ap_detection_native
+
+            preds = np.array([[p["t-start"], p["t-end"], p["score"]] for p in prediction])
+            gts = np.array([[g["t-start"], g["t-end"]] for g in ground_truth])
+            ap = ap_detection_native(preds, gts, np.asarray(tiou_thresholds))
+            if ap is not None:
+                return ap
     n_thds = len(tiou_thresholds)
     n_gts = len(ground_truth)
     ap = np.zeros(n_thds)

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import kernels
@@ -32,6 +33,8 @@ from ..ops.attention_trainable import attention_trainable, fused_attention
 from .layers import Linear
 
 NEG_INF = -1e9
+# training calls whose attention_core ran under torch.utils.checkpoint
+remat_calls = 0
 
 
 def attention_core(
@@ -94,7 +97,13 @@ def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_f
     runs as itself in eval (fused_attention) and as the trainable Function's
     forward in training, whose backward is attention_core's; the short-key
     tier's "kernel" variant (eval only) launches the one-matmul short-key
-    kernel; everything else is attention_core."""
+    kernel; everything else is attention_core, which a training call whose
+    sides both reach kernels.ATTN_REMAT_MIN_L runs under
+    torch.utils.checkpoint when kernels.ATTN_REMAT is set (the JAX package's
+    jax.checkpoint, attention.py:296-319): the backward recomputes the
+    logits, the softmax and, with the forward's RNG state restored, the
+    same dropout mask."""
+    global remat_calls
     dropout_active = training and dropout_rate > 0.0
     route = None
     if split_qk is None and not dropout_active:
@@ -108,6 +117,12 @@ def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_f
         if training:
             return attention_trainable(q, k, v, num_heads, key_valid_mask, pair_factors)
         return fused_attention(q, k, v, num_heads, key_valid_mask, pair_factors)
+    if kernels.use_attn_remat(q.shape[1], k.shape[1], training):
+        remat_calls += 1
+        return torch.utils.checkpoint.checkpoint(
+            attention_core, q, k, v, num_heads, key_valid_mask, pair_factors, split_qk,
+            dropout_rate, training, use_reentrant=False, preserve_rng_state=True,
+        )
     return attention_core(
         q, k, v, num_heads, key_valid_mask=key_valid_mask, pair_factors=pair_factors,
         split_qk=split_qk, dropout_rate=dropout_rate, training=training,

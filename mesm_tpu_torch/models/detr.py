@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from .attention import CoreAttention, ProjAttention
-from .layers import MLP, LayerNorm, Linear, ffn, make_activation
+from .layers import MLP, LayerNorm, Linear, apply_ln, ffn, make_activation
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
@@ -53,9 +53,10 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, src, valid_mask, pos):
         q = k = src + pos
-        src = self.norm1(src + self.dropout(self.self_attn(q, k, src, key_valid_mask=valid_mask)))
+        attn = self.self_attn(q, k, src, key_valid_mask=valid_mask)
+        src = apply_ln(self.norm1, src + self.dropout(attn), self.training)
         y = ffn(src, self.linear1, self.activation, self.linear2, self.dropout, self.training)
-        return self.norm2(src + self.dropout(y))
+        return apply_ln(self.norm2, src + self.dropout(y), self.training)
 
 
 class TransformerEncoder(nn.Module):

@@ -41,6 +41,37 @@ class LayerNorm(nn.LayerNorm):
         ).to(x.dtype)
 
 
+# calls that took the dot-stats LayerNorm (apply_ln); no kernel is launched
+dot_stats_calls = 0
+
+
+def ln_dot_stats(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """LayerNorm with the statistics of mesm_tpu/models/layers.py:90-123: the
+    mean is the f32 sum of x over d, E[x^2] the f32 sum of x * x squared in
+    the input dtype (so a bf16 square is rounded to bf16 before the sum, as
+    JAX's dot with a ones vector does), the variance clamped at 0 and y
+    computed in f32, then returned in the input dtype."""
+    d = x.shape[-1]
+    mean = x.sum(-1, keepdim=True, dtype=torch.float32) / d
+    mean2 = (x * x).sum(-1, keepdim=True, dtype=torch.float32) / d
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps) * weight.float()
+    return ((x.float() - mean) * mul + bias.float()).to(x.dtype)
+
+
+def apply_ln(norm: nn.LayerNorm, x: torch.Tensor, training: bool) -> torch.Tensor:
+    """`norm` on x, or, in eval where kernels.use_dot_stats_ln says so, the
+    same parameters through ln_dot_stats (mesm_tpu/models/layers.py:126-142).
+    The parameters stay the LayerNorm module's, so the state dict is
+    unchanged."""
+    global dot_stats_calls
+    if not training and kernels.use_dot_stats_ln(x.numel() // x.shape[-1], x.shape[-1], x.device):
+        dot_stats_calls += 1
+        return ln_dot_stats(x, norm.weight, norm.bias, norm.eps)
+    return norm(x)
+
+
 class PReLU(nn.PReLU):
     """Single-slope PReLU (torch default, init 0.25) in the input's dtype."""
 
@@ -68,6 +99,7 @@ def ffn(x: torch.Tensor, linear1: nn.Linear, activation: nn.Module, linear2: nn.
     int8 kernel (ops/ffn_int8.py) where kernels.use_int8_ffn says so; the
     layers keep their upstream parameter names either way."""
     if (not training and isinstance(activation, PReLU)
+            and getattr(linear2, "tp_group", None) is None  # not split (parallel/tp.py)
             and x.numel() // x.shape[-1] >= kernels.INT8_FFN_MIN_ROWS
             and kernels.use_int8_ffn(x.device)):
         return ffn_int8(x, linear1.weight, linear1.bias, activation.weight, linear2.weight,
@@ -98,7 +130,7 @@ class LinearBlock(nn.Module):
                     x, self.LayerNorm.weight, self.LayerNorm.bias, proj.weight, proj.bias,
                     relu=self.relu,
                 )
-            x = self.LayerNorm(x)
+            x = apply_ln(self.LayerNorm, x, self.training)
         x = self.net(x)
         return F.relu(x) if self.relu else x
 

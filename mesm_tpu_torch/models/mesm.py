@@ -25,6 +25,11 @@ with a weighted Gumbel top-k draw from an explicit torch.Generator, or takes
 the mask it is given (`masked_words_loc`, which the parity tests fill from
 the JAX package's output, since the two frameworks draw different numbers).
 
+In a data-parallel train step (parallel/rows.py) the forward takes this
+rank's rows; `neg_idx_rows` and `ss_sent_idx` index the whole batch, whose
+rows the negative pass, the SS-MESM group gather, the pair mask and the MLM
+draw read through parallel/rows.gather.
+
 Module and parameter names are the upstream torch state-dict names, and
 every module the upstream model constructs for the config exists here, so
 `load_state_dict(strict=True)` takes an upstream checkpoint.
@@ -38,6 +43,7 @@ import torch
 from torch import nn
 
 from ..ops.masking import l2_normalize, lengths_to_mask
+from ..parallel import rows
 from .detr import Transformer, inverse_sigmoid
 from .layers import MLP, InputProj, LinearBlock, Linear
 from .position import TrainablePositionEmbedding, sine_position_embedding
@@ -223,7 +229,8 @@ class MESM(nn.Module):
             else:  # qvhighlights: the group's concatenated clips
                 batched_vid = self.input_vid_proj(ss_video_feat)
                 batched_vid_mask = ss_video_mask
-            group_sent = sentence_feat[ss_sent_idx.long()]  # (B, G, Dt)
+            # ss_sent_idx indexes the whole batch's rows
+            group_sent = rows.gather(sentence_feat)[ss_sent_idx.long()]  # (B, G, Dt)
             batched_sent = self.input_txt_proj(group_sent).to(dt)
             recon_feat, projed_recon_feat = self.ss_reconstructor(
                 batched_vid, batched_vid_mask, batched_sent, ss_sent_mask, ss_own_pos
@@ -242,10 +249,10 @@ class MESM(nn.Module):
             # with the positive one as 2B rows; row-wise the same values as
             # two calls, except the scrambled pair mask, whose factors are
             # taken per half (it depends on each call's row count)
-            neg = neg_idx_rows.long()
-            neg_expanded_words_feat = expanded_words_feat[neg]
-            neg_expanded_words_mask = expanded_words_mask[neg]
-            neg_expanded_txt_position = expanded_txt_position[neg]
+            neg = neg_idx_rows.long()  # rows of the whole batch
+            neg_expanded_words_feat = rows.gather(expanded_words_feat)[neg]
+            neg_expanded_words_mask = rows.gather(expanded_words_mask)[neg]
+            neg_expanded_txt_position = rows.gather(expanded_txt_position)[neg]
             if c.rec_ss:  # the recon token is dropped for the enhance input
                 neg_words_feat = neg_expanded_words_feat[:, 1:]
                 neg_words_mask = neg_expanded_words_mask[:, 1:]
@@ -345,8 +352,9 @@ class MESM(nn.Module):
             merged_clip_position = torch.take_along_dim(vid_position, order[..., None], dim=1)
             merged_clip_mask = lengths_to_mask(clip_mask.bool().sum(1), Lv)
             masked_token = self.input_txt_proj(self.masked_token[None, None].to(dt))
-            if masked_words_loc is None:
-                masked_words_loc = gumbel_mask_words_choice(words_mask, words_weight, mask_generator)
+            if masked_words_loc is None:  # drawn for the whole batch
+                masked_words_loc = rows.local(gumbel_mask_words_choice(
+                    rows.gather(words_mask), rows.gather(words_weight), mask_generator))
             masked_words_loc = masked_words_loc.bool()
             masked_words_feat = torch.where(masked_words_loc[..., None], masked_token,
                                             unknowned_words_feat)

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel import rows
 from .attention import ProjAttention
-from .layers import LayerNorm, Linear, ffn, make_activation
+from .layers import LayerNorm, Linear, apply_ln, ffn, make_activation
 
 
 def scrambled_pair_factors(vid_valid_mask: torch.Tensor, txt_valid_mask: torch.Tensor,
@@ -28,13 +29,15 @@ def scrambled_pair_factors(vid_valid_mask: torch.Tensor, txt_valid_mask: torch.T
     """Factored form of the reference's mis-tiled pair mask: head h of sample
     b is masked where qpad[s, q] & kpad[s, k] with s = (b*H + h) % B. Returns
     the (B, H, Lq) and (B, H, Lk) factors; attention_core combines them as an
-    outer product."""
-    qpad = ~vid_valid_mask.bool()
-    kpad = ~txt_valid_mask.bool()
+    outer product. In a data-parallel step B is the whole batch's row count
+    and the factors are this rank's rows of them (parallel/rows.py)."""
+    qpad = ~rows.gather(vid_valid_mask.bool())
+    kpad = ~rows.gather(txt_valid_mask.bool())
     B = qpad.shape[0]
     dev = qpad.device
     src = (torch.arange(B, device=dev)[:, None] * num_heads
            + torch.arange(num_heads, device=dev)[None, :]) % B
+    src = rows.local(src)
     return qpad[src], kpad[src]
 
 
@@ -81,8 +84,9 @@ class T2VLayer(nn.Module):
             norm1, linear1, linear2, norm2 = self.norm1_1, self.linear1_1, self.linear2_1, self.norm2_1
         else:
             norm1, linear1, linear2, norm2 = self.norm1, self.linear1, self.linear2, self.norm2
-        y = ffn(norm1(x), linear1, self.activation, linear2, self.dropout, self.training)
-        return norm2(x + self.dropout(y))
+        y = ffn(apply_ln(norm1, x, self.training), linear1, self.activation, linear2, self.dropout,
+                self.training)
+        return apply_ln(norm2, x + self.dropout(y), self.training)
 
 
 class T2VStack(nn.Module):

@@ -26,14 +26,28 @@ dropout masks from the default generators (torch.manual_seed), since
 F.dropout takes no generator. A resumed run therefore repeats the draws of
 the steps it repeats. The draws are not JAX's: the parity tests inject the
 negatives and masks into both.
+
+Data parallel (`make_train_step(..., data_parallel=True)`, the train entry
+point under torchrun): each rank takes its rows of every batch
+(multihost.local_view) and runs the step inside parallel/rows.row_shard, so
+the negatives and MLM masks are drawn for the whole batch from the same
+seeded generators and each rank keeps its rows of them, the losses'
+normalisers are the whole batch's, and the ranks' gradients are summed
+before the clip: the update is the single-process update on the whole batch
+(up to the order of the sums). Each rank's dropout masks come from the
+step's seed with its rank folded in. Parameters sharded over the model axis
+(parallel/tp.py) count once in the clip's global norm.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..losses import CriterionConfig, compute_losses
+from ..losses.criterion import RATIO_TERMS
+from . import rows
 
 
 def build_optimizer(model: torch.nn.Module, lr: float, weight_decay: float = 1e-4):
@@ -59,6 +73,17 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
+def _tp_global_norm(params) -> torch.Tensor:
+    """The global norm when some parameters are shards over the model axis
+    (parallel/tp.py marks them with `tp_group`): their squares are summed
+    over the model ranks, the replicated ones counted once."""
+    rep_sq = sum((p.grad.float() ** 2).sum() for p in params if getattr(p, "tp_group", None) is None)
+    tp = [p for p in params if getattr(p, "tp_group", None) is not None]
+    tp_sq = sum((p.grad.float() ** 2).sum() for p in tp).reshape(1)
+    dist.all_reduce(tp_sq, group=tp[0].tp_group)
+    return torch.sqrt(rep_sq + tp_sq[0])
+
+
 def apply_update(optimizer, grad_clip: float) -> torch.Tensor:
     """optax.clip_by_global_norm(grad_clip) on the gradients, then the
     optimizer step. Returns the global norm before the clip."""
@@ -67,7 +92,10 @@ def apply_update(optimizer, grad_clip: float) -> torch.Tensor:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
-    norm = global_norm(grads)
+    if any(getattr(p, "tp_group", None) is not None for p in params):
+        norm = _tp_global_norm(params)
+    else:
+        norm = global_norm(grads)
     if grad_clip > 0:
         factor = grad_clip / torch.clamp(norm, min=grad_clip)
         for g in grads:
@@ -93,18 +121,21 @@ def sample_out_of_group(generator: torch.Generator, group_id: torch.Tensor,
     return torch.where(cand.any(dim=1), idx, fallback)
 
 
-def step_draws(seed: int, step: int, device,
-               micro: Optional[int] = None) -> Tuple[torch.Generator, torch.Generator]:
+def step_draws(seed: int, step: int, device, micro: Optional[int] = None,
+               rank: int = 0) -> Tuple[torch.Generator, torch.Generator]:
     """The random draws of train step `step`: (negatives generator, MLM
     mask generator) on `device`, and the default generators reseeded for
     the step's dropout masks. All three follow from (seed, step) alone, and
-    microbatch `micro` of a grad_accum step folds its index in."""
+    microbatch `micro` of a grad_accum step folds its index in. The two
+    generators are the same on every rank of a data-parallel step (they draw
+    for the whole batch); the dropout seed folds in the data-axis `rank`
+    (rank 0 keeps the single-process seed)."""
     base = ((int(seed) * 1_000_003 + int(step)) * 3) % (2**62)
     if micro is not None:
         base = ((base * 1_000_003 + int(micro) + 1) * 3) % (2**62)
     neg = torch.Generator(device=device).manual_seed(base)
     mask = torch.Generator(device=device).manual_seed(base + 1)
-    torch.manual_seed(base + 2)
+    torch.manual_seed((base + 2 + int(rank) * 0x9E3779B97F4A7C15) % (2**63))
     return neg, mask
 
 
@@ -124,8 +155,9 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
                     neg_idx_rows=None, masked_words_loc=None):
         model.train()
         words_feat, words_mask, sentence_feat = encode_text(batch)
-        if neg_idx_rows is None:
-            neg_idx_rows = sample_out_of_group(neg_generator, batch["group_id"], batch.get("row_mask"))
+        if neg_idx_rows is None:  # drawn for the whole batch (parallel/rows.py)
+            neg_idx_rows = rows.local(sample_out_of_group(
+                neg_generator, rows.gather(batch["group_id"]), rows.gather(batch.get("row_mask"))))
         out = model(
             batch["video_mask"], words_feat.to(compute_dtype), words_mask, sentence_feat,
             video_feat=_cast(batch.get("video_feat"), compute_dtype),
@@ -144,14 +176,17 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
     return micro_grads
 
 
-def split_micro(batch: Dict[str, torch.Tensor], k: int):
+def split_micro(batch: Dict[str, torch.Tensor], k: int, world: int = 1):
     """The k microbatches of a batch: every leaf's leading axis cut into k
     consecutive slices of B/k rows, as mesm_tpu/parallel/step.py:194-200
     reshapes it (a leading axis not divisible by k raises the same
     ValueError). The reference leaves `ss_sent_idx` (rows of the whole
     batch) as it is, and its gather clamps an index past a microbatch's rows
     to the last row (jnp indexing); torch's raises, so the indices are
-    clamped here to read what the reference reads (ROADMAP.md section 3)."""
+    clamped here to read what the reference reads (ROADMAP.md section 3).
+    In a data-parallel step the batch is this rank's rows of each of the k
+    microbatches (multihost.local_view(..., micro=k)), and a microbatch has
+    `world` times its rows here."""
     for key, x in batch.items():
         if x.shape[0] % k != 0:
             raise ValueError(
@@ -162,13 +197,30 @@ def split_micro(batch: Dict[str, torch.Tensor], k: int):
              for i in range(k)]
     for mb in micro:
         if "ss_sent_idx" in mb:
-            mb["ss_sent_idx"] = mb["ss_sent_idx"].clamp(max=mb["ss_sent_idx"].shape[0] - 1)
+            mb["ss_sent_idx"] = mb["ss_sent_idx"].clamp(max=mb["ss_sent_idx"].shape[0] * world - 1)
     return micro
+
+
+def _sum_over_ranks(params, shard) -> None:
+    """Every gradient summed over the data axis, as one flat f32 buffer."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.float().reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=shard.group)
+    off = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[off:off + g.numel()].reshape(g.shape).to(g.dtype)
+        off += g.numel()
+
+
+def _metrics_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each rank's part of every summed term, added over the ranks; the
+    ratio diagnostics are already the whole batch's."""
+    return {k: v if k.startswith(RATIO_TERMS) else rows.all_sum(v) for k, v in metrics.items()}
 
 
 def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimizer,
                     grad_clip: float, seed: int, compute_dtype: torch.dtype = torch.float32,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, data_parallel: bool = False, data_group=None):
     """train_step(batch, step, neg_idx_rows=None, masked_words_loc=None) ->
     metrics (device scalars: every loss term, loss_overall, grad_norm).
 
@@ -179,16 +231,29 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
     the gradients are summed in f32 and divided by k, then one clip + AdamW
     update; the metrics are the means of the k microbatches' terms.
     neg_idx_rows / masked_words_loc, when given with k > 1, hold one entry
-    per microbatch (a sequence, or a leading axis of k)."""
+    per microbatch (a sequence, or a leading axis of k).
+
+    With `data_parallel`, `batch` is this rank's rows (of every microbatch)
+    over the data-axis process group `data_group` (the default group when
+    None), neg_idx_rows index the whole batch, and the returned metrics are
+    the whole batch's (see the module docstring)."""
     micro_grads = make_micro_grads(model, ccfg, encode_text, compute_dtype)
     k = int(grad_accum)
 
-    def train_step(batch: Dict[str, torch.Tensor], step: int, neg_idx_rows=None,
+    def train_step(batch, step, neg_idx_rows=None, masked_words_loc=None):
+        if not data_parallel:
+            return local_step(batch, step, neg_idx_rows, masked_words_loc)
+        with rows.row_shard(data_group):
+            return local_step(batch, step, neg_idx_rows, masked_words_loc)
+
+    def local_step(batch: Dict[str, torch.Tensor], step: int, neg_idx_rows=None,
                    masked_words_loc=None) -> Dict[str, torch.Tensor]:
         device = batch["video_mask"].device
+        shard = rows.current()
+        rank, world = (shard.rank, shard.world) if shard is not None else (0, 1)
         optimizer.zero_grad(set_to_none=True)
         if k <= 1:
-            neg_gen, mask_gen = step_draws(seed, step, device)
+            neg_gen, mask_gen = step_draws(seed, step, device, rank=rank)
             total, losses = micro_grads(batch, neg_gen, mask_gen, neg_idx_rows, masked_words_loc)
             metrics = {key: v.detach() for key, v in losses.items()}
             metrics["loss_overall"] = total.detach()
@@ -196,8 +261,8 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
             params = [p for group in optimizer.param_groups for p in group["params"]]
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             totals, terms = [], []
-            for i, mb in enumerate(split_micro(batch, k)):
-                neg_gen, mask_gen = step_draws(seed, step, device, micro=i)
+            for i, mb in enumerate(split_micro(batch, k, world)):
+                neg_gen, mask_gen = step_draws(seed, step, device, micro=i, rank=rank)
                 total, losses = micro_grads(
                     mb, neg_gen, mask_gen,
                     None if neg_idx_rows is None else neg_idx_rows[i],
@@ -212,6 +277,13 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
                 p.grad = (a / k).to(p.dtype)
             metrics = {key: torch.stack([t[key] for t in terms]).mean() for key in terms[0]}
             metrics["loss_overall"] = torch.stack(totals).mean()
+        if shard is not None:
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            _sum_over_ranks(params, shard)
+            metrics = _metrics_over_ranks(metrics)
         metrics["grad_norm"] = apply_update(optimizer, grad_clip)
         return metrics
 

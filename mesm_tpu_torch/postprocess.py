@@ -94,9 +94,15 @@ def _loose_iou(a, b) -> float:
 
 def temporal_nms(predictions: List[list], nms_thd: float, max_after_nms: int = 100):
     """Greedy suppression of overlapping lower-score spans
-    (reference utils/temporal_nms.py:25-74)."""
+    (reference utils/temporal_nms.py:25-74), in C++ where the native module
+    builds (native/__init__.py), else in Python."""
     if len(predictions) == 1:
         return predictions
+    from .native import temporal_nms_native
+
+    kept_idx = temporal_nms_native(np.asarray(predictions, dtype=float), nms_thd, max_after_nms)
+    if kept_idx is not None:
+        return [predictions[i] for i in kept_idx]
     pool = sorted(predictions, key=lambda x: x[2], reverse=True)
     kept: List[list] = []
     while pool and len(kept) < max_after_nms:

@@ -27,6 +27,20 @@ trains with float32 parameters and AdamW state and bf16 activations (the
 eval runs in the same dtype); `--grad_accum K` takes one update per batch
 from K microbatches (parallel/step.make_train_step). Runs on CUDA unless
 --device cpu; cuda without a GPU raises.
+
+On several cards, one process each:
+
+    torchrun --nproc_per_node N -m mesm_tpu_torch.train --config_file <train.json>
+
+trains data-parallel as mesm_tpu/train.py:202-204 does over N devices: the
+processes join with NCCL (gloo only for --device cpu; parallel/multihost.py),
+every process builds the same loaders and model from the seed, keeps its
+rows of each batch (of each of the K microbatches with --grad_accum K) and
+takes the step of parallel/step.make_train_step(data_parallel=True), whose
+update is the single-process update on the whole batch. --n_devices
+defaults to the world size (the row capacity is rounded to a multiple of
+it). Rank 0 alone evaluates, logs and writes checkpoints; the others wait at
+a barrier and follow its early-stop decision.
 """
 from __future__ import annotations
 
@@ -50,6 +64,9 @@ from .config import BaseOptions
 from .convert import adamw_state_from_optax, model_state_from_payload
 from .data.pipeline import stage_batch
 from .evaluate import eval_epoch
+import torch.distributed as dist
+
+from .parallel import multihost
 from .parallel.step import current_learning_rate, make_eval_step, make_train_step, set_learning_rate
 from .utils import AverageMeter, count_parameters, dict_to_markdown, load_checkpoint, save_checkpoint
 from .utils.checkpoint import V1_FORMAT
@@ -111,9 +128,25 @@ def _weight_map(opt):
     return w
 
 
+def _is_rank0() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """Whether `flag` is set on any rank (the flag itself in one process)."""
+    if not dist.is_initialized():
+        return flag
+    t = torch.tensor([int(flag)], device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
     """One pass over the train loader. Returns (steps taken so far, loss
-    meters of the epoch, each weighted as the reference logs it)."""
+    meters of the epoch, each weighted as the reference logs it). Under
+    torch.distributed each process takes its rows of every batch
+    (multihost.local_view), and a SIGTERM on any rank stops every rank after
+    the same step."""
     time_meters = defaultdict(AverageMeter)
     loss_meters = defaultdict(AverageMeter)
     weight_map = _weight_map(opt)
@@ -121,6 +154,8 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
     for batch, _ in loader:
         time_meters["dataloading_time"].update(time.time() - timer)
         t0 = time.time()
+        if dist.is_initialized():
+            batch = multihost.local_view(batch, micro=getattr(opt, "grad_accum", 1))
         jb = stage_batch(batch, False, device)
         time_meters["prepare_inputs_time"].update(time.time() - t0)
         t0 = time.time()
@@ -131,33 +166,70 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
         for k, v in metrics.items():
             loss_meters[k].update(v * weight_map.get(k, 1.0))
         timer = time.time()
-        if _PREEMPT.is_set():
+        if _any_rank(_PREEMPT.is_set(), device):
+            _PREEMPT.set()
             break
-    with open(opt.train_log_filepath, "a") as f:
-        f.write(TRAIN_LOG_FMT.format(
-            time_str=time.strftime("%Y_%m_%d_%H_%M_%S"), epoch=epoch_i + 1,
-            loss_str=" ".join(f"{k} {v.avg:.4f}" for k, v in loss_meters.items()),
-        ))
+    if _is_rank0():
+        with open(opt.train_log_filepath, "a") as f:
+            f.write(TRAIN_LOG_FMT.format(
+                time_str=time.strftime("%Y_%m_%d_%H_%M_%S"), epoch=epoch_i + 1,
+                loss_str=" ".join(f"{k} {v.avg:.4f}" for k, v in loss_meters.items()),
+            ))
+        # the same means unrounded (the log keeps the reference's 4 digits)
+        logger.info(f"Epoch {epoch_i + 1} losses "
+                    + json.dumps({k: v.avg for k, v in loss_meters.items()}))
     logger.info("Epoch time stats:")
     for name, meter in time_meters.items():
         logger.info(f"{name} ==> " + str({k: f"{getattr(meter, k):.4f}" for k in ("max", "min", "avg")}))
     return step, loss_meters
 
 
+def _requested_device(args) -> str:
+    """--device as the command line and the config file give it, read without
+    parse()'s side effects (the run directory), so that the process group
+    can be joined before rank 0 parses."""
+    options = BaseOptions()
+    options.initialize()
+    opt, _ = options.parser.parse_known_args(args)
+    if opt.config_file:
+        options.load_config(opt)
+    return getattr(opt, "device", "cuda") or "cuda"
+
+
+def _parse_distributed(args):
+    """Rank 0 parses (and makes the run directory); every rank takes its
+    options. --n_devices defaults to the world size and must equal it."""
+    box = [BaseOptions().parse(args) if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    opt = box[0]
+    world = dist.get_world_size()
+    if not opt.n_devices:
+        opt.n_devices = world
+    elif opt.n_devices != world:
+        raise ValueError(f"--n_devices {opt.n_devices} under a world of {world} processes")
+    return opt
+
+
 def train(args=None):
     """The entry point of `python -m mesm_tpu_torch.train`. Returns a dict:
     model, optimizer, opt, the steps taken (`step`), the last epoch run
-    (`epoch`) and the learning rate of that epoch (`lr`)."""
-    opt = BaseOptions().parse(args)
-    device = R.device_from_opt(opt)
-    set_seed(opt.seed)
-    _PREEMPT.clear()
-    restore_sigterm = _install_preempt_handler()
+    (`epoch`) and the learning rate of that epoch (`lr`). Under torchrun
+    (WORLD_SIZE in the environment) the processes train data-parallel."""
+    joined = not dist.is_initialized() and multihost.init_distributed(_requested_device(args))
     try:
-        with kernels.pallas_scope(opt.pallas_attention):
-            return _train_body(opt, device)
+        opt = _parse_distributed(args) if dist.is_initialized() else BaseOptions().parse(args)
+        device = R.device_from_opt(opt)
+        set_seed(opt.seed)
+        _PREEMPT.clear()
+        restore_sigterm = _install_preempt_handler()
+        try:
+            with kernels.pallas_scope(opt.pallas_attention):
+                return _train_body(opt, device)
+        finally:
+            restore_sigterm()
     finally:
-        restore_sigterm()
+        if joined:
+            dist.destroy_process_group()
 
 
 def load_optax_state(optimizer, model, opt_state) -> int:
@@ -176,6 +248,8 @@ def load_optax_state(optimizer, model, opt_state) -> int:
 
 
 def _checkpoint(opt, name: str, model, optimizer, epoch: int, step: int) -> None:
+    if not _is_rank0():
+        return
     save_checkpoint(
         opt.ckpt_filepath.replace(".ckpt", name), model, optimizer, epoch, dict(vars(opt)),
         step, current_learning_rate(optimizer), opt.lr_drop, opt.gamma,
@@ -184,7 +258,10 @@ def _checkpoint(opt, name: str, model, optimizer, epoch: int, step: int) -> None
 
 def _tensorboard_writer(opt):
     """The optional SummaryWriter of mesm_tpu/train.py:281-288: None, with a
-    warning, when torch.utils.tensorboard does not import."""
+    warning, when torch.utils.tensorboard does not import (and on ranks
+    other than 0)."""
+    if not _is_rank0():
+        return None
     try:
         from torch.utils.tensorboard import SummaryWriter
     except ImportError as e:  # tensorboard is optional
@@ -199,7 +276,7 @@ def _train_body(opt, device):
     compute_dtype = R.compute_dtype_from_opt(opt)
     vocab = R.get_vocab(opt)
     train_loader, _ = R.build_train_loader(opt, vocab)
-    val_loaders, _ = R.build_loaders(opt, vocab)
+    val_loaders = R.build_loaders(opt, vocab)[0] if _is_rank0() else {}
     model = R.build_model(opt).to(device)
     count_parameters(model)
     optimizer = R.build_optimizer(opt, model)
@@ -233,10 +310,13 @@ def _train_body(opt, device):
         train_loader.batcher._epoch = start_epoch
         train_loader.dataset._epoch_offset = start_epoch
 
+    if dist.is_initialized():  # every rank starts from rank 0's weights
+        for t in model.state_dict().values():
+            dist.broadcast(t, src=0)
     ccfg = R.build_criterion_config(opt)
     train_step = make_train_step(
         model, ccfg, encode_text, optimizer, opt.grad_clip, opt.seed, compute_dtype,
-        grad_accum=getattr(opt, "grad_accum", 1),
+        grad_accum=getattr(opt, "grad_accum", 1), data_parallel=dist.is_initialized(),
     )
     # the eval during training reports the criterion's losses too
     # (mesm_tpu/train.py:270-288, reference train.py:156 -> eval.py:101-105)
@@ -269,14 +349,16 @@ def _train_loop(opt, device, model, optimizer, train_step, eval_step, train_load
             # epoch_i may be incomplete: record the last completed epoch so
             # --resume_all restarts at most one epoch back
             _checkpoint(opt, "_latest.ckpt", model, optimizer, epoch_i - 1, step)
-            with open(opt.train_log_filepath, "a") as f:
-                f.write(f"Preempted during epoch {epoch_i}; model_latest.ckpt saved "
-                        "(resume with --resume_all)\n")
+            if _is_rank0():
+                with open(opt.train_log_filepath, "a") as f:
+                    f.write(f"Preempted during epoch {epoch_i}; model_latest.ckpt saved "
+                            "(resume with --resume_all)\n")
             logger.info(f">>>>> Preempted during epoch {epoch_i}; latest checkpoint saved")
             break
 
         stop = False
         if (epoch_i + 1) % opt.eval_epoch_interval == 0:
+            # rank 0 evaluates (the others hold no val loaders) and decides
             for key, val_loader in val_loaders.items():
                 logger.info(f"Evaluating {key} split")
                 fname = f"{key}_latest_{opt.dataset_name}_val_preds.jsonl"
@@ -316,6 +398,10 @@ def _train_loop(opt, device, model, optimizer, train_step, eval_step, train_load
                         stop = True
                         break
                 _checkpoint(opt, "_latest.ckpt", model, optimizer, epoch_i, step)
+            if dist.is_initialized():
+                box = [stop]
+                dist.broadcast_object_list(box, src=0)
+                stop = box[0]
         if stop:
             break
         if (epoch_i + 1) % opt.save_interval == 0 or (epoch_i + 1) % opt.lr_drop == 0:
