@@ -45,7 +45,12 @@ utils/trace_report (kernels 1 and 2 counted and put in their modules), the
 native host module built and held against the numpy paths on the evaluate
 entry point's predictions, ops/quant.int8_dense on torch._int_mm against
 its plain version, and `torchrun --nproc_per_node 1 -m
-mesm_tpu_torch.train` on NCCL against the single-process entry point. Each phase prints one JSON line; the line
+mesm_tpu_torch.train` on NCCL against the single-process entry point (its
+first step bounded too). Then the sequence-sharded TACoS train step:
+kernels 6 and 9's backward at the shard shapes (the local queries of 2 and
+4 model ranks against the 601 gathered keys), and with two cards or more
+`torchrun` of it on NCCL (1 data x 2 seq ranks) against one process; with
+one card the phase's line says that this half did not run. Each phase prints one JSON line; the line
 before the last is the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -4136,6 +4141,15 @@ def _epoch_losses(lines) -> dict:
     return {}
 
 
+def _first_step_losses(lines) -> dict:
+    """The unrounded metrics of the run's first step that the train entry
+    point logs."""
+    for line in lines:
+        if "Step 1 losses " in line:
+            return json.loads(line.split("Step 1 losses ", 1)[1])
+    return {}
+
+
 def _step_ms(lines):
     """ms per train step (max, min, avg over the epoch) from the entry
     point's time stats line."""
@@ -4164,7 +4178,10 @@ def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
     are reported, and the ratio diagnostics (class_error*, rec_fw_acc:
     shares of argmaxes) must be equal, which they are only if both runs saw
     the same batches. The algorithm's equality over ranks is held at 1e-6
-    on the CPU (tests/test_torch_distributed.py)."""
+    on the CPU (tests/test_torch_distributed.py). With any number of
+    processes the first step, before AdamW carries any rounding on, is
+    bounded: its loss terms and grad_norm (the entry point's "Step 1
+    losses" line) within 1e-5 of max(1, |x|) of the single process's."""
     import glob
     import logging
     import signal
@@ -4223,6 +4240,10 @@ def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
             params_err = max(float((two[k] - v.detach().cpu()).abs().max())
                              for k, v in one["model"].state_dict().items())
     single, dist_losses = _epoch_losses(lines), _epoch_losses(child)
+    first_single, first_dist = _first_step_losses(lines), _first_step_losses(child)
+    first_err = (max(abs(first_single[k] - first_dist[k]) / max(1.0, abs(first_single[k]))
+                     for k in first_single if k.startswith("loss") or k == "grad_norm")
+                 if first_single and set(first_single) == set(first_dist) else None)
     same_keys = bool(single) and set(single) == set(dist_losses)
     loss_err = (max(abs(single[k] - dist_losses[k]) / max(1.0, abs(single[k]))
                     for k in single if k.startswith("loss") or k == "grad_norm")
@@ -4235,6 +4256,7 @@ def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
            "nccl": sum(f"backend nccl, world {nproc}," in line for line in child) == nproc,
            "gloo": any("backend gloo" in line for line in child),
            "steps": one["step"], "loss_max_err_rel_to_max1": loss_err,
+           "first_step_max_err_rel_to_max1": first_err, "first_step_tol": 1e-5,
            "ratio_terms_single_torchrun": ratios, "params_max_abs_err": params_err,
            "ms_per_step_single": _step_ms(lines), "ms_per_step_torchrun": _step_ms(child),
            "left_running": left, "tol": 1e-6}
@@ -4244,12 +4266,204 @@ def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
     else:
         same = bool(ratios) and all(a == b for a, b in ratios.values()) \
             and params_err is not None and math.isfinite(params_err)
+    same = same and first_err is not None and first_err <= 1e-5
     res["ok"] = bool(proc.returncode == 0 and res["nccl"] and not res["gloo"] and same and not left)
     if not res["ok"]:
         res["child_tail"] = child[-30:]
     emit(res)
     if not res["ok"]:
         raise SystemExit("distributed phase failed")
+    return res
+
+
+# the shard shapes (stacked rows, local queries) of the sequence-sharded
+# TACoS train step's DETR encoder: the global token and 600 / k clips as
+# local queries against the 601 gathered keys, at k = 2 and 4 model ranks
+# of one data rank (32 stacked rows) and at 2 data x 2 seq ranks (16)
+SEQ_SHARD_SHAPES = ((32, 301), (32, 151), (16, 301))
+
+
+def _seq_shard_inputs(B: int, Lq: int, seed: int):
+    """q (B, Lq, E) and k, v (B, 601, E) in fp32 at a TACoS stacked train
+    shape, a cotangent of the output, and the key mask the gathered TACoS
+    batch gives data rank 0 (the global token never a key, each row's padded
+    clips masked, the stack's two halves the same videos)."""
+    import torch
+
+    from mesm_tpu_torch.scripts import synthetic
+
+    Lk, E = TACOS["L"], TACOS["E"]
+    # the masks of scripts/synthetic.make_train_batch(0, ...) follow the seed
+    # alone, not the feature width
+    vm = synthetic.make_train_batch(0, TACOS["B"], TACOS["Lv"], 8, TACOS["Lw"], TACOS["Dt"], 1112,
+                                    device="cuda")["video_mask"][:B // 2]
+    mask = torch.cat([torch.zeros(B, 1, dtype=torch.bool, device="cuda"),
+                      torch.cat([vm, vm], 0)], dim=1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, Lq, E, generator=g, device="cuda")
+    k, v = (torch.randn(B, Lk, E, generator=g, device="cuda") for _ in range(2))
+    cot = torch.randn(B, Lq, E, generator=g, device="cuda")
+    return q, k, v, cot, mask
+
+
+def check_seq_shard_kernels() -> list:
+    """Kernel 6 (the fp32 batched forward) and kernel 9's backward at each
+    shard shape of SEQ_SHARD_SHAPES against their plain versions (phase
+    `kernels`' fp32 tolerance), then timed as PERF.md section 6 rows 6 and 9
+    are: the wrapper (CUDA events), the kernel alone (profiler), the plain
+    version, SDPA's forward / backward, and the bound."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from mesm_tpu_torch.ops import attention_backward as abw
+    from mesm_tpu_torch.ops import attention_batched as ab
+
+    H, E, Lk = TACOS["H"], TACOS["E"], TACOS["L"]
+    hd = E // H
+    out = []
+    for B, Lq in SEQ_SHARD_SHAPES:
+        q, k, v, cot, mask = _seq_shard_inputs(B, Lq, seed=B * Lq)
+        am = _sdpa_mask(mask)
+
+        def sdpa(a, b, c):
+            qh = a.view(B, Lq, H, hd).transpose(1, 2)
+            kh, vh = (t.view(B, Lk, H, hd).transpose(1, 2) for t in (b, c))
+            return Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am).transpose(1, 2) \
+                .reshape(B, Lq, E)
+
+        fwd = ab.attention_batched(q, k, v, H, mask)
+        want = ab.attention_batched_reference(q, k, v, H, mask)
+        bwd = abw.attention_backward(q, k, v, fwd, cot, H, mask)
+        bwant = abw.attention_backward_reference(q, k, v, cot, H, mask)
+        torch.cuda.synchronize()
+        f_err, b_errs = _rel_err(fwd, want), [_rel_err(a, r) for a, r in zip(bwd, bwant)]
+        f = {"kernel": "attention_batched", "dtype": "float32", "shape": [B, Lq, Lk, E, H],
+             "max_abs_err": float((fwd - want).abs().max()), "max_err_rel_to_max1": f_err,
+             "tol": TOL["attention_batched_float32"], "finite": bool(torch.isfinite(fwd).all())}
+        b = {"kernel": "attention_backward", "dtype": "float32", "shape": [B, Lq, Lk, E, H],
+             "max_abs_err": max(float((a - r).abs().max()) for a, r in zip(bwd, bwant)),
+             "max_err_rel_to_max1": dict(zip(("dq", "dk", "dv"), b_errs)),
+             "tol": TOL["attention_backward"], "finite": all(bool(torch.isfinite(t).all()) for t in bwd)}
+        if not (f_err <= f["tol"] and f["finite"] and max(b_errs) <= b["tol"] and b["finite"]):
+            emit({"phase": "seq_sharding", "kernels": [f, b], "ok": False})
+            raise SystemExit(f"seq-shard kernels at B {B}, Lq {Lq}: {f} {b}")
+        del want, bwd, bwant
+        f["ms"] = cuda_time_ms(lambda: ab.attention_batched(q, k, v, H, mask))
+        f["kernel_ms"] = device_kernel_ms(lambda: ab.attention_batched(q, k, v, H, mask),
+                                          ENCODER_KERNEL_NAMES["attention_batched"]["float32"])
+        f["plain_ms"] = cuda_time_ms(lambda: ab.attention_batched_reference(q, k, v, H, mask))
+        f["library_ms"] = cuda_time_ms(lambda: sdpa(q, k, v))
+        # q and out (B, Lq, E), k and v (B, Lk, E), the mask: read / written once
+        moved = 2 * B * Lq * E * 4 + 2 * B * Lk * E * 4 + B * Lk
+        f["bound_ms"], f["bound_by"], f["bound_fp32_ms"] = attention_bound(B, H, Lq, Lk, hd, moved,
+                                                                           "float32")
+
+        def call():
+            return abw.attention_backward(q, k, v, fwd, cot, H, mask)
+
+        b["ms"] = cuda_time_ms(call, iters=10)
+        b["kernel_ms"] = device_kernel_ms(call, "attention_backward_", iters=10)
+        b["plain_ms"] = cuda_time_ms(lambda: abw.attention_backward_reference(q, k, v, cot, H, mask),
+                                     iters=10)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = sdpa(*leaves)
+        b["library_ms"] = cuda_time_ms(
+            lambda: torch.autograd.grad(o, leaves, cot, retain_graph=True), iters=10)
+        del o, leaves
+        # q, O, d_out, dq (B, Lq, E) and k, v, dk, dv (B, Lk, E) once, the
+        # mask; five products (S, dP, dV, dQ, dK), each three TF32 products
+        moved = 4 * B * Lq * E * 4 + 4 * B * Lk * E * 4 + B * Lk
+        flops = 5 * 2.0 * B * H * Lq * Lk * hd
+        b["bound_ms"], b["bound_by"] = bound(moved, 3 * flops, "tf32")
+        b["bound_fp32_ms"], _ = bound(moved, flops, "float32")
+        out += [f, b]
+    return out
+
+
+def _seq_step_child(args: list, nproc: int, out_path: str, timeout_s: int) -> dict:
+    """`python -m mesm_tpu_torch.scripts.seq_step` in a process of its own
+    (nproc 1) or under torchrun on nproc cards: its report, or the end of
+    its output on failure."""
+    import signal
+
+    launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                 str(nproc)] if nproc > 1 else [sys.executable])
+    cmd = launcher + ["-m", "mesm_tpu_torch.scripts.seq_step", "--out", out_path] + args
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=HERE, OMP_NUM_THREADS="4"))
+    try:
+        log = proc.communicate(timeout=timeout_s)[0].decode(errors="replace")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out_path):
+        return {"returncode": proc.returncode, "wall_s": wall_s, "tail": log.splitlines()[-30:]}
+    with open(out_path) as f:
+        return dict(json.load(f), returncode=0, wall_s=wall_s)
+
+
+def phase_seq_sharding(card: str, nproc: Optional[int] = None, timeout_s: int = 600) -> dict:
+    """Sequence sharding of the TACoS kernel-engaged fp32 train step
+    (parallel/seq.py). On any card count: kernels 6 and 9's backward at the
+    shard shapes (check_seq_shard_kernels). With at least two cards:
+    `torchrun --nproc_per_node <nproc>` (default 2: 1 data x 2 seq ranks;
+    4: 2 data x 2 seq) of scripts/seq_step.py on NCCL against the same step
+    in one process on the same batch: the first step's loss terms and
+    grad_norm within 1e-5 of max(1, |x|), kernel 6 and kernel 9's backward
+    launched twice a step on every rank (the two encoder layers), each
+    rank's peak memory beside the one process's, ms a step. With one card
+    the line says that the multi-card half did not run (seq_ranks_run 1)."""
+    import torch
+
+    from mesm_tpu_torch.scripts.seq_step import STEPS as steps
+
+    res = {"phase": "seq_sharding", "card": card, "cards": torch.cuda.device_count(),
+           "kernels": check_seq_shard_kernels()}
+    nproc = nproc or (2 if res["cards"] >= 2 else 1)
+    if nproc < 2:
+        res.update(seq_ranks_run=1, multi_card="not run: one card; the seq-sharded step "
+                   "needs one card per rank (torchrun --nproc_per_node 2)", ok_kernels=True,
+                   ok_multi_card=None)
+        emit(res)
+        return res
+    if nproc > res["cards"]:
+        raise SystemExit(f"seq_sharding: {nproc} ranks asked for, {res['cards']} cards")
+    data = 2 if nproc >= 4 else 1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_seq_") as tmp:
+        single = _seq_step_child([], 1, os.path.join(tmp, "single.json"), timeout_s)
+        sharded = _seq_step_child(["--data", str(data)], nproc, os.path.join(tmp, "sharded.json"),
+                                  timeout_s)
+    res.update(seq_ranks_run=nproc // data, data_ranks=data, nproc=nproc, steps=steps,
+               single=single, sharded=sharded, tol=1e-5)
+    ok = single.get("returncode") == 0 and sharded.get("returncode") == 0
+    if ok:
+        want, got = single["first_step"], sharded["first_step"]
+        res["first_step_max_err_rel_to_max1"] = max(
+            abs(got[k] - w) / max(1.0, abs(w)) for k, w in want.items()
+            if k.startswith("loss") or k == "grad_norm")
+        per_step = {"attention_batched": 2, "attention_trainable": 2, "attention_backward": 2}
+        res["launches_expected_per_rank"] = {k: n * steps for k, n in per_step.items()}
+        res["launches_ok"] = all(r["launches"] == res["launches_expected_per_rank"]
+                                 for r in sharded["ranks"] + single["ranks"])
+        res["peak_mem_gib_single"] = single["ranks"][0]["peak_mem_gib"]
+        res["peak_mem_gib_per_rank"] = [r["peak_mem_gib"] for r in sharded["ranks"]]
+        res["ms_per_step_single"] = single["ranks"][0]["ms_per_step"]
+        res["ms_per_step_per_rank"] = [r["ms_per_step"] for r in sharded["ranks"]]
+        ok = (res["first_step_max_err_rel_to_max1"] <= 1e-5 and res["launches_ok"]
+              and sharded["backend"] == "nccl" and sharded["world"] == nproc
+              and math.isfinite(sharded["last_loss"]))
+    res["left_running"] = live_descendants()
+    res["ok_kernels"] = True
+    res["ok_multi_card"] = res["ok"] = bool(ok and not res["left_running"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("seq_sharding phase failed")
     return res
 
 
@@ -4359,6 +4573,7 @@ def main() -> int:
     phase_remat(card)
     phase_train_cli()
     phase_distributed()
+    phase_seq_sharding(card)
     phase_qvh_train(card)
     int8 = phase_int8_eval(card)
     phase_int8_dense(card)

@@ -8,6 +8,9 @@ stripped) loads with no conversion. A parameter tree of the JAX package
 which reads this module's copy of the name mapping of
 mesm_tpu/convert.py:92-182: Linear kernels transpose ((in, out) -> (out, in)),
 LayerNorm scale -> weight.
+
+`python -m mesm_tpu_torch.convert to-native|to-torch` is the JAX package's
+checkpoint CLI (mesm_tpu/convert.py:310-357; see `_main`).
 """
 from __future__ import annotations
 
@@ -198,6 +201,22 @@ def _scanned_stacks(cfg: MESMConfig):
     return out
 
 
+def stack_scanned(params: Dict, cfg: MESMConfig) -> Dict:
+    """Per-layer 'layer{i}' subtrees -> the scan layout ('layers'/'layer',
+    each leaf with a leading layer axis) of mesm_tpu/convert.py:200. In
+    place; returns it."""
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([np.asarray(t) for t in trees])
+
+    for path, n in _scanned_stacks(cfg):
+        node = _get_path(params, path)
+        node["layers"] = {"layer": stack([node.pop(f"layer{i}") for i in range(n)])}
+    return params
+
+
 def unstack_scanned(params: Dict, cfg: MESMConfig) -> Dict:
     """A scan-layout tree ('layers'/'layer' with a leading layer axis, from
     scan_layers=True) -> per-layer 'layer{i}' subtrees. In place; returns it."""
@@ -237,12 +256,22 @@ def state_dict_from_jax_params(params_np: Dict, cfg: MESMConfig) -> Dict[str, to
     return _convert(unstack_scanned(_copy_tree(params_np), cfg), build_mapping(cfg))
 
 
-def _convert(params: Dict, mapping: List[MapEntry]) -> Dict[str, torch.Tensor]:
+def _convert(params: Dict, mapping: List[MapEntry], optional: bool = False,
+             last_wins: bool = False, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The tensors of `mapping` read from `params`. Where two paths map to
+    one key (the TwoMLP layers' one PReLU slope) the first wins, or the last
+    with `last_wins`; with `optional` a path the tree lacks is left out; a
+    `dtype` of None keeps each array's."""
     out: Dict[str, torch.Tensor] = {}
     for tkey, fpath, transpose in mapping:
-        if tkey in out:  # TwoMLP layers share one PReLU slope
+        if tkey in out and not last_wins:
             continue
-        arr = np.asarray(_get_path(params, fpath), dtype=np.float32)
+        try:
+            arr = np.asarray(_get_path(params, fpath), dtype=dtype)
+        except KeyError:
+            if optional:
+                continue
+            raise
         out[tkey] = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
     return out
 
@@ -285,18 +314,23 @@ def model_state_from_checkpoint(state_dict: Dict, cfg: MESMConfig) -> Dict[str, 
     drops the modules the upstream model constructs but this config never
     runs (as mesm_tpu/convert.py:264-275 allows them), so that
     load_state_dict(strict=True) sees exactly the port's keys."""
-    allowed = ["text_encoder", "vid_position_embed"]
+    unrun = _unrun_modules(cfg)
+    return {k: torch.as_tensor(v).float() for k, v in state_dict.items() if not k.startswith(unrun)}
+
+
+def _unrun_modules(cfg: MESMConfig) -> Tuple[str, ...]:
+    """The key prefixes of the modules the upstream model constructs but
+    `cfg` never runs (mesm_tpu/convert.py:264-269): the text encoder, the
+    video position embedding, the text one without use_txt_pos, the
+    enhance path without rec_fw, SS-MESM without rec_ss."""
+    unrun = ["text_encoder", "vid_position_embed"]
     if not cfg.use_txt_pos:
-        allowed.append("txt_position_embed")
+        unrun.append("txt_position_embed")
     if not cfg.rec_fw:
-        allowed += ["enhance_encoder", "output_txt_proj", "masked_token", "unknown_token"]
+        unrun += ["enhance_encoder", "output_txt_proj", "masked_token", "unknown_token"]
     if not cfg.rec_ss:
-        allowed.append("ss_reconstructor")
-    return {
-        k: torch.as_tensor(v).float()
-        for k, v in state_dict.items()
-        if not any(k.startswith(a) for a in allowed)
-    }
+        unrun.append("ss_reconstructor")
+    return tuple(unrun)
 
 
 def jax_params_from_state_dict(state_dict: Dict, cfg: MESMConfig) -> Dict:
@@ -355,3 +389,88 @@ def load_mesm_checkpoint(path: str, cfg: MESMConfig):
     payload = load_checkpoint(path)
     epoch = payload.get("epoch", -1) if isinstance(payload, dict) else -1
     return model_state_from_payload(payload, cfg), epoch
+
+
+def jax_params_from_checkpoint(state_dict: Dict, cfg: MESMConfig, scan_layers: bool = False) -> Dict:
+    """An upstream model state dict -> the JAX package's parameter tree, as
+    mesm_tpu/convert.py:240 torch_state_dict_to_params builds it: every
+    mapped key must be there, and every other key must belong to a module
+    the upstream model constructs but `cfg` never runs; the scan layout
+    where `scan_layers`."""
+    missing = [k for k, _, _ in build_mapping(cfg) if k not in state_dict]
+    if missing:
+        raise KeyError(f"torch checkpoint missing {missing[:10]} (+{max(len(missing) - 10, 0)})")
+    used = {k for k, _, _ in build_mapping(cfg)}
+    unrun = _unrun_modules(cfg)
+    leftovers = [k for k in state_dict if k not in used and not k.startswith(unrun)]
+    if leftovers:
+        raise KeyError(f"unmapped torch keys: {leftovers[:10]} (+{max(len(leftovers) - 10, 0)})")
+    params = jax_params_from_state_dict(state_dict, cfg)
+    return stack_scanned(params, cfg) if scan_layers else params
+
+
+def checkpoint_state_from_jax_params(params: Dict, cfg: MESMConfig) -> Dict[str, torch.Tensor]:
+    """A JAX-package parameter tree (either layout) -> the upstream-named
+    state dict, as mesm_tpu/convert.py:281 params_to_torch_state_dict
+    writes it: paths the tree lacks are left out, where two paths map to one
+    key (the TwoMLP layers' one PReLU slope) the last one wins, and each
+    array keeps its dtype."""
+    return _convert(unstack_scanned(_copy_tree(params), cfg), build_mapping(cfg), optional=True,
+                    last_wins=True, dtype=None)
+
+
+def _main(argv=None):
+    """Convert checkpoints between the upstream torch layout and the JAX
+    package's mesm_tpu.v1 format (mesm_tpu/convert.py:310-357), on the host:
+
+        python -m mesm_tpu_torch.convert to-native ref.ckpt out.ckpt --opt_json opt.json
+        python -m mesm_tpu_torch.convert to-torch  native.ckpt out.pt
+
+    to-native writes a v1 file (no optimizer state) in the layout the run's
+    opt.json asks for (scan_layers on: the stacks' scan layout); opt.json is
+    written before the TEF bump, so use_tef adds the 2 TEF channels to
+    v_feat_dim here, as the runtime does. to-torch writes {"model": the
+    upstream-named state dict, "epoch"}, from the runtime opt the v1 file
+    keeps."""
+    import argparse
+    import json
+    import types
+
+    from .runner import build_model_config
+    from .utils.checkpoint import save_v1_checkpoint
+
+    p = argparse.ArgumentParser(prog="python -m mesm_tpu_torch.convert")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    a = sub.add_parser("to-native")
+    a.add_argument("src")
+    a.add_argument("dst")
+    a.add_argument("--opt_json", required=True,
+                   help="the training run's opt.json (defines the architecture)")
+    b = sub.add_parser("to-torch")
+    b.add_argument("src")
+    b.add_argument("dst")
+    args = p.parse_args(argv)
+
+    if args.cmd == "to-native":
+        with open(args.opt_json) as f:
+            opt = types.SimpleNamespace(**json.load(f))
+        if getattr(opt, "use_tef", False):
+            opt.v_feat_dim += 2
+        cfg = build_model_config(opt)
+        payload = torch.load(args.src, map_location="cpu", weights_only=False)
+        state = payload["model"] if isinstance(payload, dict) and "model" in payload else payload
+        epoch = payload.get("epoch", -1) if isinstance(payload, dict) else -1
+        params = jax_params_from_checkpoint(state, cfg,
+                                            getattr(opt, "scan_layers", "off") == "on")
+        save_v1_checkpoint(args.dst, params, epoch=epoch, opt=vars(opt))
+        print(f"wrote {args.dst} (epoch {epoch})")
+    else:
+        payload = load_checkpoint(args.src)
+        opt = types.SimpleNamespace(**payload["opt"])
+        state = checkpoint_state_from_jax_params(payload["model"], build_model_config(opt))
+        torch.save({"model": state, "epoch": payload.get("epoch", -1)}, args.dst)
+        print(f"wrote {args.dst}")
+
+
+if __name__ == "__main__":
+    _main()

@@ -3,7 +3,8 @@
 Counterpart of mesm_tpu/kernels.py. The mode is "off" (plain torch
 everywhere), "on" (the kernel wherever it takes the shapes) or "auto" (the
 default: the kernel where the JAX package's measured gates put its Pallas
-kernel). `--pallas_attention` keeps its meaning and sets this mode. The
+kernel). `--pallas_attention` keeps its meaning and sets this mode
+(`set_pallas_attention` for the process, `pallas_scope` for a block). The
 gates are the JAX package's thresholds, not yet re-measured on the H100.
 
 Where the JAX package asks "is this on the TPU", the port asks "is the
@@ -111,6 +112,13 @@ def _normalize_mode(enabled) -> str:
     if enabled in (True, "on"):
         return "on"
     return "off"
+
+
+def set_pallas_attention(enabled) -> None:
+    """Set the process-wide default mode (kernels.py:271-276): True/'on',
+    False/'off', None/'auto'. A pallas_scope overrides it within its block."""
+    global _DEFAULT_MODE
+    _DEFAULT_MODE = _normalize_mode(enabled)
 
 
 @contextlib.contextmanager

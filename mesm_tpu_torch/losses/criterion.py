@@ -21,6 +21,12 @@ rank's rows: every normaliser and batch-wide count is summed over the ranks
 each term is this rank's part of the single-process term and the terms sum
 over the ranks to it. The diagnostics `class_error*` and `rec_fw_acc` are
 ratios of batch-wide sums, the same on every rank (`RATIO_TERMS`).
+
+In a sequence-sharded train step (parallel/seq.py) the video-length fields
+and outputs are this rank's slice of the video axis: the saliency loss
+gathers the whole (B, L) scores, masks and labels, and the rec_ss clip
+pooling sums its partial sums over the model ranks, so every term is the
+whole sequence's, the same on every model rank.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 from ..ops.masking import l2_normalize
 from ..ops.matcher import hungarian_match, single_target_match
 from ..ops.span import generalized_temporal_iou, pairwise_generalized_temporal_iou, span_cxw_to_xx
+from ..parallel import seq
 from ..parallel.rows import all_sum, gather
 
 
@@ -120,17 +127,19 @@ def _label_loss(pred_logits, src_idx, tgt_mask, eos_coef, rm):
 
 
 def _saliency_loss(outputs, batch, cfg: CriterionConfig, rm):
-    vid_mask = batch["video_mask"].float()  # (B, L)
+    # the whole video axis of a sequence shard (parallel/seq.py): the max,
+    # the log-sum-exp and the triplet's clip indices span it
+    vid_mask = seq.gather(batch["video_mask"]).float()  # (B, L)
     n_rows = all_sum(rm.sum()).clamp(min=1.0)
-    neg_scores = outputs["neg_saliency_scores"]
+    neg_scores = seq.gather(outputs["neg_saliency_scores"])
     # -log(1 - sigmoid(x)) == softplus(x)
     loss_neg_pair = ((F.softplus(neg_scores) * vid_mask).sum(1) * rm).sum() / n_rows
 
-    scores = outputs["saliency_scores"]
+    scores = seq.gather(outputs["saliency_scores"])
     label = batch.get("saliency_label")
     if label is None:
         label = batch["clip_mask"]
-    label = label.float()
+    label = seq.gather(label).float()
 
     scores2 = torch.cat([scores, neg_scores], dim=1)
     label2 = torch.cat([label, torch.zeros_like(label)], dim=1) * rm[:, None]
@@ -183,7 +192,9 @@ def _rec_ss_loss(outputs, batch, cfg: CriterionConfig, rm):
     pos_mask = (same_group & (giou >= cfg.iou_gamma)).float()
 
     clip_mask = batch["clip_mask"].float()[..., None]  # (B, L, 1)
-    clip_feat = (outputs["projed_video_feat"] * clip_mask).sum(1) / clip_mask.sum(1)
+    # a sequence shard's partial sums, summed over its ranks (parallel/seq.py)
+    clip_feat = (seq.sum_grad((outputs["projed_video_feat"] * clip_mask).sum(1))
+                 / seq.all_sum(clip_mask.sum(1)))
     words_mask = outputs["expanded_words_mask"].float()[..., None]
     words_feat = (outputs["expanded_words_feat"] * words_mask).sum(1) / words_mask.sum(1)
 

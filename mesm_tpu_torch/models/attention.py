@@ -28,6 +28,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from .. import kernels
+from ..parallel import rows
 from ..ops.attention_shortkey import attention_shortkey_onematmul
 from ..ops.attention_trainable import attention_trainable, fused_attention
 from .layers import Linear
@@ -90,7 +91,8 @@ def attention_core(
 
 
 def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_factors=None,
-                            split_qk=None, dropout_rate: float = 0.0, training: bool = False):
+                            split_qk=None, dropout_rate: float = 0.0, training: bool = False,
+                            q_len: Optional[int] = None):
     """mesm_tpu/models/attention.py:322-375. A call with split_qk or active
     dropout takes attention_core (no tier takes them). Otherwise
     mesm_tpu_torch.kernels.attention_kernel decides: a Pallas-tier kernel
@@ -102,22 +104,30 @@ def dispatch_attention_core(q, k, v, num_heads: int, key_valid_mask=None, pair_f
     torch.utils.checkpoint when kernels.ATTN_REMAT is set (the JAX package's
     jax.checkpoint, attention.py:296-319): the backward recomputes the
     logits, the softmax and, with the forward's RNG state restored, the
-    same dropout mask."""
+    same dropout mask.
+
+    Every decision is taken on the whole batch's lengths, as the JAX
+    package's GSPMD program sees them: the rows of every data rank
+    (parallel/rows.py) and `q_len`, the whole query axis of a call whose
+    queries are this rank's slice of the video (parallel/seq.py; the keys
+    of such a call are gathered whole). The kernel then runs on the local
+    queries against those keys."""
     global remat_calls
     dropout_active = training and dropout_rate > 0.0
+    Lq = q.shape[1] if q_len is None else q_len
     route = None
     if split_qk is None and not dropout_active:
         route = kernels.attention_kernel(
-            q.shape[0], q.shape[1], k.shape[1], q.dtype, q.device,
+            q.shape[0] * rows.world(), Lq, k.shape[1], q.dtype, q.device,
             pair=pair_factors is not None, training=training,
         )
     if route == "shortkey_onematmul":
         return attention_shortkey_onematmul(q, k, v, num_heads, key_valid_mask, pair_factors)
     if route is not None:
         if training:
-            return attention_trainable(q, k, v, num_heads, key_valid_mask, pair_factors)
-        return fused_attention(q, k, v, num_heads, key_valid_mask, pair_factors)
-    if kernels.use_attn_remat(q.shape[1], k.shape[1], training):
+            return attention_trainable(q, k, v, num_heads, key_valid_mask, pair_factors, route)
+        return fused_attention(q, k, v, num_heads, key_valid_mask, pair_factors, route)
+    if kernels.use_attn_remat(Lq, k.shape[1], training):
         remat_calls += 1
         return torch.utils.checkpoint.checkpoint(
             attention_core, q, k, v, num_heads, key_valid_mask, pair_factors, split_qk,
@@ -144,13 +154,14 @@ class ProjAttention(nn.Module):
         nn.init.zeros_(self.in_proj_bias)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, q, k, v, key_valid_mask=None, pair_factors=None):
+    def forward(self, q, k, v, key_valid_mask=None, pair_factors=None, q_len=None):
+        """`q_len`: dispatch_attention_core's."""
         wq, wk, wv = self.in_proj_weight.to(q.dtype).chunk(3)
         bq, bk, bv = self.in_proj_bias.to(q.dtype).chunk(3)
         out = dispatch_attention_core(
             F.linear(q, wq, bq), F.linear(k, wk, bk), F.linear(v, wv, bv), self.num_heads,
             key_valid_mask=key_valid_mask, pair_factors=pair_factors,
-            dropout_rate=self.dropout, training=self.training,
+            dropout_rate=self.dropout, training=self.training, q_len=q_len,
         )
         return self.out_proj(out)
 

@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel import seq
 from .attention import CoreAttention, ProjAttention
 from .layers import MLP, LayerNorm, Linear, apply_ln, ffn, make_activation
 
@@ -51,9 +52,16 @@ class TransformerEncoderLayer(nn.Module):
         self.activation = make_activation(activation)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, src, valid_mask, pos):
-        q = k = src + pos
-        attn = self.self_attn(q, k, src, key_valid_mask=valid_mask)
+    def forward(self, src, valid_mask, pos, replicated: int = 0):
+        """`valid_mask` is the key mask of the whole sequence. Under a
+        sequence shard (parallel/seq.py) `src` and `pos` hold `replicated`
+        leading entries (the global token) and this rank's slice of the
+        rest: the queries stay local, the keys and values are gathered."""
+        q = src + pos
+        k = seq.gather(q, start=replicated)
+        v = seq.gather(src, start=replicated)
+        attn = self.self_attn(q, k, v, key_valid_mask=valid_mask,
+                              q_len=seq.whole_len(q.shape[1], replicated))
         src = apply_ln(self.norm1, src + self.dropout(attn), self.training)
         y = ffn(src, self.linear1, self.activation, self.linear2, self.dropout, self.training)
         return apply_ln(self.norm2, src + self.dropout(y), self.training)
@@ -64,9 +72,9 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(TransformerEncoderLayer(*layer_args) for _ in range(num_layers))
 
-    def forward(self, src, valid_mask, pos):
+    def forward(self, src, valid_mask, pos, replicated: int = 0):
         for layer in self.layers:
-            src = layer(src, valid_mask, pos)
+            src = layer(src, valid_mask, pos, replicated=replicated)
         return src
 
 
@@ -165,7 +173,14 @@ class TransformerDecoder(nn.Module):
 
 class Transformer(nn.Module):
     """Encoder-decoder with a prepended per-sample global token, whose encoder
-    output is the video-level representation for saliency scoring."""
+    output is the video-level representation for saliency scoring.
+
+    Under a sequence shard (parallel/seq.py) `src`, `valid_mask` and
+    `pos_embed` are this rank's slice of the video axis. The global token's
+    query row is computed on every rank (its keys are the gathered whole
+    sequence), each clip's on the rank that holds it; the decoder reads the
+    gathered memory and positions and is computed alike on every rank. The
+    returned memory_local is this rank's slice."""
 
     def __init__(self, d_model: int = 256, num_heads: int = 8, num_encoder_layers: int = 2,
                  num_decoder_layers: int = 2, dim_feedforward: int = 1024, dropout: float = 0.1,
@@ -187,13 +202,15 @@ class Transformer(nn.Module):
         pos_embed = torch.cat([global_token_pos, pos_embed], dim=1)
         # the global token is a query (its output becomes memory_global) but
         # never attendable as a key (reference transformer.py:185-186)
+        whole_mask = seq.gather(valid_mask.bool())
         full_mask = torch.cat(
-            [torch.zeros(B, 1, dtype=torch.bool, device=src.device), valid_mask.bool()], dim=1
+            [torch.zeros(B, 1, dtype=torch.bool, device=src.device), whole_mask], dim=1
         )
-        memory = self.encoder(src, full_mask, pos_embed)
+        memory = self.encoder(src, full_mask, pos_embed, replicated=1)
         memory_global, memory_local = memory[:, 0], memory[:, 1:]
         nq = refpoint_embed.shape[0]
         tgt = torch.zeros(B, nq, d, dtype=src.dtype, device=src.device)
         refpoints = refpoint_embed[None].expand(B, nq, 2).to(src.dtype)
-        hs, references = self.decoder(tgt, memory_local, valid_mask.bool(), pos_embed[:, 1:], refpoints)
+        hs, references = self.decoder(tgt, seq.gather(memory_local), whole_mask,
+                                      seq.gather(pos_embed[:, 1:]), refpoints)
         return hs, references, memory_local, memory_global

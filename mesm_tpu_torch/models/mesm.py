@@ -30,6 +30,16 @@ rank's rows; `neg_idx_rows` and `ss_sent_idx` index the whole batch, whose
 rows the negative pass, the SS-MESM group gather, the pair mask and the MLM
 draw read through parallel/rows.gather.
 
+In a sequence-sharded train step (parallel/seq.py) the video-length inputs
+(`video_feat`, `video_mask`, `clip_mask`, `ss_video_feat`, `ss_video_mask`)
+are this rank's slice of the video axis. The projection, the positions
+(from the earlier ranks' counts), the enhance and T2V stacks and the
+saliency heads run on the slice; SS-MESM's video keys, the DETR encoder's
+keys, the decoder's memory and the MLM's GT clips are gathered whole. The
+returned `saliency_scores`, `neg_saliency_scores`, `projed_video_feat` and
+`enhanced_video_feat` are this rank's slice; the losses read them through
+parallel/seq.py.
+
 Module and parameter names are the upstream torch state-dict names, and
 every module the upstream model constructs for the config exists here, so
 `load_state_dict(strict=True)` takes an upstream checkpoint.
@@ -43,7 +53,7 @@ import torch
 from torch import nn
 
 from ..ops.masking import l2_normalize, lengths_to_mask
-from ..parallel import rows
+from ..parallel import rows, seq
 from .detr import Transformer, inverse_sigmoid
 from .layers import MLP, InputProj, LinearBlock, Linear
 from .position import TrainablePositionEmbedding, sine_position_embedding
@@ -218,6 +228,7 @@ class MESM(nn.Module):
             vid_position = sine_position_embedding(video_mask, c.hidden_dim, dtype=dt)
         projed_words_feat = self.input_txt_proj(words_feat)
         txt_position = self._txt_pos(projed_words_feat)
+        video_len = seq.whole_len(video_mask.shape[1])  # the video queries' whole axis
 
         if c.rec_ss:
             if ss_video_feat is None:
@@ -229,6 +240,8 @@ class MESM(nn.Module):
             else:  # qvhighlights: the group's concatenated clips
                 batched_vid = self.input_vid_proj(ss_video_feat)
                 batched_vid_mask = ss_video_mask
+            # the masked sentences attend the whole video as keys
+            batched_vid, batched_vid_mask = seq.gather(batched_vid), seq.gather(batched_vid_mask)
             # ss_sent_idx indexes the whole batch's rows
             group_sent = rows.gather(sentence_feat)[ss_sent_idx.long()]  # (B, G, Dt)
             batched_sent = self.input_txt_proj(group_sent).to(dt)
@@ -277,6 +290,7 @@ class MESM(nn.Module):
                     stack(projed_words_feat, neg_words_feat), video2,
                     stack(words_mask, neg_words_mask), stack(txt_position, neg_txt_position),
                     vid_position2, pair_factors=half_factors(words_mask, neg_words_mask),
+                    q_len=video_len,
                 )
             else:
                 enhanced2 = video2
@@ -286,19 +300,20 @@ class MESM(nn.Module):
                 stack(expanded_words_mask, neg_expanded_words_mask),
                 stack(expanded_txt_position, neg_expanded_txt_position), vid_position2,
                 pair_factors=half_factors(expanded_words_mask, neg_expanded_words_mask),
+                q_len=video_len,
             )
             n_rows, t_mask, t_pos = 2 * B, stack(video_mask, video_mask), vid_position2
         else:
             if c.rec_fw:
                 enhanced_video_feat = self.enhance_encoder(
                     projed_words_feat, projed_video_feat, words_mask, txt_position, vid_position,
-                    video_mask,
+                    video_mask, q_len=video_len,
                 )
             else:
                 enhanced_video_feat = projed_video_feat
             encoded_video_feat = self.t2v_encoder(
                 expanded_words_feat, enhanced_video_feat, expanded_words_mask,
-                expanded_txt_position, vid_position, video_mask,
+                expanded_txt_position, vid_position, video_mask, q_len=video_len,
             )
             n_rows, t_mask, t_pos = B, video_mask, vid_position
 
@@ -345,12 +360,15 @@ class MESM(nn.Module):
             # MLM: masked words are reconstructed from the row's GT clips
             unk = self.input_txt_proj(self.unknown_token[None, None].to(dt))
             unknowned_words_feat = torch.where(unknown_mask.bool()[..., None], unk, projed_words_feat)
-            # compact each row's GT clips to the front, in order
-            Lv = video_mask.shape[1]
-            order = torch.argsort((~clip_mask.bool()).to(torch.int32), dim=1, stable=True)
-            merged_clip_feat = torch.take_along_dim(projed_video_feat, order[..., None], dim=1)
-            merged_clip_position = torch.take_along_dim(vid_position, order[..., None], dim=1)
-            merged_clip_mask = lengths_to_mask(clip_mask.bool().sum(1), Lv)
+            # compact each row's GT clips to the front, in order (over the
+            # whole video axis)
+            whole_clip_mask = seq.gather(clip_mask.bool())
+            order = torch.argsort((~whole_clip_mask).to(torch.int32), dim=1, stable=True)
+            merged_clip_feat = torch.take_along_dim(seq.gather(projed_video_feat), order[..., None],
+                                                    dim=1)
+            merged_clip_position = torch.take_along_dim(seq.gather(vid_position), order[..., None],
+                                                        dim=1)
+            merged_clip_mask = lengths_to_mask(whole_clip_mask.sum(1), video_len)
             masked_token = self.input_txt_proj(self.masked_token[None, None].to(dt))
             if masked_words_loc is None:  # drawn for the whole batch
                 masked_words_loc = rows.local(gumbel_mask_words_choice(

@@ -11,6 +11,7 @@ import math
 import torch
 from torch import nn
 
+from ..parallel import seq
 from .layers import LayerNorm
 
 
@@ -29,10 +30,18 @@ def sine_position_embedding(
     channel 2k+1 cos(x / t_k) with t_k = temperature^(2k / F): the reference's
     dim_t repeats each frequency twice, so F/2 angles suffice (the
     half-frequency form of mesm_tpu/models/position.py:35-59). sin and cos
-    run in f32 and are cast to `dtype`."""
+    run in f32 and are cast to `dtype`.
+
+    Under a sequence shard (parallel/seq.py) `mask` is this rank's slice of
+    the video axis: its cumsum starts from the earlier ranks' valid counts
+    and is normalised by the row's whole count, which gives this rank's
+    slice of the single-process embedding (the counts are exact in f32)."""
     x_embed = torch.cumsum(mask.to(torch.float32), dim=1)
+    before, total = seq.scan_counts(x_embed[:, -1:])
+    if before is not None:
+        x_embed = x_embed + before
     if normalize:
-        x_embed = x_embed / (x_embed[:, -1:] + 1e-6) * scale
+        x_embed = x_embed / (total + 1e-6) * scale
     half = num_pos_feats // 2
     i = torch.arange(half, dtype=torch.float32, device=mask.device)
     inv_freq = temperature ** (2.0 * i / num_pos_feats)

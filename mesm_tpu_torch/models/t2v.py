@@ -30,7 +30,9 @@ def scrambled_pair_factors(vid_valid_mask: torch.Tensor, txt_valid_mask: torch.T
     b is masked where qpad[s, q] & kpad[s, k] with s = (b*H + h) % B. Returns
     the (B, H, Lq) and (B, H, Lk) factors; attention_core combines them as an
     outer product. In a data-parallel step B is the whole batch's row count
-    and the factors are this rank's rows of them (parallel/rows.py)."""
+    and the factors are this rank's rows of them (parallel/rows.py). Under a
+    sequence shard (parallel/seq.py) a video mask is this rank's slice of
+    the video axis, so its factor is this rank's slice too."""
     qpad = ~rows.gather(vid_valid_mask.bool())
     kpad = ~rows.gather(txt_valid_mask.bool())
     B = qpad.shape[0]
@@ -69,16 +71,18 @@ class T2VLayer(nn.Module):
                     nn.init.xavier_uniform_(p)
 
     def forward(self, src_txt, src_vid, txt_valid_mask, pos_txt=None, pos_vid=None,
-                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None):
+                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None, q_len=None):
         """`pair_factors` overrides the factors of (vid_valid_mask,
         txt_valid_mask): the scramble depends on the row count of the call,
-        so the stacked [positive | negative] pass passes per-half factors."""
+        so the stacked [positive | negative] pass passes per-half factors.
+        `q_len`: the whole query axis where the video stream is this rank's
+        slice of a sequence shard (models/attention.dispatch_attention_core)."""
         q = src_vid if pos_vid is None else src_vid + pos_vid
         k = src_txt if pos_txt is None else src_txt + pos_txt
         if pair_factors is None and vid_valid_mask is not None and txt_valid_mask is not None:
             pair_factors = scrambled_pair_factors(vid_valid_mask, txt_valid_mask, self.num_heads)
         attn = self.self_attn(q, k, src_txt, key_valid_mask=txt_valid_mask,
-                              pair_factors=pair_factors)
+                              pair_factors=pair_factors, q_len=q_len)
         x = src_vid + self.dropout(attn)
         if self.two_mlp and is_mlm:
             norm1, linear1, linear2, norm2 = self.norm1_1, self.linear1_1, self.linear2_1, self.norm2_1
@@ -103,11 +107,11 @@ class T2VStack(nn.Module):
         )
 
     def forward(self, src_txt, src_vid, txt_valid_mask, pos_txt=None, pos_vid=None,
-                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None):
+                vid_valid_mask=None, is_mlm: bool = False, pair_factors=None, q_len=None):
         x = src_vid
         for layer in self.layers:
             x = layer(src_txt, x, txt_valid_mask, pos_txt, pos_vid, vid_valid_mask,
-                      is_mlm=is_mlm, pair_factors=pair_factors)
+                      is_mlm=is_mlm, pair_factors=pair_factors, q_len=q_len)
         return x
 
 

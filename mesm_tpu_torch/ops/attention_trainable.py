@@ -46,10 +46,13 @@ def _route(q, k, pair_factors) -> Optional[str]:
 
 
 def fused_attention(q, k, v, num_heads: int, key_valid_mask=None,
-                    pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                    pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    route: Optional[str] = None):
     """The dropout-free attention of attention_pallas.fused_attention: the
-    kernel kernels.fused_route picks, or attention_core where there is none."""
-    route = _route(q, k, pair_factors)
+    kernel kernels.fused_route picks, or attention_core where there is none.
+    `route`, when given, is the caller's decision on the whole sample's
+    lengths (a sequence-sharded call holds a slice of the queries)."""
+    route = route or _route(q, k, pair_factors)
     if route == "packed":
         return attention_packed(q, k, v, num_heads, key_valid_mask)
     if route == "packed_pair":
@@ -70,11 +73,11 @@ def fused_attention(q, k, v, num_heads: int, key_valid_mask=None,
 
 class _AttentionTrainable(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, key_valid_mask, qf, kf):
+    def forward(ctx, q, k, v, num_heads, key_valid_mask, qf, kf, route):
         global launches
         pair = None if qf is None else (qf, kf)
-        route = _route(q, k, pair)
-        out = fused_attention(q, k, v, num_heads, key_valid_mask, pair)
+        route = route or _route(q, k, pair)
+        out = fused_attention(q, k, v, num_heads, key_valid_mask, pair, route)
         if q.device.type == "cuda" and route is not None:
             launches += 1
         ctx.num_heads = num_heads
@@ -90,19 +93,20 @@ class _AttentionTrainable(torch.autograd.Function):
         q, k, v, mask, qf, kf, out = ctx.saved_tensors
         if ctx.kernel_backward:
             dq, dk, dv = attention_backward(q, k, v, out, g.contiguous(), ctx.num_heads, mask)
-            return dq, dk, dv, None, None, None, None
+            return dq, dk, dv, None, None, None, None, None
         pair = None if qf is None else (qf, kf)
         with torch.enable_grad():
             qd, kd, vd = (t.detach().requires_grad_(True) for t in (q, k, v))
             out = attention_core(qd, kd, vd, ctx.num_heads, key_valid_mask=mask, pair_factors=pair)
             dq, dk, dv = torch.autograd.grad(out, (qd, kd, vd), g)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def attention_trainable(q, k, v, num_heads: int, key_valid_mask=None,
-                        pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                        pair_factors: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        route: Optional[str] = None):
     """Differentiable dropout-free multi-head attention over (B, L, E)
     operands: kernel forward, attention_core's gradients (the backward
-    kernel's in float32 without pair factors)."""
+    kernel's in float32 without pair factors). `route` as fused_attention's."""
     qf, kf = pair_factors if pair_factors is not None else (None, None)
-    return _AttentionTrainable.apply(q, k, v, num_heads, key_valid_mask, qf, kf)
+    return _AttentionTrainable.apply(q, k, v, num_heads, key_valid_mask, qf, kf, route)

@@ -21,7 +21,9 @@ gradients (the gathers' backward returns each rank the gradient its rows
 received from every other rank's loss) is the single-process gradient.
 
 Outside `row_shard` every function is the identity, so the single-process
-path runs the same code with no collective.
+path runs the same code with no collective. The shard of an axis
+(`ShardAxis`) and its collectives (`gather_over`, `sum_over`) serve the
+video axis of parallel/seq.py too.
 """
 from __future__ import annotations
 
@@ -35,67 +37,99 @@ import torch.distributed as dist
 
 
 @dataclass(frozen=True)
-class RowShard:
-    group: object  # the process group of the data axis
+class Shard:
+    """One axis of the batch split over the ranks of a process group."""
+    group: object
     rank: int
     world: int
 
 
-_SHARD: contextvars.ContextVar = contextvars.ContextVar("mesm_torch_row_shard", default=None)
+class ShardAxis:
+    """The shard of one batch axis that the code in a `scope` block runs
+    under (None outside one)."""
+
+    def __init__(self, name: str):
+        self._var: contextvars.ContextVar = contextvars.ContextVar(name, default=None)
+
+    @contextlib.contextmanager
+    def scope(self, group=None):
+        token = self._var.set(Shard(group, dist.get_rank(group), dist.get_world_size(group)))
+        try:
+            yield
+        finally:
+            self._var.reset(token)
+
+    def current(self) -> Optional[Shard]:
+        return self._var.get()
+
+    def world(self) -> int:
+        shard = self._var.get()
+        return 1 if shard is None else shard.world
 
 
-@contextlib.contextmanager
-def row_shard(group=None):
-    """Within the block, this rank holds rows [rank * b, (rank + 1) * b) of
-    every batch of world * b rows, over the data-axis `group` (the default
-    group when None)."""
-    token = _SHARD.set(RowShard(group, dist.get_rank(group), dist.get_world_size(group)))
-    try:
-        yield
-    finally:
-        _SHARD.reset(token)
-
-
-def current() -> Optional[RowShard]:
-    return _SHARD.get()
-
-
-def _all_gather_rows(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+def all_gather(x: torch.Tensor, shard: Shard, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(shard.world)]
     dist.all_gather(parts, x.contiguous(), group=shard.group)
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=dim)
 
 
-class _GatherRows(torch.autograd.Function):
-    """all_gather along rows; the backward sums the whole batch's gradient
-    over the ranks and returns this rank's rows of it (all_reduce, which
+class _Gather(torch.autograd.Function):
+    """all_gather along `dim`; the backward sums the whole axis' gradient
+    over the ranks and returns this rank's slice of it (all_reduce, which
     every backend has, in place of a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, x, shard):
-        ctx.shard = shard
-        ctx.rows = x.shape[0]
-        return _all_gather_rows(x, shard)
+    def forward(ctx, x, shard, dim):
+        ctx.shard, ctx.dim, ctx.n = shard, dim, x.shape[dim]
+        return all_gather(x, shard, dim)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous()
         dist.all_reduce(grad, group=ctx.shard.group)
-        start = ctx.shard.rank * ctx.rows
-        return grad[start:start + ctx.rows], None
+        return grad.narrow(ctx.dim, ctx.shard.rank * ctx.n, ctx.n), None, None
+
+
+def gather_over(x: Optional[torch.Tensor], shard: Optional[Shard],
+                dim: int = 0) -> Optional[torch.Tensor]:
+    """Every rank's slice of `dim` of `x`, in rank order (None stays None;
+    `x` itself outside a shard), with the gradient carried back to the rank
+    that holds each slice."""
+    if shard is None or x is None:
+        return x
+    if x.dtype == torch.bool:
+        return all_gather(x.to(torch.uint8), shard, dim).bool()
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Gather.apply(x, shard, dim)
+    return all_gather(x, shard, dim)
+
+
+def sum_over(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
+    """The sum over the ranks of a tensor that needs no gradient (a count, a
+    normaliser); `x` itself outside a shard."""
+    if shard is None:
+        return x
+    y = x.detach().reshape(-1).clone()
+    dist.all_reduce(y, group=shard.group)
+    return y.reshape(x.shape)
+
+
+_ROWS = ShardAxis("mesm_torch_row_shard")
+current = _ROWS.current
+world = _ROWS.world  # the number of data ranks (1 outside a shard)
+
+
+def row_shard(group=None):
+    """Within the block, this rank holds rows [rank * b, (rank + 1) * b) of
+    every batch of world * b rows, over the data-axis `group` (the default
+    group when None)."""
+    return _ROWS.scope(group)
 
 
 def gather(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The whole batch's rows of a row-leading tensor (None stays None),
     with the gradient carried back to the rank that holds each row."""
-    shard = current()
-    if shard is None or x is None:
-        return x
-    if x.dtype == torch.bool:
-        return _all_gather_rows(x.to(torch.uint8), shard).bool()
-    if x.requires_grad and torch.is_grad_enabled():
-        return _GatherRows.apply(x, shard)
-    return _all_gather_rows(x, shard)
+    return gather_over(x, current())
 
 
 def local(x: torch.Tensor) -> torch.Tensor:
@@ -108,11 +142,5 @@ def local(x: torch.Tensor) -> torch.Tensor:
 
 
 def all_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over the ranks of a tensor that needs no gradient (a count, a
-    normaliser)."""
-    shard = current()
-    if shard is None:
-        return x
-    y = x.detach().reshape(-1).clone()
-    dist.all_reduce(y, group=shard.group)
-    return y.reshape(x.shape)
+    """The sum over the data ranks of a tensor that needs no gradient."""
+    return sum_over(x, current())

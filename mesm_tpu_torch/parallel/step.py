@@ -37,9 +37,27 @@ before the clip: the update is the single-process update on the whole batch
 (up to the order of the sums). Each rank's dropout masks come from the
 step's seed with its rank folded in. Parameters sharded over the model axis
 (parallel/tp.py) count once in the clip's global norm.
+
+Sequence parallel (`make_train_step(..., seq_parallel=True, seq_group=...)`,
+the counterpart of the JAX package's shard_batch_seq step): the batch is
+this rank's block of mesh.shard_batch_seq (its rows, and of the
+video-length keys its slice of the video axis over the model ranks), and
+the step runs inside parallel/seq.seq_shard as well. Every loss term is
+then the whole sequence's on every model rank, so each rank backpropagates
+its loss weighted by 1 / k and the gradients are summed over the model
+ranks as well as the data ranks: the terms computed alike on every model
+rank (the decoder and its losses, the matcher, SS-MESM, the MLM, the text
+side) count once, and each collective's backward brings every rank's part
+of the rest to the clips' owner. The draws follow the data rank alone, so
+every model rank of one data rank draws the same negatives, MLM masks and
+dropout seeds (the sharded per-clip dropout masks are not the single
+process's: parity holds at dropout 0). The model dim carries the sequence
+or parallel/tp.py's FFN split, never both: a model with TP-sharded
+parameters is refused.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -47,7 +65,7 @@ import torch.distributed as dist
 
 from ..losses import CriterionConfig, compute_losses
 from ..losses.criterion import RATIO_TERMS
-from . import rows
+from . import rows, seq
 
 
 def build_optimizer(model: torch.nn.Module, lr: float, weight_decay: float = 1e-4):
@@ -170,7 +188,7 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
             mask_generator=mask_generator,
         )
         losses, total = compute_losses(out, batch, ccfg, is_training=True)
-        total.backward()
+        (total / seq.world()).backward()  # the model ranks' gradients are summed
         return total, losses
 
     return micro_grads
@@ -202,7 +220,8 @@ def split_micro(batch: Dict[str, torch.Tensor], k: int, world: int = 1):
 
 
 def _sum_over_ranks(params, shard) -> None:
-    """Every gradient summed over the data axis, as one flat f32 buffer."""
+    """Every gradient summed over the ranks of `shard` (a rows.Shard of the
+    data or the model axis), as one flat f32 buffer."""
     grads = [p.grad for p in params]
     flat = torch.cat([g.float().reshape(-1) for g in grads])
     dist.all_reduce(flat, group=shard.group)
@@ -220,7 +239,8 @@ def _metrics_over_ranks(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Ten
 
 def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimizer,
                     grad_clip: float, seed: int, compute_dtype: torch.dtype = torch.float32,
-                    grad_accum: int = 1, data_parallel: bool = False, data_group=None):
+                    grad_accum: int = 1, data_parallel: bool = False, data_group=None,
+                    seq_parallel: bool = False, seq_group=None):
     """train_step(batch, step, neg_idx_rows=None, masked_words_loc=None) ->
     metrics (device scalars: every loss term, loss_overall, grad_norm).
 
@@ -236,14 +256,24 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
     With `data_parallel`, `batch` is this rank's rows (of every microbatch)
     over the data-axis process group `data_group` (the default group when
     None), neg_idx_rows index the whole batch, and the returned metrics are
-    the whole batch's (see the module docstring)."""
+    the whole batch's (see the module docstring).
+
+    With `seq_parallel`, `batch` is this rank's block of mesh.shard_batch_seq
+    over the model-axis process group `seq_group` (the default group when
+    None); with `data_parallel` as well, the rows are split over
+    `data_group`. The metrics are the whole batch's."""
+    if seq_parallel and any(getattr(p, "tp_group", None) is not None for p in model.parameters()):
+        raise ValueError("sequence sharding and the FFN tensor-parallel split (parallel/tp.py) "
+                         "both take the mesh's model dim; run one or the other")
     micro_grads = make_micro_grads(model, ccfg, encode_text, compute_dtype)
     k = int(grad_accum)
 
     def train_step(batch, step, neg_idx_rows=None, masked_words_loc=None):
-        if not data_parallel:
-            return local_step(batch, step, neg_idx_rows, masked_words_loc)
-        with rows.row_shard(data_group):
+        with contextlib.ExitStack() as shards:
+            if data_parallel:
+                shards.enter_context(rows.row_shard(data_group))
+            if seq_parallel:
+                shards.enter_context(seq.seq_shard(seq_group))
             return local_step(batch, step, neg_idx_rows, masked_words_loc)
 
     def local_step(batch: Dict[str, torch.Tensor], step: int, neg_idx_rows=None,
@@ -277,12 +307,15 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
                 p.grad = (a / k).to(p.dtype)
             metrics = {key: torch.stack([t[key] for t in terms]).mean() for key in terms[0]}
             metrics["loss_overall"] = torch.stack(totals).mean()
-        if shard is not None:
+        shards = [s for s in (shard, seq.current()) if s is not None]
+        if shards:
             params = [p for group in optimizer.param_groups for p in group["params"]]
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            _sum_over_ranks(params, shard)
+            for s in shards:
+                _sum_over_ranks(params, s)
+        if shard is not None:
             metrics = _metrics_over_ranks(metrics)
         metrics["grad_norm"] = apply_update(optimizer, grad_clip)
         return metrics

@@ -161,6 +161,8 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
         t0 = time.time()
         metrics = train_step(jb, step)
         metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        if step == 0 and _is_rank0():  # the run's first step, before AdamW has moved anything
+            logger.info("Step 1 losses " + json.dumps(metrics))
         step += 1
         time_meters["train_step_time"].update(time.time() - t0)
         for k, v in metrics.items():
