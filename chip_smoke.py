@@ -50,7 +50,14 @@ first step bounded too). Then the sequence-sharded TACoS train step:
 kernels 6 and 9's backward at the shard shapes (the local queries of 2 and
 4 model ranks against the 601 gathered keys), and with two cards or more
 `torchrun` of it on NCCL (1 data x 2 seq ranks) against one process; with
-one card the phase's line says that this half did not run. Each phase prints one JSON line; the line
+one card the phase's line says that this half did not run. Last, the
+dispatch-coalesced eval (phase `coalesce`): the K = 8 superbatch CUDA graph
+at the bench geometry against 8 eager per-batch calls (kernel 1 at the
+hoisted shape is held in `kernels`), the evaluate entry point at the
+Charades-STA test size with
+--eval_coalesce 1 and with the default, and the trainer's coalesced eval
+across two epochs; the earlier phases that drive an entry point pass
+--eval_coalesce 1 (PER_BATCH). Each phase prints one JSON line; the line
 before the last is the kernel summary, the last line names the device:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
@@ -181,6 +188,10 @@ TACOS = dict(B=16, Lv=600, Dv=4098, Lw=16, Dt=300, L=601, E=256, H=8)
 # token included), T2V at 194 video rows against 17 text keys; N chained
 # layers per timed chain, `iters` timed chains after one warm-up chain
 STREAM = dict(B=128, L=195, Lv=194, N=32, iters=5)
+# the phases that drive an entry point ask for the per-batch eval
+# (--eval_coalesce 1): their launch counters count every launch, which a
+# CUDA graph replay does not move; phase `coalesce` drives the default
+PER_BATCH = ["--eval_coalesce", "1"]
 # kernels on vs off in fp32, in units of max(1, max |off|) per output
 FP32_MODEL_TOL = 1e-4
 # the train step's first loss, kernels "auto" vs "off": relative; its
@@ -215,12 +226,32 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the kernel of torch.cuda._sleep, left out of every profiler sum
+SPIN = "spin_kernel"
+
+
+def open_window() -> None:
+    """Opens a torch.profiler window: a spin kernel takes the window's first
+    record (the tracer drops the first kernel of a window in some
+    processes), the card drains, and the host waits out the lag of the
+    card's clock behind its own (utils/profiling.DEVICE_CLOCK_GUARD_S; a
+    kernel dated before the window began is dropped too)."""
+    import torch
+
+    from mesm_tpu_torch.utils.profiling import DEVICE_CLOCK_GUARD_S
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(DEVICE_CLOCK_GUARD_S)
+
+
 def device_kernel_ms(fn, key: str, iters: int = 20):
     """Device time per call of the kernels whose name holds `key`, from
     torch.profiler over `iters` calls after a warm-up: the kernel alone,
     without the host's time between launches (which the CUDA events of
-    cuda_time_ms include where a call is shorter than its host overhead).
-    None when the profiler sees no such kernel."""
+    cuda_time_ms include where a call is shorter than its host overhead),
+    in a window opened by open_window. None when the profiler sees no such
+    kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -228,11 +259,12 @@ def device_kernel_ms(fn, key: str, iters: int = 20):
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        open_window()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and key in e.key)
+             if e.device_type == DeviceType.CUDA and key in e.key and SPIN not in e.key)
     return us / iters / 1e3 if us else None
 
 
@@ -434,6 +466,36 @@ def check_ln_dense_edges() -> list:
     return out
 
 
+def check_ln_dense_alignment() -> dict:
+    """ln_dense's rows are the same bits at any address: N rows at each
+    element offset of a 16-byte span into a larger buffer (a charades row,
+    2818 bf16 = 5,636 bytes, starts on any 4-byte boundary; the coalesced
+    eval step projects K batches' rows in one call, where the per-batch
+    step projects each batch's rows at the start of its own buffer),
+    against the rows at offset 0, both dtypes, an even and an odd D. The
+    largest difference must be 0."""
+    import torch
+
+    from mesm_tpu_torch.ops import ln_dense as ld
+
+    out = {"kernel": "ln_dense", "check": "alignment", "cases": []}
+    for dtype_name in ("bfloat16", "float32"):
+        for D in (MAIN_PATH["D"], MAIN_PATH["D"] - 1):
+            x, gamma, beta, w, b = _ln_inputs(dtype_name, 77, D, MAIN_PATH["F"], seed=3)
+            base = ld.ln_dense(x, gamma, beta, w, b, True)
+            per = 16 // x.element_size()
+            diff = max(float((ld.ln_dense(_offset_view(x, o), gamma, beta, w, b, True).float()
+                              - base.float()).abs().max()) for o in range(1, per))
+            out["cases"].append({"dtype": dtype_name, "D": D, "offsets": per - 1,
+                                 "max_abs_diff": diff})
+    torch.cuda.synchronize()
+    out["ok"] = all(c["max_abs_diff"] == 0.0 for c in out["cases"])
+    if not out["ok"]:
+        emit(dict(out, phase="kernels"))
+        raise SystemExit(f"ln_dense rows change with their address: {out}")
+    return out
+
+
 def _encoder_qkv(B: int, L: int, dtype_name: str, seed: int):
     """q, k, v at a DETR encoder shape (L with the global token) in a dtype,
     and a key mask: varied lengths, the global token never a key, sample 3
@@ -594,7 +656,7 @@ def launched_kernels(fn, tries: int = 6):
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-        names = sorted(n for n in names if "spin_kernel" not in n)
+        names = sorted(n for n in names if SPIN not in n)
         if names:
             break
     return out, names
@@ -1832,8 +1894,14 @@ def phase_kernels() -> dict:
                                           summary="ln_dense" if main else None))
     # the TACoS eval input projection: fp32, 6 videos x 600 clips of 4098
     results.append(check_ln_dense("float32", True, time_it=True, N=6 * TACOS["Lv"], D=TACOS["Dv"]))
-    # the edges of its tiles and its domain (any N, D, F), untimed
+    # the coalesced eval's hoisted projection (phase coalesce): the unique
+    # videos of K charades batches in one launch
+    results.append(check_ln_dense("bfloat16", True, time_it=True, N=COALESCE["K"] * 53 * 194,
+                                  summary="ln_dense_hoisted"))
+    # the edges of its tiles and its domain (any N, D, F), untimed, and its
+    # rows' independence of their address
     results.extend(check_ln_dense_edges())
+    results.append(check_ln_dense_alignment())
     # the DETR encoder's self-attention: charades bf16 (128 x 195), TACoS
     # fp32 eval (16 x 601) and stacked train (32 x 601); the bf16 batched
     # and fp32 packed instances, and the per-head and all-heads layouts, are
@@ -1901,11 +1969,12 @@ def _model_config():
     return synthetic.charades_config()
 
 
-def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512, min_words=3):
+def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512, min_words=3,
+                    G=None):
     """A collated eval batch on the card (scripts/synthetic.make_eval_batch)."""
     from mesm_tpu_torch.scripts import synthetic
 
-    return synthetic.make_eval_batch(seed, B, NG, Lv, Dv, Lw, Dt, min_words, device="cuda")
+    return synthetic.make_eval_batch(seed, B, NG, Lv, Dv, Lw, Dt, min_words, device="cuda", G=G)
 
 
 def _tacos_config(dropout: float = 0.1):
@@ -2670,8 +2739,8 @@ def phase_train(card: str, steps: int = 4) -> dict:
 
 
 @contextlib.contextmanager
-def _captured_warnings(logger_name: str):
-    """The messages of WARNING and above that `logger_name` logs meanwhile."""
+def _captured_logs(logger_name: str, level: str = "WARNING"):
+    """The messages of `level` and above that `logger_name` logs meanwhile."""
     import logging
 
     got = []
@@ -2680,7 +2749,7 @@ def _captured_warnings(logger_name: str):
         def emit(self, record):
             got.append(record.getMessage())
 
-    handler = Keep(level=logging.WARNING)
+    handler = Keep(level=getattr(logging, level))
     log = logging.getLogger(logger_name)
     log.addHandler(handler)
     try:
@@ -2735,8 +2804,8 @@ def phase_train_cli() -> dict:
         reset_launches()
         t0 = time.perf_counter()
         # torch.utils.tensorboard made unimportable: the run must warn and go on
-        with _captured_warnings("mesm_tpu_torch.train") as warnings, _without_tensorboard():
-            run = train(["--config_file", cfg_path, "--device", "cuda"])
+        with _captured_logs("mesm_tpu_torch.train") as warnings, _without_tensorboard():
+            run = train(["--config_file", cfg_path, "--device", "cuda", *PER_BATCH])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = read_launches()
@@ -2758,7 +2827,7 @@ def phase_train_cli() -> dict:
                 "inference_result_dir": os.path.join(root, "inference"), "num_workers": 4,
             }, f)
         t0 = time.perf_counter()
-        metrics, _ = inference(["--config_file", eval_cfg, "--device", "cuda"])
+        metrics, _ = inference(["--config_file", eval_cfg, "--device", "cuda", *PER_BATCH])
         loss_terms = _eval_log_losses(eval_log[-1]) if eval_log else {}
         res = {"phase": "train_cli", "train_s": train_s, "steps": run["step"],
                "launches": launches, "train_log_last": train_log[-1] if train_log else None,
@@ -2997,7 +3066,8 @@ def phase_clip_cli(tower_path: str) -> dict:
             with counted_eval_batches() as n:
                 reset_launches()
                 t0 = time.perf_counter()
-                metrics, _ = inference(["--config_file", path, "--device", "cuda", *args])
+                metrics, _ = inference(["--config_file", path, "--device", "cuda", *args,
+                                         *PER_BATCH])
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
             return metrics["brief"], read_launches(), n[0], secs
@@ -3032,7 +3102,7 @@ def phase_clip_cli(tower_path: str) -> dict:
         with open(train_path, "w") as f:
             json.dump(train_cfg, f)
         t0 = time.perf_counter()
-        out = train(["--config_file", train_path, "--device", "cuda"])
+        out = train(["--config_file", train_path, "--device", "cuda", *PER_BATCH])
         torch.cuda.synchronize()
         with open(out["opt"].train_log_filepath) as f:
             last = f.read().strip().splitlines()[-1]
@@ -3083,7 +3153,7 @@ def phase_resume_v1() -> dict:
             with open(path, "w") as f:
                 json.dump(dict(base, inference_id=name, trained_result_dir=trained), f)
             metrics, _ = inference(["--config_file", path, "--compute_dtype", "bfloat16",
-                                    "--device", "cuda"])
+                                    "--device", "cuda", *PER_BATCH])
             briefs[name] = metrics["brief"]
         res = {"phase": "resume_v1", "v1_is_torch": is_torch_checkpoint(v1_path),
                "brief_torch_layout": briefs["torch_layout"], "brief_v1": briefs["mesm_tpu_v1"]}
@@ -3127,7 +3197,7 @@ def phase_qvh_train(card: str, steps: int = 4) -> dict:
         cfg_path = write_qvh_root(root)
         reset_launches()
         t0 = time.perf_counter()
-        run = train(["--config_file", cfg_path, "--device", "cuda"])
+        run = train(["--config_file", cfg_path, "--device", "cuda", *PER_BATCH])
         torch.cuda.synchronize()
         res["cli_train_s"] = time.perf_counter() - t0
         res["cli_steps"] = run["step"]
@@ -3152,7 +3222,7 @@ def phase_qvh_train(card: str, steps: int = 4) -> dict:
                        "num_workers": 4}, f)
         t0 = time.perf_counter()
         metrics, _ = inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16",
-                                "--device", "cuda"])
+                                "--device", "cuda", *PER_BATCH])
         res["cli_evaluate_s"] = time.perf_counter() - t0
         res["cli_brief"] = metrics["brief"]
     res["ok"] = bool(launches == res["launches_expected"] and math.isfinite(loss)
@@ -3168,7 +3238,7 @@ def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
     """Device time by kernel over `iters` steps (eval or train),
     from torch.profiler: the busy share is the summed kernel time over the
     window's wall time (the profiler's own overhead is in the wall time, so
-    the share is a lower bound)."""
+    the share is a lower bound), in a window opened by open_window."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3176,6 +3246,7 @@ def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
     step(batches[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        open_window()
         t0 = time.perf_counter()
         for i in range(iters):
             step(batches[i % len(batches)])
@@ -3186,7 +3257,7 @@ def profile_step(step, batches, iters: int = 4, top: int = 12) -> dict:
         (e.key, e.self_device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
-        and not e.key.startswith("Optimizer.")
+        and not e.key.startswith("Optimizer.") and SPIN not in e.key
     ]
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
@@ -3206,12 +3277,14 @@ SENTS = [
 ]
 
 
-def write_charades_root(root: str, n_videos: int = 64, seed: int = 0) -> str:
+def write_charades_root(root: str, n_videos: int = 64, seed: int = 0,
+                        n_sentences: Optional[int] = None) -> str:
     """A synthetic charades root at full video width: CLIP image (512) and
     SlowFast (2304) features, 2818 wide with the two TEF channels, up to 194
     clips; GloVeSimple 300-d text. The features are stored as directories of
     per-video .npy arrays, which the port's FeatureStore reads like its HDF5
-    files (the GPU host has no h5py). Returns the train config path."""
+    files (the GPU host has no h5py). 1-4 sentences a video (~2.5), or
+    `n_sentences` spread evenly. Returns the train config path."""
     import numpy as np
 
     from mesm_tpu_torch.data import Vocabulary
@@ -3223,7 +3296,11 @@ def write_charades_root(root: str, n_videos: int = 64, seed: int = 0) -> str:
     durations = {v: float(rng.integers(30, 195)) for v in vids}
     lines = []
     for i, v in enumerate(vids):
-        for j in range(1 + (i % 3) + (i % 2)):  # 1..4 sentences, ~2.5 on average
+        if n_sentences is None:
+            count = 1 + (i % 3) + (i % 2)  # 1..4 sentences, ~2.5 on average
+        else:
+            count = n_sentences // n_videos + (i < n_sentences % n_videos)
+        for j in range(count):
             d = durations[v]
             st = float(rng.uniform(1.5, d * 0.6))
             ed = float(rng.uniform(st + 1, d))
@@ -3249,7 +3326,7 @@ def write_charades_root(root: str, n_videos: int = 64, seed: int = 0) -> str:
         os.makedirs(path)
         for v in vids:
             L = int(min(194, durations[v]))
-            np.save(os.path.join(path, f"{v}.npy"), rng.normal(size=(L, width)).astype(np.float32))
+            np.save(os.path.join(path, f"{v}.npy"), rng.standard_normal((L, width), dtype=np.float32))
         feat_files.append(path)
     with open(os.path.join(HERE, "config", "charades", "C+SF_C.json")) as f:
         cfg = json.load(f)
@@ -3327,17 +3404,19 @@ def write_qvh_root(root: str, n_videos: int = 48, seed: int = 0) -> str:
     return cfg_path
 
 
-def write_cli_eval(root: str, clip_tower: Optional[str] = None) -> str:
+def write_cli_eval(root: str, clip_tower: Optional[str] = None, n_videos: int = 64,
+                   n_sentences: Optional[int] = None, shipped_batches: bool = False) -> str:
     """The synthetic charades root (on CLIP text with `clip_tower`, see
     to_clip_root), a torch-layout checkpoint from seeded weights and an eval
-    config that scores it in one length bucket of 128 rows. Returns the eval
-    config's path."""
+    config that scores it in one length bucket of 128 rows, or with
+    `shipped_batches` in the shipped config's batches (eval_batch_size 30,
+    4 length buckets). Returns the eval config's path."""
     import torch
 
     from mesm_tpu_torch import runner
     from mesm_tpu_torch.config import BaseOptions
 
-    cfg_path = write_charades_root(root)
+    cfg_path = write_charades_root(root, n_videos=n_videos, n_sentences=n_sentences)
     if clip_tower is not None:
         to_clip_root(cfg_path, clip_tower)
     opt = BaseOptions().parse(["--config_file", cfg_path])  # writes the run's opt.json
@@ -3346,14 +3425,16 @@ def write_cli_eval(root: str, clip_tower: Optional[str] = None) -> str:
     torch.save({"model": model.state_dict(), "epoch": 0},
                os.path.join(opt.result_dir, "model_test_best.ckpt"))
     eval_cfg = os.path.join(root, "eval.json")
+    cfg = {
+        "ann_path": opt.ann_path, "feat_files": opt.feat_files,
+        "text_model_path": opt.text_model_path, "bpe_path": opt.bpe_path,
+        "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
+        "inference_result_dir": os.path.join(root, "inference"), "num_workers": 4,
+    }
+    if not shipped_batches:
+        cfg.update(row_capacity=128, eval_len_buckets=1)
     with open(eval_cfg, "w") as f:
-        json.dump({
-            "ann_path": opt.ann_path, "feat_files": opt.feat_files,
-            "text_model_path": opt.text_model_path, "bpe_path": opt.bpe_path,
-            "trained_result_dir": opt.result_dir, "inference_id": "chip_smoke",
-            "inference_result_dir": os.path.join(root, "inference"),
-            "row_capacity": 128, "eval_len_buckets": 1, "num_workers": 4,
-        }, f)
+        json.dump(cfg, f)
     return eval_cfg
 
 
@@ -3371,7 +3452,7 @@ def phase_cli() -> dict:
         reset_launches()
         t0 = time.perf_counter()
         metrics, _ = inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16",
-                                "--device", "cuda"])
+                                "--device", "cuda", *PER_BATCH])
         torch.cuda.synchronize()
         launches = read_launches()
         brief = metrics["brief"]
@@ -3454,7 +3535,7 @@ def phase_int8_eval(card: str, n_batches: int = 2) -> dict:
         t0 = time.perf_counter()
         with int8_ffn(True):
             metrics, _ = inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16",
-                                    "--device", "cuda"])
+                                    "--device", "cuda", *PER_BATCH])
         torch.cuda.synchronize()
         res["cli"] = {"inference_s": time.perf_counter() - t0, "launches": read_launches(),
                       "brief": metrics["brief"]}
@@ -3571,7 +3652,7 @@ def phase_attn_variants(card: str, n_batches: int = 2) -> dict:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-c", CLI_WITH_COUNTS, "--config_file", eval_cfg,
-             "--compute_dtype", "bfloat16", "--device", "cuda"],
+             "--compute_dtype", "bfloat16", "--device", "cuda", *PER_BATCH],
             cwd=HERE, env=env, capture_output=True, text=True, timeout=600,
         )
         cli = {"variant": "all_heads", "returncode": proc.returncode,
@@ -3953,8 +4034,9 @@ def phase_profile(card: str, iters: int = 4) -> dict:
     `iters` charades bf16 "auto" eval steps: utils/trace_report.report must
     count ln_dense's two kernels `iters` times and attention_packed's
     2 * `iters` times, and kernel_modules must put them in the input
-    projection's first block and the DETR encoder. The top-10 table and the
-    module table are printed before the phase's line."""
+    projection's first block and the DETR encoder; no launch of the window
+    may lack its kernel's record (trace_report.dropped_launches). The top-10
+    table and the module table are printed before the phase's line."""
     import torch
 
     from mesm_tpu_torch.models.mesm import MESM
@@ -3980,6 +4062,7 @@ def phase_profile(card: str, iters: int = 4) -> dict:
                     step16(batches[i % 2])
             traced_s = time.perf_counter() - t0
         totals, counts, busy_ms, what = trace_report.device_op_totals(trace_dir)
+        dropped = trace_report.dropped_launches(trace_dir)
         modules = trace_report.kernel_modules(trace_dir, depth=3)
         print(trace_report.report(trace_dir, top=10), flush=True)
         print(trace_report.module_report(trace_dir, depth=3), flush=True)
@@ -3989,12 +4072,12 @@ def phase_profile(card: str, iters: int = 4) -> dict:
                    for k in want_modules}
     res = {"phase": "profile", "card": card, "steps": iters, "read": what,
            "busy_ms_per_step": busy_ms / iters, "traced_wall_s": traced_s,
-           "launches_per_step": sum(counts.values()) / iters,
+           "launches_per_step": sum(counts.values()) / iters, "dropped_launches": dropped,
            "kernel_counts": got_counts, "kernel_counts_expected": want_counts,
            "kernel_modules": got_modules,
            "module_ms_per_step": {m: ms / iters for m, ms in sorted(mod_totals.items(),
                                                                     key=lambda kv: -kv[1])[:12]}}
-    res["ok"] = bool(got_counts == want_counts and all(
+    res["ok"] = bool(dropped == 0 and got_counts == want_counts and all(
         got_modules[k] == {m: want_counts[k]} for k, m in want_modules.items()))
     emit(res)
     if not res["ok"]:
@@ -4050,7 +4133,8 @@ def phase_native() -> dict:
            "so_exists": os.path.exists(native.SO_PATH), "build_and_load_s": time.perf_counter() - t0}
     with tempfile.TemporaryDirectory(prefix="mesm_chip_native_") as root:
         eval_cfg = write_cli_eval(root)
-        inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16", "--device", "cuda"])
+        inference(["--config_file", eval_cfg, "--compute_dtype", "bfloat16", "--device", "cuda",
+                   *PER_BATCH])
         sub_path = [p for p in glob.glob(os.path.join(root, "inference", "**", "*submission*.jsonl"),
                                          recursive=True) if "nms" not in p][0]
         submission = load_jsonl(sub_path)
@@ -4213,13 +4297,13 @@ def phase_distributed(timeout_s: int = 300, nproc: int = 1) -> dict:
         handler = Keep(level=logging.INFO)
         logging.getLogger("mesm_tpu_torch.train").addHandler(handler)
         try:
-            one = train(["--config_file", config("single"), "--device", "cuda"])
+            one = train(["--config_file", config("single"), "--device", "cuda", *PER_BATCH])
         finally:
             logging.getLogger("mesm_tpu_torch.train").removeHandler(handler)
         torch.cuda.synchronize()
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
                str(nproc), "-m", "mesm_tpu_torch.train", "--config_file", config("torchrun"),
-               "--device", "cuda"]
+               "--device", "cuda", *PER_BATCH]
         t0 = time.perf_counter()
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                 start_new_session=True,
@@ -4504,6 +4588,500 @@ def phase_processes() -> dict:
     return res
 
 
+# the coalesced eval step at the bench geometry: K batches of 128 rows (53
+# videos of 194 clips) a graph replay, timed in alternating turns of
+# `groups` groups each; the Charades-STA test split (1,334 videos, 3,720
+# sentences) for the evaluate entry point at the shipped config's batches
+COALESCE = dict(K=8, G=8, groups=4, turns=("per_batch", "graph", "graph", "per_batch"),
+                cli_turns=("per_batch", "default", "default", "per_batch",
+                           "per_batch_one_bucket", "k32_one_bucket"))
+# phase coalesce (b)'s runs of the evaluate CLI: its arguments and the
+# changes to the shipped config's eval settings (4 length buckets)
+COALESCE_BUCKETS = 4
+COALESCE_CLI_RUNS = {"per_batch": (PER_BATCH, {}), "default": ([], {}),
+                     "per_batch_one_bucket": (PER_BATCH, {"eval_len_buckets": 1}),
+                     "k32_one_bucket": (["--eval_coalesce", "32"], {"eval_len_buckets": 1})}
+CHARADES_TEST = dict(videos=1334, sentences=3720)
+
+
+def coalesced_launches(mode: str, K: int) -> dict:
+    """Kernel launches of one coalesced group of K charades batches in a
+    dispatch mode: the hoisted input projection once a group, every other
+    site once a batch (CHARADES_LAUNCHES)."""
+    per = {name: n * K for name, n in CHARADES_LAUNCHES[mode].items()}
+    per["ln_dense"] = 1
+    return per
+
+
+# the device kernels (a part of their names) that each counted wrapper
+# launches on the coalesced eval paths: bf16 and fp32 charades, "auto" and
+# "auto+kernel"
+GRAPH_KERNELS = {"ln_dense": ("ln_dense_wgmma_kernel",),
+                 "attention_packed": ("attention_packed_mma_kernel",
+                                      "attention_packed_3xtf32_kernel"),
+                 "attention_batched": ("attention_batched_",),
+                 "attention_shortkey_onematmul": ("attention_shortkey_onematmul_",)}
+
+
+def graph_kernel_nodes(graph) -> dict:
+    """The kernel nodes of a captured torch.cuda.CUDAGraph (kept with
+    keep_graph=True) by kernel name: the kernels each replay launches, read
+    from the graph through libcuda (cuGraphGetNodes,
+    cuGraphKernelNodeGetParams_v2, cuKernelGetName or cuFuncGetName); child
+    graphs are walked."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    class Params(ctypes.Structure):  # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                    ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                    ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                    ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what}: CUresult {rc}")
+
+    counts = {}
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ctypes.c_void_p * n.value)()
+        check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        for node in nodes:
+            node = ctypes.c_void_p(node)
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+            if kind.value == 4:  # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ctypes.c_void_p()
+                check(cu.cuGraphChildGraphNodeGetGraph(node, ctypes.byref(child)),
+                      "cuGraphChildGraphNodeGetGraph")
+                walk(child)
+            elif kind.value == 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+                p = Params()
+                check(cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
+                      "cuGraphKernelNodeGetParams_v2")
+                name = ctypes.c_char_p()
+                if not (p.kern and cu.cuKernelGetName(ctypes.byref(name),
+                                                      ctypes.c_void_p(p.kern)) == 0):
+                    check(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func)),
+                          "cuFuncGetName")
+                key = name.value.decode()
+                counts[key] = counts.get(key, 0) + 1
+
+    walk(ctypes.c_void_p(graph.raw_cuda_graph()))
+    return counts
+
+
+class GraphCensus:
+    """The kernel launches of the coalesced eval step's CUDA graph replays,
+    measured. The wrappers' counters move when a graph is captured, where
+    nothing launches, and not when it is replayed, where its kernels do
+    launch. So at each capture (parallel/step.CoalescedEvalStep._capture,
+    wrapped while the census is open) this keeps the counters' moves
+    during the captured run and the graph's kernel nodes
+    (graph_kernel_nodes); the port counts each graph's replays
+    (_Graph.replays). `device_launches(counted)` turns a counter reading
+    over the same span into the kernels launched on the device: the
+    captured runs' counts out, each graph's nodes times its replays in.
+    `ok()`: every capture recorded, for each counted wrapper, as many kernel
+    nodes of that wrapper's kernel (GRAPH_KERNELS) as the wrapper counted."""
+
+    def __enter__(self):
+        from mesm_tpu_torch.parallel import step as tstep
+
+        self._cls, self._orig, self.records = tstep.CoalescedEvalStep, None, []
+        orig = self._orig = self._cls._capture
+        records = self.records
+
+        def capture(step, key, staged):
+            runs, inner = [], step.run
+
+            def run(*args, **kwargs):  # the warm-up run, then the captured one
+                before = read_launches()
+                out = inner(*args, **kwargs)
+                after = read_launches()
+                runs.append({n: after[n] - before[n] for n in after})
+                return out
+
+            step.run = run
+            try:
+                entry = orig(step, key, staged)
+            finally:
+                del step.run
+            nodes = graph_kernel_nodes(entry.graph)
+            by_wrapper = {n: sum(c for name, c in nodes.items()
+                                 if any(k in name for k in GRAPH_KERNELS.get(n, ("?",))))
+                          for n in runs[-1]}
+            records.append({"entry": entry, "captured": runs[-1], "nodes": by_wrapper,
+                            "kernel_nodes": sum(nodes.values())})
+            return entry
+
+        self._cls._capture = capture
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._capture = self._orig
+
+    def ok(self) -> bool:
+        return bool(self.records) and all(r["nodes"] == r["captured"] for r in self.records)
+
+    def device_launches(self, counted: dict) -> dict:
+        out = dict(counted)
+        for r in self.records:
+            for n, c in r["captured"].items():
+                out[n] += r["nodes"][n] * r["entry"].replays - c
+        return out
+
+    def summary(self) -> dict:
+        """Per graph: the kernel nodes in all, the counted wrappers' nodes
+        and captured counts (where either is not 0), and the replays."""
+        return {"graphs": len(self.records), "nodes_equal_captured_counts": self.ok(),
+                "per_graph": [{"kernel_nodes": r["kernel_nodes"], "replays": r["entry"].replays,
+                               "nodes": {n: c for n, c in r["nodes"].items() if c},
+                               "captured": {n: c for n, c in r["captured"].items() if c}}
+                              for r in self.records]}
+
+
+def _coalesce_step_part(card: str) -> dict:
+    """(a) The K-batch superbatch graph against K eager per-batch calls at
+    the bench geometry, bf16, in "auto" and "auto+kernel": the largest
+    prediction difference (must be 0: the same kernels on the same rows,
+    kernel 1's rows independent of their address; within MODEL_TOL as
+    well), the replay against the same coalesced step run eagerly (must be
+    0: capture changes nothing), the launches of a replay from the graph's
+    kernel nodes (GraphCensus, equal to the wrappers' counts at capture and
+    to CHARADES_LAUNCHES), rows/s both ways in alternating turns, the busy
+    share and peak memory (kernel 1 at the hoisted shape, K * 53 * 194
+    rows, is held in phase `kernels`)."""
+    import torch
+
+    from mesm_tpu_torch.data.pipeline import stage_batch, stage_superbatch, staged_signature
+    from mesm_tpu_torch.models.mesm import MESM
+    from mesm_tpu_torch.parallel import step as tstep
+    from mesm_tpu_torch.parallel.step import make_eval_step
+    from mesm_tpu_torch.scripts.synthetic import encode_cached
+
+    K, groups = COALESCE["K"], COALESCE["groups"]
+    torch.manual_seed(0)
+    model = MESM(_model_config()).cuda().eval()
+    # one SS group width for all K batches: a superbatch takes one shape
+    hosts = [{k: v.cpu().numpy() for k, v in make_eval_batch(s, G=COALESCE["G"]).items()}
+             for s in range(K)]
+    per = [stage_batch(h, True, "cuda") for h in hosts]
+    B = per[0]["video_mask"].shape[0]
+    one = make_eval_step(model, encode_cached, torch.bfloat16)
+    res = {"K": K, "rows_per_batch": B, "card": card, "modes": {}}
+    ok = True
+    for mode in ("auto", "auto+kernel"):
+        step = make_eval_step(model, encode_cached, torch.bfloat16, coalesce=K)
+        with dispatch_mode(mode), GraphCensus() as census:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.max_memory_allocated()
+            sb = stage_superbatch(hosts, True, "cuda", into=step.static_inputs)
+            captured0 = tstep.graphs_captured
+            reset_launches()
+            got = {k: v.clone() for k, v in step(sb).items()}
+            torch.cuda.synchronize()
+            counted = read_launches()
+            first = census.device_launches(counted)  # one replay so far
+            peak = torch.cuda.max_memory_allocated()
+            sb = stage_superbatch(hosts, True, "cuda", into=step.static_inputs)
+            staged_in_place = all(sb[k] is t
+                                  for k, t in step.static_inputs(staged_signature(sb)).items())
+            replayed = step(sb)
+            refs = [one(b) for b in per]
+            torch.cuda.synchronize()
+            diff = max(float((got[k][j].float() - refs[j][k].float()).abs().max())
+                       for j in range(K) for k in refs[j])
+            rel = max(max(_pred_err({k: got[k][j] for k in got}, refs[j]).values())
+                      for j in range(K))
+            same_replay = all(torch.equal(replayed[k], got[k]) for k in got)
+            # the same K bodies and hoist run eagerly: what capture changes
+            eager = step.run(sb)
+            eager_diff = max(float((eager[k].float() - got[k].float()).abs().max()) for k in got)
+            want = expected_launches(coalesced_launches(mode, K), 1)
+            (rec,) = census.records
+            r = {"graphs_captured": tstep.graphs_captured - captured0,
+                 "launches_per_replay": rec["nodes"], "launches_per_replay_expected": want,
+                 "counted_at_capture": rec["captured"], "kernel_nodes": rec["kernel_nodes"],
+                 "launches_first_call": first,
+                 "max_abs_diff_vs_per_batch": diff,
+                 "max_err_vs_per_batch": rel, "tol": MODEL_TOL, "replay_repeats": same_replay,
+                 "max_abs_diff_replay_vs_eager_coalesced": eager_diff,
+                 "staged_into_graph_inputs": staged_in_place,
+                 "peak_mem_gib": (peak - base) / 2**30}
+            r["ok"] = bool(r["graphs_captured"] == 1 and rel <= MODEL_TOL and diff == 0.0
+                           and same_replay and eager_diff == 0.0 and staged_in_place and census.ok()
+                           and rec["nodes"] == want)
+            turns = []
+            for how in COALESCE["turns"]:
+                fn = ((lambda: step(sb)) if how == "graph"
+                      else (lambda: [one(b) for b in per]))
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(groups):
+                    fn()
+                torch.cuda.synchronize()
+                turns.append((how, B * K * groups / (time.perf_counter() - t0)))
+            r["rows_per_s_per_batch"] = [x for h, x in turns if h == "per_batch"]
+            r["rows_per_s_graph"] = [x for h, x in turns if h == "graph"]
+            pg = profile_step(step, [sb], iters=3)
+            pb = profile_step(one, per, iters=K)
+            r["graph_profile"] = {"wall_ms_per_batch": pg["wall_ms_per_step"] / K,
+                                  "device_ms_per_batch": pg["device_ms_per_step"] / K,
+                                  "busy_share": pg["busy_share"],
+                                  "kernels_per_batch": pg["kernel_launches_per_step"] / K}
+            r["per_batch_profile"] = {"wall_ms_per_batch": pb["wall_ms_per_step"],
+                                      "device_ms_per_batch": pb["device_ms_per_step"],
+                                      "busy_share": pb["busy_share"],
+                                      "kernels_per_batch": pb["kernel_launches_per_step"]}
+        res["modes"][mode] = r
+        ok = ok and r["ok"]
+        del step, sb, got, replayed, refs, eager, census, rec
+    res["hoist_rowwise"] = _hoist_rowwise(model, per)
+    res["capture_failure_raises"] = _capture_failure_raises(model, hosts[:2])
+    res["ok"] = bool(ok and res["capture_failure_raises"]
+                     and res["hoist_rowwise"]["ln_dense_max_abs_diff"] == 0.0)
+    return res
+
+
+def _hoist_rowwise(model, per) -> dict:
+    """Where the hoist could move a bit: the input projection of the K
+    batches' unique videos in one call against batch by batch, on the card
+    in "auto": its fused LayerNorm -> Dense block alone (row-wise, and the
+    same bits at any row address: must be 0), and the whole projection (its
+    second block a LayerNorm and a cuBLAS GEMM over K times the rows,
+    reported). Max abs differences."""
+    import torch
+
+    from mesm_tpu_torch.ops.ln_dense import ln_dense
+
+    blk, proj = model.input_vid_proj[0], model.input_vid_proj[0].net[1]
+    with torch.no_grad():
+        rows = [b["video_feat_g"].reshape(-1, b["video_feat_g"].shape[-1]) for b in per]
+        whole_rows = torch.cat(rows)
+
+        def fused(x):
+            return ln_dense(x, blk.LayerNorm.weight, blk.LayerNorm.bias, proj.weight, proj.bias,
+                            relu=blk.relu)
+
+        one, whole = torch.cat([fused(r) for r in rows]), fused(whole_rows)
+        p_one = torch.cat([model.input_vid_proj(r) for r in rows])
+        p_whole = model.input_vid_proj(whole_rows)
+    return {"rows": int(whole_rows.shape[0]),
+            "ln_dense_max_abs_diff": float((one.float() - whole.float()).abs().max()),
+            "projection_max_abs_diff": float((p_one.float() - p_whole.float()).abs().max())}
+
+
+def _capture_failure_raises(model, hosts) -> bool:
+    """A body that syncs with the host (a .item() on the card) cannot be
+    captured: the coalesced step must raise, not run eagerly instead."""
+    import torch
+
+    from mesm_tpu_torch.data.pipeline import stage_superbatch
+    from mesm_tpu_torch.parallel import step as tstep
+    from mesm_tpu_torch.parallel.step import make_eval_step
+    from mesm_tpu_torch.scripts.synthetic import encode_cached
+
+    def syncing(b):
+        float(b["cached_sentence_feat"].sum())  # a device-to-host copy
+        return encode_cached(b)
+
+    step = make_eval_step(model, syncing, torch.bfloat16, coalesce=len(hosts))
+    before = tstep.graphs_captured
+    try:
+        step(stage_superbatch(hosts, True, "cuda"))
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return tstep.graphs_captured == before
+    return False
+
+
+def _submission_rows(result_root: str) -> list:
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(result_root, "**", "*_submission.jsonl"), recursive=True))
+    rows = []
+    for path in paths:
+        with open(path) as f:
+            rows.extend(f.read().splitlines())
+    return rows
+
+
+def _coalesce_cli_part() -> dict:
+    """(b) `evaluate.inference` on a synthetic charades root at the size of
+    the Charades-STA test split, the shipped config's batches, bf16 "auto",
+    in the turns of COALESCE["cli_turns"] (COALESCE_CLI_RUNS): with
+    --eval_coalesce 1 and with the default (auto: 32 capped at the batches
+    per bucket), then both in one length bucket, where the default cap
+    leaves K = 32 (--eval_coalesce 32). Brief metrics 0.0 apart and equal
+    submissions within the 4-bucket runs and within the 1-bucket runs, one
+    graph per warmed bucket, warm-up and eval seconds, peak memory (loader,
+    staging and graphs included), and the launches on the device
+    (GraphCensus: each graph's kernel nodes times its replays)."""
+    import re
+
+    import torch
+
+    from mesm_tpu_torch.evaluate import inference
+    from mesm_tpu_torch.parallel import step as tstep
+
+    res = {how: [] for how in COALESCE_CLI_RUNS}
+    briefs, subs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_coalesce_") as root:
+        t0 = time.perf_counter()
+        eval_cfg = write_cli_eval(root, n_videos=CHARADES_TEST["videos"],
+                                  n_sentences=CHARADES_TEST["sentences"], shipped_batches=True)
+        res["setup_s"] = time.perf_counter() - t0
+        for turn, how in enumerate(COALESCE["cli_turns"]):
+            args, changes = COALESCE_CLI_RUNS[how]
+            with open(eval_cfg) as f:
+                cfg = json.load(f)
+            cfg.update(changes, inference_id=f"coalesce_{turn}",
+                       inference_result_dir=os.path.join(root, f"inference_{turn}"))
+            path = os.path.join(root, f"eval_{turn}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            captured0, replays0 = tstep.graphs_captured, tstep.graph_replays
+            t0 = time.perf_counter()
+            with _captured_logs("mesm_tpu_torch.evaluate", "INFO") as lines, \
+                    GraphCensus() as census:
+                metrics, _ = inference(["--config_file", path, "--compute_dtype", "bfloat16",
+                                        "--device", "cuda", *args])
+                torch.cuda.synchronize()
+            r = {"inference_s": time.perf_counter() - t0,
+                 "peak_mem_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                 "buckets": cfg.get("eval_len_buckets", COALESCE_BUCKETS),
+                 "counted": read_launches(),
+                 "graphs_captured": tstep.graphs_captured - captured0,
+                 "graph_replays": tstep.graph_replays - replays0,
+                 "census": census.summary()}
+            r["launches"] = census.device_launches(r["counted"])
+            r["census_ok"] = census.ok() if r["graphs_captured"] else not census.records
+            del census
+            for line in lines:
+                m = re.search(r"eval wall time ([0-9.]+)s \(K = (\d+)\)", line)
+                if m:
+                    r["eval_wall_s"], r["K"] = float(m.group(1)), int(m.group(2))
+                m = re.search(r"Warmed the eval step on (\d+) shapes .* in ([0-9.]+)s", line)
+                if m:
+                    r["warmed_shapes"], r["warm_s"] = int(m.group(1)), float(m.group(2))
+            group = r["buckets"]
+            subs.setdefault(group, []).append(_submission_rows(cfg["inference_result_dir"]))
+            briefs.setdefault(group, []).append(metrics["brief"])
+            res[how].append(r)
+        res["rows"] = CHARADES_TEST["sentences"]
+        res["brief"] = briefs[COALESCE_BUCKETS][0]
+        res["brief_max_diff"] = {
+            f"{g}_buckets": max(abs(float(b[k]) - float(v)) for b in bs[1:]
+                                for k, v in bs[0].items()
+                                if v is not None and b.get(k) is not None)
+            for g, bs in briefs.items()}
+        res["submissions_equal"] = all(s_ == ss[0] for ss in subs.values() for s_ in ss[1:])
+        coalesced = [d for how, (args, _) in COALESCE_CLI_RUNS.items() if args != PER_BATCH
+                     for d in res[how]]
+        per_batch = [d for how, (args, _) in COALESCE_CLI_RUNS.items() if args == PER_BATCH
+                     for d in res[how]]
+        res["ok"] = bool(all(b == bs[0] for bs in briefs.values() for b in bs)
+                         and res["submissions_equal"]
+                         and all(d.get("K", 1) > 1 and d["graphs_captured"] >= 1
+                                 and d["graphs_captured"] == d.get("warmed_shapes")
+                                 and d["census_ok"] for d in coalesced)
+                         and all(d["K"] == 32 for d in res["k32_one_bucket"])
+                         and all(p["graphs_captured"] == 0 for p in per_batch))
+    return res
+
+
+def _coalesce_train_part() -> dict:
+    """(c) The trainer: two epochs on the synthetic charades root, fp32,
+    each followed by its coalesced eval (2 length buckets: K = 5). The
+    second epoch's eval, replayed from graphs captured after the first
+    epoch's updates, must equal a per-batch eval (--eval_coalesce 1's step)
+    of the final weights: losses and metrics. A graph replaying the first
+    epoch's derived weights would not."""
+    import torch
+
+    from mesm_tpu_torch import runner
+    from mesm_tpu_torch.evaluate import eval_epoch
+    from mesm_tpu_torch.parallel import step as tstep
+    from mesm_tpu_torch.parallel.step import make_eval_step
+    from mesm_tpu_torch.train import _weight_map, train
+    from mesm_tpu_torch.utils import AverageMeter
+
+    with tempfile.TemporaryDirectory(prefix="mesm_chip_coalesce_train_") as root:
+        cfg_path = write_charades_root(root)
+        with open(cfg_path) as f:
+            cfg = json.load(f)
+        # 16-row batches: ~10 eval batches over 2 buckets, so K = 5
+        cfg.update(n_epoch=2, stop_score="miou", exp_id="chip_smoke_coalesce",
+                   eval_len_buckets=2, row_capacity=16)
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        captured0, replays0 = tstep.graphs_captured, tstep.graph_replays
+        t0 = time.perf_counter()
+        with _without_tensorboard(), GraphCensus() as census:
+            run = train(["--config_file", cfg_path, "--device", "cuda"])
+            torch.cuda.synchronize()
+        res = {"train_s": time.perf_counter() - t0, "steps": run["step"],
+               "graphs_captured": tstep.graphs_captured - captured0,
+               "graph_replays": tstep.graph_replays - replays0, "census": census.summary()}
+        census_ok = census.ok()
+        del census
+        opt, model = run["opt"], run["model"]
+        with open(opt.eval_log_filepath) as f:
+            logged = f.read().strip().splitlines()
+        res["evals"] = len(logged)
+        last = logged[-1]
+        logged_losses = last.split("[Loss]")[1].split("[Metrics]")[0].split()
+        logged_metrics = json.loads(last.split("[Metrics]")[1].strip())
+        # the per-batch eval of the final weights, as --eval_coalesce 1 runs it
+        device = torch.device("cuda")
+        dtype = runner.compute_dtype_from_opt(opt)
+        vocab = runner.get_vocab(opt)
+        loaders = runner.build_loaders(opt, vocab)[0]
+        encode = runner.build_text_encoder(opt, vocab, device, dtype)
+        step = make_eval_step(model, encode, dtype, runner.build_criterion_config(opt),
+                              with_loss=True, seed=opt.seed)
+        split, loader = next(iter(loaders.items()))
+        runner.cache_text_features(loader.dataset, encode, device)
+        meters = __import__("collections").defaultdict(AverageMeter)
+        metrics, _ = eval_epoch(step, loader, opt, "per_batch_reference.jsonl",
+                                loader.dataset.data, device, meters)
+        weights = _weight_map(opt)
+        ref_losses = " ".join(f"{k} {v.avg * weights.get(k, 1.0):.4f}" for k, v in meters.items())
+        res["K"] = runner.eval_coalesce_from_opt(opt, len(loader), device)
+        res["losses_equal"] = ref_losses.split() == logged_losses
+        res["metrics_equal"] = json.loads(json.dumps(metrics)) == logged_metrics
+        res["eval_loss"] = dict(zip(logged_losses[::2], logged_losses[1::2]))
+        res["ok"] = bool(res["losses_equal"] and res["metrics_equal"] and res["evals"] == 2
+                         and res["K"] > 1 and res["graphs_captured"] >= 2 and census_ok)
+    return res
+
+
+def phase_coalesce(card: str) -> dict:
+    """The dispatch-coalesced eval path (parallel/step.CoalescedEvalStep, one
+    CUDA graph per length bucket): (a) the step at the bench geometry, (b)
+    the evaluate entry point at the Charades-STA test size both ways, (c)
+    the trainer's eval across an epoch's updates."""
+    step = _coalesce_step_part(card)
+    res = {"phase": "coalesce", "card": card, "step": step, "cli": _coalesce_cli_part(),
+           "train": _coalesce_train_part()}
+    res["ok"] = bool(step["ok"] and res["cli"]["ok"] and res["train"]["ok"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("coalesce phase failed")
+    return res
+
+
 def kernel_summary(kernel_results: dict, launches: dict) -> dict:
     """One entry per kernel and dtype instance, from the check that names it
     (`summary_name`: the shapes of its main path) and the launches of the
@@ -4513,6 +5091,7 @@ def kernel_summary(kernel_results: dict, launches: dict) -> dict:
     tpu = "mesm_tpu/ops/attention_pallas.py:"
     meta = {
         "ln_dense": (src + "ln_dense.cu", "mesm_tpu/ops/layer_pallas.py:267"),
+        "ln_dense_hoisted": (src + "ln_dense.cu", "mesm_tpu/ops/layer_pallas.py:267"),
         "attention_packed": (src + "attention_packed.cu", tpu + "114"),
         "attention_batched": (src + "attention_batched.cu", tpu + "89"),
         "attention_trainable": ("mesm_tpu_torch/ops/attention_trainable.py", tpu + "571"),
@@ -4579,6 +5158,7 @@ def main() -> int:
     phase_int8_dense(card)
     variants = phase_attn_variants(card)
     stream = phase_stream_layer(card)
+    coalesce = phase_coalesce(card)
     phase_processes()
     # the fp32 body's and the head-dim timings again, short, where the end of
     # the output keeps them
@@ -4619,6 +5199,8 @@ def main() -> int:
             launches[f"stream_layer_{flavor}{suffix}"] = (
                 stream[f"bench_{flavor}_{dtype_name}"]["launches"]["stream_layer"])
     launches["layout_anchor"] = stream["model_layers"]["layer_launches"]["layout_anchor"]
+    # measured on the device: the graphs' kernel nodes times their replays
+    launches["ln_dense_hoisted"] = coalesce["cli"]["default"][0]["launches"]["ln_dense"]
     emit(kernel_summary(kernels, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": device["name"], "count": device["count"]}})
     return 0

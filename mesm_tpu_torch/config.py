@@ -182,11 +182,12 @@ class BaseOptions:
                             "bottlenecks — like the reference's DataLoader "
                             "workers)")
         p.add_argument("--eval_coalesce", type=int, default=-1,
-                       help="eval batches per device dispatch: K same-shape "
-                            "batches run through one compiled program "
-                            "(value-identical; amortizes fixed per-dispatch "
-                            "host latency). Read for opt.json compatibility; "
-                            "the port's eval runs one batch per dispatch")
+                       help="eval batches per call: K same-shape batches "
+                            "run through one coalesced step, on the card one "
+                            "CUDA graph replay (value-identical; amortizes "
+                            "the per-launch host cost). -1 = auto: 32 on "
+                            "CUDA, 1 on the CPU, capped at the batches per "
+                            "length bucket; 1 = one batch per call")
         p.add_argument("--scan_layers", type=str, default="off",
                        choices=["on", "off"],
                        help="fold homogeneous layer stacks into nn.scan "

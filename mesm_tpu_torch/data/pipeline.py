@@ -3,14 +3,15 @@
 A small thread pool assembles fixed-shape numpy batches ahead of the eval
 step (HDF5 + numpy release the GIL for the heavy parts), with bounded
 lookahead so host IO overlaps device compute. `device_feed` then stages each
-batch onto the device from pinned memory, one batch ahead of the consumer.
+batch onto the device from pinned memory, one batch ahead of the consumer;
+`stage_superbatch` stages K batches at once for the coalesced eval step.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from collections import deque
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -187,6 +188,76 @@ def stage_batch(batch, cast_bf16: bool, device) -> Dict[str, torch.Tensor]:
         jb["ss_video_feat"] = jb.pop("ss_video_feat_groups")[slot]
         jb["ss_video_mask"] = jb.pop("ss_video_mask_groups")[slot]
     return jb
+
+
+def staged_signature(fields: Dict[str, torch.Tensor]) -> tuple:
+    """The shape signature of staged tensors: sorted (name, shape, dtype)."""
+    return tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in fields.items()))
+
+
+def stage_superbatch(batches, cast_bf16: bool, device,
+                     into: Optional[Callable[[tuple], Optional[Dict[str, torch.Tensor]]]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """K same-shape host batches -> ONE staged batch whose tensors carry a
+    leading K axis (mesm_tpu/data/pipeline.py:239-300), the argument of
+    make_eval_step(coalesce=K).
+
+    Per field: one stack into host memory (pinned for CUDA), with the bf16
+    cast of the float32 fields of ndim >= 3 per batch folded into it (the
+    rule of stage_batch), then one host-to-device copy. The unique videos
+    `video_feat_g` (K, NG, Lv, Dv) are staged as the contiguous 2-D
+    `video_feat_rows` (K * NG * Lv, Dv) that the hoisted projection reads.
+    The row-major pinning of the JAX version (_put_rows_rowmajor) is a TPU
+    layout fix with no counterpart here. A multi-clip (QVHighlights)
+    superbatch's per-group SS video is expanded to its rows by one batched
+    gather on the device.
+
+    `into(signature)`, when given (CoalescedEvalStep.static_inputs), names
+    tensors of the staged signature to write into (a CUDA graph's static
+    inputs) or None; the fields go there instead of into new tensors."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    K = len(batches)
+    host = {}
+    for k in batches[0]:
+        parts = [torch.from_numpy(np.ascontiguousarray(np.asarray(b[k]))) for b in batches]
+        dt = parts[0].dtype
+        if cast_bf16 and dt == torch.float32 and parts[0].dim() >= 3:
+            dt = torch.bfloat16
+        buf = torch.empty((K,) + tuple(parts[0].shape), dtype=dt, pin_memory=pin)
+        for i, part in enumerate(parts):
+            if part.shape != parts[0].shape:
+                raise ValueError(f"stage_superbatch: {k} has shapes {tuple(parts[0].shape)} and "
+                                 f"{tuple(part.shape)}; a superbatch takes batches of one shape")
+            buf[i].copy_(part)
+        host[k] = buf
+    if "video_feat_g" in host:
+        vf = host.pop("video_feat_g")
+        host["video_feat_rows"] = vf.view(-1, vf.shape[-1])
+    ss = "ss_video_feat_groups" in host
+    fields = {k: (tuple(v.shape), v.dtype) for k, v in host.items()}
+    if ss:
+        rows = fields.pop("ss_group_slot")[0]  # (K, B)
+        for src, name in _SS_FIELDS:
+            shape, dt = fields.pop(src)
+            fields[name] = (rows + shape[2:], dt)
+    dst = into(tuple(sorted((k, shape, dt) for k, (shape, dt) in fields.items()))) if into else None
+    staged = {}
+    for k, t in host.items():
+        if dst is not None and k in dst:
+            staged[k] = dst[k].copy_(t, non_blocking=pin)
+        else:
+            staged[k] = t.to(device, non_blocking=pin)
+    if ss:
+        slot = staged.pop("ss_group_slot").long()
+        lead = torch.arange(K, device=device)[:, None]
+        for src, name in _SS_FIELDS:
+            expanded = staged.pop(src)[lead, slot]
+            staged[name] = expanded if dst is None else dst[name].copy_(expanded)
+    return staged
+
+
+_SS_FIELDS = (("ss_video_feat_groups", "ss_video_feat"), ("ss_video_mask_groups", "ss_video_mask"))
 
 
 def device_feed(loader, device, cast_bf16: bool, depth: int = 2):

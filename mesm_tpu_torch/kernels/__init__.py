@@ -136,6 +136,16 @@ def pallas_mode() -> str:
     return override if override is not None else _DEFAULT_MODE
 
 
+def dispatch_state() -> tuple:
+    """Every switch a forward reads when it decides which kernel a site
+    launches: the mode, the short-key variant, MESM_ATTN_VARIANT, the int8
+    FFN, the dot-stats LayerNorm and the attention remat. A CUDA graph records one
+    set of those decisions, so the coalesced eval step keys its graphs on
+    this (parallel/step.py)."""
+    return (pallas_mode(), SHORTKEY_VARIANT, os.environ.get(ATTN_VARIANT_ENV) or "",
+            INT8_FFN, DOT_STATS_LN, ATTN_REMAT)
+
+
 def _on_cuda(device) -> bool:
     return torch.device(device).type == "cuda"
 

@@ -25,8 +25,11 @@
 //
 // Design.
 //   - Two launches on the stream. ln_stats_kernel, one warp a row, reads
-//     x once (16-byte loads where a row's elements are on a 16-byte
-//     boundary) and writes each row's f32 mean and 1 / sqrt(var + eps):
+//     x once (16-byte loads where a row is on a 16-byte boundary, else the
+//     widest its address allows) and writes each row's f32 mean and
+//     1 / sqrt(var + eps), summed in an order fixed by the elements'
+//     indices, so a row gets the same statistics at any address (the
+//     coalesced eval step projects K batches' rows in one call):
 //     the statistics must be known before the first K tile of a row is
 //     normalised, and a pass of its own reads x at the full memory rate,
 //     where a sweep inside the product kernel would be one more stream for
@@ -107,42 +110,60 @@ constexpr int STATS_ROWS = STATS_THREADS / 32;  // one warp a row
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
+// a lane's sums of x and x^2 over its elements of one row: chunk j, the
+// elements [j * VEC, (j + 1) * VEC), goes to lane j % 32, each chunk summed
+// in element order, then the lane's element of the ragged tail. Which
+// element a lane adds, and when, depends on the element's index alone, so a
+// row's statistics are the same bits wherever the row lies in memory (a row
+// of D = 2818 bf16 starts on any 4-byte boundary). L is the load: 16 bytes
+// where the row is 16-byte aligned, else the widest its address allows.
+template <typename T, typename L>
+__device__ __forceinline__ void row_sums(const T* __restrict__ xrow, int D, int lane, float& s,
+                                         float& ss) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int PER = sizeof(L) / sizeof(T);  // elements a load
+  const int nchunk = D / VEC;
+  for (int j = lane; j < nchunk; j += 32) {
+    const L* p = reinterpret_cast<const L*>(xrow + (size_t)j * VEC);
+#pragma unroll
+    for (int l = 0; l < VEC / PER; ++l) {
+      const L u = __ldg(p + l);
+      const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int t = 0; t < PER; ++t) {
+        const float v = to_f(e[t]);
+        s += v;
+        ss += v * v;
+      }
+    }
+  }
+  const int c = nchunk * VEC + lane;  // the tail: fewer than VEC elements
+  if (c < D) {
+    const float v = to_f(xrow[c]);
+    s += v;
+    ss += v * v;
+  }
+}
+
 // mean and 1 / sqrt(var + eps) of each row of x (N, D), var = E[x^2] -
 // mean^2 unclamped, as float2 (mean, rstd)
 template <typename T>
 __global__ void __launch_bounds__(STATS_THREADS)
 ln_stats_kernel(const T* __restrict__ x, float2* __restrict__ stats, int N, int D, float eps) {
-  constexpr int VEC = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
   const int n = blockIdx.x * STATS_ROWS + threadIdx.x / 32;
   if (n >= N) return;
   const T* xrow = x + (size_t)n * D;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(xrow);
-  int head = (int)(((16 - (addr & 15)) & 15) / sizeof(T));  // elements before a 16-byte boundary
-  if (head > D) head = D;
-  const int nvec = (D - head) / VEC;
-  const int tail0 = head + nvec * VEC;
   float s = 0.f, ss = 0.f;
-  for (int c = lane; c < head; c += 32) {
-    const float v = to_f(xrow[c]);
-    s += v;
-    ss += v * v;
-  }
-  const uint4* xv = reinterpret_cast<const uint4*>(xrow + head);
-  for (int j = lane; j < nvec; j += 32) {
-    const uint4 u = __ldg(xv + j);
-    const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-    for (int t = 0; t < VEC; ++t) {
-      const float v = to_f(e[t]);
-      s += v;
-      ss += v * v;
-    }
-  }
-  for (int c = tail0 + lane; c < D; c += 32) {
-    const float v = to_f(xrow[c]);
-    s += v;
-    ss += v * v;
+  if ((addr & 15) == 0) {
+    row_sums<T, uint4>(xrow, D, lane, s, ss);
+  } else if ((addr & 7) == 0) {
+    row_sums<T, uint2>(xrow, D, lane, s, ss);
+  } else if ((addr & 3) == 0) {
+    row_sums<T, unsigned int>(xrow, D, lane, s, ss);
+  } else {
+    row_sums<T, T>(xrow, D, lane, s, ss);
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {

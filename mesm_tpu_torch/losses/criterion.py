@@ -97,8 +97,10 @@ def _span_losses_multi(pred_spans, src_idx, tgt_spans, tgt_moments, tgt_mask, rm
     n = all_sum(m.sum()).clamp(min=1.0)
     loss_span = ((src - tgt_spans).abs().sum(-1) * m).sum() / (n * 2.0)
     # padded targets are (0, 0): a benign span keeps a degenerate prediction
-    # from a 0/0 gIoU that would poison the masked sum
-    safe = torch.where(tm[..., None], tgt_moments, torch.tensor([0.0, 1.0], device=tgt_moments.device))
+    # from a 0/0 gIoU that would poison the masked sum; (0, 1) made on the
+    # device (arange), which a CUDA graph captures, unlike a host copy
+    unit = torch.arange(2, dtype=torch.float32, device=tgt_moments.device)
+    safe = torch.where(tm[..., None], tgt_moments, unit)
     giou = pairwise_generalized_temporal_iou(span_cxw_to_xx(src), safe)
     loss_giou = ((1.0 - giou) * m).sum() / n
     return loss_span, loss_giou

@@ -77,7 +77,8 @@ def attention_core(
         logits = logits + torch.matmul(q2h * scale, k2h.transpose(-1, -2))
     if logit_bias is not None:
         logits = logits + logit_bias
-    neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
+    # a fill kernel, not a host tensor copied over: a CUDA graph captures it
+    neg = torch.full((), NEG_INF, dtype=logits.dtype, device=logits.device)
     if pair_factors is not None:
         qf, kf = pair_factors
         logits = torch.where(qf[..., :, None] & kf[..., None, :], neg, logits)

@@ -8,7 +8,10 @@ Inference (eval mode, no `neg_idx_rows`): no negative pass, no MLM masking.
 Unique videos may be projected once (`video_feat_g`, `video_slot`) and rows
 gathered after the wide input projection (mesm.py:396-404); SS-MESM reuses
 that projection, which is value-identical to the reference's second
-projection draw in eval (mesm.py:421-426).
+projection draw in eval (mesm.py:421-426). The coalesced eval step
+(parallel/step.py) projects the unique videos of K batches at once and
+passes each batch its part as `video_proj_g` (mesm.py:384-390), which
+skips the projection.
 
 Multi-clip (QVHighlights) rows carry their group's concatenated clips as
 `ss_video_feat` / `ss_video_mask` (data/pipeline.stage_batch expands them
@@ -124,6 +127,14 @@ class SegSenRecon(nn.Module):
         return recon_feat, x
 
 
+def saliency_scale(hidden_dim: int) -> float:
+    """1 / sqrt(d) as the float32 the saliency head multiplies by. The
+    forward makes its device scalar with torch.full (a fill kernel), which
+    a CUDA graph can capture, where a tensor built on the host and copied
+    over cannot be."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(hidden_dim))))
+
+
 def gumbel_mask_words_choice(words_mask: torch.Tensor, words_weight: torch.Tensor,
                              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Choose max(l // 3, 1) word positions per row, weighted, without
@@ -199,6 +210,7 @@ class MESM(nn.Module):
         video_feat_g: Optional[torch.Tensor] = None,  # (NG, Lv, Dv) unique videos
         video_mask_g: Optional[torch.Tensor] = None,  # (NG, Lv)
         video_slot: Optional[torch.Tensor] = None,  # (B,) row -> unique video
+        video_proj_g: Optional[torch.Tensor] = None,  # (NG, Lv, d) video_feat_g projected
         ss_sent_idx: Optional[torch.Tensor] = None,  # (B, G) row indices of the group
         ss_sent_mask: Optional[torch.Tensor] = None,  # (B, G)
         ss_own_pos: Optional[torch.Tensor] = None,  # (B,)
@@ -217,12 +229,14 @@ class MESM(nn.Module):
         words_mask = words_mask.bool()
 
         def project_video():
+            if video_proj_g is not None:
+                return video_proj_g[video_slot.long()]
             if video_feat_g is not None:
                 return self.input_vid_proj(video_feat_g)[video_slot.long()]
             return self.input_vid_proj(video_feat)
 
         projed_video_feat = project_video()
-        if video_feat_g is not None:
+        if video_feat_g is not None or video_proj_g is not None:
             vid_position = sine_position_embedding(video_mask_g, c.hidden_dim, dtype=dt)[video_slot.long()]
         else:
             vid_position = sine_position_embedding(video_mask, c.hidden_dim, dtype=dt)
@@ -328,7 +342,8 @@ class MESM(nn.Module):
         memory, memory_global = memory_all[:B], memory_global_all[:B]
         outputs_class = self.class_embed(hs)  # (#layers, B, nq, 2)
         outputs_coord = torch.sigmoid(self.span_embed(hs) + inverse_sigmoid(reference))
-        scale = (1.0 / torch.sqrt(torch.tensor(float(c.hidden_dim)))).to(memory.device)
+        scale = torch.full((), saliency_scale(c.hidden_dim), dtype=torch.float32,
+                           device=memory.device)
 
         def saliency(mem, mem_global):
             return (self.saliency_proj1(mem) * self.saliency_proj2(mem_global)[:, None]).sum(-1) * scale

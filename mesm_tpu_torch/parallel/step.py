@@ -4,9 +4,16 @@ host decodes).
 
 Parity target: mesm_tpu/parallel/step.py: the train step of :33-230 (also
 with grad_accum k > 1: k microbatches, one update), and make_eval_step
-(:233-320) at coalesce=1, with_loss False (inference: no negative pass) or
-True (the trainer's eval: the negative pass and the loss terms). PyTorch
-runs eagerly, so each step is a plain function over one staged batch. Multi-clip
+(:233-488), with_loss False (inference: no negative pass) or True (the
+trainer's eval: the negative pass and the loss terms), at coalesce=1 a plain
+function over one staged batch, at coalesce=K > 1 the dispatch-coalesced
+step over K batches (CoalescedEvalStep), which runs on the card as one CUDA
+graph replay. The JAX step's `params_unravel` (one flat parameter buffer
+instead of ~190 argument handles a dispatch) and EVAL_SCAN_UNROLL (the
+scan's unroll factor) have no counterpart: a graph replay passes no
+arguments, and it records all K bodies. Its tuple form and its flat hoist
+(FLAT_HOIST, a TPU layout choice) have none either: the coalesced step takes
+the superbatch form alone. Multi-clip
 (QVHighlights) batches pass their rows' SS video (`ss_video_feat`,
 `ss_video_mask`, expanded by data/pipeline.stage_batch) to the model, as
 _model_kwargs does (:81-104).
@@ -63,6 +70,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .. import kernels
+from ..data.pipeline import staged_signature
 from ..losses import CriterionConfig, compute_losses
 from ..losses.criterion import RATIO_TERMS
 from . import rows, seq
@@ -129,10 +138,26 @@ def sample_out_of_group(generator: torch.Generator, group_id: torch.Tensor,
     utils/data_utils.py:113-124): the argmax of Gumbel noise over the
     candidates. A row with no candidate takes (i + 1) % B."""
     B = group_id.shape[0]
+    u = torch.rand((B, B), generator=generator, device=group_id.device)
+    return out_of_group_rows(u, group_id, row_mask)
+
+
+def eval_noise(seed: int, B: int, device) -> torch.Tensor:
+    """The (B, B) uniforms the eval step draws its negatives from: a
+    generator on `device` seeded with `seed` at every call, so every batch
+    of B rows gets the same draw (the JAX step uses one key for every
+    batch)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand((B, B), generator=gen, device=device)
+
+
+def out_of_group_rows(u: torch.Tensor, group_id: torch.Tensor,
+                      row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sample_out_of_group on the uniforms `u` (B, B) it would draw."""
+    B = group_id.shape[0]
     cand = group_id[None, :] != group_id[:, None]
     if row_mask is not None:
         cand = cand & (row_mask[None, :] > 0)
-    u = torch.rand((B, B), generator=generator, device=group_id.device)
     g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
     idx = torch.argmax(torch.where(cand, g, torch.full_like(g, -float("inf"))), dim=1)
     fallback = (torch.arange(B, device=group_id.device) + 1) % B
@@ -325,7 +350,7 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
 
 def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype,
                    ccfg: Optional[CriterionConfig] = None, with_loss: bool = False,
-                   seed: int = 0):
+                   seed: int = 0, coalesce: int = 1):
     """Returns eval_step(batch) -> {"scores", "pred_spans", "saliency_scores"}
     for a batch of device tensors (data/pipeline.stage_batch). Under bf16
     compute the saliency scores come back in bf16, as the JAX step ships
@@ -336,15 +361,27 @@ def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype,
     negative pass runs (out-of-group rows drawn by sample_out_of_group from
     a generator seeded with `seed` at every call, as the JAX step draws from
     one key at every batch, or injected), and `losses` holds every term of
-    compute_losses(..., is_training=False) and loss_overall."""
+    compute_losses(..., is_training=False) and loss_overall.
+
+    coalesce=K > 1 returns a CoalescedEvalStep (mesm_tpu/parallel/step.py:
+    233-488 at superbatch=True): it takes K same-shape batches as one dict
+    stacked by data/pipeline.stage_superbatch (leading axis K), projects
+    their unique videos in one call and runs the K per-batch bodies in
+    order; its outputs carry a leading K axis. The returned callable has
+    `.coalesce`."""
 
     @torch.no_grad()
-    def eval_step(batch: Dict[str, torch.Tensor], neg_idx_rows=None):
+    def body(batch: Dict[str, torch.Tensor], neg_idx_rows=None, noise=None):
+        """One batch's forward and outputs. `noise`: the negatives' (B, B)
+        uniforms, drawn from `seed` when None."""
         model.eval()
         words_feat, words_mask, sentence_feat = encode_text(batch)
         if with_loss and neg_idx_rows is None:
-            gen = torch.Generator(device=batch["video_mask"].device).manual_seed(seed)
-            neg_idx_rows = sample_out_of_group(gen, batch["group_id"], batch.get("row_mask"))
+            neg_idx_rows = batch.get("neg_idx_rows")
+        if with_loss and neg_idx_rows is None:
+            if noise is None:
+                noise = eval_noise(seed, batch["group_id"].shape[0], batch["group_id"].device)
+            neg_idx_rows = out_of_group_rows(noise, batch["group_id"], batch.get("row_mask"))
         out = model(
             batch["video_mask"],
             words_feat.to(compute_dtype),
@@ -354,6 +391,7 @@ def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype,
             video_feat_g=_cast(batch.get("video_feat_g"), compute_dtype),
             video_mask_g=batch.get("video_mask_g"),
             video_slot=batch.get("video_slot"),
+            video_proj_g=batch.get("video_proj_g"),
             ss_sent_idx=batch.get("ss_sent_idx"),
             ss_sent_mask=batch.get("ss_sent_mask"),
             ss_own_pos=batch.get("ss_own_pos"),
@@ -373,4 +411,188 @@ def make_eval_step(model, encode_text: Callable, compute_dtype: torch.dtype,
         losses["loss_overall"] = total
         return preds, losses
 
+    if coalesce > 1:
+        return CoalescedEvalStep(model, body, compute_dtype, int(coalesce), with_loss, seed)
+
+    def eval_step(batch: Dict[str, torch.Tensor], neg_idx_rows=None):
+        return body(batch, neg_idx_rows)
+
+    eval_step.coalesce = 1
     return eval_step
+
+
+# CUDA graphs captured and replayed by every CoalescedEvalStep since import
+# (or since the caller last set them to 0)
+graphs_captured = 0
+graph_replays = 0
+
+
+class _Graph:
+    """One captured CUDA graph: its static inputs (written before each
+    replay), its static outputs (overwritten by each replay), the
+    negatives' uniforms it reads and its replays so far. The graph keeps
+    its cudaGraph_t (keep_graph=True), whose kernel nodes are the kernels
+    each replay launches (chip_smoke.py counts them)."""
+
+    __slots__ = ("graph", "inputs", "outputs", "noise", "replays")
+
+    def __init__(self, graph, inputs, outputs, noise):
+        self.graph, self.inputs, self.outputs, self.noise = graph, inputs, outputs, noise
+        self.replays = 0
+
+    def load(self, staged: Dict[str, torch.Tensor]) -> None:
+        for k, dst in self.inputs.items():
+            if dst.data_ptr() != staged[k].data_ptr():
+                dst.copy_(staged[k], non_blocking=True)
+
+
+class CoalescedEvalStep:
+    """K same-shape eval batches per call, values equal to K per-batch calls
+    (mesm_tpu/parallel/step.py:233-488, make_eval_step(coalesce=K,
+    superbatch=True)).
+
+    The argument is one dict whose tensors carry a leading K axis, the
+    unique videos as 2-D rows `video_feat_rows` (K * NG * Lv, Dv)
+    (data/pipeline.stage_superbatch). The unique videos of all K batches
+    are projected in one call (`_hoist_video_proj`), then the K per-batch
+    bodies run in order, each given its part as `video_proj_g`; with the
+    loss, every batch takes the same negatives' draw, as the JAX step folds
+    one key. Returns the predictions (and the losses) stacked with a
+    leading K axis.
+
+    On the CPU the call runs eagerly. On CUDA tensors it runs as one CUDA
+    graph replay: the first call of a key runs the step once on a side
+    stream (which builds the kernels and fills the derived-weight caches of
+    ops/_weight_cache.py), then captures it into a torch.cuda.CUDAGraph with
+    static inputs of its own; a later call of that key copies its tensors
+    into those inputs (data/pipeline.stage_superbatch writes there directly,
+    given `static_inputs`) and replays. The key is the staged signature
+    (names, shapes, dtypes), K, with_loss and kernels.dispatch_state(); every
+    graph is dropped when a parameter's (data_ptr, _version) stamp changes
+    (an optimizer step, load_state_dict), since the graph replays the
+    derived weights of the version it was captured with. The graphs share
+    one memory pool. The returned tensors are the graph's static outputs:
+    valid until the next call of the same key. A capture or replay that
+    fails raises; there is no eager fallback on CUDA."""
+
+    def __init__(self, model, body: Callable, compute_dtype: torch.dtype, coalesce: int,
+                 with_loss: bool, seed: int):
+        self.model, self._body, self.compute_dtype = model, body, compute_dtype
+        self.coalesce, self.with_loss, self.seed = coalesce, with_loss, seed
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._stamps: Optional[tuple] = None
+        self._pool = None
+
+    # -- the computation (eager; what a graph records) ----------------------
+
+    def _hoist_video_proj(self, stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Project the unique videos of all K batches in one call before the
+        K bodies (mesm_tpu/parallel/step.py:321-404): `video_feat_rows`
+        becomes `video_proj_g` (K, NG, Lv, d). The projection is row-wise,
+        so the rows' flat view is exact."""
+        vfr = stacked.pop("video_feat_rows", None)
+        if vfr is not None:
+            K, NG, Lv = stacked["video_mask_g"].shape
+            proj = self.model.input_vid_proj(vfr.to(self.compute_dtype))
+            stacked["video_proj_g"] = proj.reshape(K, NG, Lv, proj.shape[-1])
+        return stacked
+
+    @torch.no_grad()
+    def run(self, staged: Dict[str, torch.Tensor], noise: Optional[torch.Tensor] = None):
+        """The hoist and the K bodies, eagerly; outputs stacked (K, ...)."""
+        self.model.eval()
+        stacked = self._hoist_video_proj(dict(staged))
+        outs = [self._body({k: v[j] for k, v in stacked.items()}, noise=noise)
+                for j in range(self.coalesce)]
+        if not self.with_loss:
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        preds = {k: torch.stack([o[0][k] for o in outs]) for k in outs[0][0]}
+        return preds, {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+
+    # -- the call ------------------------------------------------------------
+
+    def _check(self, arg, neg_idx_rows):
+        """The argument's form and leading axis (mesm_tpu/parallel/step.py:
+        444-483); injected negatives (K, B) join it as a field."""
+        K = self.coalesce
+        if not isinstance(arg, dict):
+            raise TypeError("a coalesced eval step takes one stacked dict "
+                            "(data/pipeline.stage_superbatch)")
+        lead = {k: v.shape[0] for k, v in arg.items() if k != "video_feat_rows"}
+        if set(lead.values()) != {K}:
+            raise ValueError(f"coalesced eval step expects leading axis {K}, got {lead}")
+        vfr = arg.get("video_feat_rows")
+        if vfr is not None:
+            k_, NG, Lv = arg["video_mask_g"].shape
+            if vfr.shape[0] != k_ * NG * Lv:
+                raise ValueError(f"video_feat_rows expects {k_}*{NG}*{Lv}={k_ * NG * Lv} rows, "
+                                 f"got {vfr.shape[0]}")
+        return arg if neg_idx_rows is None else dict(arg, neg_idx_rows=neg_idx_rows)
+
+    def __call__(self, arg, neg_idx_rows=None):
+        staged = self._check(arg, neg_idx_rows)
+        if staged["video_mask"].device.type != "cuda":
+            return self.run(staged)
+        return self._replay(staged)
+
+    # -- CUDA graphs ---------------------------------------------------------
+
+    def _refresh(self) -> None:
+        """Drop every graph, and their memory pool, when a parameter or
+        buffer has a new stamp (a pool whose graphs are all freed is freed
+        with them: the next capture takes a new one)."""
+        stamps = tuple((t.data_ptr(), t._version)
+                       for t in (*self.model.parameters(), *self.model.buffers()))
+        if stamps != self._stamps:
+            if self._graphs and torch.cuda.is_initialized():
+                torch.cuda.synchronize()  # no replay of them still in flight
+            self._graphs.clear()
+            self._pool = None
+            self._stamps = stamps
+
+    def _key(self, sig: tuple) -> tuple:
+        return sig, self.coalesce, self.with_loss, kernels.dispatch_state()
+
+    def static_inputs(self, sig: tuple) -> Optional[Dict[str, torch.Tensor]]:
+        """The static inputs of the graph of staged signature `sig` under
+        the current dispatch state and parameters, or None (no such graph
+        yet)."""
+        self._refresh()
+        g = self._graphs.get(self._key(sig))
+        return None if g is None else g.inputs
+
+    def _capture(self, key: tuple, staged: Dict[str, torch.Tensor]) -> _Graph:
+        global graphs_captured
+        device = staged["video_mask"].device
+        inputs = {k: v.clone() for k, v in staged.items()}
+        noise = (eval_noise(self.seed, inputs["group_id"].shape[-1], device)
+                 if self.with_loss else None)
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self.run(inputs, noise)  # builds the kernels, fills the weight caches
+        current.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            outputs = self.run(inputs, noise)
+        graph.instantiate()
+        entry = self._graphs[key] = _Graph(graph, inputs, outputs, noise)
+        graphs_captured += 1
+        return entry
+
+    def _replay(self, staged: Dict[str, torch.Tensor]):
+        global graph_replays
+        self._refresh()
+        key = self._key(staged_signature(staged))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(key, staged)
+        else:
+            entry.load(staged)
+        entry.graph.replay()
+        entry.replays += 1
+        graph_replays += 1
+        return entry.outputs

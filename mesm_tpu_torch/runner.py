@@ -10,7 +10,7 @@ from __future__ import annotations
 import math
 import os
 import pickle
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -333,6 +333,22 @@ def device_from_opt(opt) -> torch.device:
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda was asked for, but no CUDA device is available")
     return torch.device(name)
+
+
+def eval_coalesce_from_opt(opt, n_batches: Optional[int], device) -> int:
+    """Batches per eval call (--eval_coalesce; -1 = auto), the port of
+    mesm_tpu/runner.py:461-488. Auto is 32 on a CUDA device, where one CUDA
+    graph replay then covers 32 batches, and 1 on the CPU. With the epoch's
+    batch count known, K is capped at the batches per length bucket,
+    n_batches // eval_len_buckets, so that padding the last group of each
+    bucket does not dominate."""
+    k = int(getattr(opt, "eval_coalesce", 1) or 1)
+    if k == -1:
+        k = 32 if torch.device(device).type == "cuda" else 1
+    if n_batches is not None and k > 1:
+        buckets = max(1, int(getattr(opt, "eval_len_buckets", 1) or 1))
+        k = min(k, max(1, n_batches // buckets))
+    return max(1, k)
 
 
 def build_criterion_config(opt) -> CriterionConfig:

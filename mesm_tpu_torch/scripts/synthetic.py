@@ -55,10 +55,12 @@ def encode_cached(batch):
 
 
 def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512, min_words=3,
-                    device="cuda"):
+                    device="cuda", G=None):
     """A collated eval batch (deduplicated videos, cached text) on `device`:
     NG unique videos (~2.4 sentences each, as real charades eval batches),
-    one row per sentence, features from a seed."""
+    one row per sentence, features from a seed. The SS-MESM group width is
+    the largest group's, or `G` (batches of one shape, as the collate's
+    group capacity gives them)."""
     rng = np.random.default_rng(seed)
     counts = 1 + rng.multinomial(B - NG, np.full(NG, 1.0 / NG))
     group_id = np.repeat(np.arange(NG), counts)
@@ -67,7 +69,10 @@ def make_eval_batch(seed: int, B=128, NG=53, Lv=194, Dv=2818, Lw=16, Dt=512, min
     mask_g = np.arange(Lv)[None] < g_len[:, None]
     w_len = rng.integers(min_words, Lw + 1, B)
     words_mask = np.arange(Lw)[None] < w_len[:, None]
-    G = int(counts.max())
+    if G is None:
+        G = int(counts.max())
+    elif counts.max() > G:
+        raise ValueError(f"make_eval_batch: a group of {counts.max()} rows exceeds G = {G}")
     ss_idx = np.zeros((B, G), np.int64)
     ss_mask = np.zeros((B, G), bool)
     own = np.zeros(B, np.int64)

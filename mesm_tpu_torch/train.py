@@ -22,7 +22,10 @@ Every config family trains: the single-target ones (charades, TACoS) and
 QVHighlights, whose multi-clip batches carry each row's SS-MESM group video
 (expanded by data/pipeline.stage_batch, as mesm_tpu/train.py:102-104 does)
 and are matched by the batched Hungarian solver. Text comes from GloVe or
-the CLIP tower (runner.build_text_encoder). `--compute_dtype bfloat16`
+the CLIP tower (runner.build_text_encoder). The eval takes K batches a
+call (--eval_coalesce, runner.eval_coalesce_from_opt): one coalesced step
+per distinct K, whose CUDA graphs are captured again after each epoch's
+updates (parallel/step.CoalescedEvalStep). `--compute_dtype bfloat16`
 trains with float32 parameters and AdamW state and bf16 activations (the
 eval runs in the same dtype); `--grad_accum K` takes one update per batch
 from K microbatches (parallel/step.make_train_step). Runs on CUDA unless
@@ -321,19 +324,27 @@ def _train_body(opt, device):
         grad_accum=getattr(opt, "grad_accum", 1), data_parallel=dist.is_initialized(),
     )
     # the eval during training reports the criterion's losses too
-    # (mesm_tpu/train.py:270-288, reference train.py:156 -> eval.py:101-105)
-    eval_step = make_eval_step(model, encode_text, compute_dtype, ccfg, with_loss=True,
-                               seed=opt.seed)
+    # (mesm_tpu/train.py:265-288, reference train.py:156 -> eval.py:101-105);
+    # one step per distinct K, K capped by each loader's batches per bucket
+    steps_by_k = {}
+
+    def eval_step_for(loader):
+        k = R.eval_coalesce_from_opt(opt, len(loader), device)
+        if k not in steps_by_k:
+            steps_by_k[k] = make_eval_step(model, encode_text, compute_dtype, ccfg,
+                                           with_loss=True, seed=opt.seed, coalesce=k)
+        return steps_by_k[k]
+
     tb_writer = _tensorboard_writer(opt)
     try:
-        return _train_loop(opt, device, model, optimizer, train_step, eval_step, train_loader,
+        return _train_loop(opt, device, model, optimizer, train_step, eval_step_for, train_loader,
                            val_loaders, start_epoch, step, tb_writer)
     finally:
         if tb_writer is not None:
             tb_writer.close()
 
 
-def _train_loop(opt, device, model, optimizer, train_step, eval_step, train_loader, val_loaders,
+def _train_loop(opt, device, model, optimizer, train_step, eval_step_for, train_loader, val_loaders,
                 start_epoch, step, tb_writer):
     prev_best = {k: 0.0 for k in val_loaders}
     es_cnt = 0
@@ -365,7 +376,7 @@ def _train_loop(opt, device, model, optimizer, train_step, eval_step, train_load
                 logger.info(f"Evaluating {key} split")
                 fname = f"{key}_latest_{opt.dataset_name}_val_preds.jsonl"
                 eval_loss_meters = defaultdict(AverageMeter)
-                metrics, _ = eval_epoch(eval_step, val_loader, opt, fname,
+                metrics, _ = eval_epoch(eval_step_for(val_loader), val_loader, opt, fname,
                                         val_loader.dataset.data, device, eval_loss_meters)
                 weight_map = _weight_map(opt)
                 eval_losses = {k: v.avg * weight_map.get(k, 1.0) for k, v in eval_loss_meters.items()}

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Optional
 
 import torch
@@ -20,6 +21,28 @@ from torch.profiler import ProfilerActivity, profile, record_function, tensorboa
 _ENV = "MESM_TPU_PROFILE_DIR"
 # the prefix of the ranges that carry a module path (trace_report reads it)
 MODULE_RANGE_PREFIX = "nn.Module: "
+# The tracer drops the first kernel of a trace in some processes; and a
+# kernel's record carries the card's clock, which the tracer maps onto the
+# host's: where the two disagree (kernels dated up to 4.2 ms before their
+# launch on an H100), a kernel launched in the first milliseconds of a
+# trace is dated before the trace began, and dropped too.
+# settle_device_trace opens a trace with a kernel of its own, inside a range
+# of this name (trace_report leaves both out), then waits this long.
+SETTLE_RANGE = "settle_device_trace"
+DEVICE_CLOCK_GUARD_S = 0.05
+
+
+def settle_device_trace() -> None:
+    """Call just after a torch.profiler trace starts, before what it is to
+    record: one small kernel takes the trace's first record, the card
+    drains, and the host waits DEVICE_CLOCK_GUARD_S, so that no kernel
+    launched afterwards is dated before the trace's start. Nothing without
+    CUDA."""
+    if torch.cuda.is_available():
+        with record_function(SETTLE_RANGE):
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+        time.sleep(DEVICE_CLOCK_GUARD_S)
 
 
 def _module_ranges(model: torch.nn.Module) -> list:
@@ -53,7 +76,8 @@ def maybe_trace(profile_dir: Optional[str] = None, model: Optional[torch.nn.Modu
     `model`, each of its modules' forward calls is a range named by its
     path while the trace runs (the hooks are removed after it), so
     trace_report.module_totals can attribute each kernel to its module.
-    Without a directory nothing is traced and nothing is installed."""
+    The block starts after settle_device_trace. Without a directory nothing
+    is traced and nothing is installed."""
     profile_dir = profile_dir or os.environ.get(_ENV)
     if not profile_dir:
         yield
@@ -64,6 +88,7 @@ def maybe_trace(profile_dir: Optional[str] = None, model: Optional[torch.nn.Modu
     handles = _module_ranges(model) if model is not None else []
     try:
         with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+            settle_device_trace()
             yield
             if torch.cuda.is_available():
                 torch.cuda.synchronize()

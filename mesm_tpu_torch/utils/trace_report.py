@@ -28,11 +28,14 @@ import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
-from .profiling import MODULE_RANGE_PREFIX
+from .profiling import MODULE_RANGE_PREFIX, SETTLE_RANGE
 
 KERNEL_CATS = ("kernel",)
 MEMORY_CATS = ("gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+# the runtime and driver calls that launch exactly one kernel
+KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                   "cuLaunchKernel", "cuLaunchKernelEx", "cuLaunchCooperativeKernel")
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
 
 
@@ -42,7 +45,26 @@ def _load_trace(trace_dir: str) -> list:
     if not paths:
         raise FileNotFoundError(f"no *.pt.trace.json under {trace_dir}")
     with open(paths[-1]) as f:
-        return [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        return _without_settle([e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"])
+
+
+def _without_settle(events: list) -> list:
+    """The events without profiling.settle_device_trace's range, the calls
+    made inside it and their device records."""
+    settles = [e for e in events if e.get("name") == SETTLE_RANGE]
+    if not settles:
+        return events
+
+    def inside(e):
+        return any(r["pid"] == e["pid"] and r["tid"] == e["tid"]
+                   and r["ts"] <= e["ts"] <= r["ts"] + r["dur"] for r in settles)
+
+    host = [e for e in events if e.get("cat") in LAUNCH_CATS + ("cpu_op",) and inside(e)]
+    ids = {e["args"]["correlation"] for e in host if "correlation" in e.get("args", {})}
+    skip = {id(e) for e in settles + host}
+    return [e for e in events if id(e) not in skip
+            and not (e.get("cat") in KERNEL_CATS + MEMORY_CATS
+                     and e.get("args", {}).get("correlation") in ids)]
 
 
 def _top_level(ops: list) -> list:
@@ -79,6 +101,17 @@ def device_op_totals(trace_dir: str, memory: bool = False
         totals[e["name"]] += e["dur"] / 1e3
         counts[e["name"]] += 1
     return dict(totals), dict(counts), sum(totals.values()), what
+
+
+def dropped_launches(trace_dir: str) -> int:
+    """The kernel launches in the trace whose kernel has no record of its
+    own (joined by correlation id): kernels the tracer dropped (see
+    profiling.settle_device_trace). 0 for a trace with no launches."""
+    events = _load_trace(trace_dir)
+    recorded = {e.get("args", {}).get("correlation") for e in events
+                if e.get("cat") in KERNEL_CATS}
+    return sum(1 for e in events if e.get("cat") in LAUNCH_CATS and e["name"] in KERNEL_LAUNCHES
+               and e.get("args", {}).get("correlation") not in recorded)
 
 
 def report(trace_dir: str, top: int = 30, memory: bool = False) -> str:

@@ -156,6 +156,17 @@ def test_kernel_matches_plain_at_its_edges(cuda):
 
 
 @pytest.mark.cuda
+def test_kernel_rows_are_the_same_bits_at_any_address(cuda):
+    """A row's statistics are summed in an order fixed by the elements'
+    indices: rows at every element offset of a 16-byte span give the bits
+    of the rows at offset 0 (the coalesced eval step projects K batches'
+    rows in one call)."""
+    from chip_smoke import check_ln_dense_alignment
+
+    assert check_ln_dense_alignment()["ok"]
+
+
+@pytest.mark.cuda
 def test_kernel_weight_cache_follows_the_weight_on_the_card(cuda):
     """An in-place update of the weight changes the kernel's result the next
     call (the cached copy is made again)."""

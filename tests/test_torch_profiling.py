@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from mesm_tpu_torch.models.mesm import MESM, MESMConfig
-from mesm_tpu_torch.utils import trace_report
+from mesm_tpu_torch.utils import profiling, trace_report
 from mesm_tpu_torch.utils.profiling import MODULE_RANGE_PREFIX, maybe_trace
 
 from test_torch_harness import SMALL, small_batch, torch_forward
@@ -61,8 +61,8 @@ def test_off_writes_nothing_and_installs_nothing(tmp_path, monkeypatch):
     assert not list(tmp_path.rglob("*"))
 
 
-def _x(cat, name, ts, dur, tid=1, **args):
-    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": 7, "tid": tid,
+def _x(cat, name, ts, dur, tid=1, pid=7, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "pid": pid, "tid": tid,
             "args": args}
 
 
@@ -106,6 +106,67 @@ def test_card_trace_attributes_kernels_through_their_launches(tmp_path):
         "gemm": {"MESM/transformer/encoder": 1, "<backward>": 1},
         "attention_packed_mma_kernel": {"MESM/transformer/encoder": 1},
         "fill": {"<unattributed>": 1}, "ctypes_kernel": {"MESM/transformer/encoder": 1}}
+
+
+def test_dropped_launches_and_the_settle_kernel_left_out(tmp_path):
+    """A card's trace whose second and third launches have no kernel record
+    (the tracer dropped them): two dropped; a copy, a graph launch and a
+    launch with its record are not counted. The settle range's launch
+    (profiling.settle_device_trace), dropped or recorded, its kernel and
+    its range are in no count and no table."""
+    settle = [
+        _x("user_annotation", profiling.SETTLE_RANGE, 0, 10),
+        _x("cpu_op", "aten::zeros", 1, 2),
+        _x("cuda_runtime", "cudaLaunchKernel", 2, 1, correlation=9),
+        _x("cuda_runtime", "cudaDeviceSynchronize", 4, 5, correlation=10),
+        _x("gpu_user_annotation", profiling.SETTLE_RANGE, 3, 2, pid=0, tid=9),
+    ]
+    events = settle + [
+        _x("cuda_runtime", "cudaLaunchKernel", 11, 1, correlation=1),
+        _x("cuda_driver", "cuLaunchKernelEx", 12, 1, correlation=2),
+        _x("cuda_runtime", "cudaLaunchKernel", 13, 1, correlation=3),
+        _x("cuda_runtime", "cudaMemcpyAsync", 14, 1, correlation=4),
+        _x("cuda_runtime", "cudaGraphLaunch", 15, 1, correlation=5),
+        _x("kernel", "gemm", 20, 2, tid=9, correlation=3),
+    ]
+    trace = tmp_path / "host_1.1.pt.trace.json"
+    trace.write_text(json.dumps({"traceEvents": events}))
+    assert trace_report.dropped_launches(str(tmp_path)) == 2
+    assert trace_report.device_op_totals(str(tmp_path))[1] == {"gemm": 1}
+    events += [_x("kernel", "fill", 22, 2, tid=9, correlation=1),
+               _x("kernel", "ln_stats_kernel", 24, 2, tid=9, correlation=2),
+               _x("kernel", "fill", 3, 1, tid=9, correlation=9)]
+    trace.write_text(json.dumps({"traceEvents": events}))
+    assert trace_report.dropped_launches(str(tmp_path)) == 0
+    assert trace_report.device_op_totals(str(tmp_path))[1] == {
+        "gemm": 1, "fill": 1, "ln_stats_kernel": 1}
+    assert trace_report.kernel_modules(str(tmp_path))["fill"] == {"<unattributed>": 1}
+
+
+def test_trace_settles_the_card_before_the_block(tmp_path, monkeypatch):
+    """maybe_trace runs settle_device_trace inside the trace, before the
+    block; on a card that launches one kernel inside SETTLE_RANGE, drains
+    the card and waits DEVICE_CLOCK_GUARD_S; without CUDA it does nothing."""
+    calls = []
+    monkeypatch.setattr(profiling, "settle_device_trace", lambda: calls.append("settle"))
+    with maybe_trace(str(tmp_path)):
+        calls.append("block")
+    assert calls == ["settle", "block"]
+    monkeypatch.undo()
+
+    calls.clear()
+    monkeypatch.setattr(profiling, "record_function", lambda name: (
+        calls.append(("range", name)) or __import__("contextlib").nullcontext()))
+    monkeypatch.setattr(profiling.torch, "zeros", lambda *a, **k: calls.append(("kernel", k)))
+    monkeypatch.setattr(profiling.torch.cuda, "synchronize", lambda: calls.append("sync"))
+    monkeypatch.setattr(profiling.time, "sleep", lambda s: calls.append(("sleep", s)))
+    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: False)
+    profiling.settle_device_trace()
+    assert calls == []
+    monkeypatch.setattr(profiling.torch.cuda, "is_available", lambda: True)
+    profiling.settle_device_trace()
+    assert calls == [("range", profiling.SETTLE_RANGE), ("kernel", {"device": "cuda"}), "sync",
+                     ("sleep", profiling.DEVICE_CLOCK_GUARD_S)]
 
 
 def test_profile_eval_driver_on_cpu(tmp_path, capsys):
