@@ -5,7 +5,8 @@
 
 run from the root of a checkout. It builds the CUDA kernels from
 mesm_tpu_torch/kernels/csrc with nvcc, holds each kernel against its plain
-torch version at the main paths' shapes (the encoder attention kernels
+torch version at the main paths' shapes (the fp32 short-key kernels at
+the TACoS, charades and QVHighlights sites; the encoder attention kernels
 also at the edges of their tiles, the fused LayerNorm -> Dense at the edges
 of its tiles and its domain: any N, D and F; the fp32 attention body at 16
 and 32 x 601 x 601 and head_dim 16, 32, 128 and 256, timed beside the
@@ -18,7 +19,7 @@ charades C+SF_C bf16
 inference through the port's eval step and through its
 `python -m mesm_tpu_torch.evaluate` entry point (the eval step also in the
 "on" mode and with the one-matmul short-key kernel), the TACoS fp32 eval
-step, QVHighlights C+SF_C bf16 inference in every dispatch mode, the
+step (also with the fp32 one-matmul short-key kernel), QVHighlights C+SF_C bf16 inference in every dispatch mode, the
 charades model with 64-80-word queries (the pair-masked kernel), the
 kernel-engaged TACoS fp32 train step (attention dropout 0: the trainable
 attention's forward and backward kernels) with the kernels on and off,
@@ -142,6 +143,11 @@ QVH = dict(B=30, NG=20, G=4, Lv=75, Dv=2818, Lw=32, Dt=512, T=5, train_B=12)
 SHORT_KEY_SITES = (("charades", 128, 194, 17, True), ("qvh", 30, 75, 33, True),
                    ("qvh", 30, 75, 33, False))
 LONG_KEY_SITE = ("charades_long_query", 128, 194, 81, True)
+# the fp32 short-key sites: TACoS (the shipped fp32 config, bench.py:753-754:
+# 16 x 600 video queries x 16 words + 1), charades at the bench batch in the
+# dtype config/charades/C+SF_C.json ships (128 x 194 x 17) and QVHighlights
+# (30 x 75 x 33)
+FP32_SHORT_KEY_SITES = (("tacos", 16, 600, 17), ("charades", 128, 194, 17), ("qvh", 30, 75, 33))
 # kernel launches per eval batch in each dispatch mode. "auto" keeps the
 # measured TPU gates; "on" takes every site a kernel accepts: the 4 T2V /
 # enhance cross-attention sites (keys < 64: the packed short-key kernel; 64
@@ -177,6 +183,13 @@ VARIANT_KERNEL = {"per_head": "attention_per_head", "all_heads": "attention_all_
 # "on" with MESM_ATTN_VARIANT=packed sends fp32 to the packed family: TACoS's
 # 4 T2V / enhance sites (600 queries x 16 keys) to the short-key kernel, and
 # with 64-80-word queries the charades sites to the pair kernel
+# TACoS fp32 eval: "auto" sends the DETR encoder's 2 self-attentions (601
+# keys) to the batched kernel and the raw 4098-wide video projection to
+# ln_dense; "auto+kernel" also its 4 short-key sites to the fp32 one-matmul
+# kernel
+TACOS_LAUNCHES = {"auto": {"ln_dense": 1, "attention_batched": 2},
+                  "auto+kernel": {"ln_dense": 1, "attention_batched": 2,
+                                  "attention_shortkey_onematmul": 4}}
 PACKED_FP32_ON_LAUNCHES = {"tacos": {"ln_dense": 8, "attention_packed": 2, "attention_shortkey": 4},
                            "long_query": LONG_QUERY_LAUNCHES["on"]}
 # TACoS (bench.py:753-754, 780-795): 16 rows, 600 clips (601 with the global
@@ -771,18 +784,25 @@ def _pair_edge_cases() -> list:
 SHORTKEY_EDGE_LQ = (1, 15, 16, 63, 64, 65, 194)
 SHORTKEY_EDGE_LK = (1, 16, 17, 33, 63)
 ONEMATMUL_EDGE_HD64 = ((1, 17), (65, 63), (194, 33))
+# the fp32 short-key kernels' edges: query rows around their 64-row tiles;
+# keys around the short-key kernel's tiles of 24, 32 and 40 keys and the
+# one-matmul kernel's n8 tiles and key groups of 64
+FP32_SHORTKEY_EDGE_LQ = (1, 63, 64, 65)
+FP32_SHORTKEY_EDGE_LK = (1, 16, 17, 24, 25, 32, 33, 40, 41, 64, 65)
 
 
-def _shortkey_edge_inputs(B: int, Lq: int, Lk: int, E: int, pair: bool, seed: int):
-    """q, k, v, a key mask with sample 1 fully masked and, with pair factors,
-    sample 0 with every key of head 0 flagged and every other query of that
-    head flagged (rows whose every key is dropped)."""
+def _shortkey_edge_inputs(B: int, Lq: int, Lk: int, E: int, pair: bool, seed: int,
+                          dtype_name: str = "bfloat16"):
+    """q, k, v in the dtype, a key mask with sample 1 fully masked and, with
+    pair factors, sample 0 with every key of head 0 flagged and every other
+    query of that head flagged (rows whose every key is dropped)."""
     import torch
 
     H = MAIN_PATH["H"]
+    dt = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, Lq, E, generator=g, device="cuda").bfloat16()
-    k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(B, Lq, E, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(B, Lk, E, generator=g, device="cuda").to(dt) for _ in range(2))
     lengths = torch.randint(max(1, Lk // 3), Lk + 1, (B,), generator=g, device="cuda")
     mask = torch.arange(Lk, device="cuda")[None] < lengths[:, None]
     mask[1] = False
@@ -797,20 +817,21 @@ def _shortkey_edge_inputs(B: int, Lq: int, Lk: int, E: int, pair: bool, seed: in
 
 
 def _shortkey_edge_case(name: str, q, k, v, mask, pf):
-    """One bf16 short-key kernel call against its plain version (3e-2), on
-    its mma device kernel (by name); each row whose every key is dropped
-    must give the mean of v over all Lk keys. Returns the case and the
-    kernel's output."""
+    """One short-key kernel call against its plain version (TOL: bf16 3e-2,
+    fp32 1e-5), on its tensor-core device kernel (by name); each row whose
+    every key is dropped must give the mean of v over all Lk keys. Returns
+    the case and the kernel's output."""
     import torch
 
     H = MAIN_PATH["H"]
+    dtype_name = str(q.dtype).replace("torch.", "")
     fn, ref = _pair_kernels()[name]
-    tol, kernel_name = TOL[f"{name}_bfloat16"], PAIR_KERNEL_NAMES[(name, "bfloat16")]
+    tol, kernel_name = TOL[f"{name}_{dtype_name}"], PAIR_KERNEL_NAMES[(name, dtype_name)]
     got, names = launched_kernels(lambda: fn(q, k, v, H, mask, pf))
     want = ref(q, k, v, H, mask, pf)
     torch.cuda.synchronize()
     dead_err, dead_rows = _dead_rows_vs_mean_v(got, v, mask, pf, H)
-    case = {"kernel": name, "dtype": "bfloat16", "shape": [*q.shape[:2], k.shape[1], q.shape[2], H],
+    case = {"kernel": name, "dtype": dtype_name, "shape": [*q.shape[:2], k.shape[1], q.shape[2], H],
             "pair": pf is not None, "device_kernel": kernel_name, "launched": names,
             "max_abs_err": float((got.float() - want.float()).abs().max()),
             "max_err_rel_to_max1": _rel_err(got, want), "finite": bool(torch.isfinite(got).all()),
@@ -820,19 +841,20 @@ def _shortkey_edge_case(name: str, q, k, v, mask, pf):
     return case, got
 
 
-def _onematmul_underflow_case(hd: int) -> dict:
-    """The bf16 one-matmul kernel where sample 2's head 1 logits sit ~180
-    (hd 32) or ~250 (hd 64) above its head 0 logits (0): head 0's segment
-    sum underflows to 0 and takes 1/Lk on every key, so its output is the
-    mean of v over all Lk keys (padded keys included), while head 1 keeps
-    its own softmax."""
+def _onematmul_underflow_case(hd: int, dtype_name: str = "bfloat16") -> dict:
+    """The one-matmul kernel where sample 2's head 1 logits sit ~180 (hd 32)
+    or ~250 (hd 64) above its head 0 logits (0): head 0's segment sum
+    underflows to 0 and takes 1/Lk on every key, so its output is the mean
+    of v over all Lk keys (padded keys included), while head 1 keeps its own
+    softmax."""
     import torch
 
     B, Lq, Lk, H = 3, 70, 17, MAIN_PATH["H"]
-    q, k, v, mask, pf = _shortkey_edge_inputs(B, Lq, Lk, H * hd, True, seed=7 + hd)
+    q, k, v, mask, pf = _shortkey_edge_inputs(B, Lq, Lk, H * hd, True, seed=7 + hd,
+                                              dtype_name=dtype_name)
     sign = torch.randint(0, 2, (hd,), generator=torch.Generator().manual_seed(9)).cuda() * 2 - 1
-    q[2, :, hd:2 * hd] = (40.0 * sign).bfloat16()
-    k[2, :, hd:2 * hd] = (k[2, :, hd:2 * hd].float().abs() * sign).bfloat16()
+    q[2, :, hd:2 * hd] = (40.0 * sign).to(q.dtype)
+    k[2, :, hd:2 * hd] = (k[2, :, hd:2 * hd].float().abs() * sign).to(k.dtype)
     k[2, :, :hd] = 0.0
     pf[0][2, 1] = False  # head 1 keeps every unmasked key
     case, got = _shortkey_edge_case("attention_shortkey_onematmul", q, k, v, mask, pf)
@@ -847,8 +869,18 @@ def _shortkey_edge_cases() -> list:
     with and without pair factors (_shortkey_edge_case, B = 3, E = 256), the
     one-matmul kernel also at ONEMATMUL_EDGE_HD64 with E = 512 and where one
     head's segment underflows against another's maximum (head_dim 32 and
-    64)."""
+    64); the fp32 instances at FP32_SHORTKEY_EDGE_LQ x FP32_SHORTKEY_EDGE_LK
+    and the fp32 one-matmul kernel's underflowed segments too."""
     out = []
+    for name in ("attention_shortkey", "attention_shortkey_onematmul"):
+        for Lq in FP32_SHORTKEY_EDGE_LQ:
+            for Lk in FP32_SHORTKEY_EDGE_LK:
+                for pair in (True, False):
+                    inputs = _shortkey_edge_inputs(3, Lq, Lk, MAIN_PATH["E"], pair,
+                                                   seed=Lq * 100 + Lk + pair + 2,
+                                                   dtype_name="float32")
+                    out.append(_shortkey_edge_case(name, *inputs)[0])
+    out.extend(_onematmul_underflow_case(hd, "float32") for hd in (32, 64))
     for name in ("attention_shortkey", "attention_shortkey_onematmul"):
         for Lq in SHORTKEY_EDGE_LQ:
             for Lk in SHORTKEY_EDGE_LK:
@@ -926,9 +958,11 @@ def backward_kernels(hd: int) -> tuple:
     return BACKWARD_WIDE_KERNELS if hd > 128 else BACKWARD_KERNELS
 # the kernels a forward route launches at a head_dim above 128 where they
 # are not its own kernels' wide instances: the bf16 one-matmul kernel's wide
-# block
+# block, and the fp32 one-matmul kernel's CUDA-core kernel
 WIDE_KERNEL_NAMES = {("attention_shortkey_onematmul", "bfloat16"):
-                         "attention_shortkey_onematmul_wide_kernel"}
+                         "attention_shortkey_onematmul_wide_kernel",
+                     ("attention_shortkey_onematmul", "float32"):
+                         "attention_shortkey_onematmul_fp32_wide_kernel"}
 
 
 def route_kernel_name(name: str, dtype_name: str, hd: int, kernel_names: dict) -> str:
@@ -1197,13 +1231,16 @@ def _pair_kernels():
 
 
 # the device kernel the pair and short-key wrappers launch, by dtype: bf16
-# on the mma tiles; float32 of the pair entry point on the 3xTF32 body, of
-# the short-key kernels on the CUDA cores
+# on the mma tiles, float32 in 3xTF32 (the pair entry point and the
+# short-key kernel on the 3xTF32 body, the one-matmul kernel on its own)
 PAIR_KERNEL_NAMES = {("attention_packed_pair", "bfloat16"): "attention_packed_pair_mma_kernel",
                      ("attention_packed_pair", "float32"): "attention_packed_pair_3xtf32_kernel",
                      ("attention_shortkey", "bfloat16"): "attention_shortkey_mma_kernel",
+                     ("attention_shortkey", "float32"): "attention_shortkey_3xtf32_kernel",
                      ("attention_shortkey_onematmul", "bfloat16"):
-                         "attention_shortkey_onematmul_mma_kernel"}
+                         "attention_shortkey_onematmul_mma_kernel",
+                     ("attention_shortkey_onematmul", "float32"):
+                         "attention_shortkey_onematmul_3xtf32_kernel"}
 
 
 def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: bool,
@@ -1237,8 +1274,8 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
         emit(dict(res, phase="kernels", ok=False))
         raise SystemExit(f"{name} at {site}: {res}")
     res["ms"] = cuda_time_ms(lambda: fn(q, k, v, H, mask, pf))
-    res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask, pf), PAIR_KERNEL_NAMES.get(
-        (name, dtype_name), "attention_shortkey_kernel"))
+    res["kernel_ms"] = device_kernel_ms(lambda: fn(q, k, v, H, mask, pf),
+                                        PAIR_KERNEL_NAMES[(name, dtype_name)])
     res["plain_ms"] = cuda_time_ms(lambda: ref(q, k, v, H, mask, pf))
     am = torch.zeros(B, H, Lq, Lk, dtype=q.dtype, device="cuda").masked_fill(
         _dead_pairs(mask, pf, H, Lq), -1e9)
@@ -1248,11 +1285,8 @@ def check_pair_attention(name: str, site: str, B: int, Lq: int, Lk: int, pair: b
     )
     item = q.element_size()
     moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
-    if name == "attention_packed_pair" or dtype_name != "float32":
-        # bf16 on its tensor cores, the fp32 pair entry point in 3xTF32
-        res["bound_ms"], res["bound_by"], _ = attention_bound(B, H, Lq, Lk, hd, moved, dtype_name)
-    else:  # the fp32 short-key kernels on the CUDA cores
-        res["bound_ms"], res["bound_by"] = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, dtype_name)
+    # bf16 on its tensor cores, fp32 in 3xTF32
+    res["bound_ms"], res["bound_by"], _ = attention_bound(B, H, Lq, Lk, hd, moved, dtype_name)
     return res
 
 
@@ -1553,6 +1587,7 @@ HEAD_DIM_TIMED = (("attention_packed", "bfloat16", 128, 195, 195),
                   ("attention_shortkey", "bfloat16", 128, 194, 17),
                   ("attention_shortkey_onematmul", "bfloat16", 128, 194, 17),
                   ("attention_shortkey", "float32", 16, 600, 17),
+                  ("attention_shortkey_onematmul", "float32", 16, 600, 17),
                   ("attention_backward", "float32", 32, 601, 601))
 # keys past what a block once staged (H = 4): bf16 at hd 128 beyond 416 keys
 # and a smaller head_dim beyond its staging (padded to 128) on the wide
@@ -1602,8 +1637,7 @@ def _hd_routes():
     routes = {name: (*enc[name], False, "encoder", ENCODER_KERNEL_NAMES[name]) for name in enc}
     for name in pk:
         routes[name] = (*pk[name], True, "pair" if name == "attention_packed_pair" else "shortkey",
-                        {d: PAIR_KERNEL_NAMES.get((name, d), "attention_shortkey_kernel")
-                         for d in ("bfloat16", "float32")})
+                        {d: PAIR_KERNEL_NAMES[(name, d)] for d in ("bfloat16", "float32")})
     return routes
 
 
@@ -1777,11 +1811,9 @@ def _hd_timed_case(name: str, dtype_name: str, B: int, Lq: int, Lk: int, hd: int
     else:
         library = lambda: Fn.scaled_dot_product_attention(qh, kh, vh, attn_mask=am)  # noqa: E731
         moved = 2 * B * (Lq + Lk) * E * item + B * Lk + (B * H * (Lq + Lk) if pair else 0)
-        # fp32 on the 3xTF32 body (the encoder kernels and the pair entry
-        # point) is bound at the TF32 rate, the CUDA-core kernels at the
-        # fp32 one
-        tf32 = name in ENCODER_KERNEL_NAMES or name == "attention_packed_pair"
-        if dtype_name == "float32" and not tf32:
+        # fp32 in 3xTF32 is bound at the TF32 rate, the one CUDA-core
+        # kernel (the fp32 one-matmul kernel at a wide head) at the fp32 one
+        if dtype_name == "float32" and name == "attention_shortkey_onematmul" and hd > 128:
             bnd = bound(moved, 2.0 * B * H * Lq * Lk * 2 * hd, "float32")
         else:
             bnd = attention_bound(B, H, Lq, Lk, hd, moved, dtype_name)
@@ -1933,18 +1965,23 @@ def phase_kernels() -> dict:
         for site, B, Lq, Lk, pair in SHORT_KEY_SITES:
             results.append(check_pair_attention(name, site, B, Lq, Lk, pair,
                                                 summary=name if site == "qvh" and pair else None))
-    # the one-matmul kernel in fp32 ("auto" with SHORTKEY_VARIANT "kernel" on
-    # an fp32 model, e.g. TACoS: 16 x 600 video queries x 17 text keys)
-    results.append(check_pair_attention("attention_shortkey_onematmul", "tacos_fp32", TACOS["B"],
-                                        TACOS["Lv"], 17, True, "float32"))
+    # both short-key kernels in fp32 at the fp32 sites (FP32_SHORT_KEY_SITES),
+    # with and without pair factors; the summary takes TACoS with the pair
+    # mask: the one-matmul kernel is what "auto" with SHORTKEY_VARIANT
+    # "kernel" launches there (phase tacos_eval), the short-key kernel what
+    # "on" under MESM_ATTN_VARIANT=packed launches (phase attn_variants)
+    for name in ("attention_shortkey", "attention_shortkey_onematmul"):
+        for site, B, Lq, Lk in FP32_SHORT_KEY_SITES:
+            for pair in (True, False):
+                results.append(check_pair_attention(
+                    name, site, B, Lq, Lk, pair, "float32",
+                    summary=f"{name}_float32" if site == "tacos" and pair else None))
     results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE,
                                         summary="attention_packed_pair"))
     # the fp32 instances of the pair and short-key kernels (MESM_ATTN_VARIANT
     # packed, "on"): charades with long queries, and TACoS
     results.append(check_pair_attention("attention_packed_pair", *LONG_KEY_SITE, dtype_name="float32",
                                         summary="attention_packed_pair_float32"))
-    results.append(check_pair_attention("attention_shortkey", "tacos", TACOS["B"], TACOS["Lv"], 17,
-                                        True, "float32", summary="attention_shortkey_float32"))
     # the fused int8 FFN at the charades (bf16, 128 x 195 rows) and TACoS
     # (fp32, 16 x 600) FFN sites
     results.append(check_ffn_int8("charades", "bfloat16", B16 * L16, "ffn_int8"))
@@ -2226,7 +2263,9 @@ def _encode_batch(b):
 def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
     """The port's eval step at the TACoS geometry (bench.py:753-754), fp32:
     the fp32 attention tier (16 rows, 601 keys) and the 4098-wide fused
-    LayerNorm -> Dense."""
+    LayerNorm -> Dense; then "auto+kernel" (TACOS_LAUNCHES), whose 4 T2V /
+    enhance sites (600 video queries x 17 text keys) launch the fp32
+    one-matmul kernel, its predictions against "off"."""
     import torch
 
     from mesm_tpu_torch import kernels
@@ -2242,7 +2281,7 @@ def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
     outs = [step(batches[i % 2]) for i in range(n_batches)]
     torch.cuda.synchronize()
     launches = read_launches()
-    want = expected_launches({"ln_dense": 1, "attention_batched": 2}, n_batches)
+    want = expected_launches(TACOS_LAUNCHES["auto"], n_batches)
     with kernels.pallas_scope("off"):
         off = step(batches[0])
     res = {"phase": "tacos_eval", "batches": n_batches, "rows_per_batch": B, "launches": launches,
@@ -2250,9 +2289,11 @@ def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
            "tol": FP32_MODEL_TOL}
     res["shapes_ok"] = tuple(outs[0]["saliency_scores"].shape) == (B, Lv)
     res["finite"] = all(bool(torch.isfinite(v.float()).all()) for o in outs for v in o.values())
+    res["modes"], modes_ok = drive_modes(step, batches, {"auto+kernel": TACOS_LAUNCHES["auto+kernel"]},
+                                         n_batches, {"off_fp32": off}, tol=FP32_MODEL_TOL)
 
     def rows_per_s(mode, iters=6):
-        with kernels.pallas_scope(mode):
+        with dispatch_mode(mode):
             step(batches[0])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2261,11 +2302,13 @@ def phase_tacos_eval(card: str, n_batches: int = 4) -> dict:
             torch.cuda.synchronize()
             return B * iters / (time.perf_counter() - t0)
 
-    turns = [(m, rows_per_s(m)) for m in ("auto", "off", "off", "auto")]
+    turns = [(m, rows_per_s(m)) for m in ("auto", "off", "auto+kernel", "auto+kernel", "off",
+                                          "auto")]
     res["rows_per_s_kernels_auto"] = [r for m, r in turns if m == "auto"]
     res["rows_per_s_kernels_off"] = [r for m, r in turns if m == "off"]
+    res["rows_per_s_kernels_auto_kernel"] = [r for m, r in turns if m == "auto+kernel"]
     res["card"] = card
-    res["ok"] = bool(launches == want and res["shapes_ok"] and res["finite"]
+    res["ok"] = bool(launches == want and res["shapes_ok"] and res["finite"] and modes_ok
                      and max(res["kernels_vs_off_fp32"].values()) <= FP32_MODEL_TOL)
     emit(res)
     if not res["ok"]:
@@ -5109,6 +5152,7 @@ def kernel_summary(kernel_results: dict, launches: dict) -> dict:
         "attention_packed_float32": (src + "attention_packed.cu", tpu + "114"),
         "attention_packed_pair_float32": (src + "attention_packed.cu", tpu + "170"),
         "attention_shortkey_float32": (src + "attention_shortkey.cu", tpu + "213"),
+        "attention_shortkey_onematmul_float32": (src + "attention_shortkey.cu", tpu + "262"),
         "stream_layer_encoder": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
         "stream_layer_t2v": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
         "stream_layer_encoder_float32": (src + "stream_layer.cu", "mesm_tpu/ops/layer_pallas.py:107"),
@@ -5139,7 +5183,7 @@ def main() -> int:
     phase_profile(card)
     cli = phase_cli()
     phase_native()
-    phase_tacos_eval(card)
+    tacos = phase_tacos_eval(card)
     qvh = phase_qvh_eval(card)
     long_query = phase_long_query(card)
     with tempfile.TemporaryDirectory(prefix="mesm_chip_clip_tower_") as tower_dir:
@@ -5194,6 +5238,8 @@ def main() -> int:
         variants["packed_on_long_query_fp32"]["launches"]["attention_packed_pair"])
     launches["attention_shortkey_float32"] = (
         variants["packed_on_tacos_fp32"]["launches"]["attention_shortkey"])
+    launches["attention_shortkey_onematmul_float32"] = (
+        tacos["modes"]["auto+kernel"]["launches"]["attention_shortkey_onematmul"])
     for flavor in ("encoder", "t2v"):
         for dtype_name, suffix in (("bfloat16", ""), ("float32", "_float32")):
             launches[f"stream_layer_{flavor}{suffix}"] = (

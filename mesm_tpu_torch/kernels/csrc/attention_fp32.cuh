@@ -2,8 +2,10 @@
 // operands: the body of multi-head attention for one (sample b, head h) and a
 // tile of 64 query rows, its two products on the tensor cores in 3xTF32
 // (attention_tf32.cuh). Shared by attention_batched.cu (kernel 6, the TACoS
-// encoder and the trainable forward), attention_heads.cu (kernels 7 and 8)
-// and attention_packed.cu (kernel 2, and kernel 3 with the pair flags).
+// encoder and the trainable forward), attention_heads.cu (kernels 7 and 8),
+// attention_packed.cu (kernel 2, and kernel 3 with the pair flags) and
+// attention_shortkey.cu (kernel 4, the pair flags optional, key tiles sized
+// to its short keys).
 //
 // What it computes, per (sample b, head h), as attention_batched_reference
 // in float32 (the TPU's _mha_kernel_batched):
@@ -19,8 +21,10 @@
 // the column slice [h*hd, (h+1)*hd), read and written in place.
 //
 // Design. A block of 4 warps takes 64 query rows (16 a warp) of one (b, h)
-// and walks the keys in tiles of 32. The Q tile is staged once by cp.async,
-// scaled and split (hi, lo) once; the K and V tiles stream by cp.async into
+// and walks the keys in tiles of 32 (KN, a template argument: the short-key
+// kernel takes one tile of 24 or 40 keys where that holds every key). The
+// Q tile is staged once by cp.async, scaled and split (hi, lo) once; the K
+// and V tiles stream by cp.async into
 // two buffers (the next tile lands while this one is computed) and each
 // thread splits the chunks it copied (tf32x3::walk). Per key tile a warp
 // takes S = qs . K^T (hd / 8 k steps x 4 n8 tiles x 3 mma.sync m16n8k8
@@ -34,7 +38,8 @@
 // f32 ulps. Shared memory: (2 x 64 + 8 x 32) rows of hd + 4 floats: 55 KB at
 // hd 32 (4 blocks an SM), 104 KB at 64, 203 KB at 128. Blocks of 128 rows
 // (8 warps sharing each K / V tile) were no faster at hd 32 and slower at
-// hd 16 on the H100 (PERF.md section 6).
+// hd 16 on the H100 at 601 keys, and slower at the charades short-key site
+// and hd 16 at 17 keys (PERF.md section 6).
 //
 // Wide heads (a head_dim above 128, zero-padded by the wrapper to 128 n):
 // one block per (b, h, 64 query rows, output chunk c of 128 columns). For
@@ -72,10 +77,15 @@ constexpr int min_blocks() {
 }
 
 // Dynamic shared memory: Qhi, Qlo [ROWS][RS]; two buffers of Khi, Klo, Vhi,
-// Vlo [KT][RS]; two buffers of KT key flags.
-template <int HD>
+// Vlo [KN][RS] (key tiles of KN keys); two buffers of KN key flags. Where
+// one tile holds every key, block_attend takes one buffer and its flags
+// (bytes_for).
+template <int HD, int KN = KT>
 struct Smem {
-  static constexpr size_t bytes = (size_t)(2 * ROWS + 8 * KT) * RS<HD> * 4 + 2 * KT;
+  static constexpr size_t bytes = (size_t)(2 * ROWS + 8 * KN) * RS<HD> * 4 + 2 * KN;
+  static size_t bytes_for(int Lk) {
+    return Lk <= KN ? (size_t)(2 * ROWS + 4 * KN) * RS<HD> * 4 + KN : bytes;
+  }
 };
 // Wide heads: Qhi, Qlo [ROWS][RS]; one buffer of Khi, Klo, Vhi, Vlo [KT][RS]
 // (RS of a slice); KT key flags.
@@ -199,31 +209,32 @@ struct Online {
 template <int HD>
 constexpr int NH = HD >= 128 ? HD / 16 : HD / 8;
 
-// One tile of KT keys for a warp's 16 rows: S = qs . K^T, the masks and the
+// One tile of KN keys for a warp's 16 rows: S = qs . K^T, the masks and the
 // online softmax update, then o = o * alpha + e . V. Kt, Vt: the tile's
-// split K and V rows (KT rows of RS<HD>); flags: its KT key flags; qf0, qf1:
+// split K and V rows (KN rows of RS<HD>); flags: its KN key flags; qf0, qf1:
 // the pair flags of rows g and g + 8. The step of block_attend below, and
 // of the fused stream layer (stream_layer.cu), whose K and V tiles are its
 // own projections.
-template <int HD>
+template <int HD, int KN = KT>
 __device__ __forceinline__ void attend_tile(Online<HD / 8>& st, const SplitRows<HD>& qa,
                                             const SplitTile& Kt, const SplitTile& Vt,
                                             const uint8_t* flags, int lane, bool qf0, bool qf1) {
-  constexpr int NT = KT / 8;
+  constexpr int NT = KN / 8;
   float s[NT][4];
   tf32x3::product_nt<HD, NT>(s, qa, Kt, 0, lane);
   float alpha0, alpha1;
   st.template update<NT>(s, flags, lane & 3, qf0, qf1, alpha0, alpha1);
-  st.template accumulate<HD, KT, NH<HD>>(s, Vt, lane, alpha0, alpha1);
+  st.template accumulate<HD, KN, NH<HD>>(s, Vt, lane, alpha0, alpha1);
 }
 
 // The output rows [q0, q0 + ROWS) of head h of sample b, head_dim HD (16,
-// 32, 64 or 128), by the THREADS threads of the block, with Smem<HD>::bytes
-// of dynamic shared memory at `smem`. q, k, v, out: (B, Lq or Lk, E) f32 on
-// 16-byte boundaries; mask (B, Lk) uint8; scale the f32 softmax scale.
-// FACTORS: qf (Lq) and kf (Lk), the pair factors of head h of sample b as
-// uint8, mask the pairs whose flags are both set.
-template <int HD, bool FACTORS = false>
+// 32, 64 or 128), key tiles of KN keys, by the THREADS threads of the
+// block, with Smem<HD, KN>::bytes_for(Lk) of dynamic shared memory at
+// `smem`. q, k, v, out: (B, Lq or Lk, E) f32 on 16-byte boundaries; mask
+// (B, Lk) uint8; scale the f32 softmax scale. FACTORS: qf (Lq) and kf (Lk),
+// the pair factors of head h of sample b as uint8, mask the pairs whose
+// flags are both set.
+template <int HD, bool FACTORS = false, int KN = KT>
 __device__ __forceinline__ void block_attend(const float* __restrict__ q,
                                              const float* __restrict__ k,
                                              const float* __restrict__ v,
@@ -233,18 +244,18 @@ __device__ __forceinline__ void block_attend(const float* __restrict__ q,
                                              unsigned char* smem,
                                              const uint8_t* __restrict__ qf = nullptr,
                                              const uint8_t* __restrict__ kf = nullptr) {
-  constexpr int R = RS<HD>, T1 = KT * R, NT = KT / 8;
+  constexpr int R = RS<HD>, T1 = KN * R;
+  const int ntiles = (Lk + KN - 1) / KN;
   float* Qh = reinterpret_cast<float*>(smem);
   float* Ql = Qh + ROWS * R;
-  float* buf = Ql + ROWS * R;                              // [2][Khi, Klo, Vhi, Vlo][T1]
-  uint8_t* Fs = reinterpret_cast<uint8_t*>(buf + 8 * T1);  // [2][KT]
+  float* buf = Ql + ROWS * R;  // [2][Khi, Klo, Vhi, Vlo][T1], one buffer for one tile
+  uint8_t* Fs = reinterpret_cast<uint8_t*>(buf + (ntiles > 1 ? 8 : 4) * T1);  // [2][KN]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int rows = min(ROWS, Lq - q0);
   const float* kb = k + (size_t)b * Lk * E + h * HD;
   const float* vb = v + (size_t)b * Lk * E + h * HD;
   const uint8_t* mask_b = mask + (size_t)b * Lk;
-  const int ntiles = (Lk + KT - 1) / KT;
   const bool active = 16 * warp < rows;  // a warp past Lq still meets the barriers
   const int r0 = q0 + 16 * warp + g;
   bool qf0 = false, qf1 = false;
@@ -262,15 +273,15 @@ __device__ __forceinline__ void block_attend(const float* __restrict__ q,
   tf32x3::walk(
       ntiles,
       [&](int it, int bi) {
-        const int k0 = it * KT;
+        const int k0 = it * KN;
         float* base = buf + bi * 4 * T1;
-        tf32x3::stage_tile<HD, KT, THREADS>(base, kb + (size_t)k0 * E, min(KT, Lk - k0), E);
-        tf32x3::stage_tile<HD, KT, THREADS>(base + 2 * T1, vb + (size_t)k0 * E,
-                                            min(KT, Lk - k0), E);
-        if (tid < KT) {
+        tf32x3::stage_tile<HD, KN, THREADS>(base, kb + (size_t)k0 * E, min(KN, Lk - k0), E);
+        tf32x3::stage_tile<HD, KN, THREADS>(base + 2 * T1, vb + (size_t)k0 * E,
+                                            min(KN, Lk - k0), E);
+        if (tid < KN) {
           uint8_t f = tf32x3::key_flag(mask_b, k0 + tid, Lk);
           if (FACTORS && k0 + tid < Lk && kf[k0 + tid]) f |= KEY_PAIR;
-          Fs[bi * KT + tid] = f;
+          Fs[bi * KN + tid] = f;
         }
         tf32x3::cp_async_commit();
       },
@@ -280,14 +291,14 @@ __device__ __forceinline__ void block_attend(const float* __restrict__ q,
           first = false;
         }
         float* base = buf + bi * 4 * T1;
-        tf32x3::split_tile<HD, KT, THREADS>(base, base + T1, 1.f);
-        tf32x3::split_tile<HD, KT, THREADS>(base + 2 * T1, base + 3 * T1, 1.f);
+        tf32x3::split_tile<HD, KN, THREADS>(base, base + T1, 1.f);
+        tf32x3::split_tile<HD, KN, THREADS>(base + 2 * T1, base + 3 * T1, 1.f);
       },
       [&](int, int bi) {
         if (!active) return;
         const float* base = buf + bi * 4 * T1;
-        attend_tile<HD>(st, qa, SplitTile{base, base + T1}, SplitTile{base + 2 * T1, base + 3 * T1},
-                        Fs + bi * KT, lane, qf0, qf1);
+        attend_tile<HD, KN>(st, qa, SplitTile{base, base + T1},
+                            SplitTile{base + 2 * T1, base + 3 * T1}, Fs + bi * KN, lane, qf0, qf1);
       },
       [](int) {});
   if (active) st.store(out + h * HD, (size_t)b * Lq, r0, Lq, E, t);

@@ -1,7 +1,9 @@
 // Device code shared by the float32 attention kernels whose products run on
 // the tensor cores in 3xTF32: the forward body (attention_fp32.cuh: kernels
-// 2, 6, 7 and 8 in float32, and the pair and short-key entry points at wide
-// heads) and the backward (attention_backward.cu).
+// 2, 3, 6, 7 and 8 in float32, and kernel 4, attention_shortkey.cu's
+// packed short-key kernel, at every head_dim), the fp32 one-matmul kernel
+// (kernel 5, attention_shortkey.cu, head_dim 16 to 128; above 128 it runs on
+// the CUDA cores) and the backward (attention_backward.cu).
 //
 // One TF32 product keeps 10 mantissa bits of each operand, too few for an
 // f32 function; 3xTF32 keeps about 21: each operand x splits into hi =

@@ -25,15 +25,18 @@ kernels/csrc/attention_shortkey.cu:
   Plain version: `attention_shortkey_onematmul_reference`.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernel or raise:
-bf16 or fp32, Ev == E, any head_dim (16, 32, 64 and 128 native, multiples
-of 128 above on the wide bodies, any other zero-padded to the next of
-them). bf16 runs on the tensor cores (q,
-k and v on 16-byte boundaries): `attention_shortkey` on the body of the pair
-kernel (kernels/csrc/attention_mma.cuh, its pair chain), one block per
-sample, query tile and head; `attention_shortkey_onematmul` on the same mma
-tiles with one block per sample and query tile that walks every head twice
-(the row's maximum over all heads, then each head's segment softmax and
-P . V), at most 64 keys. fp32 runs on the CUDA cores.
+bf16 or fp32 on 16-byte boundaries, Ev == E, any head_dim (16, 32, 64 and
+128 native, multiples of 128 above on the wide bodies, any other
+zero-padded to the next of them). Both dtypes run on the tensor cores:
+`attention_shortkey` in bf16 on the body of the pair kernel
+(kernels/csrc/attention_mma.cuh, its pair chain), in fp32 on the pair
+kernel's 3xTF32 body (attention_fp32.cuh) with a key tile sized to the
+short keys, one block per sample, query tile and head, any Lk;
+`attention_shortkey_onematmul` on its own kernel of one block per sample
+and query tile over every head, in two passes (the row's maximum over all
+heads, then each head's segment softmax and P . V): bf16 on the mma tiles,
+at most 64 keys; fp32 in 3xTF32 on mma.sync m16n8k8, any Lk whose K and V
+fit in shared memory, on the CUDA cores only at a head_dim above 128.
 """
 from __future__ import annotations
 
@@ -100,17 +103,17 @@ def attention_shortkey_onematmul_reference(q, k, v, num_heads: int, key_valid_ma
 def _launch(name: str, q, k, v, num_heads: int, key_valid_mask, pair_factors: PairFactors,
             onematmul: bool):
     """Checks the operands and launches kernels/csrc/attention_shortkey.cu;
-    returns out. Both kernels run bf16 on the tensor cores (operands on
-    16-byte boundaries; the one-matmul kernel at most ONEMATMUL_MAX_LK keys)
-    and fp32 on the CUDA cores: a route by dtype, taken before the launch.
-    Any head_dim, padded to the next instance (16, 32, 64, 128, or a
-    multiple of 128 above)."""
-    mma = q.dtype == torch.bfloat16
-    if mma and onematmul and k.ndim == 3 and k.shape[1] > ONEMATMUL_MAX_LK:
+    returns out. Both kernels run bf16 (the one-matmul kernel at most
+    ONEMATMUL_MAX_LK keys) and fp32 on the tensor cores, operands on
+    16-byte boundaries: a route by dtype, taken before the launch. The
+    source's shared-memory size of the shape refuses, before the launch,
+    what a block cannot hold. Any head_dim, padded to the next instance (16,
+    32, 64, 128, or a multiple of 128 above)."""
+    if q.dtype == torch.bfloat16 and onematmul and k.ndim == 3 and k.shape[1] > ONEMATMUL_MAX_LK:
         raise ValueError(f"{name}: the bf16 kernel takes at most {ONEMATMUL_MAX_LK} keys, "
                          f"got {k.shape[1]}")
     B, Lq, Lk, _, hd = check_operands(name, q, k, v, num_heads, key_valid_mask,
-                                      (torch.bfloat16, torch.float32), aligned=mma)
+                                      (torch.bfloat16, torch.float32), aligned=True)
     H = num_heads
     hdp = kernel_head_dim(hd)
     q, k, v = (pad_heads(t, H, hdp) for t in (q, k, v))

@@ -371,7 +371,8 @@ def test_bf16_short_key_kernel_runs_the_mma_body():
     one-matmul kernel to its own kernel on the same mma tiles, one block per
     (sample, query tile) over every head, its logits through the pair
     chain's masks with the bf16 scale already in q, its segment sums divided
-    exactly. fp32 keeps the CUDA-core body, which has no bf16 instance left."""
+    exactly. No CUDA-core body has a bf16 instance (fp32 runs in 3xTF32:
+    test_torch_shortkey_fp32.py)."""
     csrc = REPO / "mesm_tpu_torch" / "kernels" / "csrc"
     source = (csrc / "attention_shortkey.cu").read_text()
     assert '#include "attention_mma.cuh"' in source
