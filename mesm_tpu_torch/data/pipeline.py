@@ -16,6 +16,8 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 _SENTINEL = object()
 
 # Per-WORKER loader (each pool worker process gets its own copy via the pool
@@ -171,23 +173,25 @@ def stage_batch(batch, cast_bf16: bool, device) -> Dict[str, torch.Tensor]:
     `cast_bf16`; every other field keeps its dtype. CUDA copies go through
     pinned memory and are issued non-blocking on the current stream. A
     multi-clip (QVHighlights) batch's per-group SS video is expanded to its
-    rows on the device by `ss_group_slot` (mesm_tpu/data/pipeline.py:179-182)."""
-    device = torch.device(device)
-    pin = device.type == "cuda"
-    jb = {}
-    for k, v in batch.items():
-        a = np.asarray(v)
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if cast_bf16 and a.dtype == np.float32 and a.ndim >= 3:
-            t = t.to(torch.bfloat16)
-        if pin:
-            t = t.pin_memory().to(device, non_blocking=True)
-        jb[k] = t
-    if "ss_video_feat_groups" in jb:
-        slot = jb.pop("ss_group_slot").long()
-        jb["ss_video_feat"] = jb.pop("ss_video_feat_groups")[slot]
-        jb["ss_video_mask"] = jb.pop("ss_video_mask_groups")[slot]
-    return jb
+    rows on the device by `ss_group_slot` (mesm_tpu/data/pipeline.py:179-182).
+    The span `data.stage_batch`."""
+    with span("data.stage_batch"):
+        device = torch.device(device)
+        pin = device.type == "cuda"
+        jb = {}
+        for k, v in batch.items():
+            a = np.asarray(v)
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if cast_bf16 and a.dtype == np.float32 and a.ndim >= 3:
+                t = t.to(torch.bfloat16)
+            if pin:
+                t = t.pin_memory().to(device, non_blocking=True)
+            jb[k] = t
+        if "ss_video_feat_groups" in jb:
+            slot = jb.pop("ss_group_slot").long()
+            jb["ss_video_feat"] = jb.pop("ss_video_feat_groups")[slot]
+            jb["ss_video_mask"] = jb.pop("ss_video_mask_groups")[slot]
+        return jb
 
 
 def staged_signature(fields: Dict[str, torch.Tensor]) -> tuple:
@@ -214,47 +218,51 @@ def stage_superbatch(batches, cast_bf16: bool, device,
 
     `into(signature)`, when given (CoalescedEvalStep.static_inputs), names
     tensors of the staged signature to write into (a CUDA graph's static
-    inputs) or None; the fields go there instead of into new tensors."""
-    device = torch.device(device)
-    pin = device.type == "cuda"
-    K = len(batches)
-    host = {}
-    for k in batches[0]:
-        parts = [torch.from_numpy(np.ascontiguousarray(np.asarray(b[k]))) for b in batches]
-        dt = parts[0].dtype
-        if cast_bf16 and dt == torch.float32 and parts[0].dim() >= 3:
-            dt = torch.bfloat16
-        buf = torch.empty((K,) + tuple(parts[0].shape), dtype=dt, pin_memory=pin)
-        for i, part in enumerate(parts):
-            if part.shape != parts[0].shape:
-                raise ValueError(f"stage_superbatch: {k} has shapes {tuple(parts[0].shape)} and "
-                                 f"{tuple(part.shape)}; a superbatch takes batches of one shape")
-            buf[i].copy_(part)
-        host[k] = buf
-    if "video_feat_g" in host:
-        vf = host.pop("video_feat_g")
-        host["video_feat_rows"] = vf.view(-1, vf.shape[-1])
-    ss = "ss_video_feat_groups" in host
-    fields = {k: (tuple(v.shape), v.dtype) for k, v in host.items()}
-    if ss:
-        rows = fields.pop("ss_group_slot")[0]  # (K, B)
-        for src, name in _SS_FIELDS:
-            shape, dt = fields.pop(src)
-            fields[name] = (rows + shape[2:], dt)
-    dst = into(tuple(sorted((k, shape, dt) for k, (shape, dt) in fields.items()))) if into else None
-    staged = {}
-    for k, t in host.items():
-        if dst is not None and k in dst:
-            staged[k] = dst[k].copy_(t, non_blocking=pin)
-        else:
-            staged[k] = t.to(device, non_blocking=pin)
-    if ss:
-        slot = staged.pop("ss_group_slot").long()
-        lead = torch.arange(K, device=device)[:, None]
-        for src, name in _SS_FIELDS:
-            expanded = staged.pop(src)[lead, slot]
-            staged[name] = expanded if dst is None else dst[name].copy_(expanded)
-    return staged
+    inputs) or None; the fields go there instead of into new tensors. The
+    span `data.stage_superbatch`."""
+    with span("data.stage_superbatch"):
+        device = torch.device(device)
+        pin = device.type == "cuda"
+        K = len(batches)
+        host = {}
+        for k in batches[0]:
+            parts = [torch.from_numpy(np.ascontiguousarray(np.asarray(b[k]))) for b in batches]
+            dt = parts[0].dtype
+            if cast_bf16 and dt == torch.float32 and parts[0].dim() >= 3:
+                dt = torch.bfloat16
+            buf = torch.empty((K,) + tuple(parts[0].shape), dtype=dt, pin_memory=pin)
+            for i, part in enumerate(parts):
+                if part.shape != parts[0].shape:
+                    raise ValueError(f"stage_superbatch: {k} has shapes {tuple(parts[0].shape)} "
+                                     f"and {tuple(part.shape)}; a superbatch takes batches of one "
+                                     "shape")
+                buf[i].copy_(part)
+            host[k] = buf
+        if "video_feat_g" in host:
+            vf = host.pop("video_feat_g")
+            host["video_feat_rows"] = vf.view(-1, vf.shape[-1])
+        ss = "ss_video_feat_groups" in host
+        fields = {k: (tuple(v.shape), v.dtype) for k, v in host.items()}
+        if ss:
+            rows = fields.pop("ss_group_slot")[0]  # (K, B)
+            for src, name in _SS_FIELDS:
+                shape, dt = fields.pop(src)
+                fields[name] = (rows + shape[2:], dt)
+        sig = tuple(sorted((k, shape, dt) for k, (shape, dt) in fields.items()))
+        dst = into(sig) if into else None
+        staged = {}
+        for k, t in host.items():
+            if dst is not None and k in dst:
+                staged[k] = dst[k].copy_(t, non_blocking=pin)
+            else:
+                staged[k] = t.to(device, non_blocking=pin)
+        if ss:
+            slot = staged.pop("ss_group_slot").long()
+            lead = torch.arange(K, device=device)[:, None]
+            for src, name in _SS_FIELDS:
+                expanded = staged.pop(src)[lead, slot]
+                staged[name] = expanded if dst is None else dst[name].copy_(expanded)
+        return staged
 
 
 _SS_FIELDS = (("ss_video_feat_groups", "ss_video_feat"), ("ss_video_mask_groups", "ss_video_mask"))

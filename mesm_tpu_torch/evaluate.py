@@ -36,6 +36,7 @@ from .metrics import eval_submission
 from .parallel.step import make_eval_step
 from .postprocess import SpanPostProcessor, apply_nms
 from .utils import save_json, save_jsonl
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 logging.basicConfig(
@@ -87,15 +88,16 @@ def _copy_out(trees, device):
     the event that ends them. Returns (the copies, the event or None)."""
     pin = torch.device(device).type == "cuda"
     out = []
-    for tree in trees:
-        out.append({})
-        for k, v in tree.items():
-            out[-1][k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
-            out[-1][k].copy_(v, non_blocking=pin)
-    event = None
-    if pin:
-        event = torch.cuda.Event()
-        event.record()
+    with span("eval.copy_out"):
+        for tree in trees:
+            out.append({})
+            for k, v in tree.items():
+                out[-1][k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+                out[-1][k].copy_(v, non_blocking=pin)
+        event = None
+        if pin:
+            event = torch.cuda.Event()
+            event.record()
     return out, event
 
 
@@ -201,24 +203,27 @@ def _coalesced_results(eval_step, loader, opt, device, record_losses, mr_res) ->
             return
         preds, losses, event, group = inflight.pop()
         if event is not None:
-            event.synchronize()
-        for j, (batch, meta) in enumerate(group):
-            record_losses({k: v[j] for k, v in losses.items()})
-            _decode_batch({k: v[j].float().numpy() for k, v in preds.items()}, batch, meta, opt,
-                          mr_res)
+            with span("eval.wait"):
+                event.synchronize()
+        with span("eval.decode"):
+            for j, (batch, meta) in enumerate(group):
+                record_losses({k: v[j] for k, v in losses.items()})
+                _decode_batch({k: v[j].float().numpy() for k, v in preds.items()}, batch, meta,
+                              opt, mr_res)
 
     def flush():
         nonlocal pend, pend_sig
         if not pend:
             return
-        items = pend + [pend[-1]] * (K - len(pend))  # padding: outputs discarded
-        out = eval_step(stage_superbatch([batch for batch, _ in items], cast, device,
-                                         into=getattr(eval_step, "static_inputs", None)))
-        (host_preds, host_losses), event = _copy_out(
-            out if isinstance(out, tuple) else (out, {}), device)
-        group, pend, pend_sig = pend, [], None
-        drain()  # decode the previous group while this one runs
-        inflight.append((host_preds, host_losses, event, group))
+        with span("eval.call"):
+            items = pend + [pend[-1]] * (K - len(pend))  # padding: outputs discarded
+            out = eval_step(stage_superbatch([batch for batch, _ in items], cast, device,
+                                             into=getattr(eval_step, "static_inputs", None)))
+            (host_preds, host_losses), event = _copy_out(
+                out if isinstance(out, tuple) else (out, {}), device)
+            group, pend, pend_sig = pend, [], None
+            drain()  # decode the previous group while this one runs
+            inflight.append((host_preds, host_losses, event, group))
 
     for batch, meta in loader:
         sig = _host_signature(batch)
@@ -237,36 +242,41 @@ def compute_mr_results(eval_step, loader, opt, device, loss_meters=None):
     A step built with_loss returns (predictions, losses); each loss term then
     goes into loss_meters[term] (mesm_tpu/evaluate.py:212-235). A coalesced
     step (`eval_step.coalesce` > 1) takes K batches a call
-    (_coalesced_results)."""
-    mr_res = []
+    (_coalesced_results). The pass is the span `eval.pass`."""
+    with span("eval.pass", unit=True):
+        mr_res = []
 
-    def record_losses(losses):
-        if loss_meters is not None:
-            for k, v in losses.items():
-                loss_meters[k].update(float(v))
+        def record_losses(losses):
+            if loss_meters is not None:
+                for k, v in losses.items():
+                    loss_meters[k].update(float(v))
 
-    if getattr(eval_step, "coalesce", 1) > 1:
-        _coalesced_results(eval_step, loader, opt, device, record_losses, mr_res)
-    else:
-        cast = R.compute_dtype_from_opt(opt) == torch.bfloat16
-        for jb, batch, meta in device_feed(loader, device, cast):
-            preds = eval_step(jb)
-            if isinstance(preds, tuple):
-                preds, losses = preds
-                record_losses(losses)
-            _decode_batch(_to_host(preds), batch, meta, opt, mr_res)
-    post = SpanPostProcessor(
-        clip_length=opt.clip_len,
-        min_ts_val=0,
-        max_ts_val=opt.max_ts_val,
-        min_w_l=2,
-        max_w_l=150,
-        move_window_method="left",
-        process_func_names=(
-            ("clip_ts", "round_multiple") if opt.clip_len != -1 else ("clip_ts",)
-        ),
-    )
-    return post(mr_res)
+        if getattr(eval_step, "coalesce", 1) > 1:
+            _coalesced_results(eval_step, loader, opt, device, record_losses, mr_res)
+        else:
+            cast = R.compute_dtype_from_opt(opt) == torch.bfloat16
+            for jb, batch, meta in device_feed(loader, device, cast):
+                preds = eval_step(jb)
+                if isinstance(preds, tuple):
+                    preds, losses = preds
+                    record_losses(losses)
+                with span("eval.wait"):
+                    host = _to_host(preds)
+                with span("eval.decode"):
+                    _decode_batch(host, batch, meta, opt, mr_res)
+        post = SpanPostProcessor(
+            clip_length=opt.clip_len,
+            min_ts_val=0,
+            max_ts_val=opt.max_ts_val,
+            min_w_l=2,
+            max_w_l=150,
+            move_window_method="left",
+            process_func_names=(
+                ("clip_ts", "round_multiple") if opt.clip_len != -1 else ("clip_ts",)
+            ),
+        )
+        with span("eval.postprocess"):
+            return post(mr_res)
 
 
 def eval_epoch(eval_step, loader, opt, save_submission_filename: str, gt_data, device,

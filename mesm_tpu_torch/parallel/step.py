@@ -74,6 +74,7 @@ from .. import kernels
 from ..data.pipeline import staged_signature
 from ..losses import CriterionConfig, compute_losses
 from ..losses.criterion import RATIO_TERMS
+from ..utils.profiling import span
 from . import rows, seq
 
 
@@ -190,30 +191,37 @@ def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
                      compute_dtype: torch.dtype = torch.float32):
     """micro_grads(batch, neg_generator, mask_generator, neg_idx_rows=None,
     masked_words_loc=None) -> (total, losses): one batch forward in train
-    mode, the losses, and the backward into the parameters' .grad.
-    neg_idx_rows / masked_words_loc, when given, replace the draws."""
+    mode, the losses, and the backward into the parameters' .grad (the
+    spans `train.forward`: the text encode, the negatives' draw and the
+    model call; `train.loss`: compute_losses, the matcher's launches
+    included; `train.backward`). neg_idx_rows / masked_words_loc, when
+    given, replace the draws."""
 
     @torch.enable_grad()  # whatever grad mode the caller is in
     def micro_grads(batch, neg_generator=None, mask_generator=None,
                     neg_idx_rows=None, masked_words_loc=None):
         model.train()
-        words_feat, words_mask, sentence_feat = encode_text(batch)
-        if neg_idx_rows is None:  # drawn for the whole batch (parallel/rows.py)
-            neg_idx_rows = rows.local(sample_out_of_group(
-                neg_generator, rows.gather(batch["group_id"]), rows.gather(batch.get("row_mask"))))
-        out = model(
-            batch["video_mask"], words_feat.to(compute_dtype), words_mask, sentence_feat,
-            video_feat=_cast(batch.get("video_feat"), compute_dtype),
-            ss_sent_idx=batch.get("ss_sent_idx"), ss_sent_mask=batch.get("ss_sent_mask"),
-            ss_own_pos=batch.get("ss_own_pos"),
-            ss_video_feat=_cast(batch.get("ss_video_feat"), compute_dtype),
-            ss_video_mask=batch.get("ss_video_mask"), neg_idx_rows=neg_idx_rows,
-            clip_mask=batch.get("clip_mask"), words_weight=batch.get("words_weight"),
-            unknown_mask=batch.get("unknown_mask"), masked_words_loc=masked_words_loc,
-            mask_generator=mask_generator,
-        )
-        losses, total = compute_losses(out, batch, ccfg, is_training=True)
-        (total / seq.world()).backward()  # the model ranks' gradients are summed
+        with span("train.forward"):
+            words_feat, words_mask, sentence_feat = encode_text(batch)
+            if neg_idx_rows is None:  # drawn for the whole batch (parallel/rows.py)
+                neg_idx_rows = rows.local(sample_out_of_group(
+                    neg_generator, rows.gather(batch["group_id"]),
+                    rows.gather(batch.get("row_mask"))))
+            out = model(
+                batch["video_mask"], words_feat.to(compute_dtype), words_mask, sentence_feat,
+                video_feat=_cast(batch.get("video_feat"), compute_dtype),
+                ss_sent_idx=batch.get("ss_sent_idx"), ss_sent_mask=batch.get("ss_sent_mask"),
+                ss_own_pos=batch.get("ss_own_pos"),
+                ss_video_feat=_cast(batch.get("ss_video_feat"), compute_dtype),
+                ss_video_mask=batch.get("ss_video_mask"), neg_idx_rows=neg_idx_rows,
+                clip_mask=batch.get("clip_mask"), words_weight=batch.get("words_weight"),
+                unknown_mask=batch.get("unknown_mask"), masked_words_loc=masked_words_loc,
+                mask_generator=mask_generator,
+            )
+        with span("train.loss"):
+            losses, total = compute_losses(out, batch, ccfg, is_training=True)
+        with span("train.backward"):
+            (total / seq.world()).backward()  # the model ranks' gradients are summed
         return total, losses
 
     return micro_grads
@@ -342,7 +350,8 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
                 _sum_over_ranks(params, s)
         if shard is not None:
             metrics = _metrics_over_ranks(metrics)
-        metrics["grad_norm"] = apply_update(optimizer, grad_clip)
+        with span("train.update"):
+            metrics["grad_norm"] = apply_update(optimizer, grad_clip)
         return metrics
 
     return train_step
@@ -530,10 +539,11 @@ class CoalescedEvalStep:
         return arg if neg_idx_rows is None else dict(arg, neg_idx_rows=neg_idx_rows)
 
     def __call__(self, arg, neg_idx_rows=None):
-        staged = self._check(arg, neg_idx_rows)
-        if staged["video_mask"].device.type != "cuda":
-            return self.run(staged)
-        return self._replay(staged)
+        with span("eval.step"):
+            staged = self._check(arg, neg_idx_rows)
+            if staged["video_mask"].device.type != "cuda":
+                return self.run(staged)
+            return self._replay(staged)
 
     # -- CUDA graphs ---------------------------------------------------------
 
@@ -563,25 +573,26 @@ class CoalescedEvalStep:
 
     def _capture(self, key: tuple, staged: Dict[str, torch.Tensor]) -> _Graph:
         global graphs_captured
-        device = staged["video_mask"].device
-        inputs = {k: v.clone() for k, v in staged.items()}
-        noise = (eval_noise(self.seed, inputs["group_id"].shape[-1], device)
-                 if self.with_loss else None)
-        current = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self.run(inputs, noise)  # builds the kernels, fills the weight caches
-        current.wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            outputs = self.run(inputs, noise)
-        graph.instantiate()
-        entry = self._graphs[key] = _Graph(graph, inputs, outputs, noise)
-        graphs_captured += 1
-        return entry
+        with span("eval.capture"):
+            device = staged["video_mask"].device
+            inputs = {k: v.clone() for k, v in staged.items()}
+            noise = (eval_noise(self.seed, inputs["group_id"].shape[-1], device)
+                     if self.with_loss else None)
+            current = torch.cuda.current_stream(device)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.run(inputs, noise)  # builds the kernels, fills the weight caches
+            current.wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = self.run(inputs, noise)
+            graph.instantiate()
+            entry = self._graphs[key] = _Graph(graph, inputs, outputs, noise)
+            graphs_captured += 1
+            return entry
 
     def _replay(self, staged: Dict[str, torch.Tensor]):
         global graph_replays

@@ -73,6 +73,7 @@ from .parallel import multihost
 from .parallel.step import current_learning_rate, make_eval_step, make_train_step, set_learning_rate
 from .utils import AverageMeter, count_parameters, dict_to_markdown, load_checkpoint, save_checkpoint
 from .utils.checkpoint import V1_FORMAT
+from .utils.profiling import span
 
 logger = logging.getLogger(__name__)
 logging.basicConfig(
@@ -149,28 +150,38 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
     meters of the epoch, each weighted as the reference logs it). Under
     torch.distributed each process takes its rows of every batch
     (multihost.local_view), and a SIGTERM on any rank stops every rank after
-    the same step."""
+    the same step. The spans: `train.load` (the wait for each batch, and
+    for the loader's end), `data.stage_batch`, and `train.step` around the
+    step and `train.readback`; the time meters read time.perf_counter() at
+    their edges."""
     time_meters = defaultdict(AverageMeter)
     loss_meters = defaultdict(AverageMeter)
     weight_map = _weight_map(opt)
-    timer = time.time()
-    for batch, _ in loader:
-        time_meters["dataloading_time"].update(time.time() - timer)
-        t0 = time.time()
+    batches = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        with span("train.load"):
+            item = next(batches, None)
+        t1 = time.perf_counter()
+        if item is None:
+            break
+        batch, _ = item
+        time_meters["dataloading_time"].update(t1 - t0)
         if dist.is_initialized():
             batch = multihost.local_view(batch, micro=getattr(opt, "grad_accum", 1))
         jb = stage_batch(batch, False, device)
-        time_meters["prepare_inputs_time"].update(time.time() - t0)
-        t0 = time.time()
-        metrics = train_step(jb, step)
-        metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        t2 = time.perf_counter()
+        time_meters["prepare_inputs_time"].update(t2 - t1)
+        with span("train.step", unit=True):
+            metrics = train_step(jb, step)
+            with span("train.readback"):
+                metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+        time_meters["train_step_time"].update(time.perf_counter() - t2)
         if step == 0 and _is_rank0():  # the run's first step, before AdamW has moved anything
             logger.info("Step 1 losses " + json.dumps(metrics))
         step += 1
-        time_meters["train_step_time"].update(time.time() - t0)
         for k, v in metrics.items():
             loss_meters[k].update(v * weight_map.get(k, 1.0))
-        timer = time.time()
         if _any_rank(_PREEMPT.is_set(), device):
             _PREEMPT.set()
             break

@@ -1,4 +1,4 @@
-"""Profiling: torch.profiler traces and named annotations.
+"""Profiling: torch.profiler traces, spans and named annotations.
 
 Counterpart of mesm_tpu/utils/profiling.py. The reference's only
 instrumentation is four wall-clock AverageMeters (utils/meters.py, kept);
@@ -6,17 +6,29 @@ this adds traces of the host's ops and the card's kernels, written as
 `<dir>/<host>_<pid>.<n>.pt.trace.json` (viewable in chrome://tracing or
 Perfetto) and read by utils/trace_report.py.
 
+Spans are named host time ranges at the boundaries of the eval and train
+layers (one call, group, pass or step each: `eval.pass`, `data.stage_batch`,
+`train.backward`, ...), recorded in memory while `recording()` is on and
+otherwise one flag check each. They are stamped with time.time_ns(), the
+clock torch.profiler dates host events by, so they can be laid over a
+trace's device intervals; they are not profiler ranges, so a trace's host
+ops are the same with spans on or off. maybe_trace records the spans of its
+block and writes them beside the trace, as `<dir>/<host>_<pid>.<n>.spans.json`.
+
 Enable with MESM_TPU_PROFILE_DIR=/path or profile_dir= in maybe_trace.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import socket
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+from torch.profiler import ProfilerActivity, profile, record_function
 
 _ENV = "MESM_TPU_PROFILE_DIR"
 # the prefix of the ranges that carry a module path (trace_report reads it)
@@ -30,6 +42,125 @@ MODULE_RANGE_PREFIX = "nn.Module: "
 # of this name (trace_report leaves both out), then waits this long.
 SETTLE_RANGE = "settle_device_trace"
 DEVICE_CLOCK_GUARD_S = 0.05
+TRACE_SUFFIX = ".pt.trace.json"
+SPANS_SUFFIX = ".spans.json"
+
+
+# -- spans --------------------------------------------------------------------
+
+class SpanRecord:
+    """One span: its name; start_ns and end_ns from time.time_ns() (end_ns
+    0 while it is open); parent, the index in the records of the innermost
+    span open on the same thread when it opened (-1 for none); thread, the
+    opening thread's id; unit, the index of the span that opened its pass
+    or step (-1 for none)."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "thread", "unit")
+
+    def __init__(self, name: str, start_ns: int, end_ns: int, parent: int, thread: int,
+                 unit: int):
+        self.name, self.start_ns, self.end_ns = name, start_ns, end_ns
+        self.parent, self.thread, self.unit = parent, thread, unit
+
+    def as_dict(self) -> dict:
+        return {k: getattr(self, k) for k in self.__slots__}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SpanRecord":
+        return cls(*(d[k] for k in cls.__slots__))
+
+
+_recording = False
+_records: List[SpanRecord] = []
+_generation = 0  # counts recordings: a stack entry left from an older one is no parent
+_lock = threading.Lock()
+_local = threading.local()
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "unit", "record")
+
+    def __init__(self, name: str, unit: bool):
+        self.name, self.unit = name, unit
+
+    def __enter__(self) -> SpanRecord:
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            stack = _local.stack = []
+        parent = unit = -1
+        if stack and stack[-1][0] == _generation:
+            _, parent, unit = stack[-1]
+        rec = self.record = SpanRecord(self.name, 0, 0, parent, threading.get_ident(), unit)
+        with _lock:
+            index = len(_records)
+            _records.append(rec)
+        if self.unit:
+            rec.unit = index
+        stack.append((_generation, index, rec.unit))
+        rec.start_ns = time.time_ns()
+        return rec
+
+    def __exit__(self, *exc):
+        self.record.end_ns = time.time_ns()
+        _local.stack.pop()
+        return False
+
+
+def span(name: str, unit: bool = False):
+    """A context manager around one call, group, pass or step of the host
+    path. While recording() is on it appends a SpanRecord, closed on an
+    exception too; `unit` opens a pass or step, whose spans inside carry its
+    index. Off, it returns one shared object that does nothing."""
+    if not _recording:
+        return _NO_SPAN
+    return _Span(name, unit)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the spans of the block (of every thread); yields the list of
+    SpanRecords, in the order the spans opened. Recording inside a
+    recording raises."""
+    global _recording, _records, _generation
+    with _lock:
+        if _recording:
+            raise RuntimeError("spans are already being recorded")
+        _records = []
+        _generation += 1
+        _recording = True
+        records = _records
+    try:
+        yield records
+    finally:
+        _recording = False
+
+
+def _writer(profile_dir: str, records: List[SpanRecord]):
+    """The trace's on_trace_ready: the trace, and the block's spans beside
+    it under the same name."""
+
+    def write(prof) -> None:
+        os.makedirs(profile_dir, exist_ok=True)
+        stem = os.path.join(profile_dir, f"{socket.gethostname()}_{os.getpid()}."
+                                         f"{time.time_ns() // 1_000_000}")
+        prof.export_chrome_trace(stem + TRACE_SUFFIX)
+        with open(stem + SPANS_SUFFIX, "w") as f:
+            json.dump({"clock": "time.time_ns", "spans": [r.as_dict() for r in records]}, f)
+
+    return write
 
 
 def settle_device_trace() -> None:
@@ -76,8 +207,9 @@ def maybe_trace(profile_dir: Optional[str] = None, model: Optional[torch.nn.Modu
     `model`, each of its modules' forward calls is a range named by its
     path while the trace runs (the hooks are removed after it), so
     trace_report.module_totals can attribute each kernel to its module.
-    The block starts after settle_device_trace. Without a directory nothing
-    is traced and nothing is installed."""
+    The block's spans are recorded and written beside the trace
+    (SPANS_SUFFIX). The block starts after settle_device_trace. Without a
+    directory nothing is traced, recorded or installed."""
     profile_dir = profile_dir or os.environ.get(_ENV)
     if not profile_dir:
         yield
@@ -87,7 +219,8 @@ def maybe_trace(profile_dir: Optional[str] = None, model: Optional[torch.nn.Modu
         activities.append(ProfilerActivity.CUDA)
     handles = _module_ranges(model) if model is not None else []
     try:
-        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        with recording() as records, profile(activities=activities,
+                                             on_trace_ready=_writer(profile_dir, records)):
             settle_device_trace()
             yield
             if torch.cuda.is_available():
@@ -101,6 +234,3 @@ def step_annotation(name: str):
     """A named range around one step on the trace's timeline."""
     return record_function(name)
 
-
-def annotate(name: str):
-    return record_function(name)

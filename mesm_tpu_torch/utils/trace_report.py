@@ -15,8 +15,13 @@ innermost module range around it on its thread: the ranges utils/profiling.maybe
 module's forward. Kernels launched by the autograd engine outside any
 module range are "<backward>", any others "<unattributed>".
 
+The spans maybe_trace writes beside a trace (`*.spans.json`, on the same
+clock) read as each span name's self time (its time less its child spans')
+and, where the trace holds the card's kernels, as the card's idle time by
+the span innermost on the host when it was idle.
+
     python -m mesm_tpu_torch.utils.trace_report <trace_dir> [--top 30]
-        [--by-module [--depth 3]] [--memory]
+        [--by-module [--depth 3]] [--memory] [--spans]
 
 reads the newest `*.pt.trace.json` under <trace_dir>.
 """
@@ -28,7 +33,8 @@ import os
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
-from .profiling import MODULE_RANGE_PREFIX, SETTLE_RANGE
+from .profiling import (MODULE_RANGE_PREFIX, SETTLE_RANGE, SPANS_SUFFIX, TRACE_SUFFIX,
+                        SpanRecord)
 
 KERNEL_CATS = ("kernel",)
 MEMORY_CATS = ("gpu_memcpy", "gpu_memset")
@@ -39,13 +45,25 @@ KERNEL_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCoopera
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
 
 
-def _load_trace(trace_dir: str) -> list:
-    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*.pt.trace.json"), recursive=True),
+def _newest_trace(trace_dir: str) -> str:
+    paths = sorted(glob.glob(os.path.join(trace_dir, "**", "*" + TRACE_SUFFIX), recursive=True),
                    key=os.path.getmtime)
     if not paths:
-        raise FileNotFoundError(f"no *.pt.trace.json under {trace_dir}")
-    with open(paths[-1]) as f:
-        return _without_settle([e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"])
+        raise FileNotFoundError(f"no *{TRACE_SUFFIX} under {trace_dir}")
+    return paths[-1]
+
+
+def _read_trace(trace_dir: str) -> Tuple[list, int]:
+    """The newest trace's complete events (settle_device_trace's left out)
+    and the time.time_ns() its `ts` (microseconds) count from."""
+    with open(_newest_trace(trace_dir)) as f:
+        trace = json.load(f)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    return _without_settle(events), int(trace.get("baseTimeNanoseconds", 0))
+
+
+def _load_trace(trace_dir: str) -> list:
+    return _read_trace(trace_dir)[0]
 
 
 def _without_settle(events: list) -> list:
@@ -217,6 +235,124 @@ def module_report(trace_dir: str, depth: int = 3, memory: bool = False) -> str:
     return "\n".join(lines)
 
 
+# -- spans ----------------------------------------------------------------------
+
+
+def load_spans(trace_dir: str) -> List[SpanRecord]:
+    """The spans written beside the newest trace under `trace_dir`."""
+    path = _newest_trace(trace_dir)[:-len(TRACE_SUFFIX)] + SPANS_SUFFIX
+    with open(path) as f:
+        return [SpanRecord.from_dict(d) for d in json.load(f)["spans"]]
+
+
+def innermost_pieces(records, thread: int) -> List[Tuple[int, int, str]]:
+    """One thread's timeline cut at its closed spans' edges: (start_ns,
+    end_ns, name of the innermost span open over it), in order; time under
+    no span has no piece. A thread's spans nest, so each piece is a part of
+    one span's self time."""
+    pieces: List[Tuple[int, int, str]] = []
+    stack: List[Tuple[int, str]] = []  # the open spans: (end_ns, name)
+    cur = 0
+    for r in sorted((r for r in records if r.thread == thread and r.end_ns),
+                    key=lambda r: (r.start_ns, -r.end_ns)):
+        while stack and stack[-1][0] <= r.start_ns:
+            end, name = stack.pop()
+            pieces.append((cur, end, name))
+            cur = end
+        if stack:
+            pieces.append((cur, r.start_ns, stack[-1][1]))
+        cur = r.start_ns
+        stack.append((r.end_ns, r.name))
+    while stack:
+        end, name = stack.pop()
+        pieces.append((cur, end, name))
+        cur = end
+    return [p for p in pieces if p[1] > p[0]]
+
+
+def span_self_times(records) -> Dict[str, Tuple[int, float]]:
+    """Each span name's closed spans: (count, self seconds), a span's self
+    time being its duration less the part its child spans cover."""
+    counts: Dict[str, int] = defaultdict(int)
+    secs: Dict[str, float] = defaultdict(float)
+    for r in records:
+        if r.end_ns:
+            counts[r.name] += 1
+    for thread in {r.thread for r in records}:
+        for a, b, name in innermost_pieces(records, thread):
+            secs[name] += (b - a) / 1e9
+    return {name: (n, secs[name]) for name, n in counts.items()}
+
+
+def idle_by_span(records, busy: List[Tuple[int, int]], start_ns: int, end_ns: int,
+                 thread: int) -> Dict[str, float]:
+    """The device's idle seconds in [start_ns, end_ns] (the window less the
+    union of the `busy` intervals, in ns) by the span innermost on `thread`
+    across them; "none" for idle time under no span."""
+    pieces = innermost_pieces(records, thread)
+    out: Dict[str, float] = defaultdict(float)
+    i, prev = 0, start_ns
+    for a, b in _union(busy) + [(end_ns, end_ns)]:
+        lo, hi = prev, min(a, end_ns)
+        prev = max(prev, b)
+        if hi <= lo:
+            continue
+        while i < len(pieces) and pieces[i][1] <= lo:
+            i += 1
+        covered, j = 0, i
+        while j < len(pieces) and pieces[j][0] < hi:
+            part = min(hi, pieces[j][1]) - max(lo, pieces[j][0])
+            if part > 0:
+                out[pieces[j][2]] += part / 1e9
+                covered += part
+            j += 1
+        if hi - lo > covered:
+            out["none"] += (hi - lo - covered) / 1e9
+    return dict(out)
+
+
+def _union(intervals) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
+def device_busy(trace_dir: str) -> List[Tuple[int, int]]:
+    """The union of the newest trace's kernel, copy and fill intervals, in
+    time.time_ns() (the spans' clock); empty for a trace without them."""
+    events, base = _read_trace(trace_dir)
+    return _union((base + round(e["ts"] * 1000), base + round((e["ts"] + e["dur"]) * 1000))
+                  for e in events if e.get("cat") in KERNEL_CATS + MEMORY_CATS)
+
+
+def span_report(trace_dir: str) -> str:
+    """Self time by span name, and where the trace holds the card's work,
+    its idle time by the innermost span of the thread that opened the first
+    span, over that thread's first span start to last span end."""
+    records = [r for r in load_spans(trace_dir) if r.end_ns]
+    if not records:
+        return "spans: none recorded"
+    lines = [f"{'span':30s} {'n':>6s} {'self ms':>10s} {'ms each':>9s}"]
+    for name, (n, s) in sorted(span_self_times(records).items(), key=lambda kv: -kv[1][1]):
+        lines.append(f"{name[:30]:30s} {n:6d} {1e3 * s:10.3f} {1e3 * s / n:9.3f}")
+    busy = device_busy(trace_dir)
+    if busy:
+        thread = records[0].thread
+        mine = [r for r in records if r.thread == thread]
+        s0, s1 = min(r.start_ns for r in mine), max(r.end_ns for r in mine)
+        idle = idle_by_span(records, busy, s0, s1, thread)
+        window = (s1 - s0) / 1e9
+        lines += [f"device idle {1e3 * sum(idle.values()):.3f} ms of {1e3 * window:.3f} ms "
+                  f"by innermost span", f"{'span':30s} {'idle ms':>10s} {'% of window':>12s}"]
+        for name, s in sorted(idle.items(), key=lambda kv: -kv[1]):
+            lines.append(f"{name[:30]:30s} {1e3 * s:10.3f} {100 * s / window:12.2f}")
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -227,8 +363,12 @@ def main(argv=None) -> None:
     ap.add_argument("--depth", type=int, default=3)
     ap.add_argument("--memory", action="store_true",
                     help="count the card's copies and fills beside its kernels")
+    ap.add_argument("--spans", action="store_true",
+                    help="self time by span, and the card's idle time by innermost span")
     args = ap.parse_args(argv)
-    if args.by_module:
+    if args.spans:
+        print(span_report(args.trace_dir))
+    elif args.by_module:
         print(module_report(args.trace_dir, args.depth, args.memory))
     else:
         print(report(args.trace_dir, args.top, args.memory))
