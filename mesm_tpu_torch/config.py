@@ -197,7 +197,9 @@ class BaseOptions:
         p.add_argument("--dedup_video", type=str, default="on",
                        choices=["on", "off"],
                        help="at eval, project each unique video once and "
-                            "gather rows after the input projection "
+                            "gather rows after the input projection; in "
+                            "training, stage each video of a batch once and "
+                            "gather its rows on the device "
                             "(value-identical; auto-disabled when videos "
                             "average < 1.5 sentences)")
         self.parser = p

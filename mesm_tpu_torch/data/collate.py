@@ -13,7 +13,10 @@ Here every batch has ONE static shape so the train/eval steps compile once:
     `ss_sent_mask` / `ss_own_pos` gather indices (consumed by SS-MESM),
   - qvhighlights' per-group concatenated video for SS-MESM is stored once per
     group (`ss_video_feat_groups`) with a per-row slot index, instead of
-    replicated per row.
+    replicated per row,
+  - with `video_groups_cap` (--dedup_video) each video is stored once per
+    entry (`video_feat_g`, `video_mask_g`) with the rows' `video_slot`:
+    padded to the cap at eval, exactly the batch's entries in training.
 
 `prepare_batch_input` parity (reference dataset/base.py:358-385): norm_moment
 (xx) = moment / duration and norm_span (cxw) are computed here on host.
@@ -50,6 +53,11 @@ class BatchSpec:
     # most this many videos (the eval batcher enforces it). Only used when
     # every entry shares one video array across its rows (charades family).
     video_groups_cap: int = 0
+    # with video_groups_cap: `video_feat_g` holds exactly the batch's videos
+    # (one per entry, no padding slots), so its first dim varies from batch
+    # to batch. The eager train step stages these and builds the rows on the
+    # device (parallel/step.expand_video_rows); eval's graphs need the cap.
+    video_groups_exact: bool = False
 
 
 def _norm_xx_to_cxw(xx: np.ndarray) -> np.ndarray:
@@ -127,7 +135,7 @@ def _collate(spec: BatchSpec, entries: List[Dict]) -> Tuple[Dict[str, np.ndarray
     )
     batch: Dict[str, np.ndarray] = {}
     if dedup:
-        NGc = spec.video_groups_cap
+        NGc = len(entries) if spec.video_groups_exact else spec.video_groups_cap
         if len(entries) > NGc:
             raise ValueError(f"batch has {len(entries)} videos > cap {NGc}")
         batch["video_feat_g"] = np.zeros((NGc, Lv, Dv), np.float32)

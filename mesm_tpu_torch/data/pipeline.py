@@ -174,6 +174,8 @@ def stage_batch(batch, cast_bf16: bool, device) -> Dict[str, torch.Tensor]:
     pinned memory and are issued non-blocking on the current stream. A
     multi-clip (QVHighlights) batch's per-group SS video is expanded to its
     rows on the device by `ss_group_slot` (mesm_tpu/data/pipeline.py:179-182).
+    A training batch's unique videos (`video_feat_g`) are staged as they
+    are; the train step builds the rows (parallel/step.expand_video_rows).
     The span `data.stage_batch`."""
     with span("data.stage_batch"):
         device = torch.device(device)

@@ -187,6 +187,32 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
     return None if t is None else t.to(dtype)
 
 
+# videos staged once and rows built from them by expand_video_rows since
+# import (or since the caller last set them to 0)
+video_groups_staged = 0
+video_rows_expanded = 0
+
+
+def expand_video_rows(batch: Dict[str, torch.Tensor],
+                      dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A training batch that carries each video once (`video_feat_g` (NG, Lv,
+    Dv) and the rows' `video_slot`, data/collate.py) with each row's video as
+    `video_feat` (B, Lv, Dv), built by one gather on the batch's device; the
+    unique videos are cast to `dtype` first. The per-video fields go: every
+    later consumer (the microbatch split, the rows' and the sequence's
+    shards, the model) reads the per-row layout. A batch without
+    `video_feat_g`, or with `video_feat` already, is returned as it is."""
+    global video_groups_staged, video_rows_expanded
+    if "video_feat_g" not in batch or "video_feat" in batch:
+        return batch
+    out = {k: v for k, v in batch.items() if k not in ("video_feat_g", "video_mask_g")}
+    slot = batch["video_slot"].long()
+    out["video_feat"] = batch["video_feat_g"].to(dtype)[slot]
+    video_groups_staged += batch["video_feat_g"].shape[0]
+    video_rows_expanded += slot.shape[0]
+    return out
+
+
 def make_micro_grads(model, ccfg: CriterionConfig, encode_text: Callable,
                      compute_dtype: torch.dtype = torch.float32):
     """micro_grads(batch, neg_generator, mask_generator, neg_idx_rows=None,
@@ -277,7 +303,8 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
     """train_step(batch, step, neg_idx_rows=None, masked_words_loc=None) ->
     metrics (device scalars: every loss term, loss_overall, grad_norm).
 
-    One optimizer update per batch. With grad_accum = k > 1
+    One optimizer update per batch; a batch that carries each video once
+    has its rows built first (expand_video_rows). With grad_accum = k > 1
     (mesm_tpu/parallel/step.py:141-230) the batch is cut into k microbatches
     of B/k rows (split_micro); each takes its own negatives, matching and
     loss normalisation, with the draws of step_draws(seed, step, micro=i);
@@ -302,6 +329,7 @@ def make_train_step(model, ccfg: CriterionConfig, encode_text: Callable, optimiz
     k = int(grad_accum)
 
     def train_step(batch, step, neg_idx_rows=None, masked_words_loc=None):
+        batch = expand_video_rows(batch, compute_dtype)
         with contextlib.ExitStack() as shards:
             if data_parallel:
                 shards.enter_context(rows.row_shard(data_group))

@@ -79,14 +79,16 @@ def make_batch_spec(opt, dataset, for_eval: bool) -> BatchSpec:
     )
     n_dev = max(int(getattr(opt, "n_devices", 0) or 0), 1)
     row_cap = ((row_cap + n_dev - 1) // n_dev) * n_dev
-    # per-video dedup at eval: unique videos are projected once, rows
-    # gathered after the wide input projection
+    # per-video batches: at eval unique videos are projected once, rows
+    # gathered after the wide input projection; in training each video is
+    # staged once and its rows are gathered on the device
     ded_cap = 0
-    if for_eval and not multi and getattr(opt, "dedup_video", "on") != "off":
+    if not multi and getattr(opt, "dedup_video", "on") != "off":
         rows = [len(e["video_id"]) for e in dataset.merged_data]
         avg = sum(rows) / max(len(rows), 1)
         if avg >= 1.5:
-            ded_cap = min(row_cap, int(math.ceil(row_cap / avg * 1.3)))
+            # a training batch holds at most row_cap entries, one row each at least
+            ded_cap = min(row_cap, int(math.ceil(row_cap / avg * 1.3))) if for_eval else row_cap
     buckets: tuple = ()
     n_buckets = getattr(opt, "eval_len_buckets", 1) or 1
     if for_eval and n_buckets > 1:
@@ -111,6 +113,7 @@ def make_batch_spec(opt, dataset, for_eval: bool) -> BatchSpec:
         with_targets=not (multi and dataset.split == "test"),
         video_buckets=buckets,
         video_groups_cap=ded_cap,
+        video_groups_exact=not for_eval,
     )
 
 

@@ -70,6 +70,7 @@ from .evaluate import eval_epoch
 import torch.distributed as dist
 
 from .parallel import multihost
+from .parallel import step as step_lib
 from .parallel.step import current_learning_rate, make_eval_step, make_train_step, set_learning_rate
 from .utils import AverageMeter, count_parameters, dict_to_markdown, load_checkpoint, save_checkpoint
 from .utils.checkpoint import V1_FORMAT
@@ -153,10 +154,12 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
     the same step. The spans: `train.load` (the wait for each batch, and
     for the loader's end), `data.stage_batch`, and `train.step` around the
     step and `train.readback`; the time meters read time.perf_counter() at
-    their edges."""
+    their edges. The epoch's stats give the rows built on the device per
+    video staged (parallel/step.expand_video_rows)."""
     time_meters = defaultdict(AverageMeter)
     loss_meters = defaultdict(AverageMeter)
     weight_map = _weight_map(opt)
+    groups0, rows0 = step_lib.video_groups_staged, step_lib.video_rows_expanded
     batches = iter(loader)
     while True:
         t0 = time.perf_counter()
@@ -197,6 +200,11 @@ def train_epoch(train_step, loader, opt, epoch_i: int, step: int, device):
     logger.info("Epoch time stats:")
     for name, meter in time_meters.items():
         logger.info(f"{name} ==> " + str({k: f"{getattr(meter, k):.4f}" for k in ("max", "min", "avg")}))
+    groups = step_lib.video_groups_staged - groups0
+    if groups:
+        rows = step_lib.video_rows_expanded - rows0
+        logger.info(f"videos staged once ==> {groups} videos, {rows} rows built on the device "
+                    f"({rows / groups:.2f} rows a video)")
     return step, loss_meters
 
 

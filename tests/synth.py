@@ -122,3 +122,19 @@ def sample_neg_rows(rng: np.random.Generator, group_id: np.ndarray) -> np.ndarra
         cand = np.where(group_id != group_id[i])[0]
         out[i] = rng.choice(cand) if len(cand) else (i + 1) % B
     return out
+
+
+def per_video_layout(batch: dict) -> dict:
+    """A per-row batch of make_batch (rows of one group share one video) in
+    the layout the train collate gives with --dedup_video on: each group's
+    video once (`video_feat_g`, `video_mask_g`), the rows' `video_slot`, no
+    `video_feat`."""
+    out = {k: v for k, v in batch.items()
+           if k not in ("video_feat", "video_feat_g", "video_mask_g", "video_slot")}
+    gid = np.asarray(batch["group_id"])
+    groups, first = np.unique(gid, return_index=True)
+    out["video_feat_g"] = np.ascontiguousarray(batch["video_feat"][first])
+    out["video_mask_g"] = np.ascontiguousarray(batch["video_mask"][first])
+    out["video_slot"] = np.searchsorted(groups, gid).astype(np.int32)
+    assert np.array_equal(out["video_feat_g"][out["video_slot"]], batch["video_feat"])
+    return out

@@ -9,7 +9,8 @@ One cluster run (tests/torch_dist_worker.py, cases in
 tests/torch_dist_cases.py) trains, from one torch seed with dropout 0, two
 steps of each case: data parallel with the first step's negatives and MLM
 masks injected, data parallel with them drawn from the step's seed,
---grad_accum 2 under data parallelism, and the FFN tensor-parallel split on
+--grad_accum 2 under data parallelism, both on a batch that carries each
+video once as well, and the FFN tensor-parallel split on
 a (data 1, model 2) mesh. Losses within 1e-6 of the single-process step's
 (in units of max(1, |loss|)), parameters after AdamW within 1e-6; the TP
 split's losses within rtol 2e-5, as tests/test_tp.py holds the JAX one.
@@ -63,7 +64,8 @@ def cluster(tmp_path_factory):
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
     return {case: np.load(out / f"{case}.npz")
-            for case in ("global_batch", "dp", "dp_drawn", "dp_accum2", "tp")}
+            for case in ("global_batch", "dp", "dp_drawn", "dp_accum2", "dp_video",
+                         "dp_video_accum2", "tp")}
 
 
 def _single(k: int, inject: bool):
@@ -113,6 +115,19 @@ def test_data_parallel_draws_equal_single_process(cluster):
 
 def test_data_parallel_grad_accum_equals_single_process(cluster):
     _check(cluster["dp_accum2"], *_single(C.K, True))
+
+
+@pytest.mark.parametrize("k", [1, C.K])
+def test_data_parallel_per_video_batch_equals_single_process(cluster, k):
+    """A batch that carries each video once (the train collate's layout with
+    --dedup_video on): each rank keeps every video and its rows' slots
+    (multihost.local_view), builds its rows on the device, and the update is
+    the single process's on the per-row batch. Rank 0's counters: each step
+    its videos once a step and its rows of the batch."""
+    npz = cluster["dp_video" if k == 1 else "dp_video_accum2"]
+    _check(npz, *_single(k, True))
+    n_videos = len(np.unique(C.host_batch()["group_id"]))
+    np.testing.assert_array_equal(npz["counters"], [C.STEPS * n_videos, C.STEPS * C.B // WORLD])
 
 
 def test_tp_ffn_split_equals_replicated(cluster):

@@ -202,6 +202,26 @@ def test_every_rank_applies_the_same_update(clusters, case, layout):
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("case", C.VIDEO_CASES)
+def test_per_video_batch_equals_single_process(clusters, single, case, layout):
+    """A block of a batch that carries each video once (every video's slice
+    of the video axis, the rank's rows' slots): the step builds the rows
+    before the shards read them, and trains as one process on the per-row
+    batch."""
+    npz = np.load(clusters[layout] / f"{case}_{layout}.npz")
+    want_metrics, want_grads, want_calls = single[C.VIDEO_CASES[case]]
+    got = _metrics(npz)
+    assert set(got) == set(want_metrics)
+    for key, w in want_metrics.items():
+        assert abs(got[key] - w) <= TOL * max(1.0, abs(w)), (key, got[key], w)
+    for name, w in want_grads.items():
+        err = float(np.abs(npz[f"grad/{name}"] - w.numpy()).max())
+        assert err <= TOL * max(1.0, float(np.abs(w.numpy()).max())), (name, err)
+    assert [tuple(c) for c in npz["calls"]] == [tuple(str(x) for x in c) for c in want_calls]
+    assert bool(npz["params_same"])
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 def test_step_matches_jax_shard_batch_seq_step(clusters, jax_case, layout):
     """tests/test_seq_sharding.py's tolerances: loss rtol 2e-5, grad_norm
     rtol 2e-4."""

@@ -11,7 +11,9 @@ torch seed, dropout 0, one staged batch each, and the port's train step.
   SS-MESM video (`ss_video_feat`, a video-length key of its own length).
 
 Each family is a case at grad_accum 1; TACoS is one at grad_accum 2 as well
-(two microbatches of half the rows, each rank holding its rows of each).
+(two microbatches of half the rows, each rank holding its rows of each), and
+once more on its batch in the per-video layout (each group's video once,
+the rows built by the step).
 
 Each family's video axes divide over 2 model ranks; the last row of each
 batch is padding. `JAX_CASE` is tests/test_seq_sharding.py's geometry, with
@@ -28,7 +30,7 @@ from mesm_tpu_torch.losses import CriterionConfig
 from mesm_tpu_torch.models.mesm import MESM, MESMConfig
 from mesm_tpu_torch.parallel.step import build_optimizer, make_train_step
 
-from synth import make_batch
+from synth import make_batch, per_video_layout
 
 BASE = dict(hidden_dim=32, v_feat_dim=70, t_feat_dim=20, nheads=4, dim_feedforward=64,
             num_recfw_layers=1, t2v_layers=2, enc_layers=2, dec_layers=2, num_recss_layers=1,
@@ -53,6 +55,9 @@ FAMILIES = {
 }
 # case -> (family, grad_accum)
 CASES = {**{family: (family, 1) for family in FAMILIES}, "tacos_accum2": ("tacos", 2)}
+# the same, on the batch in the per-video layout (synth.per_video_layout):
+# case -> the per-row case it must equal
+VIDEO_CASES = {"tacos_accum2_video": "tacos_accum2"}
 LR, WD, CLIP, SEED = 2e-4, 1e-4, 0.1, 5
 
 # tests/test_seq_sharding.py's model, batch, criterion and optimizer
@@ -85,9 +90,11 @@ def host_batch(family: str) -> dict:
     return batch
 
 
-def staged(family: str) -> dict:
-    """The batch as the train loop stages it (the QVH SS video expanded to rows)."""
-    return stage_batch(host_batch(family), False, "cpu")
+def staged(family: str, per_video: bool = False) -> dict:
+    """The batch as the train loop stages it (the QVH SS video expanded to
+    rows), each group's video once with `per_video`."""
+    host = host_batch(family)
+    return stage_batch(per_video_layout(host) if per_video else host, False, "cpu")
 
 
 def model(family: str) -> MESM:

@@ -7,7 +7,9 @@ mesh of 2 model ranks each (world 2: 1 data x 2 seq, world 4: 2 data x 2
 seq). It writes its block's placement (mesh.seq_batch_sharding) to
 <out_dir>/placement_<rank>.json, then runs one sequence-sharded train step
 of each case of torch_seq_cases.py on its block of the family's batch
-(mesh.shard_batch_seq, its rows of each microbatch) and, from the converted init and the draws the test
+(mesh.shard_batch_seq, its rows of each microbatch; with the per-video cases
+every video's slice of the video axis and its rows' slots) and, from the
+converted init and the draws the test
 process left in <out_dir>/jax_case.pt, the JAX case. Rank 0 writes each
 case's metrics, gradients and dispatch decisions to <out_dir>/<case>.npz;
 every rank checks that the update left its parameters equal to rank 0's."""
@@ -49,10 +51,11 @@ def main(rank: int, world: int, port: int, out_dir: str) -> None:
                    "blocks": {key: [[s.start, s.stop] for s in
                                     M.seq_batch_sharding(mesh, key, (C.B, C.LV, 3))]
                               for key in ("video_feat", "clip_mask", "words_feat")}}, f)
-    for case, (family, k) in C.CASES.items():
+    video_cases = {case: C.CASES[per_row] for case, per_row in C.VIDEO_CASES.items()}
+    for case, (family, k) in {**C.CASES, **video_cases}.items():
         m = C.model(family)
-        batch = M.shard_batch_seq(C.staged(family), mesh, micro=k)
-        assert batch["video_feat"].shape[:2] == (C.B // mesh.size(0), C.LV // 2)
+        batch = M.shard_batch_seq(C.staged(family, case in video_cases), mesh, micro=k)
+        assert batch["video_mask"].shape[:2] == (C.B // mesh.size(0), C.LV // 2)
         metrics, grads, calls = C.run_step(family, m, batch, grad_accum=k, **shards)
         same = params_equal_everywhere(m)
         if rank == 0:
