@@ -19,6 +19,8 @@ takes it (compute_mr_results' loss meters).
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
 import os
 import pprint
@@ -237,13 +239,49 @@ def _coalesced_results(eval_step, loader, opt, device, record_losses, mr_res) ->
     drain()
 
 
+# young-generation collections that compute_mr_results ran at the end of a
+# pass since import (or since the caller last set it to 0)
+pass_collections = 0
+
+
+@contextlib.contextmanager
+def _collections_at_pass_end():
+    """Hold off the garbage collector's automatic runs for one pass, then run
+    one collection of the youngest generation at its end (span
+    `eval.collect`, counted by `pass_collections`).
+
+    A pass builds tens of thousands of containers (each row's windows and
+    saliency) that live until it ends. Left to its thresholds, the collector
+    moves them into the oldest generation while they live, and so runs a
+    full collection of the process's heap every other pass, in the middle of
+    the decode, with the card idle. Held off, the pass's objects are freed
+    young by their reference counts; the collection at the end traverses
+    only what the pass allocated and still holds, and frees the pass's own
+    reference cycles. The collector is switched back on at every exit, an
+    exception's included; where it was off on entry it stays off and
+    nothing is collected."""
+    global pass_collections
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+        if was_on:
+            with span("eval.collect"):
+                gc.collect(0)
+            pass_collections += 1
+    finally:
+        if was_on:
+            gc.enable()
+
+
 def compute_mr_results(eval_step, loader, opt, device, loss_meters=None):
     """Run the eval step over a loader and decode the submission on the host.
     A step built with_loss returns (predictions, losses); each loss term then
     goes into loss_meters[term] (mesm_tpu/evaluate.py:212-235). A coalesced
     step (`eval_step.coalesce` > 1) takes K batches a call
-    (_coalesced_results). The pass is the span `eval.pass`."""
-    with span("eval.pass", unit=True):
+    (_coalesced_results). The pass is the span `eval.pass`; the collector's
+    automatic runs wait for its end (_collections_at_pass_end)."""
+    with span("eval.pass", unit=True), _collections_at_pass_end():
         mr_res = []
 
         def record_losses(losses):

@@ -199,7 +199,8 @@ def test_eval_pass_spans(coalesce):
     """Four batches of one shape: at K = 3 two calls of the coalesced step
     (the second padded), each staged once, its outputs copied out, each
     group decoded once; at K = 1 each batch staged, read back and decoded.
-    One pass, one post-processing, every span closed and of the pass."""
+    One pass, one post-processing, then one collection, every span closed
+    and of the pass."""
     model = _model().eval()
     step = make_eval_step(model, _encode, torch.float32, coalesce=coalesce)
     loader = [_eval_batch(s) for s in range(4)]
@@ -209,8 +210,9 @@ def test_eval_pass_spans(coalesce):
     assert all(r.end_ns >= r.start_ns > 0 for r in recs)
     assert recs[0].name == "eval.pass" and _count(recs, "eval.pass") == 1
     assert all(r.unit == 0 for r in recs)
-    assert _count(recs, "eval.postprocess") == 1
-    assert recs[-1].name == "eval.postprocess" and recs[-1].parent == 0
+    assert _count(recs, "eval.postprocess") == _count(recs, "eval.collect") == 1
+    assert [r.name for r in recs[-2:]] == ["eval.postprocess", "eval.collect"]
+    assert recs[-2].parent == recs[-1].parent == 0
     parent = {i: recs[r.parent].name for i, r in enumerate(recs) if r.parent >= 0}
     if coalesce > 1:
         calls = 2
